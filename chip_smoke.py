@@ -12,6 +12,11 @@ Phases, each printed as it runs; any failure exits non-zero:
              (exact equality on every output) over a grid of sizes,
              selectivities, column sets and capacities, with its time,
              the plain version's, the library yardstick's and the bound;
+             then the compaction's edge cases (sizes at the edges of the
+             kernel's tile, n = 1, matched == cap, masks and columns off
+             a 16-byte boundary, all 8 columns in mixed types, a bool
+             mask viewing bytes other than 0 and 1) and 20
+             back-to-back launches with no sync between, bitwise equal;
 4. segment - the flat SSB lineorder segment at PINOT_SMOKE_ROWS rows
              (default 2^26, about SSB SF11), built with the port's own
              builder and cached under .torch_cache/;
@@ -22,7 +27,8 @@ Phases, each printed as it runs; any failure exits non-zero:
              be on the card. Each query is then run once more split by
              layer (host clock) and once under torch.profiler (device
              time by op, idle share), and the compaction kernel is timed
-             on each compact query's own inputs.
+             on each compact query's own inputs, with the device time of
+             its pass and its tail fill apart (torch.profiler).
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, and without
@@ -65,6 +71,21 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_time_ms(fn, reps: int) -> float:
+    """Mean host time to issue fn() over reps calls, no sync between: the
+    wrapper's cost on the host clock, not the device's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
 
 
 def same_outputs(a, b) -> float:
@@ -113,6 +134,20 @@ def build_phase() -> None:
                  if "registers" in ln or "smem" in ln])
 
 
+MIXED8 = ("int32", "int64", "float32", "float64") * 2
+
+
+def _column(name: str, n: int, dev, g):
+    import torch
+
+    if name in ("int32", "int64"):
+        lim = 2**31 - 1 if name == "int32" else 2**62
+        return torch.randint(-lim, lim, (n,), device=dev,
+                             dtype=getattr(torch, name), generator=g)
+    return torch.randn(n, device=dev, dtype=getattr(torch, name),
+                       generator=g) * 1e9
+
+
 def kernel_phase(device: str = "cuda") -> float:
     """The compaction kernel against compact_reference at every listed
     shape; returns the max abs error seen (0: all bitwise equal)."""
@@ -127,15 +162,8 @@ def kernel_phase(device: str = "cuda") -> float:
                 ("int32", "float64", "float32"))
     err = 0.0
     for n in CHECK_N:
-        pool = {
-            "int32": torch.randint(-2**31, 2**31 - 1, (n,), device=dev,
-                                   dtype=torch.int32, generator=g),
-            "int64": torch.randint(-2**62, 2**62, (n,), device=dev,
-                                   dtype=torch.int64, generator=g),
-            "float64": torch.randn(n, device=dev, dtype=torch.float64,
-                                   generator=g) * 1e9,
-            "float32": torch.randn(n, device=dev, dtype=torch.float32,
-                                   generator=g)}
+        pool = {k: _column(k, n, dev, g)
+                for k in ("int32", "int64", "float64", "float32")}
         u = torch.rand(n, device=dev, generator=g)
         for sel in CHECK_SEL:
             mask = u < sel
@@ -170,6 +198,91 @@ def kernel_phase(device: str = "cuda") -> float:
                           bound_ms=bound)
         del pool, u
     return err
+
+
+def edge_phase(tile: int, device: str = "cuda") -> float:
+    """The compaction at the shapes that stress the look-back and the
+    head/tail handling: n at the edges of the tile, n = 1, exactly cap
+    matched rows, mask and columns sliced 3 rows into their allocations
+    (off a 16-byte boundary), and all 8 columns in mixed 4- and 8-byte
+    types. Returns the max abs error seen (0: all bitwise equal)."""
+    import torch
+
+    from pinot_tpu_torch.ops import compact as C
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2024)
+    cases = [(n, sel, 0, ("int32", "float64"))
+             for n in (tile - 1, tile, tile + 1, 33 * tile + 7, 1)
+             for sel in (0.03, 0.5, 1.0)]
+    cases += [(n, sel, off, MIXED8) for n in (33 * tile + 7, 1 << 20)
+              for sel in (0.03, 0.5) for off in (0, 3)]
+    cases += [(1, 0.5, 3, MIXED8)]
+    err = 0.0
+    for n, sel, off, names in cases:
+        mask = (torch.rand(n + off, device=dev, generator=g) < sel)[off:]
+        cols = tuple(_column(k, n + off, dev, g)[off:] for k in names)
+        matched = int(mask.sum())
+        caps = {"tight": max(matched // (2 * C.LANES), 1),
+                "default": C.default_slots_cap(n),
+                "full": C.full_slots_cap(n)}
+        for cap_name, cap in caps.items():
+            got = C.compact(mask, cols, cap)
+            err = max(err, same_outputs(
+                got, C.compact_reference(mask, cols, cap)))
+            if int(got[4]) != int(matched > cap * C.LANES):
+                raise AssertionError(f"overflow flag wrong at n={n}")
+            phase("kernel_edge", n=n, sel=sel, offset=off,
+                  mask_addr_mod16=mask.data_ptr() % 16, cols=list(names),
+                  cap=cap_name, slots_cap=cap, matched=matched,
+                  overflow=int(got[4]), equal=True)
+    # exactly cap matched rows: no overflow, every slot valid
+    n, slots_cap = 33 * tile + 7, 40
+    cap = slots_cap * C.LANES
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[torch.randperm(n, device=dev, generator=g)[:cap]] = True
+    cols = tuple(_column(k, n, dev, g) for k in MIXED8)
+    got = C.compact(mask, cols, slots_cap)
+    err = max(err, same_outputs(
+        got, C.compact_reference(mask, cols, slots_cap)))
+    if (int(got[2]), int(got[3]), int(got[4])) != (cap, cap, 0):
+        raise AssertionError("matched == cap case: wrong scalars")
+    phase("kernel_edge", n=n, case="matched == cap", slots_cap=slots_cap,
+          matched=cap, overflow=0, equal=True)
+    # a bool mask viewing bytes other than 0 and 1 keeps every non-zero row
+    n = 33 * tile + 7
+    raw = torch.randint(0, 4, (n + 3,), device=dev, dtype=torch.uint8,
+                        generator=g)[3:]
+    cols = tuple(_column(k, n, dev, g) for k in MIXED8)
+    for slots_cap in (C.default_slots_cap(n), C.full_slots_cap(n)):
+        err = max(err, same_outputs(
+            C.compact(raw.view(torch.bool), cols, slots_cap),
+            C.compact_reference(raw != 0, cols, slots_cap)))
+    phase("kernel_edge", n=n, case="mask bytes 0..3", offset=3,
+          equal=True)
+    return err
+
+
+def repeat_check(n: int, device: str = "cuda") -> None:
+    """20 launches back to back with no sync between: every one bitwise
+    equal to the first, and the first to the plain version."""
+    import torch
+
+    from pinot_tpu_torch.ops import compact as C
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+    mask = torch.rand(n, device=dev, generator=g) < 0.03
+    cols = (_column("int32", n, dev, g), _column("int32", n, dev, g))
+    cap = C.default_slots_cap(n)
+    runs = [C.compact(mask, cols, cap) for _ in range(20)]
+    same_outputs(runs[0], C.compact_reference(mask, cols, cap))
+    for r in runs[1:]:
+        same_outputs(r, runs[0])
+    phase("kernel_repeat", n=n, launches=len(runs), slots_cap=cap,
+          matched=int(runs[0][3]), equal=True)
 
 
 def segment_phase() -> str:
@@ -246,8 +359,42 @@ def layer_breakdown(query_sql: str, seg, device: str) -> dict:
     return out
 
 
-COMPACT_KERNELS = ("count_kernel", "scan_kernel", "scatter_kernel",
-                   "fill_kernel")
+COMPACT_KERNELS = ("compact_pass", "compact_fill")
+
+
+def _dev_ms(e) -> float:
+    us = getattr(e, "self_device_time_total", None)
+    if us is None:
+        us = getattr(e, "self_cuda_time_total", 0.0)
+    return float(us or 0.0) / 1e3
+
+
+def _on_device(events):
+    return [e for e in events if str(e.device_type).endswith("CUDA")]
+
+
+def compact_split_ms(fn, reps: int = 10) -> dict:
+    """Device time per call of the compaction's three device operations
+    (scratch memset, pass, fill) from torch.profiler over ``reps``
+    calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"pass_ms": 0.0, "fill_ms": 0.0, "memset_ms": 0.0}
+    for e in _on_device(prof.key_averages()):
+        key = ("pass_ms" if "compact_pass" in e.key else
+               "fill_ms" if "compact_fill" in e.key else
+               "memset_ms" if "emset" in e.key else None)
+        if key:
+            out[key] += _dev_ms(e) / reps
+    return out
 
 
 def profile_query(query, sql: str, top: int = 6) -> dict:
@@ -265,19 +412,13 @@ def profile_query(query, sql: str, top: int = 6) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_ms(e) -> float:
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        return float(us or 0.0) / 1e3
-
     events = prof.key_averages()
-    on_device = [e for e in events if str(e.device_type).endswith("CUDA")]
-    busy_ms = sum(dev_ms(e) for e in on_device)
-    compact_ms = sum(dev_ms(e) for e in on_device
+    on_device = _on_device(events)
+    busy_ms = sum(_dev_ms(e) for e in on_device)
+    compact_ms = sum(_dev_ms(e) for e in on_device
                      if any(k in e.key for k in COMPACT_KERNELS))
-    ops = sorted(((e.key, dev_ms(e), e.count) for e in events
-                  if e not in on_device and dev_ms(e) > 0),
+    ops = sorted(((e.key, _dev_ms(e), e.count) for e in events
+                  if e not in on_device and _dev_ms(e) > 0),
                  key=lambda t: -t[1])
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
@@ -286,7 +427,7 @@ def profile_query(query, sql: str, top: int = 6) -> dict:
                         for k, ms, n in ops[:top]]}
 
 
-def main_phase(seg_dir: str, device: str = "cuda"):
+def main_phase(seg_dir: str, tile: int, device: str = "cuda"):
     """The main path on ``device`` ("cuda" for the check; "cpu" rehearses
     the flow on a machine without a card, with the kernels' plain
     versions)."""
@@ -356,7 +497,8 @@ def main_phase(seg_dir: str, device: str = "cuda"):
     # the kernel at the main path's own shapes: one launch per compact
     # query on that query's real inputs
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "bound_ms": 0.0}
+              "bound_ms": 0.0, "pass_ms": 0.0, "fill_ms": 0.0,
+              "memset_ms": 0.0, "device_ms": 0.0, "host_ms": 0.0}
     for qid, plan in compact_plans:
         mask, cols = _compact_inputs(plan)
         cap = plan.slots_cap
@@ -370,10 +512,15 @@ def main_phase(seg_dir: str, device: str = "cuda"):
                    20),
                "bound_ms": C.compact_bytes(mask.shape[0], cols, cap,
                                            int(got[3]))
-               / HBM_BYTES_PER_S * 1e3}
+               / HBM_BYTES_PER_S * 1e3,
+               **compact_split_ms(lambda: C.compact(mask, cols, cap)),
+               "host_ms": host_time_ms(
+                   lambda: C.compact(mask, cols, cap), 20)}
+        row["device_ms"] = row["pass_ms"] + row["fill_ms"] + row["memset_ms"]
         for k in totals:
             totals[k] += row[k]
         phase("kernel_at_main_path", qid=qid, n=mask.shape[0],
+              tiles=-(-mask.shape[0] // tile),
               cols=[str(c.dtype) for c in cols], slots_cap=cap,
               matched=int(got[3]), **row)
     return main_launches, totals, len(compact_plans)
@@ -392,9 +539,12 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
-    err = kernel_phase()
+    from pinot_tpu_torch.ops import compact as C
+    tile = C.tile_rows()
+    err = max(kernel_phase(), edge_phase(tile))
+    repeat_check(CHECK_N[0])
     seg_dir = segment_phase()
-    launches, totals, n_compact = main_phase(seg_dir)
+    launches, totals, n_compact = main_phase(seg_dir, tile)
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "compact",
@@ -408,9 +558,18 @@ def main() -> int:
         "bound_ms": totals["bound_ms"],
         "bound_by": "bytes",
         "library_ms": totals["library_ms"],
+        "pass_ms": totals["pass_ms"],
+        "fill_ms": totals["fill_ms"],
+        "memset_ms": totals["memset_ms"],
+        "device_ms": totals["device_ms"],
+        "host_ms": totals["host_ms"],
+        "tile_rows": tile,
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
-              "torch.masked_select per column"}]}))
+              "torch.masked_select per column; ms, plain_ms, library_ms = "
+              "CUDA events over 20 back-to-back calls (host included); "
+              "pass/fill/memset = device time by torch.profiler, "
+              "device_ms their sum; host_ms = host clock to issue a call"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

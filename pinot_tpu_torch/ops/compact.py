@@ -55,7 +55,9 @@ def full_slots_cap(n: int) -> int:
 
 def compact(mask: torch.Tensor, cols: Sequence[torch.Tensor],
             slots_cap: int):
-    """Compact the masked rows of ``cols`` to the front (see module doc)."""
+    """Compact the masked rows of ``cols`` to the front (see module doc).
+    A bool mask whose bytes hold values other than 0 and 1 (a view of
+    other data) keeps every row whose byte is non-zero."""
     _check(mask, cols, slots_cap)
     if mask.device.type == "cpu":
         return compact_reference(mask, cols, slots_cap)
@@ -117,54 +119,78 @@ def compact_reference(mask: torch.Tensor, cols: Sequence[torch.Tensor],
     return valid, tuple(outs), n_valid, matched, overflow
 
 
+def scratch_words(n: int, tile: int, header: int) -> int:
+    """64-bit scratch words of one kernel call: the header (ticket and
+    scalars) and one status word per tile. A mask slice that is not
+    16-byte aligned shifts its rows by up to 15, so the tiles are counted
+    for n + 15 rows."""
+    return header + -(-(n + 15) // tile)
+
+
+def tile_rows() -> int:
+    """Rows per tile of the CUDA kernel (builds the library)."""
+    return _bound_kernel()[1]
+
+
 def _compact_cuda(mask: torch.Tensor, cols: Sequence[torch.Tensor],
                   slots_cap: int):
+    """Launch the kernel: one scratch memset, the pass and the tail fill
+    on the current stream."""
     global launches
-    lib = _bound_library()
+    fn, tile, header = _bound_kernel()
     n = mask.shape[0]
     dev = mask.device
     cap = slots_cap * LANES
-    nb = max(-(-n // lib.pinot_compact_tile()), 1)
+    words = scratch_words(n, tile, header)
     valid = torch.empty(cap, dtype=torch.bool, device=dev)
     outs = tuple(torch.empty(cap, dtype=c.dtype, device=dev) for c in cols)
-    counts = torch.empty(nb, dtype=torch.int32, device=dev)
-    offsets = torch.empty(nb, dtype=torch.int64, device=dev)
-    scalars = torch.empty(3, dtype=torch.int32, device=dev)
-    k = len(cols)
-    in_ptrs = (ctypes.c_void_p * MAX_COLS)(*[c.data_ptr() for c in cols])
-    out_ptrs = (ctypes.c_void_p * MAX_COLS)(*[o.data_ptr() for o in outs])
-    esizes = (ctypes.c_int * MAX_COLS)(*[c.element_size() for c in cols])
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    args = (mask.data_ptr(), n, len(cols),
+            (ctypes.c_void_p * MAX_COLS)(*[c.data_ptr() for c in cols]),
+            (ctypes.c_void_p * MAX_COLS)(*[o.data_ptr() for o in outs]),
+            (ctypes.c_int * MAX_COLS)(*[c.element_size() for c in cols]),
+            valid.data_ptr(), slots_cap, scratch.data_ptr(), words,
+            torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pinot_compact(mask.data_ptr(), n, k, in_ptrs, out_ptrs,
-                               esizes, valid.data_ptr(), slots_cap,
-                               counts.data_ptr(), offsets.data_ptr(),
-                               scalars.data_ptr(), stream)
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"compaction kernel launch failed: CUDA error "
                            f"{rc}")
     launches += 1
-    n_slots, matched, overflow = scalars[0], scalars[1], scalars[2]
-    return valid, outs, n_slots * LANES, matched, overflow
+    # scratch words 1..2 hold the int32 scalars the last tile wrote
+    n_valid, matched, overflow = scratch.view(torch.int32)[2:5].unbind()
+    return valid, outs, n_valid, matched, overflow
 
 
-def _bound_library() -> ctypes.CDLL:
-    lib = cuda_build.library("compact")
-    if lib.pinot_compact.argtypes is None:
-        vp = ctypes.c_void_p
-        lib.pinot_compact.argtypes = [
-            vp, ctypes.c_int64, ctypes.c_int,
-            ctypes.POINTER(vp), ctypes.POINTER(vp),
-            ctypes.POINTER(ctypes.c_int), vp, ctypes.c_int64,
-            vp, vp, vp, vp]
-        lib.pinot_compact.restype = ctypes.c_int
-        for fn in (lib.pinot_compact_tile, lib.pinot_compact_max_cols):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
-        if lib.pinot_compact_max_cols() != MAX_COLS:
-            raise RuntimeError("compact.cu MAX_COLS disagrees with the "
-                               "Python wrapper")
-    return lib
+_KERNEL = None  # (pinot_compact, tile rows, scratch header words)
+
+
+def _bound_kernel():
+    global _KERNEL
+    if _KERNEL is None:
+        _KERNEL = bind(cuda_build.library("compact"))
+    return _KERNEL
+
+
+def bind(lib: ctypes.CDLL):
+    """(pinot_compact, tile rows, scratch header words) of a loaded
+    build of compact.cu."""
+    vp = ctypes.c_void_p
+    lib.pinot_compact.argtypes = [
+        vp, ctypes.c_int64, ctypes.c_int,
+        ctypes.POINTER(vp), ctypes.POINTER(vp),
+        ctypes.POINTER(ctypes.c_int), vp, ctypes.c_int64,
+        vp, ctypes.c_int64, vp]
+    lib.pinot_compact.restype = ctypes.c_int
+    for fn in (lib.pinot_compact_tile, lib.pinot_compact_max_cols,
+               lib.pinot_compact_header_words):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    if lib.pinot_compact_max_cols() != MAX_COLS:
+        raise RuntimeError("compact.cu MAX_COLS disagrees with the Python "
+                           "wrapper")
+    return (lib.pinot_compact, lib.pinot_compact_tile(),
+            lib.pinot_compact_header_words())
 
 
 def compact_bytes(n: int, cols: Sequence[torch.Tensor], slots_cap: int,

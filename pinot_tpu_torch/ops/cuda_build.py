@@ -67,17 +67,19 @@ def _start(name: str) -> Optional[subprocess.Popen]:
 
 def _finish(name: str, proc: Optional[subprocess.Popen]) -> str:
     """Wait for a build started by _start; returns the compiler's log
-    (ptxas register and shared-memory use) and raises if it failed."""
+    (ptxas register and shared-memory use), saved beside the library so a
+    cached build returns it too, and raises if the build failed."""
     so = _target(name)
     if proc is None:
-        return ""
+        with open(so + ".log") as fh:
+            return fh.read()
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} "
                            f"(exit {proc.returncode}):\n{log}")
-    os.replace(so + ".tmp", so)
-    with open(so + ".log", "w") as fh:
+    with open(so + ".log", "w") as fh:      # before the library appears
         fh.write(log)
+    os.replace(so + ".tmp", so)
     return log
 
 

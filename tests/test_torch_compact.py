@@ -97,6 +97,45 @@ def test_compact_rejects_bad_inputs():
         TC.compact(mask, tuple(torch.ones(10) for _ in range(9)), 8)
 
 
+MIXED8 = [np.int32, np.int64, np.float32, np.float64] * 2
+
+
+@pytest.mark.parametrize("offset", [1, 3, 15])
+def test_compact_slices_of_eight_mixed_columns_match_xla(offset):
+    """Slices that start off a 16-byte boundary (the CUDA kernel reads
+    their head and tail a byte at a time) and all 8 columns, 4- and
+    8-byte mixed, give _compact_xla's bytes."""
+    n = RAGGED
+    rng = np.random.default_rng(offset)
+    mask = rng.random(n + offset) < 0.1
+    cols = tuple(_column(rng, n + offset, d) for d in MIXED8)
+    for cap in _caps(n, int(mask[offset:].sum())).values():
+        port = TC.compact(torch.from_numpy(mask)[offset:],
+                          tuple(torch.from_numpy(c)[offset:] for c in cols),
+                          cap)
+        valid, outs, n_slots, matched, ov = JC._compact_xla(
+            jnp.asarray(mask[offset:]),
+            tuple(jnp.asarray(c[offset:]) for c in cols), n, cap)
+        _assert_same(port, (valid, outs, n_slots * JC.LANES, matched, ov))
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+def test_compact_keeps_every_nonzero_mask_byte(offset):
+    """A bool mask that views bytes other than 0 and 1 keeps every row
+    whose byte is non-zero, as the CUDA kernel does."""
+    n = RAGGED
+    rng = np.random.default_rng(100 + offset)
+    raw = rng.integers(0, 4, n + offset, dtype=np.uint8)[offset:]
+    cols = (_column(rng, n, np.int32), _column(rng, n, np.float64))
+    for cap in _caps(n, int((raw != 0).sum())).values():
+        port = TC.compact(torch.from_numpy(raw).view(torch.bool),
+                          tuple(torch.from_numpy(c) for c in cols), cap)
+        valid, outs, n_slots, matched, ov = JC._compact_xla(
+            jnp.asarray(raw != 0), tuple(jnp.asarray(c) for c in cols), n,
+            cap)
+        _assert_same(port, (valid, outs, n_slots * JC.LANES, matched, ov))
+
+
 # -- the contract of tests/test_compact_pallas.py, for the port ------------
 
 @pytest.mark.parametrize("p", [0.001, 0.03, 0.25])

@@ -2,9 +2,13 @@
 
 Run on the machine with the card:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-The compaction kernel must equal its plain version bitwise, and the
+The compaction kernel must equal its plain version bitwise: at sizes on
+and around its tile edges, with masks and columns that start off a
+16-byte boundary, with all 8 columns in mixed 4- and 8-byte types, with
+exactly ``cap`` matched rows, with a bool mask that views bytes other
+than 0 and 1, on a side stream, and over 20 launches in a row. The
 port's broker on ``"cuda"`` must answer the SSB queries as the numpy
 oracle does, through the kernel.
 """
@@ -12,6 +16,15 @@ import pytest
 import torch
 
 pytestmark = pytest.mark.cuda
+
+SIZES = [1 << 20, (1 << 20) - 333, 0, 1, "tile-1", "tile", "tile+1",
+         "33*tile+7"]
+TILE_EDGES = {"tile-1": lambda t: t - 1, "tile": lambda t: t,
+              "tile+1": lambda t: t + 1, "33*tile+7": lambda t: 33 * t + 7}
+TWO = ("int32", "float64")
+MIXED8 = ("int32", "int64", "float32", "float64") * 2
+LAYOUTS = {"aligned": (0, TWO), "offset3": (3, TWO),
+           "mixed8": (0, MIXED8), "offset3-mixed8": (3, MIXED8)}
 
 
 @pytest.fixture()
@@ -21,31 +34,124 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1 << 20, (1 << 20) - 333, 0])
+def _size(n, tile):
+    """A size in rows; the names are edges of the kernel's tile."""
+    return TILE_EDGES[n](tile) if isinstance(n, str) else n
+
+
+def _inputs(dev, n, sel, offset, names, seed):
+    """mask and columns of n rows, sliced ``offset`` rows into their
+    allocations (so data_ptr() is off a 16-byte boundary when offset
+    is not a multiple of 16)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    m = n + offset
+    mask = (torch.rand(m, device=dev, generator=g) < sel)[offset:]
+    make = {
+        "int32": lambda: torch.randint(-2**31, 2**31 - 1, (m,), device=dev,
+                                       dtype=torch.int32, generator=g),
+        "int64": lambda: torch.randint(-2**62, 2**62, (m,), device=dev,
+                                       dtype=torch.int64, generator=g),
+        "float32": lambda: torch.randn(m, device=dev, dtype=torch.float32,
+                                       generator=g),
+        "float64": lambda: torch.randn(m, device=dev, dtype=torch.float64,
+                                       generator=g)}
+    return mask, tuple(make[k]()[offset:] for k in names)
+
+
+def _assert_equal(got, want):
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        assert a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int64 if a.element_size() == 8
+                                  else torch.int32),
+                           b.view(torch.int64 if b.element_size() == 8
+                                  else torch.int32))
+    for a, b in zip(got[2:], want[2:]):
+        assert a.dtype == torch.int32 and int(a) == int(b)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("n", SIZES, ids=str)
 @pytest.mark.parametrize("sel", [0.0, 0.01, 0.5, 1.0])
-def test_compact_kernel_equals_plain_version(cuda, n, sel):
+def test_compact_kernel_equals_plain_version(cuda, n, sel, layout):
     from pinot_tpu_torch.ops import compact as C
 
-    g = torch.Generator(device=cuda)
-    g.manual_seed(n + int(sel * 100))
-    mask = torch.rand(n, device=cuda, generator=g) < sel
-    cols = (torch.randint(-2**31, 2**31 - 1, (n,), device=cuda,
-                          dtype=torch.int32, generator=g),
-            torch.randn(n, device=cuda, dtype=torch.float64, generator=g))
-    for cap in (1, C.default_slots_cap(n), C.full_slots_cap(n)):
+    n = _size(n, C.tile_rows())
+    offset, names = LAYOUTS[layout]
+    mask, cols = _inputs(cuda, n, sel, offset, names, n + int(sel * 100))
+    if offset and n:
+        assert mask.data_ptr() % 16 != 0
+    matched = int(mask.sum())
+    for cap in (1, max(matched // (2 * C.LANES), 1), C.default_slots_cap(n),
+                C.full_slots_cap(n)):
         before = C.launches
         got = C.compact(mask, cols, cap)
         want = C.compact_reference(mask, cols, cap)
         torch.cuda.synchronize()
         assert C.launches == before + 1
-        assert torch.equal(got[0], want[0])
-        for a, b in zip(got[1], want[1]):
-            assert torch.equal(a.view(torch.int64 if a.element_size() == 8
-                                      else torch.int32),
-                               b.view(torch.int64 if b.element_size() == 8
-                                      else torch.int32))
-        for a, b in zip(got[2:], want[2:]):
-            assert int(a) == int(b)
+        _assert_equal(got, want)
+        assert int(got[4]) == int(matched > cap * C.LANES)
+
+
+def test_compact_kernel_matched_equals_cap(cuda):
+    from pinot_tpu_torch.ops import compact as C
+
+    n = 33 * C.tile_rows() + 7
+    slots_cap = 40
+    cap = slots_cap * C.LANES
+    g = torch.Generator(device=cuda)
+    g.manual_seed(40)
+    mask = torch.zeros(n, dtype=torch.bool, device=cuda)
+    mask[torch.randperm(n, device=cuda, generator=g)[:cap]] = True
+    _m, cols = _inputs(cuda, n, 0.0, 0, MIXED8, 41)
+    got = C.compact(mask, cols, slots_cap)
+    _assert_equal(got, C.compact_reference(mask, cols, slots_cap))
+    assert (int(got[2]), int(got[3]), int(got[4])) == (cap, cap, 0)
+    assert bool(got[0].all())
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+def test_compact_kernel_keeps_every_nonzero_mask_byte(cuda, offset):
+    from pinot_tpu_torch.ops import compact as C
+
+    n = 33 * C.tile_rows() + 7
+    g = torch.Generator(device=cuda)
+    g.manual_seed(50 + offset)
+    raw = torch.randint(0, 4, (n + offset,), device=cuda, dtype=torch.uint8,
+                        generator=g)[offset:]
+    _m, cols = _inputs(cuda, n, 0.0, offset, MIXED8, 51)
+    for cap in (C.default_slots_cap(n), C.full_slots_cap(n)):
+        got = C.compact(raw.view(torch.bool), cols, cap)
+        _assert_equal(got, C.compact_reference(raw != 0, cols, cap))
+
+
+def test_compact_kernel_on_side_stream(cuda):
+    from pinot_tpu_torch.ops import compact as C
+
+    n = 33 * C.tile_rows() + 7
+    mask, cols = _inputs(cuda, n, 0.2, 3, MIXED8, 7)
+    want = C.compact_reference(mask, cols, C.default_slots_cap(n))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = C.compact(mask, cols, C.default_slots_cap(n))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    _assert_equal(got, want)
+
+
+def test_compact_kernel_repeats_bitwise(cuda):
+    from pinot_tpu_torch.ops import compact as C
+
+    n = (1 << 22) + 5
+    mask, cols = _inputs(cuda, n, 0.03, 0, ("int32", "int32"), 20)
+    cap = C.default_slots_cap(n)
+    runs = [C.compact(mask, cols, cap) for _ in range(20)]  # no sync between
+    torch.cuda.synchronize()
+    _assert_equal(runs[0], C.compact_reference(mask, cols, cap))
+    for r in runs[1:]:
+        _assert_equal(r, runs[0])
 
 
 def test_ssb_on_cuda_matches_oracle(cuda, tmp_path):
