@@ -29,6 +29,21 @@ Phases, each printed as it runs; any failure exits non-zero:
              time by op, idle share), and the compaction kernel is timed
              on each compact query's own inputs, with the device time of
              its pass and its tail fill apart (torch.profiler).
+6. table   - the same seeded rows split into 8 segments of N_ROWS / 8
+             rows (2^23 by default), cached under .torch_cache/;
+7. multi   - Broker(device="cuda") over the 8-segment table serves the 13
+             SSB queries, one warm-up and ITERS timed runs each; every
+             digest must equal the single segment's and the oracle's, each
+             query must take its expected route (segmented compaction,
+             batched dense, or per segment), and each segmented compaction
+             is held against the plain version on its own inputs and timed
+             like the single-segment ones;
+8. surface - one query or more per plan kind (fast, kselect, device
+             sketches, host; tools/ssb.SURFACE) on the single segment and
+             on the 8-segment table: each must plan its kind and equal the
+             same query under OPTION(forceHostExecution=true) (the numpy
+             host path): sketch states bitwise, percentile centroids
+             against a numpy build of the same split to a relative 1e-9.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, and without
@@ -38,6 +53,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -46,6 +62,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROWS = int(os.environ.get("PINOT_SMOKE_ROWS", 1 << 26))
 ITERS = 3
+TABLE_SEGMENTS = 8
 CACHE = os.path.join(ROOT, ".torch_cache")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 SSB_SF10_ROWS = 59_986_052       # lineorder rows at SSB scale factor 10
@@ -495,7 +512,12 @@ def main_phase(seg_dir: str, tile: int, device: str = "cuda"):
                              "kernel")
 
     # the kernel at the main path's own shapes: one launch per compact
-    # query on that query's real inputs
+    # query on that query's real inputs (a first profiler session can
+    # come back without device events, so one is run and dropped)
+    if compact_plans:
+        mask, cols = _compact_inputs(compact_plans[0][1])
+        compact_split_ms(lambda: C.compact(mask, cols,
+                                           compact_plans[0][1].slots_cap))
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "pass_ms": 0.0, "fill_ms": 0.0,
               "memset_ms": 0.0, "device_ms": 0.0, "host_ms": 0.0}
@@ -523,7 +545,272 @@ def main_phase(seg_dir: str, tile: int, device: str = "cuda"):
               tiles=-(-mask.shape[0] // tile),
               cols=[str(c.dtype) for c in cols], slots_cap=cap,
               matched=int(got[3]), **row)
-    return main_launches, totals, len(compact_plans)
+    digests = {qid: ssb._digest(results[qid][0].rows) for qid, *_r in sqls}
+    return main_launches, totals, len(compact_plans), digests
+
+
+def table_phase() -> str:
+    from pinot_tpu_torch.tools import ssb
+
+    n_seg = TABLE_SEGMENTS
+    sizes = [N_ROWS // n_seg] * n_seg
+    out_dir = os.path.join(CACHE, f"ssb_table_{N_ROWS}_{n_seg}")
+    t0 = time.perf_counter()
+    # a build cut off half way leaves a segment without metadata.json
+    cached = os.path.isdir(out_dir) and sum(
+        os.path.exists(os.path.join(out_dir, d, "metadata.json"))
+        for d in os.listdir(out_dir)) == n_seg
+    if not cached:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        ssb.build_table_dir(sizes, out_dir)
+    cuts = [f"{n_seg} segments of {sizes[0]} rows: the {sum(sizes)} rows of "
+            "the single segment, in order, split",
+            "dimension tables denormalized onto lineorder (as bench.py)"]
+    phase("table", segments=n_seg, rows=sum(sizes),
+          dir=os.path.relpath(out_dir, ROOT), cached=cached,
+          seconds=time.perf_counter() - t0, cuts=cuts)
+    return out_dir
+
+
+def _expected_route(plans) -> str:
+    """The route the batched dispatch should give a query's plans (all
+    segments share one bucket here)."""
+    from pinot_tpu_torch.engine import batch
+    from pinot_tpu_torch.ops.kernels import (COMPACT_GROUP_LIMIT,
+                                             segmented_compact_ok)
+
+    p = plans[0]
+    if p.kind != "kernel":
+        return p.kind
+    kp = p.kernel_plan
+    if kp.strategy != "compact":
+        return batch.BATCHED
+    if segmented_compact_ok(kp) and \
+            len(plans) * kp.group_space <= COMPACT_GROUP_LIMIT:
+        return batch.SEGMENTED
+    return batch.PER_SEGMENT
+
+
+def _segmented_inputs(plans):
+    """The compaction kernel's inputs for one segmented group, built by
+    the port's own prefix functions, and the capacity the dispatch uses."""
+    from pinot_tpu_torch.engine import batch
+    from pinot_tpu_torch.engine.executor import resolve_params
+    from pinot_tpu_torch.multistage.costs import scaled_compact_cap
+    from pinot_tpu_torch.ops import kernels as K
+
+    kp, bucket = plans[0].kernel_plan, plans[0].segment.bucket
+    n_docs = [p.segment.n_docs for p in plans]
+    plan2, mask, flat, params = K.segmented_inputs(
+        kp, bucket, batch._stacked_cols(plans, bucket), n_docs,
+        [resolve_params(p) for p in plans])
+    mask, keys = K._group_keys_sentinel(plan2, mask, flat, params)
+    payloads = K._payload_columns(plan2, mask, flat, params)[0]
+    return mask, (keys,) + payloads, scaled_compact_cap(plans[0],
+                                                         sum(n_docs))
+
+
+def multi_phase(table_dir: str, digests: dict, tile: int,
+                device: str = "cuda"):
+    """The 13 SSB queries over the many-segment table: digests, routes,
+    K1 launches, p50, device busy time, and every segmented compaction
+    held against the plain version and timed at its real inputs."""
+    import torch
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.engine import batch, serving
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.sql import parse_sql
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import ssb
+
+    dm = TableDataManager("lineorder", device=device)
+    segs = dm.add_table_dir(table_dir)
+    broker = Broker(device=device)
+    broker.register_table(dm)
+    query = connect(broker)
+    sqls = [(qid, ssb.spec_to_sql(p, v, g)) for qid, p, v, g in ssb.QUERIES]
+
+    C.launches = 0                       # the multi path's run starts here
+    runs = {}
+    for qid, sql in sqls:
+        before = C.launches
+        res = query(sql)                 # warm-up (uploads, stacks)
+        times = []
+        for _ in range(ITERS):
+            t0 = time.perf_counter()
+            res = query(sql)
+            times.append((time.perf_counter() - t0) * 1e3)
+        runs[qid] = (res, times, C.launches - before)
+    multi_launches = C.launches          # ... and ends here
+
+    totals = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "pass_ms", "fill_ms", "memset_ms",
+                               "device_ms", "host_ms")}
+    n_segmented = 0
+    for qid, sql in sqls:
+        res, times, launched = runs[qid]
+        ex = serving.execute_segments(build_query_context(parse_sql(sql)),
+                                      segs)
+        routes = sorted(set(ex.routes))
+        want = _expected_route(ex.plans)
+        ok = ssb._digest(res.rows) == digests[qid]
+        phase("multi_query", qid=qid, ok=ok, routes=routes,
+              expected_route=want, segments=len(segs),
+              strategy=(ex.plans[0].kernel_plan.strategy
+                        if ex.plans[0].kind == "kernel" else None),
+              rows=len(res.rows), p50_ms=statistics.median(times),
+              times_ms=times, compact_launches=launched,
+              num_docs_scanned=res.num_docs_scanned,
+              profile=(profile_query(query, sql)
+                       if device.startswith("cuda") else None))
+        if not ok:
+            raise AssertionError(f"{qid}: the 8-segment digest differs from "
+                                 "the single segment's and the oracle's")
+        if routes != [want]:
+            raise AssertionError(f"{qid}: routes {routes}, expected {want}")
+        if want in (batch.SEGMENTED, batch.PER_SEGMENT) and launched == 0:
+            raise AssertionError(f"{qid}: compact query never launched the "
+                                 "compaction kernel")
+        if want != batch.SEGMENTED:
+            continue
+        n_segmented += 1
+        mask, cols, cap = _segmented_inputs(ex.plans)
+        got = C.compact(mask, cols, cap)
+        same_outputs(got, C.compact_reference(mask, cols, cap))
+        row = {"ms": cuda_time_ms(lambda: C.compact(mask, cols, cap), 20),
+               "plain_ms": cuda_time_ms(
+                   lambda: C.compact_reference(mask, cols, cap), 20),
+               "library_ms": cuda_time_ms(
+                   lambda: [torch.masked_select(c, mask) for c in cols],
+                   20),
+               "bound_ms": C.compact_bytes(mask.shape[0], cols, cap,
+                                           int(got[3]))
+               / HBM_BYTES_PER_S * 1e3,
+               **compact_split_ms(lambda: C.compact(mask, cols, cap)),
+               "host_ms": host_time_ms(
+                   lambda: C.compact(mask, cols, cap), 20)}
+        row["device_ms"] = row["pass_ms"] + row["fill_ms"] + row["memset_ms"]
+        for k in totals:
+            totals[k] += row[k]
+        phase("kernel_at_segmented_path", qid=qid, n=mask.shape[0],
+              segments=len(segs), tiles=-(-mask.shape[0] // tile),
+              cols=[str(c.dtype) for c in cols], slots_cap=cap,
+              matched=int(got[3]), equal=True, **row)
+    if multi_launches == 0 or n_segmented == 0:
+        raise AssertionError("the segmented path never ran the compaction "
+                             "kernel")
+    return multi_launches, totals, n_segmented, segs
+
+
+def _percentile_reference(seg_list, sql: str, c: int):
+    """The device percentile sketch's centroids built with numpy from the
+    same matched values: per segment, equal-count chunks with bounds
+    floor(j * m / c), means from float64 prefix sums."""
+    import numpy as np
+
+    from pinot_tpu_torch.engine import host_eval
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.sql import parse_sql
+
+    ctx = build_query_context(parse_sql(sql))
+    out = []
+    for seg in seg_list:
+        mask = host_eval.eval_filter(ctx.filter, seg)
+        v = np.sort(host_eval.eval_value(ctx.aggregations[0].arg, seg)
+                    [mask].astype(np.float64))
+        ps = np.concatenate([[0.0], np.cumsum(v)])
+        bounds = np.arange(c + 1, dtype=np.int64) * len(v) // c
+        w = np.diff(bounds)
+        sums = ps[bounds[1:]] - ps[bounds[:-1]]
+        out.append([[s / k, float(k)] for s, k in zip(sums, w) if k > 0])
+    return out
+
+
+def _state(partial):
+    """A partial's mergeable states (aggregation or group-by)."""
+    return partial.states if hasattr(partial, "states") else partial.groups
+
+
+def surface_phase(seg_list, label: str):
+    """Each surface query plans its kind and equals its forceHostExecution
+    twin (the numpy host path); the twin and host-kind queries run once
+    (numpy on the host CPU), the others warm up and run ITERS times."""
+    import numpy as np
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.engine import serving
+    from pinot_tpu_torch.engine.reduce import reduce_partials
+    from pinot_tpu_torch.ops.aggregations import TDIGEST_MAX_CENTROIDS
+    from pinot_tpu_torch.query import planner
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.sql import parse_sql
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import ssb
+
+    device = seg_list[0].device
+    dm = TableDataManager("lineorder", device=device)
+    for seg in seg_list:
+        dm.add_segment(seg)
+    broker = Broker(device=device)
+    broker.register_table(dm)
+    query = connect(broker)
+    host_opt = " OPTION(forceHostExecution=true)"
+    for name, sql, kind in ssb.SURFACE:
+        if name == "hll_grouped" and seg_list[0].bucket * (7 + 1) \
+                > planner.DENSE_ONEHOT_BUDGET:
+            # the reference planner's dense budget on a GPU (7 years)
+            kind = "host"
+        ctx = build_query_context(parse_sql(sql))
+        ex = serving.execute_segments(ctx, seg_list)
+        kinds = sorted({p.kind for p in ex.plans})
+        if kinds != [kind]:
+            raise AssertionError(f"{name}: planned {kinds}, expected {kind}")
+        hctx = build_query_context(parse_sql(sql + host_opt))
+        hx = serving.execute_segments(hctx, seg_list)
+        host = reduce_partials(hctx, hx.partials)
+        on_card = kind != "host"
+        times = []
+        for _ in range(ITERS if on_card else 1):
+            t0 = time.perf_counter()
+            res = query(sql)
+            times.append((time.perf_counter() - t0) * 1e3)
+        check = "rows equal"
+        if name == "percentile":
+            # the host sketch chunks with np.array_split, the device sketch
+            # with floor bounds: the states are held to a numpy build of
+            # the device's split, the result to the sketch's tolerance
+            ref = _percentile_reference(seg_list, sql,
+                                        TDIGEST_MAX_CENTROIDS)
+            for got, want in zip([p.states[0] for p in ex.partials], ref):
+                g, w = np.asarray(got), np.asarray(want)
+                if g.shape != w.shape or (g[:, 1] != w[:, 1]).any() or \
+                        not np.allclose(g[:, 0], w[:, 0], rtol=1e-9,
+                                        atol=0):
+                    raise AssertionError("percentile centroids differ from "
+                                         "the numpy build")
+            spread = float(seg_list[0].columns["lo_revenue"].max
+                           - seg_list[0].columns["lo_revenue"].min)
+            if abs(res.rows[0][0] - host.rows[0][0]) > 0.02 * spread:
+                raise AssertionError("percentile off the host's by more "
+                                     "than 2% of the value range")
+            check = ("centroids == numpy build (rel 1e-9); result within "
+                     "2% of the range of the host's")
+        else:
+            if name.startswith(("hll", "theta")) and \
+                    [_state(p) for p in ex.partials] != \
+                    [_state(p) for p in hx.partials]:
+                raise AssertionError(f"{name}: sketch states differ from "
+                                     "the host path's")
+            if res.rows != host.rows:
+                raise AssertionError(f"{name}: rows differ from the host "
+                                     "path's")
+        phase("surface", table=label, name=name, kind=kind, check=check,
+              rows=len(res.rows), p50_ms=statistics.median(times),
+              times_ms=times, routes=sorted(set(ex.routes)),
+              profile=(profile_query(query, sql)
+                       if on_card and device.type == "cuda" else None))
 
 
 def main() -> int:
@@ -544,14 +831,20 @@ def main() -> int:
     err = max(kernel_phase(), edge_phase(tile))
     repeat_check(CHECK_N[0])
     seg_dir = segment_phase()
-    launches, totals, n_compact = main_phase(seg_dir, tile)
+    launches, totals, n_compact, digests = main_phase(seg_dir, tile)
+    table_dir = table_phase()
+    seg_launches, seg_totals, n_segmented, segs = multi_phase(
+        table_dir, digests, tile)
+    from pinot_tpu_torch.segment import load_segment
+    surface_phase([load_segment(seg_dir, "cuda")], "1 segment")
+    surface_phase(segs, f"{len(segs)} segments")
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "compact",
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/compact.cu",
         "replaces": "pinot_tpu/ops/compact.py:252",
-        "launches": launches,
+        "launches": launches + seg_launches,
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -564,12 +857,19 @@ def main() -> int:
         "device_ms": totals["device_ms"],
         "host_ms": totals["host_ms"],
         "tile_rows": tile,
+        "single_segment_launches": launches,
+        "segmented_launches": seg_launches,
+        **{f"segmented_{k}": v for k, v in seg_totals.items()},
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
               "torch.masked_select per column; ms, plain_ms, library_ms = "
               "CUDA events over 20 back-to-back calls (host included); "
               "pass/fill/memset = device time by torch.profiler, "
-              "device_ms their sum; host_ms = host clock to issue a call"}]}))
+              "device_ms their sum; host_ms = host clock to issue a call; "
+              f"segmented_* = the same sums over one launch per "
+              f"segmented-route query ({n_segmented}) on the "
+              f"{TABLE_SEGMENTS}-segment table; launches = the single-"
+              "segment run's plus the 8-segment run's"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@ reduce.
 
 Port of the single-stage query path of ``pinot_tpu/broker/broker.py``
 (``Broker.query`` -> ``_execute_ctx``, and ``connect``), over the tables
-registered with the broker, all on the broker's ``device``. Joins, window
+registered with the broker, all on the broker's ``device``; the segments
+run through the shared plan-then-batch loop of ``engine/serving.py``.
+Joins, window
 functions, set operations, CTEs, views, subqueries, EXPLAIN, hybrid
 tables, quotas, workload admission and tracing are not ported yet and
 raise ``NotImplementedError``.
@@ -16,10 +18,9 @@ from typing import Any, Dict, List, Union
 import torch
 
 from ..device import resolve_device
-from ..engine.executor import execute_plan
 from ..engine.reduce import ResultTable, reduce_partials
+from ..engine.serving import execute_planned, plan_segments
 from ..query.context import build_query_context
-from ..query.planner import SegmentPlanner
 from ..query.sql import (Exists, InSubquery, ScalarSubquery, SelectStmt,
                          SqlError, WindowFunc, ast_children, parse_sql)
 from ..server.data_manager import TableDataManager
@@ -81,13 +82,11 @@ class Broker:
                 f"{feature} is not yet ported to pinot_tpu_torch")
         ctx = build_query_context(stmt)
         segments = self.table(ctx.table).acquire_segments()
-        plans = [SegmentPlanner(ctx, seg).plan() for seg in segments]
-        partials = [execute_plan(p) for p in plans]
-        result = reduce_partials(ctx, partials)
+        ex = plan_segments(ctx, segments)
+        result = reduce_partials(ctx, execute_planned(ex))
         result.num_segments = len(segments)
-        result.num_segments_pruned = sum(p.kind == "pruned" for p in plans)
-        result.num_docs_scanned = sum(p.segment.n_docs for p in plans
-                                      if p.kind == "kernel")
+        result.num_segments_pruned = ex.pruned
+        result.num_docs_scanned = ex.docs_scanned
         result.time_ms = (time.perf_counter() - t0) * 1e3
         return result
 

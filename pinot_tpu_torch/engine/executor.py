@@ -2,10 +2,11 @@
 
 Port of ``pinot_tpu/engine/executor.py``. ``run_kernel`` runs a kernel
 plan's torch function on the segment's device and brings the outputs back
-as host numpy; ``extract_partial`` (copied) turns them into the same
-value-space partial states as the reference, so the broker reduce merges
-them unchanged. ``pruned`` plans answer directly; ``host``, ``fast`` and
-``kselect`` plans are not ported yet and raise.
+as host numpy in one transfer; ``extract_partial`` (copied) turns them
+into the same value-space partial states as the reference, so the broker
+reduce merges them unchanged. ``pruned`` and ``fast`` plans answer
+directly, ``host`` plans run the numpy host path (engine/host_eval.py) and
+``kselect`` plans the device selection kernel (ops/kernels.py).
 """
 from __future__ import annotations
 
@@ -17,10 +18,12 @@ import torch
 
 from ..ops import aggregations
 from ..ops.compact import full_slots_cap
-from ..ops.kernels import build_kernel
+from ..ops.kernels import build_kernel, build_select_kernel
 from ..query.context import QueryContext
 from ..query.planner import AggBinding, CompiledPlan, _truthy
+from ..query.sql import Star
 from ..segment.immutable import ImmutableSegment
+from . import host_eval
 
 
 @dataclass
@@ -40,16 +43,11 @@ class SelectionPartial:
     order_keys: List[tuple] = field(default_factory=list)
 
 
-def null_aware(ctx) -> bool:
-    """The enableNullHandling query option."""
-    return _truthy(ctx.options.get("enableNullHandling"))
-
-
 def empty_partial(ctx: QueryContext):
     if ctx.is_group_by:
         return GroupByPartial({})
     if ctx.is_aggregation:
-        na = null_aware(ctx)
+        na = host_eval.null_aware(ctx)
         # with null handling, SUM over zero rows is null, not 0 (the merge
         # is null-absorbing, so any segment with rows still wins)
         return AggPartial([None if na and a.kind == "sum"
@@ -59,16 +57,86 @@ def empty_partial(ctx: QueryContext):
 
 
 def execute_plan(plan: CompiledPlan):
-    ctx = plan.ctx
+    ctx, seg = plan.ctx, plan.segment
     if plan.kind == "pruned":
         if not ctx.is_aggregation and plan.select_names:
             return SelectionPartial(list(plan.select_names), [])
         return empty_partial(ctx)
+    if plan.kind == "fast":
+        return AggPartial(list(plan.fast_states))
+    if plan.kind == "host":
+        if host_eval.null_aware(ctx):
+            mask, _ = host_eval.eval_filter_3vl(ctx.filter, seg)
+        else:
+            mask = host_eval.eval_filter(ctx.filter, seg)
+        vd = seg.valid_docs
+        if vd is not None and not _truthy(ctx.options.get("skipUpsert")):
+            mask = mask & vd[: seg.n_docs]
+        if ctx.is_group_by:
+            return GroupByPartial(host_eval.host_group_by(ctx, seg, mask))
+        if ctx.is_aggregation:
+            return AggPartial(host_eval.host_aggregate(ctx, seg, mask))
+        labels, rows, okeys = host_eval.host_selection(ctx, seg, mask)
+        return SelectionPartial(labels, rows, okeys)
+    if plan.kind == "kselect":
+        return extract_select(plan, run_select_kernel(plan))
     if plan.kind != "kernel":
-        raise NotImplementedError(
-            f"{plan.kind!r} plans are not yet ported to pinot_tpu_torch "
-            "(ROADMAP Queue 1)")
+        raise ValueError(f"unknown plan kind {plan.kind!r}")
     return extract_partial(plan, run_kernel(plan))
+
+
+def to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Every output tensor on the host as numpy, in ONE device-to-host
+    transfer: the outputs' bytes are packed into one buffer on their
+    device, copied once, and split back apart on the host."""
+    if not out:
+        return {}
+    parts = [v.detach().reshape(-1).contiguous() for v in out.values()]
+    buf = torch.cat([p.view(torch.uint8) for p in parts]).cpu().numpy()
+    host: Dict[str, np.ndarray] = {}
+    pos = 0
+    for (k, v), p in zip(out.items(), parts):
+        nbytes = p.numel() * p.element_size()
+        dt = torch.empty(0, dtype=v.dtype).numpy().dtype
+        host[k] = buf[pos:pos + nbytes].view(dt).reshape(tuple(v.shape))
+        pos += nbytes
+    return host
+
+
+def run_select_kernel(plan: CompiledPlan) -> Dict[str, np.ndarray]:
+    seg = plan.segment
+    cols = seg.device_cols(plan.col_names)
+    params = resolve_params(plan)
+    fn = build_select_kernel(plan.select_plan, seg.bucket)
+    return to_host(fn(cols, seg.n_docs, params))
+
+
+def extract_select(plan: CompiledPlan, out: Dict[str, np.ndarray]
+                   ) -> "SelectionPartial":
+    """Device top-k winners -> SelectionPartial (values resolved through
+    the segment dictionaries; order keys resolved the same way so the
+    broker's cross-segment merge compares values, not ids)."""
+    seg, sp = plan.segment, plan.select_plan
+    n = min(int(out["matched"]), sp.k)
+    cols_vals: List[np.ndarray] = []
+    for i, name in enumerate(plan.select_names):
+        stored = np.asarray(out[f"sel_{i}"])[:n]
+        d = seg.dictionary(name)
+        cols_vals.append(d.values_for(stored) if d is not None else stored)
+    rows = [tuple(_py(c[r]) for c in cols_vals) for r in range(n)]
+    okeys_cols: List[np.ndarray] = []
+    for j, (col, _d, card) in enumerate(sp.order):
+        stored = np.asarray(out[f"ord_{j}"])[:n]
+        name = plan.col_names[col]
+        d = seg.dictionary(name)
+        okeys_cols.append(d.values_for(stored) if d is not None else stored)
+    okeys = [tuple(_py(c[r]) for c in okeys_cols) for r in range(n)]
+    ctx = plan.ctx
+    if any(isinstance(i, Star) for i in ctx.select_items):
+        labels = list(plan.select_names)
+    else:
+        labels = list(ctx.labels)
+    return SelectionPartial(labels, rows, okeys)
 
 
 def resolve_params(plan: CompiledPlan) -> Tuple[torch.Tensor, ...]:
@@ -80,12 +148,19 @@ def resolve_params(plan: CompiledPlan) -> Tuple[torch.Tensor, ...]:
     for p in plan.params:
         if isinstance(p, tuple) and len(p) == 2 and p[0] == "dictvals":
             out.append(seg.device_dict_values(p[1]))
+        elif isinstance(p, tuple) and len(p) == 2 and p[0] == "hash64":
+            # per-dict-id 64-bit hash table for sketch aggregations
+            out.append(seg.device_dict_hashes(p[1]))
         elif isinstance(p, tuple) and len(p) == 2 and p[0] == "nullmask":
             out.append(seg.device_null_mask(p[1]))
-        elif isinstance(p, tuple) and len(p) == 2 and \
-                p[0] in ("hash64", "validdocs", "docmask"):
-            raise NotImplementedError(
-                f"{p[0]!r} kernel params are not yet ported")
+        elif isinstance(p, tuple) and len(p) == 2 and p[0] == "validdocs":
+            out.append(seg.device_valid_mask())
+        elif isinstance(p, tuple) and len(p) == 2 and p[0] == "docmask":
+            # host-computed doc mask, padded to the segment bucket
+            mask = np.asarray(p[1], dtype=bool)
+            padded = np.zeros(seg.bucket, dtype=bool)
+            padded[: len(mask)] = mask
+            out.append(torch.as_tensor(padded, device=seg.device))
         else:
             out.append(torch.as_tensor(np.asarray(p), device=seg.device))
     return tuple(out)
@@ -96,8 +171,7 @@ def _run(plan: CompiledPlan, cols, params, slots_cap, xfer_compact: bool
     seg = plan.segment
     fn = build_kernel(plan.kernel_plan, seg.bucket, slots_cap,
                       xfer_compact=xfer_compact, device=seg.device)
-    out = fn(cols, seg.n_docs, params)
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    return to_host(fn(cols, seg.n_docs, params))
 
 
 def run_kernel(plan: CompiledPlan,
@@ -126,7 +200,7 @@ def extract_partial(plan: CompiledPlan, out: Dict[str, np.ndarray]):
     ctx, seg = plan.ctx, plan.segment
     matched = int(out["matched"])
     if not ctx.is_group_by:
-        na = null_aware(ctx)
+        na = host_eval.null_aware(ctx)
         states: List[Any] = []
         for b in plan.agg_bindings:
             states.append(_scalar_state(b, out, matched, seg, na))
@@ -198,6 +272,24 @@ def _scalar_state(b: AggBinding, out: Dict[str, np.ndarray], matched: int,
         ids = np.nonzero(present)[0]
         vals = seg.dictionary(b.dict_col).values_for(ids)
         return set(_py(v) for v in vals)
+    # device sketch partials -> host AggImpl state formats (the broker
+    # reduce merges them through ops/aggregations like any host partial);
+    # RAW forms share their base sketch's state (RawAgg delegates)
+    k = {"raw_hll": "distinct_count_hll",
+         "raw_theta": "distinct_count_theta",
+         "percentile_raw_sketch": "percentile_sketch"}.get(k, k)
+    if k == "distinct_count_hll":
+        return _hll_registers(out[name + "_present"], b)[0]
+    if k == "distinct_count_theta":
+        # int64 bit patterns of the uint64 hashes; all ones is the sentinel
+        h = np.asarray(out[name + "_hashes"]).view(np.uint64)
+        sent = np.uint64(0xFFFFFFFFFFFFFFFF)
+        return [int(x) for x in h if x != sent]
+    if k == "percentile_sketch":
+        means = np.asarray(out[name + "_pc_mean"])
+        ws = np.asarray(out[name + "_pc_w"])
+        return [[float(m_), float(w_)]
+                for m_, w_ in zip(means, ws) if w_ > 0]
     raise ValueError(k)
 
 
@@ -225,7 +317,24 @@ def _group_state(b: AggBinding, out: Dict[str, np.ndarray],
             ids = np.nonzero(row)[0]
             res.append(set(_py(v) for v in d.values_for(ids)))
         return res
+    if k in ("distinct_count_hll", "raw_hll"):
+        return _hll_registers(np.asarray(out[name + "_present"])[idxs], b)
     raise ValueError(k)
+
+
+def _hll_registers(pm: np.ndarray, b: AggBinding) -> List[List[int]]:
+    """(n?, m*R) presence bitmap(s) -> per-row HllAgg register lists,
+    vectorized across groups (one reshape + two reductions)."""
+    from ..ops.aggregations import HllAgg
+    p = HllAgg(b.agg).log2m
+    r_levels = 64 - p + 1
+    pm = np.asarray(pm)
+    if pm.ndim == 1:
+        pm = pm[None, :]
+    rr = pm.reshape(pm.shape[0], 1 << p, r_levels)
+    ranks = np.arange(1, r_levels + 1, dtype=np.int64)
+    regs = np.where(rr.any(axis=2), (rr * ranks).max(axis=2), 0)
+    return [row.tolist() for row in regs]
 
 
 def _kind(b: AggBinding) -> str:

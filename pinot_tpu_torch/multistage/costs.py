@@ -1,7 +1,7 @@
 """Group-by strategy cost model, main-path subset.
 
-Port of ``ir_selectivity``, ``compact_slots_cap`` and
-``choose_group_strategy`` from ``pinot_tpu/multistage/costs.py``. The
+Port of ``ir_selectivity``, ``compact_slots_cap``,
+``scaled_compact_cap`` and ``choose_group_strategy`` from ``pinot_tpu/multistage/costs.py``. The
 port's compaction (``ops/compact.py``) is exact on every device, so the
 capacity always takes the reference's exact branch (``CAP_SAFETY_XLA``),
 and the strategy choice always takes its non-scatter branch. The join
@@ -129,6 +129,15 @@ def compact_slots_cap(n_rows: int, sel: float) -> int:
     est_rows = max(n_rows * min(max(sel, 0.0), 1.0), 1.0)
     slots = _pow2_at_least(est_rows * CAP_SAFETY_XLA / LANES)
     return int(min(max(slots, MIN_SLOTS), full))
+
+
+def scaled_compact_cap(plan, n_rows: int) -> Optional[int]:
+    """A CompiledPlan's cost-model compaction capacity re-derived for a
+    different row count (the segmented multi-segment dispatch of
+    engine/batch.py); None when the planner picked no cost-model cap."""
+    if plan.slots_cap is None or plan.est_selectivity is None:
+        return None
+    return compact_slots_cap(n_rows, plan.est_selectivity)
 
 
 def choose_group_strategy(n_rows: int, space: int, sel: float,

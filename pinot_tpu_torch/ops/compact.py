@@ -36,6 +36,8 @@ LANES = 128
 # smallest capacity the cost model asks for (multistage/costs.py)
 MIN_SLOTS = 8
 MAX_COLS = 8
+# most rows one call takes (compact.cu rejects more: tile starts are int32)
+MAX_ROWS = (1 << 31) - 1 - (1 << 16)
 
 # calls that launched the CUDA kernel (chip_smoke.py resets and reads it)
 launches = 0
@@ -69,6 +71,9 @@ def _check(mask: torch.Tensor, cols: Sequence[torch.Tensor],
     if mask.dtype != torch.bool or mask.dim() != 1 \
             or not mask.is_contiguous():
         raise ValueError("mask must be a contiguous 1-D bool tensor")
+    if mask.shape[0] > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} rows a call, got "
+                         f"{mask.shape[0]}")
     if len(cols) > MAX_COLS:
         raise ValueError(f"at most {MAX_COLS} columns, got {len(cols)}")
     if slots_cap < 1:

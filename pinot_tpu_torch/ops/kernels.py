@@ -20,20 +20,27 @@ What changes on the way from XLA on a TPU:
   operands); the sorted posts use a stable ``torch.sort``,
   ``searchsorted`` and int64 cumsum differences.
 
-The device sketch lowerings (HLL, theta, percentile) and the device
-selection kernel are not ported: the port's planner plans those queries
-for the host path.
+- the device sketches hash in int64 (torch's uint64 covers few ops):
+  multiplication wraps to the same bits, logical right shifts mask off
+  the sign extension, and the theta sort flips the sign bit so signed
+  order is unsigned order;
+- the selection kernel (K9) takes its top k from a stable descending
+  sort, which keeps ``lax.top_k``'s lower-index-first order among ties;
+- the segmented compact kernel (K11) evaluates each segment's predicate
+  on its own row of the stacked columns and then runs ONE compaction over
+  the S*bucket flattened rows.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from dataclasses import replace as dc_replace
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..device import FLOAT_ACC, INT_ACC
 from .ir import (AggSpec, And, Bin, Case, Cmp, Col, EqId, FalseP, Func,
                  IdRange, InBitmap, InSet, KernelPlan, Lit, MaskParam,
-                 MvReduce, Not, Or, Pred, TrueP, ValueExpr)
+                 MvReduce, Not, Or, Pred, SelectPlan, TrueP, ValueExpr)
 
 Tensor = torch.Tensor
 
@@ -361,6 +368,158 @@ def _segment_reduce(vals: Tensor, keys: Tensor, nseg: int,
 
 
 # ---------------------------------------------------------------------------
+# device sketches (K10): partial states match the host AggImpl registry
+# exactly, so kernel partials merge with host partials in the broker reduce
+# ---------------------------------------------------------------------------
+
+def _i64(c: int) -> int:
+    """A 64-bit constant as the int64 with the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _lsr(x: Tensor, s: int) -> Tensor:
+    """Logical right shift of int64 bit patterns."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _clz64(x: Tensor) -> Tensor:
+    """Leading zeros of non-zero int64 bit patterns: a branch-free binary
+    search in six steps (torch has no clz)."""
+    n = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for s in (32, 16, 8, 4, 2, 1):
+        z = _lsr(x, 64 - s) == 0
+        n = n + z.to(torch.int32) * s
+        x = torch.where(z, x << s, x)
+    return n
+
+
+def _device_splitmix64(v: Tensor) -> Tensor:
+    """aggregations._splitmix64 on device, bit-identical, as int64 bit
+    patterns: the shared 64-bit hash for HLL/theta over raw numeric
+    columns. Floats hash their float64 bits, like the host _hash64."""
+    if v.dtype.is_floating_point:
+        v = v.to(torch.float64).contiguous().view(torch.int64)
+    x = v.to(torch.int64) + _i64(0x9E3779B97F4A7C15)
+    x = (x ^ _lsr(x, 30)) * _i64(0xBF58476D1CE4E5B9)
+    x = (x ^ _lsr(x, 27)) * _i64(0x94D049BB133111EB)
+    return x ^ _lsr(x, 31)
+
+
+def _agg_hashes(spec: AggSpec, cols, params) -> Tensor:
+    """The 64-bit hash stream of a sketch aggregation: dict columns gather
+    the per-id hash table (params[dict_param], host _hash64 over the
+    dictionary values, md5 for strings); raw numeric columns hash on
+    device."""
+    ve = spec.value
+    if isinstance(ve, Col) and ve.dict_param is not None:
+        return _take(params[ve.dict_param], cols[ve.col])
+    return _device_splitmix64(_eval_value(ve, cols, params))
+
+
+def _presence(comb: Tensor, n_slots: int) -> Tensor:
+    """(n_slots,) bool: which slot ids occur in comb (unmatched rows carry
+    the sentinel n_slots). A scatter into a presence tensor: the same
+    output as the reference's sort + searchsorted, without the sort."""
+    pres = torch.zeros(n_slots + 1, dtype=torch.bool, device=comb.device)
+    pres[comb.long()] = True
+    return pres[:n_slots]
+
+
+def _hll_slots(spec: AggSpec, cols, params):
+    """(slot, r_levels): register index = top log2m hash bits, rank =
+    leading zeros of the remainder + 1 (a sentinel bit bounds it), slot =
+    idx * r_levels + (rank - 1); bit-identical to the host HllAgg._regs."""
+    p = spec.card                    # log2m
+    r_levels = 64 - p + 1
+    h = _agg_hashes(spec, cols, params)
+    idx = _lsr(h, 64 - p).to(torch.int32)
+    rank = _clz64((h << p) | (1 << (p - 1))) + 1   # 1 .. R
+    return idx * r_levels + (rank - 1), r_levels
+
+
+def _scalar_hll(name: str, spec: AggSpec, mask, cols, params,
+                out: Dict[str, Tensor]) -> None:
+    """DISTINCTCOUNTHLL: (m * R) presence bitmap; extraction maxes over
+    the rank axis into the host HllAgg register list."""
+    slot, r_levels = _hll_slots(spec, cols, params)
+    n_slots = (1 << spec.card) * r_levels
+    out[name + "_present"] = _presence(torch.where(mask, slot, n_slots),
+                                       n_slots)
+
+
+def _scalar_theta(name: str, spec: AggSpec, mask, cols, params,
+                  out: Dict[str, Tensor]) -> None:
+    """KMV theta sketch: the k smallest DISTINCT hashes, (k,) int64 bit
+    patterns with an all-ones sentinel. Sort in unsigned order (sign bit
+    flipped, unmatched rows on the all-ones sentinel), flag first
+    occurrences, gather the positions of unique ranks 1..k."""
+    k = spec.card
+    h = _agg_hashes(spec, cols, params)
+    s = torch.sort(torch.where(mask, h, -1) ^ _IMIN64).values ^ _IMIN64
+    uniq = torch.ones(s.shape, dtype=torch.bool, device=s.device)
+    uniq[1:] = s[1:] != s[:-1]
+    ranks = torch.cumsum(uniq.to(torch.int32), 0, dtype=torch.int32)
+    pos = torch.searchsorted(ranks, torch.arange(
+        1, k + 1, dtype=torch.int32, device=s.device))
+    picked = s[pos.clamp(max=s.shape[0] - 1)]
+    valid = torch.arange(k, dtype=torch.int32, device=s.device) < ranks[-1]
+    # sentinel-valued picks are unmatched-row hashes, not data
+    out[name + "_hashes"] = torch.where(valid & (picked != -1), picked, -1)
+
+
+def _scalar_percentile(name: str, spec: AggSpec, mask, cols, params,
+                       out: Dict[str, Tensor]) -> None:
+    """Mergeable quantile summary: sort of the matched values, equal-count
+    chunk boundaries over the matched prefix, centroid means from float64
+    prefix-sum differences; (C,) means + weights map to the host
+    PercentileSketchAgg centroid list."""
+    c = spec.card                    # number of centroids
+    vals = _eval_value(spec.value, cols, params).to(FLOAT_ACC)
+    s = torch.sort(torch.where(mask, vals, float("inf"))).values
+    mcount = mask.sum(dtype=torch.int64)
+    ps = torch.cumsum(torch.where(torch.isfinite(s), s, 0.0), 0)
+    bounds = torch.arange(c + 1, dtype=torch.int64, device=s.device) \
+        * mcount // c
+    totals = torch.where(bounds > 0,
+                         ps[(bounds - 1).clamp(0, s.shape[0] - 1)], 0.0)
+    w = (bounds[1:] - bounds[:-1]).to(torch.int32)
+    sums = totals[1:] - totals[:-1]
+    out[name + "_pc_mean"] = torch.where(
+        w > 0, sums / w.clamp(min=1).to(sums.dtype), 0.0)
+    out[name + "_pc_w"] = w
+
+
+_SKETCH_SCALAR = {"distinct_count_hll": _scalar_hll,
+                  "distinct_count_theta": _scalar_theta,
+                  "percentile_sketch": _scalar_percentile,
+                  # RAW forms share the kernels: RawAgg delegates state
+                  # to the inner sketch impl, only finalize serializes
+                  "raw_hll": _scalar_hll,
+                  "raw_theta": _scalar_theta,
+                  "percentile_raw_sketch": _scalar_percentile}
+
+_HLL_KINDS = ("distinct_count_hll", "raw_hll")
+
+# grouped HLL presence bitmap cap: space * 2^log2m * rank_levels slots
+# (bool); larger spaces keep the host registry
+GROUPED_HLL_LIMIT = 1 << 23
+
+
+def _group_hll(name: str, spec: AggSpec, mask, keys_s, space: int, cols,
+               params, out: Dict[str, Tensor]) -> None:
+    """Grouped DISTINCTCOUNTHLL: one combined (group, register, rank)
+    presence bitmap; (space, m*R) bool rows merge across segments by OR,
+    and extraction maxes ranks per group into HllAgg register lists."""
+    slot, r_levels = _hll_slots(spec, cols, params)
+    m = 1 << spec.card
+    comb = torch.where(mask & (keys_s < space),
+                       keys_s * (m * r_levels) + slot,
+                       space * m * r_levels)
+    out[name + "_present"] = _presence(comb, space * m * r_levels).reshape(
+        space, m * r_levels)
+
+
+# ---------------------------------------------------------------------------
 # scalar (non-group-by) aggregation
 # ---------------------------------------------------------------------------
 
@@ -372,6 +531,10 @@ def _scalar_agg(i: int, spec: AggSpec, mask: Tensor, cols, params,
         # count (extract finalizes all-null SUM/MIN/MAX to null from it)
         mask = mask & ~params[spec.null_param]
         out[name + "_nnz"] = mask.sum(dtype=INT_ACC)
+    sketch_fn = _SKETCH_SCALAR.get(spec.kind)
+    if sketch_fn is not None:
+        sketch_fn(name, spec, mask, cols, params, out)
+        return
     if spec.kind == "count":
         out[name] = mask.sum(dtype=INT_ACC)
         return
@@ -435,6 +598,9 @@ def _group_aggs(plan: KernelPlan, mask: Tensor, cols, params,
     for i, spec in enumerate(plan.aggs):
         name = _agg_name(i, spec)
         if spec.kind == "count":
+            continue
+        if spec.kind in _HLL_KINDS:
+            _group_hll(name, spec, mask, keys_s, space, cols, params, out)
             continue
         if spec.kind == "distinct_count":
             ids = _eval_value(spec.value, cols, params).long()
@@ -743,12 +909,14 @@ def _sorted_post_sparse(sum_jobs, mm_jobs, ord_modes, keys: Tensor,
 
 
 def _compact_group_xfer(plan: KernelPlan, out: Dict[str, Tensor]) -> None:
-    """Replace dense (space,) group outputs with their live rows:
-    group_idx holds the dense space ids; more than GROUP_XFER_CAP live
-    groups sets group_overflow (the executor reruns with
-    xfer_compact=False). Any 2-D output (grouped DISTINCTCOUNT presence)
-    keeps the whole result dense, since extraction indexes every output
-    with one positions array."""
+    """Replace dense (space,) group outputs with GROUP_XFER_CAP gathered
+    rows, the live groups first: group_idx holds their dense space ids
+    (the sentinel space past the live count, whose rows are zero);
+    more than GROUP_XFER_CAP live groups sets group_overflow (the executor
+    reruns with xfer_compact=False). The shapes are fixed, so no host
+    sync is needed and same-plan segments stack. Any 2-D output (grouped
+    DISTINCTCOUNT presence) keeps the whole result dense, since extraction
+    indexes every output with one positions array."""
     space = plan.group_space
     if space < GROUP_XFER_SPACE:
         return
@@ -757,14 +925,100 @@ def _compact_group_xfer(plan: KernelPlan, out: Dict[str, Tensor]) -> None:
     if not all(v.dim() == 1 and v.shape[0] == space
                for v in dense.values()):
         return
-    live = torch.nonzero(out["group_count"] > 0).flatten()
-    out["group_overflow"] = torch.tensor(
-        int(live.shape[0] > GROUP_XFER_CAP), dtype=torch.int32,
-        device=live.device)
-    idx = live[:GROUP_XFER_CAP]
-    out["group_idx"] = idx.to(torch.int32)
+    live = out["group_count"] > 0
+    dev = live.device
+    rank = torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32) - 1
+    # live group j lands at slot rank[j]; everything else at a dump slot
+    slot = torch.where(live & (rank < GROUP_XFER_CAP), rank, GROUP_XFER_CAP)
+    idx = torch.full((GROUP_XFER_CAP + 1,), space, dtype=torch.int32,
+                     device=dev)
+    idx.scatter_(0, slot.long(), torch.arange(space, dtype=torch.int32,
+                                              device=dev))
+    idx = idx[:GROUP_XFER_CAP]
+    out["group_idx"] = idx
+    out["group_overflow"] = (rank[-1] + 1 > GROUP_XFER_CAP).to(torch.int32)
+    hit = idx < space
+    gather = idx.clamp(max=space - 1).long()
     for k, v in dense.items():
-        out[k] = v[idx]
+        out[k] = torch.where(hit, v[gather], torch.zeros((), dtype=v.dtype,
+                                                         device=dev))
+
+
+def _value_col_indices(ve) -> set:
+    """EVERY stored-column index a value expression references, through
+    Func args and Case branches too: the segmented kernel puts its segment
+    column past the largest one."""
+    if isinstance(ve, (Col, MvReduce)):
+        return {ve.col}
+    if isinstance(ve, Bin):
+        return _value_col_indices(ve.lhs) | _value_col_indices(ve.rhs)
+    if isinstance(ve, Func):
+        return set().union(*[_value_col_indices(a) for a in ve.args])
+    if isinstance(ve, Case):
+        out = _value_col_indices(ve.else_)
+        for pred, val in ve.whens:
+            out |= _pred_col_indices(pred) | _value_col_indices(val)
+        return out
+    return set()
+
+
+def _pred_col_indices(p) -> set:
+    """Stored-column indices a predicate references."""
+    if isinstance(p, (EqId, IdRange, InSet, InBitmap)):
+        return {p.col}
+    if isinstance(p, Cmp):
+        return _value_col_indices(p.lhs)
+    if isinstance(p, (And, Or)):
+        return set().union(*[_pred_col_indices(c) for c in p.children])
+    if isinstance(p, Not):
+        return _pred_col_indices(p.child)
+    return set()
+
+
+# ---------------------------------------------------------------------------
+# device selection (K9)
+# ---------------------------------------------------------------------------
+
+def build_select_kernel(plan: SelectPlan, bucket: int):
+    """fn(cols, n_docs, params) -> {"sel_<i>": (k,) stored values,
+    "ord_<j>": (k,) order-key ids/values, "matched": scalar}.
+
+    The composite order key packs the (col, desc, card) entries most-
+    significant-first into one int64; the winners are the first k of a
+    stable descending sort of the negated key, so among equal keys the
+    lower row comes first, as ``lax.top_k`` orders them. Rows beyond
+    min(matched, k) are garbage: extraction slices by matched."""
+    def kernel(cols: Tuple[Tensor, ...], n_docs: int,
+               params: Tuple[Tensor, ...]) -> Dict[str, Tensor]:
+        dev = _device_of(cols, params)
+        mask = (torch.arange(bucket, device=dev) < n_docs) \
+            & _eval_pred(plan.pred, cols, params, bucket, dev)
+        if plan.order:
+            key = torch.zeros(bucket, dtype=torch.int64, device=dev)
+            for col, desc, card in plan.order:
+                v = cols[col].to(torch.int64)
+                if card:  # dict ids: sorted dictionary => id order
+                    if desc:
+                        v = (card - 1) - v
+                    key = key * card + v
+                else:     # a raw integral key: the planner emits it alone
+                    key = -v if desc else v
+            sort_key = torch.where(mask, -key, _IMIN64)
+        else:
+            # doc order: earliest rows win
+            sort_key = torch.where(
+                mask, -torch.arange(bucket, dtype=torch.int64, device=dev),
+                _IMIN64)
+        idx = torch.sort(sort_key, descending=True, stable=True
+                         ).indices[:plan.k]
+        out: Dict[str, Tensor] = {"matched": mask.sum(dtype=INT_ACC)}
+        for i, col in enumerate(plan.select_cols):
+            out[f"sel_{i}"] = cols[col][idx]
+        for j, (col, _d, _c) in enumerate(plan.order):
+            out[f"ord_{j}"] = cols[col][idx]
+        return out
+
+    return kernel
 
 
 # ---------------------------------------------------------------------------
@@ -807,6 +1061,133 @@ def build_kernel(plan: KernelPlan, bucket: int,
         else:
             for i, spec in enumerate(plan.aggs):
                 _scalar_agg(i, spec, mask, cols, params, out)
+        return out
+
+    return kernel
+
+
+# ---------------------------------------------------------------------------
+# segmented compact group-by (K11): S same-bucket segments, one compaction
+# ---------------------------------------------------------------------------
+
+def _dict_value_refs(plan: KernelPlan) -> Dict[int, List[int]]:
+    """col index -> the dict-values param indices of every Col(dict_param=
+    ..) an aggregation value expression references. One column can carry
+    several (SUM(v), MIN(v) each bind one); every one of them flattens,
+    where the JAX package flattens only the last and reads out of range
+    with the others."""
+    found: Dict[int, List[int]] = {}
+
+    def walk(ve) -> None:
+        if isinstance(ve, Col) and ve.dict_param is not None:
+            found.setdefault(ve.col, []).append(ve.dict_param)
+        elif isinstance(ve, Bin):
+            walk(ve.lhs)
+            walk(ve.rhs)
+        elif isinstance(ve, Func):
+            for a in ve.args:
+                walk(a)
+
+    for spec in plan.aggs:
+        if spec.value is not None:
+            walk(spec.value)
+    return found
+
+
+def _has_case(ve) -> bool:
+    if isinstance(ve, Case):
+        return True
+    if isinstance(ve, Bin):
+        return _has_case(ve.lhs) or _has_case(ve.rhs)
+    if isinstance(ve, Func):
+        return any(_has_case(a) for a in ve.args)
+    return False
+
+
+def segmented_compact_ok(plan: KernelPlan) -> bool:
+    """Whether a compact group-by plan can run the segmented kernel: no
+    column may serve as both a group key and a dictionary-value source,
+    and no aggregation value may hold a CASE (the per-segment offsetting
+    of dict ids would corrupt the keys or the CASE's id predicates)."""
+    if not (plan.is_group_by and plan.strategy == "compact"):
+        return False
+    if any(_has_case(s.value) for s in plan.aggs if s.value is not None):
+        return False
+    key_cols = {ci for ci, _ in plan.group_keys}
+    return not (key_cols & set(_dict_value_refs(plan)))
+
+
+def segmented_inputs(plan: KernelPlan, bucket: int,
+                     cols: Sequence[Tensor], n_docs: Sequence[int],
+                     params: Sequence[Tuple[Tensor, ...]]):
+    """The segmented kernel's prefix: each segment's predicate on its own
+    row of the stacked (S, bucket) columns with its own params, into one
+    (S*bucket,) mask, and the flattened columns and params the one
+    compaction and its post run over. Dictionary-value params flatten to
+    (S*card,) with the referencing dict-id columns offset by seg*card; the
+    segment index becomes the leading group-key factor through an extra
+    column. Returns (plan2, mask, flat_cols, flat_params)."""
+    n_seg = len(n_docs)
+    total = n_seg * bucket
+    dev = cols[0].device
+    seg_col = 1 + max(
+        [ci for ci, _ in plan.group_keys]
+        + [c for s in plan.aggs if s.value is not None
+           for c in _value_col_indices(s.value)]
+        + list(_pred_col_indices(plan.pred)) + [-1])
+    plan2 = dc_replace(plan, group_keys=((seg_col, n_seg),)
+                       + plan.group_keys)
+    mask = torch.empty((n_seg, bucket), dtype=torch.bool, device=dev)
+    rows = torch.arange(bucket, device=dev)
+    for s in range(n_seg):
+        mask[s] = (rows < n_docs[s]) & _eval_pred(
+            plan.pred, tuple(c[s] for c in cols), params[s], bucket, dev)
+    seg2d = torch.arange(n_seg, dtype=torch.int32,
+                         device=dev)[:, None].expand(n_seg, bucket)
+    dict_refs = _dict_value_refs(plan)
+    flat: List[Tensor] = []
+    for ci, c in enumerate(cols):
+        pis = dict_refs.get(ci)
+        if pis:  # offset ids into the flattened dictionary
+            c = c.to(torch.int32) + seg2d * params[0][pis[0]].shape[0]
+        flat.append(c.reshape(total))
+    while len(flat) <= seg_col:
+        flat.append(torch.zeros(total, dtype=torch.int32, device=dev))
+    flat[seg_col] = seg2d.reshape(total)
+    dict_pis = {pi for pis in dict_refs.values() for pi in pis}
+    flat_params = tuple(
+        torch.cat([p[i] for p in params]) if i in dict_pis else params[0][i]
+        for i in range(len(params[0])))
+    return plan2, mask.reshape(total), tuple(flat), flat_params
+
+
+def build_segmented_compact_kernel(plan: KernelPlan, bucket: int,
+                                   slots_cap: Optional[int] = None,
+                                   xfer_compact: bool = True):
+    """Multi-segment compact group-by with ONE compaction: fn(cols,
+    n_docs, params) over stacked (S, bucket) columns, S doc counts and S
+    param tuples. Outputs are those of the compact group-by over the
+    S*space combined key (dense (S*space,) arrays, or live groups with
+    group_idx) plus per-segment "matched" (S,); the executor splits the
+    segments apart host-side and decodes each against its own
+    dictionaries."""
+    from .compact import default_slots_cap
+
+    def kernel(cols: Sequence[Tensor], n_docs: Sequence[int],
+               params: Sequence[Tuple[Tensor, ...]]) -> Dict[str, Tensor]:
+        plan2, mask, flat, flat_params = segmented_inputs(
+            plan, bucket, cols, n_docs, params)
+        total = mask.shape[0]
+        cap = slots_cap or default_slots_cap(total)
+        out: Dict[str, Tensor] = {}
+        sparse = (xfer_compact and _needs_sort(plan2)
+                  and plan2.group_space >= GROUP_XFER_SPACE)
+        _compact_group_aggs(plan2, mask, flat, flat_params, cap, out,
+                            xfer_sparse=sparse)
+        out["matched"] = mask.reshape(len(n_docs), bucket).sum(
+            1, dtype=INT_ACC)
+        if xfer_compact and not sparse:
+            _compact_group_xfer(plan2, out)
         return out
 
     return kernel

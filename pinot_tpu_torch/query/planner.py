@@ -3,9 +3,9 @@
 Port of ``pinot_tpu/query/planner.py``, kept line for line where the two
 agree. What differs: the execution platform is the segment's torch device
 type instead of ``jax.default_backend()``; index, vector and geo
-predicates, device sketches, plan verification, spans and the plan-cache
-drift loop are not ported (their queries plan the host path, which the
-port's executor reports as not yet ported).
+predicates, plan verification, spans and the plan-cache drift loop are not
+ported (index, vector and geo filters plan the host path, whose
+evaluator reports them as not yet ported).
 
 Reference parity: pinot-core/.../plan/maker/InstancePlanMakerImplV2.java:137
 (makeInstancePlan) / :234 (makeSegmentPlanNode) chooses Aggregation /
@@ -919,10 +919,65 @@ class SegmentPlanner:
 
     def _resolve_sketch_agg(self, i: int, agg: AggExpr
                             ) -> Tuple[AggSpec, AggBinding]:
-        """The device sketch lowerings (HLL, theta, percentile; K10 in
-        ROADMAP Queue 2) are not yet ported: such aggregations plan the
-        host path."""
-        raise PlanError(f"device {agg.kind} is not yet ported")
+        """Device lowerings for the flagship sketches: DISTINCTCOUNTHLL
+        (register presence bitmap), DISTINCTCOUNTTHETASKETCH (k smallest
+        distinct hashes), and the PERCENTILEKLL/EST/TDIGEST family (sorted
+        equal-count centroids). Partial states match ops/aggregations'
+        host AggImpl formats, so kernel and host partials merge
+        interchangeably at the broker. Grouped: HLL only."""
+        if self.ctx.is_group_by and agg.kind not in ("distinct_count_hll",
+                                                     "raw_hll"):
+            # grouped HLL has a device lowering (presence bitmap, OR-
+            # mergeable); theta/percentile group states keep the host
+            # registry
+            raise PlanError("grouped sketch aggregations use the host "
+                            "registry")
+        if not isinstance(agg.arg, Identifier):
+            raise PlanError("sketch device lowering needs a plain column")
+        m = self.seg.columns.get(agg.arg.name)
+        if m is None or not getattr(m, "single_value", True):
+            raise PlanError("sketch device lowering needs an SV column")
+        null_param = self._agg_null_param(agg)
+
+        if agg.kind in ("percentile_sketch", "percentile_raw_sketch"):
+            ve, _integral = self.resolve_value(agg.arg)
+            from ..ops.aggregations import TDIGEST_MAX_CENTROIDS
+            return (AggSpec(agg.kind, ve, False,
+                            card=TDIGEST_MAX_CENTROIDS,
+                            null_param=null_param),
+                    AggBinding(agg, i, False))
+
+        # HLL / theta hash sources: dict columns gather a precomputed
+        # per-id hash table (host _hash64 covers strings via md5); raw
+        # numeric columns hash on device (splitmix64, bit-identical).
+        idx = self.b.bind_col(agg.arg.name)
+        if m.has_dict:
+            hp = self.b.add_param(("hash64", agg.arg.name))
+            ve = Col(idx, hp)
+        else:
+            if not m.data_type.is_numeric:
+                raise PlanError("raw non-numeric sketch input needs the "
+                                "host path")
+            # a raw float hashes through its float64 bit view; the JAX
+            # package gates that on its backend (XLA:TPU cannot lower the
+            # view), while Tensor.view(torch.int64) works on every torch
+            # device, so the port's gate is always open (the JAX
+            # package's CPU behaviour)
+            ve = Col(idx)
+        from ..ops.aggregations import HLL_DEFAULT_LOG2M
+        from ..ops.sketches import THETA_DEFAULT_NOMINAL
+        if agg.kind in ("distinct_count_hll", "raw_hll"):
+            card = int(agg.params[0]) if agg.params else HLL_DEFAULT_LOG2M
+            if not 4 <= card <= 16:
+                raise PlanError(f"log2m {card} outside the device range")
+        else:
+            card = int(agg.params[0]) if agg.params \
+                else THETA_DEFAULT_NOMINAL
+            if not 1 <= card <= (1 << 16):
+                raise PlanError(f"theta k {card} outside the device range")
+        return (AggSpec(agg.kind, ve, False, card=card,
+                        null_param=null_param),
+                AggBinding(agg, i, False))
 
     def _agg_null_param(self, agg: AggExpr) -> Optional[int]:
         """Null-mask param for a null-aware aggregation's input (skip-null
@@ -1270,6 +1325,12 @@ class SegmentPlanner:
                 if s.kind == "distinct_count" and s.card is not None \
                         and space * s.card > MAX_DISTINCT_MATRIX:
                     dense_viable = False
+                if s.kind in ("distinct_count_hll", "raw_hll"):
+                    from ..ops.kernels import GROUPED_HLL_LIMIT
+                    r_levels = 64 - s.card + 1
+                    if space * (1 << s.card) * r_levels \
+                            > GROUPED_HLL_LIMIT:
+                        return CompiledPlan("host", seg, ctx)
                 if s.kind in ("min", "max") and slow_scatter and space > 64:
                     # no matmul form for min/max; TPU scatter is
                     # pathological (kernels.MINMAX_UNROLL_GROUPS)

@@ -6,10 +6,12 @@ directory that either package's builder wrote. The device side keeps
 torch tensors on the segment's own ``device``, padded to the same pow2
 ``bucket`` (``bucket_for``), uploaded once from pinned host memory and
 cached per column. The tier, heat and device-memory accounting hooks of
-the JAX package are not ported (ROADMAP Slice C).
+the JAX package are not ported (ROADMAP Slice C), nor are secondary
+indexes (``index_reader`` finds none).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
@@ -25,6 +27,8 @@ from .builder import METADATA_FILE
 from .dictionary import Dictionary
 
 MIN_BUCKET = 1 << 10
+
+_SEG_UID = itertools.count(1)
 
 
 def bucket_for(n_docs: int, min_bucket: int = MIN_BUCKET) -> int:
@@ -85,6 +89,10 @@ class ImmutableSegment:
         self.columns: Dict[str, ColumnMeta] = {
             name: ColumnMeta(name, d)
             for name, d in self.metadata["columns"].items()}
+        # process-unique load identity: caches that outlive the segment
+        # object (engine/batch's stacked columns) key on it, never on the
+        # name, which recurs across tables and reloads at the same bucket
+        self.uid: int = next(_SEG_UID)
         self._fwd: Dict[str, np.ndarray] = {}
         self._dicts: Dict[str, Dictionary] = {}
         self._nulls: Dict[str, Optional[np.ndarray]] = {}
@@ -93,7 +101,7 @@ class ImmutableSegment:
         self.valid_docs: Optional[np.ndarray] = None
         if segdir.exists(seg_dir, "valid.bin"):
             # upsert validDocIds: the planner folds them into a
-            # "validdocs" kernel param, which the port does not resolve yet
+            # "validdocs" kernel param (device_valid_mask)
             bits = np.asarray(segdir.read_array(seg_dir, "valid.bin",
                                                 np.uint8, mmap=False))
             self.valid_docs = np.unpackbits(bits)[: self.n_docs].astype(bool)
@@ -142,6 +150,31 @@ class ImmutableSegment:
                 self.dir, f"{col}.null.bin", np.uint8, mmap=False))
             self._nulls[col] = np.unpackbits(bits)[: self.n_docs].astype(bool)
         return self._nulls[col]
+
+    def index_reader(self, col: str, kind: str):
+        """Secondary-index reader; the index package is not ported, so
+        there is none."""
+        return None
+
+    def raw_values(self, col: str) -> np.ndarray:
+        """Decoded values (host-side; the host path and selection
+        results)."""
+        m = self.columns[col]
+        if m.encoding == "VECTOR":
+            raise NotImplementedError(
+                f"VECTOR column {col!r} needs the vector index, which is "
+                "not yet ported to pinot_tpu_torch")
+        stored = self.fwd(col)
+        if not m.single_value:
+            d = self.dictionary(col)
+            out = np.empty(self.n_docs, dtype=object)
+            for i, row in enumerate(np.asarray(stored)):
+                ids = row[row >= 0]
+                out[i] = list(d.values_for(ids))
+            return out
+        if m.has_dict:
+            return self.dictionary(col).values_for(np.asarray(stored))
+        return np.asarray(stored)
 
     # -- device residency --------------------------------------------------
     @property
@@ -193,6 +226,30 @@ class ImmutableSegment:
             lambda: np.asarray(self.dictionary(col).values,
                                dtype=m.data_type.np_dtype))
 
+    def device_dict_hashes(self, col: str) -> torch.Tensor:
+        """Device-resident per-dict-id 64-bit hashes (the host ``_hash64``,
+        md5 for strings) as int64 bit patterns: the sketch aggregations'
+        ``hash64`` param, bit-identical to the host path's hashes."""
+        from ..ops.aggregations import _hash64
+        return self._cached(
+            (f"__hash64__{col}", 0),
+            lambda: _hash64(np.asarray(self.dictionary(col).values)
+                            ).view(np.int64))
+
+    def device_valid_mask(self, bucket: Optional[int] = None
+                          ) -> torch.Tensor:
+        """Upsert validDocIds padded to the bucket (all live docs valid
+        when the segment has none)."""
+        bucket = bucket or self.bucket
+
+        def make() -> np.ndarray:
+            padded = np.zeros(bucket, dtype=bool)
+            padded[: self.n_docs] = (True if self.valid_docs is None
+                                     else self.valid_docs)
+            return padded
+
+        return self._cached(("__valid__", bucket), make)
+
     def device_null_mask(self, col: str, bucket: Optional[int] = None
                          ) -> torch.Tensor:
         bucket = bucket or self.bucket
@@ -211,9 +268,13 @@ class ImmutableSegment:
         return {k[0]: str(t.device) for k, t in self._device.items()}
 
     def evict_device(self) -> None:
-        """Drop every cached device tensor."""
+        """Drop every cached device tensor, and every stacked copy that
+        holds this segment's columns (engine/batch), so eviction frees the
+        device memory."""
         with self._lock:
             self._device.clear()
+        from ..engine.batch import evict_stacks_containing
+        evict_stacks_containing(self.name)
 
     def __repr__(self) -> str:
         return (f"ImmutableSegment({self.name!r}, docs={self.n_docs}, "

@@ -1,12 +1,13 @@
 """Table data manager: the segments of one table on one device.
 
 Port of the segment registry of ``pinot_tpu/server/data_manager.py``
-(add / acquire). Every segment of a table lives on the table's
+(add / acquire, a table directory, counts). Every segment of a table lives on the table's
 ``device``; removal, reload, replace and the mesh-resident table are not
 ported.
 """
 from __future__ import annotations
 
+import os
 import threading
 from typing import Dict, List, Union
 
@@ -37,5 +38,23 @@ class TableDataManager:
         self.add_segment(seg)
         return seg
 
+    def add_table_dir(self, table_dir: str) -> List[ImmutableSegment]:
+        """Load every segment directory under a table directory."""
+        out = []
+        for name in sorted(os.listdir(table_dir)):
+            d = os.path.join(table_dir, name)
+            if os.path.isdir(d) and os.path.exists(
+                    os.path.join(d, "metadata.json")):
+                out.append(self.add_segment_dir(d))
+        return out
+
     def acquire_segments(self) -> List[ImmutableSegment]:
         return list(self._segments.values())
+
+    @property
+    def num_segments(self) -> int:
+        return len(self._segments)
+
+    @property
+    def total_docs(self) -> int:
+        return sum(s.n_docs for s in self._segments.values())

@@ -100,6 +100,27 @@ def build_segment_dir(n: int, out_dir: str) -> str:
         cols, out_dir, "seg_0")
 
 
+def build_table_dir(sizes, out_dir: str) -> str:
+    """Build a many-segment lineorder table: the seeded columns of
+    ``sum(sizes)`` rows (the rows of ``build_segment_dir`` at that size,
+    in order) split into one segment directory per entry of ``sizes``
+    (``seg_0``, ``seg_1``, ... under ``out_dir``, as bench.py splits its
+    tier-bench table); each segment builds its own dictionaries. Returns
+    ``out_dir`` (``TableDataManager.add_table_dir`` loads it)."""
+    cols = gen_columns(int(sum(sizes)))
+    builder = SegmentBuilder(Schema("lineorder", _ssb_fields(cols)),
+                             TableConfig("lineorder"))
+    width = len(str(len(sizes) - 1))
+    lo = 0
+    for k, n in enumerate(sizes):
+        part = {c: (Categorical(v.codes[lo:lo + n], v.values)
+                    if isinstance(v, Categorical) else v[lo:lo + n])
+                for c, v in cols.items()}
+        builder.build(part, out_dir, f"seg_{k:0{width}d}")
+        lo += n
+    return out_dir
+
+
 # ---------------------------------------------------------------------------
 # Query specs: (qid, preds, value_expr, group_cols)
 # preds: (col, op, value) with op in {eq, in, between, lt}
@@ -154,6 +175,42 @@ QUERIES = [
               ("p_category", "eq", "MFGR#14")],
      ("lo_revenue", "-", "lo_supplycost"),
      ["d_year", "s_city", "p_brand1"]),
+]
+
+
+# One query or more per single-stage plan kind beyond the SSB set, over the
+# same table: (name, sql, the plan kind the planner should choose). The
+# kselect queries cut through runs of equal order keys (ties), the sketches
+# cover a dictionary column (hash64 param) and a raw one (device
+# splitmix64), and "host" has a group key with no device lowering. Each
+# filter keeps the host path's share (string hashing, sorts) to a few
+# million rows at 2^26, since the host path is their reference.
+SURFACE = [
+    ("count_star", "SELECT COUNT(*) FROM lineorder", "fast"),
+    ("min_max", "SELECT MIN(lo_revenue), MAX(lo_supplycost) "
+                "FROM lineorder", "fast"),
+    ("top_revenue", "SELECT lo_revenue, d_year, s_city FROM lineorder "
+                    "WHERE d_year = 1993 AND lo_discount BETWEEN 1 AND 3 "
+                    "ORDER BY lo_revenue DESC LIMIT 10", "kselect"),
+    ("doc_order", "SELECT lo_revenue, c_city FROM lineorder "
+                  "WHERE s_nation = 'CHINA' LIMIT 10", "kselect"),
+    ("tie_cut", "SELECT d_year, p_mfgr, lo_revenue FROM lineorder "
+                "WHERE c_nation = 'CHINA' ORDER BY d_year, p_mfgr DESC "
+                "LIMIT 10", "kselect"),
+    ("hll_dict", "SELECT DISTINCTCOUNTHLL(p_brand1) FROM lineorder "
+                 "WHERE d_year = 1995 AND s_region = 'ASIA'", "kernel"),
+    ("hll_raw", "SELECT DISTINCTCOUNTHLL(lo_revenue) FROM lineorder "
+                "WHERE s_region = 'EUROPE'", "kernel"),
+    ("theta", "SELECT DISTINCTCOUNTTHETASKETCH(lo_revenue) FROM lineorder "
+              "WHERE d_year = 1994", "kernel"),
+    ("percentile", "SELECT PERCENTILEKLL(lo_revenue, 90) FROM lineorder "
+                   "WHERE c_region = 'ASIA'", "kernel"),
+    ("hll_grouped", "SELECT d_year, DISTINCTCOUNTHLL(s_city) FROM lineorder "
+                    "WHERE c_nation = 'CHINA' GROUP BY d_year "
+                    "ORDER BY d_year LIMIT 10", "kernel"),
+    ("host", "SELECT UPPER(s_region), SUM(lo_revenue) FROM lineorder "
+             "WHERE d_yearmonthnum = 199401 GROUP BY UPPER(s_region) "
+             "ORDER BY UPPER(s_region) LIMIT 10", "host"),
 ]
 
 

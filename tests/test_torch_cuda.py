@@ -10,7 +10,10 @@ and around its tile edges, with masks and columns that start off a
 exactly ``cap`` matched rows, with a bool mask that views bytes other
 than 0 and 1, on a side stream, and over 20 launches in a row. The
 port's broker on ``"cuda"`` must answer the SSB queries as the numpy
-oracle does, through the kernel.
+oracle does, through the kernel; over a four-segment table it must give
+the CPU's rows for the SSB and surface queries, through the segmented
+compaction; and the selection kernel must cut a run of equal order keys
+where the CPU does.
 """
 import pytest
 import torch
@@ -173,3 +176,66 @@ def test_ssb_on_cuda_matches_oracle(cuda, tmp_path):
     assert C.launches > before
     assert all(d.startswith("cuda") for d in
                seg.resident_devices().values())
+
+
+def _close(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_close(x, y) for x, y in zip(a, b))
+    if isinstance(a, float) or isinstance(b, float):
+        return abs(a - b) <= 1e-9 * max(abs(a), abs(b), 1e-300)
+    return type(a) is type(b) and a == b
+
+
+def test_many_segments_on_cuda_match_cpu(cuda, tmp_path):
+    """A four-segment table (three share a bucket) on the card and on the
+    CPU: every SSB and surface query gives the same rows, the compact
+    group-bys through the segmented compaction on the card."""
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.engine import batch, serving
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.sql import parse_sql
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import ssb
+
+    d = ssb.build_table_dir([50_000, 40_000, 60_000, 30_000], str(tmp_path))
+    queries = {}
+    for dev in (cuda, "cpu"):
+        dm = TableDataManager("lineorder", device=dev)
+        dm.add_table_dir(d)
+        b = Broker(device=dev)
+        b.register_table(dm)
+        queries[str(dev)] = (dm, connect(b))
+    dm, on_card = queries["cuda"]
+    _dm_cpu, on_cpu = queries["cpu"]
+    sqls = [ssb.spec_to_sql(p, v, g) for _q, p, v, g in ssb.QUERIES] \
+        + [sql for _n, sql, _k in ssb.SURFACE]
+    routes = set()
+    before = C.launches
+    for sql in sqls:
+        assert _close(on_card(sql).rows, on_cpu(sql).rows), sql
+        ex = serving.execute_segments(build_query_context(parse_sql(sql)),
+                                      dm.acquire_segments())
+        routes |= set(ex.routes)
+    assert batch.SEGMENTED in routes and batch.BATCHED in routes
+    assert C.launches > before
+
+
+def test_select_kernel_tie_order_on_cuda(cuda):
+    """A LIMIT that cuts a run of equal order keys selects the same rows
+    on the card as on the CPU: the lowest rows of the run."""
+    from pinot_tpu_torch.ops import ir
+    from pinot_tpu_torch.ops.kernels import build_select_kernel
+
+    bucket, n_docs = 1 << 20, (1 << 20) - 77
+    g = torch.Generator().manual_seed(5)
+    cols = (torch.randint(0, 3, (bucket,), dtype=torch.int32, generator=g),
+            torch.arange(bucket, dtype=torch.int32))
+    for order in (((0, False, 3),), ((0, True, 3),), ()):
+        sp = ir.SelectPlan(pred=ir.TrueP(), select_cols=(1, 0),
+                           order=order, k=1000)
+        fn = build_select_kernel(sp, bucket)
+        want = fn(cols, n_docs, ())
+        got = fn(tuple(c.to(cuda) for c in cols), n_docs, ())
+        for key in want:
+            assert torch.equal(got[key].cpu(), want[key]), (order, key)

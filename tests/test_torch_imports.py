@@ -105,10 +105,12 @@ def test_unported_plan_kinds_raise(tmp_path):
     assert q("SELECT k, SUM(v) FROM t WHERE v > 1 GROUP BY k "
              "ORDER BY k").rows == [("a", 3), ("b", 2)]
     assert q("SELECT COUNT(*) FROM t WHERE k = 'zzz'").rows == [(0,)]
-    for sql in ("SELECT k, v FROM t LIMIT 2",               # kselect/host
-                "SELECT COUNT(*) FROM t",                    # fast
-                "SELECT UPPER(k), SUM(v) FROM t GROUP BY UPPER(k)",  # host
-                "SELECT k FROM t UNION SELECT k FROM t",
+    # every single-stage plan kind runs now (kselect, fast, host)
+    assert q("SELECT k, v FROM t LIMIT 2").rows == [("a", 1), ("b", 2)]
+    assert q("SELECT COUNT(*) FROM t").rows == [(3,)]
+    assert q("SELECT UPPER(k), SUM(v) FROM t GROUP BY UPPER(k) "
+             "ORDER BY UPPER(k)").rows == [("A", 4), ("B", 2)]
+    for sql in ("SELECT k FROM t UNION SELECT k FROM t",
                 "SELECT a.k FROM t a JOIN t b ON a.k = b.k"):
         with pytest.raises(NotImplementedError):
             q(sql)
