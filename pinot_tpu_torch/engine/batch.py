@@ -20,8 +20,15 @@ Per-segment partials are sliced out host-side, so per-segment
 dictionaries stay correct. Every other plan (a lone segment, a compact
 plan the segmented kernel cannot take, a combined group space over
 ``COMPACT_GROUP_LIMIT``, and the fast, host, kselect and pruned kinds)
-runs per segment through ``executor.execute_plan``. The over-budget
-pipeline (K13) and cross-query micro-batching (K14) are not ported.
+runs per segment through ``executor.execute_plan``. A dense group whose
+stacked columns would exceed the device budget
+(``pipeline.group_stack_bytes > pipeline.hbm_budget_bytes``) streams
+through the double-buffered pipeline instead (K13, engine/pipeline.py).
+
+Memory: the stack cache is a device-memory pool (``utils/devmem``), and a
+stack insert enforces the shared tier budget (engine/tier.py) with the
+group's segments protected. Every group dispatch pins its segments in the
+tier for its whole run. Cross-query micro-batching (K14) is not ported.
 """
 from __future__ import annotations
 
@@ -36,13 +43,18 @@ from ..ops.kernels import (COMPACT_GROUP_LIMIT, build_kernel,
                            build_segmented_compact_kernel,
                            segmented_compact_ok)
 from ..query.planner import CompiledPlan
+from ..utils.devmem import global_device_memory
 from .executor import (execute_plan, extract_partial, resolve_params,
                        run_kernel, to_host)
+from .pipeline import (execute_kernel_plans_pipelined, group_stack_bytes,
+                       hbm_budget_bytes)
+from .tier import global_tier
 
 # routes a plan's execution can take (TableExecution.routes)
 SEGMENTED = "segmented compact"
 BATCHED = "batched dense"
 PER_SEGMENT = "per-segment"
+PIPELINED = "pipelined"
 
 # stacked-column cache: ((segment uid, name) pairs, cols, bucket) -> tuple
 # of (S, bucket) device tensors; a bounded LRU. Keyed by the segments'
@@ -84,27 +96,46 @@ def _stacked_cols(plans: List[CompiledPlan], bucket: int
         if _EVICT_EPOCH != epoch:
             return cols          # serve this query, never cache
         _STACK_CACHE[key] = cols
+        global_device_memory.add("stack_cache", key,
+                                 sum(int(c.nbytes) for c in cols))
         while len(_STACK_CACHE) > _STACK_CACHE_MAX:
-            _STACK_CACHE.popitem(last=False)
+            old_key, _old = _STACK_CACHE.popitem(last=False)
+            global_device_memory.remove("stack_cache", old_key)
+    # shared-budget admission OUTSIDE _STACK_LOCK (a demotion re-enters
+    # evict_stacks_containing): demote the coldest segments outside this
+    # group's working set
+    global_tier.enforce(protect={u for u, _n in key[0]})
     return cols
 
 
 def evict_stacks_containing(segment_name: str) -> None:
     """Drop stacked copies that include a segment (called from
-    ImmutableSegment.evict_device so eviction frees device memory)."""
+    ImmutableSegment.demote_device so a demotion frees device memory)."""
     global _EVICT_EPOCH
     with _STACK_LOCK:
         _EVICT_EPOCH += 1
         for key in [k for k in _STACK_CACHE
                     if any(n == segment_name for _, n in k[0])]:
             del _STACK_CACHE[key]
+            global_device_memory.remove("stack_cache", key)
+
+
+def clear_stack_cache() -> None:
+    """Drop every stacked entry AND its device-memory accounting in one
+    locked step (not an eviction: no counters)."""
+    global _EVICT_EPOCH
+    with _STACK_LOCK:
+        _EVICT_EPOCH += 1
+        _STACK_CACHE.clear()
+        global_device_memory.drop_pool("stack_cache")
 
 
 def execute_plans_batched(plans: List[CompiledPlan]
                           ) -> Tuple[List[Any], List[str]]:
     """Execute all plans, same-structure kernel plans together. Returns
     the partials in input order and each plan's route: SEGMENTED,
-    BATCHED, PER_SEGMENT, or the plan kind for non-kernel plans."""
+    BATCHED, PIPELINED, PER_SEGMENT, or the plan kind for non-kernel
+    plans."""
     results: List[Any] = [None] * len(plans)
     routes: List[str] = [""] * len(plans)
     groups: Dict[Tuple, List[int]] = {}
@@ -144,19 +175,39 @@ def execute_plans_batched(plans: List[CompiledPlan]
                 results[i] = execute_plan(plans[i])
                 routes[i] = PER_SEGMENT
             continue
-        if kind == "segc":
-            # one compaction call takes at most MAX_ROWS rows: split the
-            # group into chunks of whole segments that fit
-            per_call = max(compact.MAX_ROWS // bucket, 1)
-            for lo in range(0, len(idxs), per_call):
-                _run_segmented_compact(plans, idxs[lo:lo + per_call],
-                                       plan_struct, bucket, resolved,
-                                       results)
-            route = SEGMENTED
-        else:
-            _run_batched(plans, idxs, plan_struct, bucket, resolved,
-                         results)
-            route = BATCHED
+        group = [plans[i] for i in idxs]
+        if kind == "dense":
+            if group_stack_bytes(group, bucket) > hbm_budget_bytes(
+                    group[0].segment.device):
+                # the working set exceeds the device budget: stream the
+                # segments through the double buffer instead of making
+                # them all resident
+                partials = execute_kernel_plans_pipelined(
+                    plans, plan_struct, bucket, resolved, idxs)
+                for k, i in enumerate(idxs):
+                    results[i] = partials[k]
+                    routes[i] = PIPELINED
+                continue
+        # the tier's access hook BEFORE the stack build (a stack hit never
+        # reaches device_col), then the group's working set pinned for the
+        # whole dispatch: a budget demotion triggered from this thread
+        # picks its victims outside the group
+        for p in group:
+            global_tier.on_access(p.segment)
+        with global_tier.pinned({p.segment.uid for p in group}):
+            if kind == "segc":
+                # one compaction call takes at most MAX_ROWS rows: split
+                # the group into chunks of whole segments that fit
+                per_call = max(compact.MAX_ROWS // bucket, 1)
+                for lo in range(0, len(idxs), per_call):
+                    _run_segmented_compact(plans, idxs[lo:lo + per_call],
+                                           plan_struct, bucket, resolved,
+                                           results)
+                route = SEGMENTED
+            else:
+                _run_batched(plans, idxs, plan_struct, bucket, resolved,
+                             results)
+                route = BATCHED
         for i in idxs:
             routes[i] = route
     return results, routes

@@ -19,11 +19,14 @@ import torch
 from ..ops import aggregations
 from ..ops.compact import full_slots_cap
 from ..ops.kernels import build_kernel, build_select_kernel
+from ..ops.plan_cache import global_plan_cache
 from ..query.context import QueryContext
 from ..query.planner import AggBinding, CompiledPlan, _truthy
 from ..query.sql import Star
 from ..segment.immutable import ImmutableSegment
+from ..utils.metrics import global_metrics
 from . import host_eval
+from .tier import global_tier
 
 
 @dataclass
@@ -176,23 +179,42 @@ def _run(plan: CompiledPlan, cols, params, slots_cap, xfer_compact: bool
 
 def run_kernel(plan: CompiledPlan,
                xfer_compact: bool = True) -> Dict[str, np.ndarray]:
-    """Run a kernel plan at the planner's compaction capacity. On
-    ``overflow`` (the selectivity estimate undershot) it runs once more at
-    ``full_slots_cap``, which cannot overflow; on ``group_overflow`` (more
-    live groups than the transfer cap) it runs again with dense (space,)
-    outputs (``xfer_compact=False``)."""
-    seg = plan.segment
-    cols = seg.device_cols(plan.col_names)
-    params = resolve_params(plan)
-    cap = plan.slots_cap
-    host = _run(plan, cols, params, cap, xfer_compact)
-    if int(host.pop("overflow", 0)):
-        cap = full_slots_cap(seg.bucket)
+    """Run a kernel plan at the planner's compaction capacity, with the
+    segment pinned in the device tier for the whole run (an admission of
+    its own columns must not demote it).
+
+    On ``overflow`` (the selectivity estimate undershot) it runs once more
+    at ``full_slots_cap``, which cannot overflow, and remembers it
+    (ops/plan_cache): the next run of the same plan at the same capacity
+    goes straight to full capacity. After the run the matched fraction,
+    read from the outputs already on the host, is recorded as the plan's
+    measured selectivity, which the planner's drift re-quantization reads.
+    On ``group_overflow`` (more live groups than the transfer cap) it runs
+    again with dense (space,) outputs (``xfer_compact=False``)."""
+    seg, kp = plan.segment, plan.kernel_plan
+    with global_tier.pinned({seg.uid}):
+        cols = seg.device_cols(plan.col_names)
+        params = resolve_params(plan)
+        cap = plan.slots_cap
+        if global_plan_cache.overflowed(kp, seg.bucket, cap):
+            # this capacity overflowed before for this plan: skip the
+            # doomed tight run and its retry
+            cap = full_slots_cap(seg.bucket)
         host = _run(plan, cols, params, cap, xfer_compact)
-        host.pop("overflow", None)
-    if int(host.pop("group_overflow", 0)):
-        host = _run(plan, cols, params, cap, False)
-        host.pop("overflow", None)
+        if "matched" in host:
+            global_plan_cache.record_measured(
+                kp, seg.bucket, int(np.asarray(host["matched"]).sum()),
+                seg.n_docs, segment=seg, params=plan.params)
+        if int(host.pop("overflow", 0)):
+            global_plan_cache.mark_overflowed(kp, seg.bucket, cap)
+            global_metrics.count("compact_overflow_retries")
+            cap = full_slots_cap(seg.bucket)
+            host = _run(plan, cols, params, cap, xfer_compact)
+            host.pop("overflow", None)
+        if int(host.pop("group_overflow", 0)):
+            global_metrics.count("group_xfer_overflow_retries")
+            host = _run(plan, cols, params, cap, False)
+            host.pop("overflow", None)
     return host
 
 

@@ -1,9 +1,11 @@
 """Per-table execution: plan every segment, then run the batched dispatch.
 
 Port of ``pinot_tpu/engine/serving.py``. The broker serves a query over a
-table's segments through this one loop. Star-tree rollups, segment heat,
-tracing and the plan-cache generation of the JAX package are not ported;
-without them every segment is planned and executed, which changes no row.
+table's segments through this one loop. Each executed segment (a kernel
+or host plan) is touched in the heat table (``utils/heat``), whose scores
+rank the device tier's demotions. Star-tree rollups, tracing and the
+plan cache's retrace detector of the JAX package are not ported; without
+them every segment is planned and executed, which changes no row.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Any, List
 
 from ..query.context import QueryContext
 from ..query.planner import CompiledPlan, SegmentPlanner
+from ..utils.heat import global_segment_heat
 from .batch import execute_plans_batched
 
 
@@ -34,8 +37,13 @@ class TableExecution:
 
 def plan_segments(ctx: QueryContext, segments: List[Any]
                   ) -> TableExecution:
-    return TableExecution([SegmentPlanner(ctx, seg).plan()
-                           for seg in segments])
+    ex = TableExecution([SegmentPlanner(ctx, seg).plan()
+                         for seg in segments])
+    # one heat touch per executed segment: the device tier's ranking
+    for p in ex.plans:
+        if p.kind in ("kernel", "host"):
+            global_segment_heat.touch(p.segment, ctx.table, p.segment.n_docs)
+    return ex
 
 
 def execute_planned(ex: TableExecution) -> List[Any]:

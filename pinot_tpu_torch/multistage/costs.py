@@ -1,15 +1,18 @@
 """Group-by strategy cost model, main-path subset.
 
 Port of ``ir_selectivity``, ``compact_slots_cap``,
-``scaled_compact_cap`` and ``choose_group_strategy`` from ``pinot_tpu/multistage/costs.py``. The
-port's compaction (``ops/compact.py``) is exact on every device, so the
-capacity always takes the reference's exact branch (``CAP_SAFETY_XLA``),
-and the strategy choice always takes its non-scatter branch. The join
+``scaled_compact_cap``, ``choose_group_strategy`` and the selectivity
+drift test (``selectivity_drift``) from
+``pinot_tpu/multistage/costs.py``. The port's compaction
+(``ops/compact.py``) is exact on every device, so the capacity always
+takes the reference's exact branch (``CAP_SAFETY_XLA``), and the
+strategy choice always takes its non-scatter branch. The join
 estimates and join ordering of the reference module belong to the
 multi-stage engine, which is not ported yet.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -110,6 +113,43 @@ def ir_selectivity(pred: Any, params: Sequence[Any],
         return DEFAULT_SEL
 
     return min(max(sel(pred), MIN_SEL), 1.0)
+
+
+# est-vs-measured selectivity drift factor past which a plan's compact
+# capacity is re-derived from the MEASURED fraction (query/planner.py reads
+# ops/plan_cache.measured_for). 4x matches CAP_SAFETY_XLA: a smaller drift
+# is already absorbed by the capacity's safety margin and pow2
+# quantization. PINOT_DRIFT_RATIO overrides.
+SELECTIVITY_DRIFT_RATIO = 4.0
+_DRIFT_RATIO_DEFAULT: Optional[float] = None
+
+
+def _drift_ratio_default() -> float:
+    """PINOT_DRIFT_RATIO parsed ONCE (selectivity_drift sits on the
+    planner's path); a malformed value falls back to the default."""
+    global _DRIFT_RATIO_DEFAULT
+    if _DRIFT_RATIO_DEFAULT is None:
+        raw = os.environ.get("PINOT_DRIFT_RATIO")
+        try:
+            _DRIFT_RATIO_DEFAULT = float(raw) if raw is not None \
+                else SELECTIVITY_DRIFT_RATIO
+        except ValueError:
+            _DRIFT_RATIO_DEFAULT = SELECTIVITY_DRIFT_RATIO
+    return _DRIFT_RATIO_DEFAULT
+
+
+def selectivity_drift(est: Optional[float], meas: Optional[float],
+                      ratio: Optional[float] = None) -> bool:
+    """True when the estimated and measured selectivity disagree by more
+    than the drift factor (either direction). Both sides floor at MIN_SEL
+    so a zero-matched run keeps the ratio finite."""
+    if est is None or meas is None:
+        return False
+    if ratio is None:
+        ratio = _drift_ratio_default()
+    e = max(est, MIN_SEL)
+    m = max(meas, MIN_SEL)
+    return e / m > ratio or m / e > ratio
 
 
 def _pow2_at_least(x: float) -> int:

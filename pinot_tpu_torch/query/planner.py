@@ -97,6 +97,9 @@ class CompiledPlan:
     est_selectivity: Optional[float] = None
     slots_cap: Optional[int] = None
     strategy_trace: Optional[dict] = None
+    # the capacity was re-derived from a measured selectivity that drifted
+    # past multistage/costs.SELECTIVITY_DRIFT_RATIO from the estimate
+    drift_requantized: bool = False
 
 
 @dataclass
@@ -1365,13 +1368,39 @@ class SegmentPlanner:
                           key_exprs=(tuple(key_exprs)
                                      if any(e is not None
                                             for e in key_exprs) else ()))
+        drift_requant = False
         if strategy == "compact":
             # size from the LIVE row count (n_docs), not the padded
             # bucket — the pad rows are mask-false and consume no
-            # compaction slots. The JAX package's plan-cache drift
-            # re-quantization is not ported (ROADMAP Slice C).
+            # compaction slots
             from ..multistage import costs as _costs
             slots_cap = _costs.compact_slots_cap(seg.n_docs, est_sel)
+            # selectivity-drift feedback: when the last run of this plan
+            # on this segment with these literals MEASURED a matched
+            # fraction past the drift factor from the IR estimate, the
+            # capacity is re-derived from the measurement
+            from ..ops.plan_cache import global_plan_cache
+            meas = global_plan_cache.measured_for(
+                plan, seg.bucket, segment=seg, params=self.b.params)
+            if meas is not None and _costs.selectivity_drift(est_sel,
+                                                             meas):
+                from ..utils.metrics import global_metrics
+                global_metrics.count("selectivity_drift_detected")
+                meas_f = max(meas, _costs.MIN_SEL)
+                new_cap = _costs.compact_slots_cap(seg.n_docs, meas_f)
+                if strat_trace is not None:
+                    strat_trace["drift"] = {
+                        "est_sel": round(est_sel, 8),
+                        "meas_sel": round(meas_f, 8),
+                        "slots_cap": slots_cap, "new_cap": new_cap}
+                if new_cap != slots_cap:
+                    global_metrics.count("selectivity_drift_requantized")
+                    slots_cap = new_cap
+                    drift_requant = True
+                # the measurement replaces the estimate either way, so
+                # every derived capacity (the segmented dispatch's
+                # scaled_compact_cap) agrees with the cap in force
+                est_sel = meas_f
         return CompiledPlan("kernel", seg, ctx,
                             col_names=list(self.b.cols),
                             kernel_plan=plan,
@@ -1381,7 +1410,8 @@ class SegmentPlanner:
                             group_decoders=group_decoders,
                             est_selectivity=est_sel,
                             slots_cap=slots_cap,
-                            strategy_trace=strat_trace)
+                            strategy_trace=strat_trace,
+                            drift_requantized=drift_requant)
 
     def _try_fast_path(self) -> Optional[CompiledPlan]:
         """Metadata/dictionary-only answers (AggregationPlanNode.java:98-112

@@ -4,10 +4,14 @@ Port of ``pinot_tpu/segment/immutable.py``. The host side is the same:
 forward indexes and dictionaries memmap zero-copy from the segment
 directory that either package's builder wrote. The device side keeps
 torch tensors on the segment's own ``device``, padded to the same pow2
-``bucket`` (``bucket_for``), uploaded once from pinned host memory and
-cached per column. The tier, heat and device-memory accounting hooks of
-the JAX package are not ported (ROADMAP Slice C), nor are secondary
-indexes (``index_reader`` finds none).
+``bucket`` (``bucket_for``), uploaded from pinned host memory and cached
+per column. Every cache insert goes through ``_cache_device``, the one
+admission edge of the device tier (``engine/tier.py``): it charges the
+device-memory registry (``utils/devmem``), keeps the padded host array
+warm while a budget is armed, and lets the tier demote colder segments.
+A demoted segment's next read re-promotes it, from the warm copy when
+there is one. Secondary indexes are not ported (``index_reader`` finds
+none).
 """
 from __future__ import annotations
 
@@ -21,7 +25,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..engine.tier import global_tier
 from ..spi.schema import DataType, Schema
+from ..utils.devmem import global_device_memory
+from ..utils.heat import global_segment_heat
 from . import segdir
 from .builder import METADATA_FILE
 from .dictionary import Dictionary
@@ -29,6 +36,8 @@ from .dictionary import Dictionary
 MIN_BUCKET = 1 << 10
 
 _SEG_UID = itertools.count(1)
+# dictionary ids widen to this on the device
+_ID_DTYPE = np.dtype(np.int32)
 
 
 def bucket_for(n_docs: int, min_bucket: int = MIN_BUCKET) -> int:
@@ -97,7 +106,16 @@ class ImmutableSegment:
         self._dicts: Dict[str, Dictionary] = {}
         self._nulls: Dict[str, Optional[np.ndarray]] = {}
         self._device: Dict[Tuple[str, int], torch.Tensor] = {}
-        self._lock = threading.Lock()
+        # warm tier (engine/tier.py): padded host arrays kept after a
+        # demotion so re-promotion is one upload, no re-pad; only filled
+        # while a tier budget is armed
+        self._warm: Dict[Tuple[str, int], np.ndarray] = {}
+        # residency lock: a cache insert (+ its devmem add) and a
+        # demotion's drain (+ its devmem removes) are atomic with respect
+        # to each other, or a concurrent demotion could drop a tensor whose
+        # bytes were just registered. Reads (a dict get) take no lock: a
+        # racy miss only uploads again.
+        self._res_lock = threading.Lock()
         self.valid_docs: Optional[np.ndarray] = None
         if segdir.exists(seg_dir, "valid.bin"):
             # upsert validDocIds: the planner folds them into a
@@ -181,37 +199,86 @@ class ImmutableSegment:
     def bucket(self) -> int:
         return bucket_for(self.n_docs)
 
+    def _cache_device(self, key: Tuple[str, int], t: torch.Tensor,
+                      host: np.ndarray) -> torch.Tensor:
+        """Every _device insert goes through here, so the device-memory
+        registry reconciles with the cache and the tier sees every
+        admission: the insert promotes this segment hot and enforces the
+        shared budget. ``host`` is the uploaded host array; while a budget
+        is armed it is stashed warm for a cheap re-promotion."""
+        with self._res_lock:
+            self._device[key] = t
+            global_device_memory.add("segment_cols", (self.uid, key),
+                                     int(t.nbytes))
+            if global_tier.armed:
+                old = self._warm.get(key)
+                self._warm[key] = host
+                global_tier.note_warm(
+                    self.uid, int(host.nbytes)
+                    - (int(old.nbytes) if old is not None else 0))
+        # tier admission OUTSIDE _res_lock: enforcement may demote OTHER
+        # segments (their _res_lock), never nested under ours
+        global_tier.admitted(self)
+        return t
+
     def _cached(self, key: Tuple[str, int], make) -> torch.Tensor:
+        """The cached device tensor under ``key``; on a miss, uploads the
+        warm copy when one is stashed, else ``make()``. Returns the local
+        reference: a racy demotion may drop the key right after."""
         hit = self._device.get(key)
         if hit is None:
-            hit = _upload(make(), self.device)
-            with self._lock:
-                hit = self._device.setdefault(key, hit)
+            host = self._warm.get(key)
+            if host is None:
+                host = make()
+            hit = self._cache_device(key, _upload(host, self.device), host)
         return hit
+
+    def padded_dtype(self, col: str) -> np.dtype:
+        """dtype of the padded representation: dict ids widen to int32,
+        raw columns keep their stored dtype."""
+        m = self.columns[col]
+        return _ID_DTYPE if m.has_dict else m.fwd_dtype
+
+    def padded_shape(self, col: str, bucket: Optional[int] = None
+                     ) -> Tuple[int, ...]:
+        m = self.columns[col]
+        return ((bucket or self.bucket,) if m.single_value
+                else (bucket or self.bucket, m.max_values))
+
+    def fill_col_padded(self, col: str, out: np.ndarray) -> np.ndarray:
+        """Write the bucket-padded representation of ``col`` into ``out``
+        (``padded_shape`` x ``padded_dtype``) in one pass: the stored
+        values, widened on the way, then the pad. SV padding is 0 (inert
+        under the kernel's validity mask), MV rows pad with -1. The
+        pipeline (engine/pipeline.py) fills its pinned staging buffers
+        with it."""
+        n = self.n_docs
+        out[:n] = self.fwd(col)
+        out[n:] = 0 if self.columns[col].single_value else -1
+        return out
 
     def host_col_padded(self, col: str, bucket: Optional[int] = None
                         ) -> np.ndarray:
-        """The bucket-padded host representation device_col uploads. Dict
-        ids widen to int32; raw columns keep their dtype. SV padding is 0
-        (inert under the kernel's validity mask), MV rows pad with -1."""
-        bucket = bucket or self.bucket
-        m = self.columns[col]
-        host = np.asarray(self.fwd(col))
-        if m.has_dict:
-            host = host.astype(np.int32, copy=False)
-        if bucket > self.n_docs:
-            pad = np.full((bucket - self.n_docs,) + host.shape[1:],
-                          -1 if not m.single_value else 0,
-                          dtype=host.dtype)
-            host = np.concatenate([host, pad])
-        return host
+        """The bucket-padded host array device_col uploads (a fresh array
+        from ``fill_col_padded``)."""
+        return self.fill_col_padded(
+            col, np.empty(self.padded_shape(col, bucket),
+                          dtype=self.padded_dtype(col)))
 
     def device_col(self, col: str, bucket: Optional[int] = None
                    ) -> torch.Tensor:
-        """Padded device tensor of a column's stored representation."""
+        """Padded device tensor of a column's stored representation. Also
+        the tier's re-promotion path: a demoted segment's read misses the
+        cache and uploads again, from the warm host array when one is
+        stashed, with the same bytes whatever the earlier placement."""
         bucket = bucket or self.bucket
-        return self._cached((col, bucket),
-                            lambda: self.host_col_padded(col, bucket))
+        key = (col, bucket)
+        # the observed device-cache hit ratio feeds the heat table
+        global_segment_heat.device_access(self, key in self._device)
+        # may demote THIS segment mid-query (a tensor already fetched
+        # stays alive; later columns re-promote)
+        global_tier.on_access(self)
+        return self._cached(key, lambda: self.host_col_padded(col, bucket))
 
     def device_cols(self, cols: List[str], bucket: Optional[int] = None
                     ) -> Tuple[torch.Tensor, ...]:
@@ -267,14 +334,44 @@ class ImmutableSegment:
         """Column -> device of every cached device tensor."""
         return {k[0]: str(t.device) for k, t in self._device.items()}
 
-    def evict_device(self) -> None:
-        """Drop every cached device tensor, and every stacked copy that
-        holds this segment's columns (engine/batch), so eviction frees the
-        device memory."""
-        with self._lock:
+    def demote_device(self, drop_warm: bool = False) -> None:
+        """Tier demotion (engine/tier.py): drop the device residents and
+        every stacked copy containing this segment (a demotion that left a
+        stacked copy resident would free nothing). The warm host arrays
+        survive for a cheap re-promotion unless ``drop_warm`` (host ->
+        disk: the memmap is the only copy left). The drain is atomic with
+        concurrent inserts (_res_lock), so devmem never tracks a tensor
+        this demotion dropped."""
+        with self._res_lock:
+            for key in list(self._device):
+                global_device_memory.remove("segment_cols", (self.uid, key))
             self._device.clear()
+            if drop_warm:
+                self._drop_warm_locked()
         from ..engine.batch import evict_stacks_containing
         evict_stacks_containing(self.name)
+
+    def _drop_warm_locked(self) -> bool:
+        # caller holds self._res_lock
+        if not self._warm:
+            return False
+        global_tier.note_warm(
+            self.uid, -sum(int(a.nbytes) for a in self._warm.values()))
+        self._warm.clear()
+        return True
+
+    def drop_warm(self) -> bool:
+        """Release ONLY the warm host stash (the tier's warm-budget trim
+        of segments that stay hot). True when there was a stash."""
+        with self._res_lock:
+            return self._drop_warm_locked()
+
+    def evict_device(self) -> None:
+        """Full unload: device and warm copies gone, every stacked copy
+        holding this segment's columns dropped (engine/batch), tier state
+        cold."""
+        self.demote_device(drop_warm=True)
+        global_tier.on_evicted(self)
 
     def __repr__(self) -> str:
         return (f"ImmutableSegment({self.name!r}, docs={self.n_docs}, "

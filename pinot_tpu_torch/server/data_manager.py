@@ -1,9 +1,9 @@
 """Table data manager: the segments of one table on one device.
 
 Port of the segment registry of ``pinot_tpu/server/data_manager.py``
-(add / acquire, a table directory, counts). Every segment of a table lives on the table's
-``device``; removal, reload, replace and the mesh-resident table are not
-ported.
+(add, remove, replace, acquire, a table directory, counts). Every segment
+of a table lives on the table's ``device``. ``reload`` (it needs the index
+package) and the mesh-resident table are not ported.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Dict, List, Union
 import torch
 
 from ..device import resolve_device
+from ..segment import segdir
 from ..segment.immutable import ImmutableSegment
 
 
@@ -47,6 +48,22 @@ class TableDataManager:
                     os.path.join(d, "metadata.json")):
                 out.append(self.add_segment_dir(d))
         return out
+
+    def remove_segment(self, name: str) -> None:
+        """Drop a segment and release its device residency now (padded
+        columns, warm copies and every stacked copy holding it), so the
+        device-memory registry stops counting it; queries in flight keep
+        their own tensor references."""
+        with self._lock:
+            segs = dict(self._segments)
+            seg = segs.pop(name, None)
+            self._segments = segs
+        if seg is not None:
+            seg.evict_device()
+            segdir.invalidate(seg.dir)
+
+    def replace_segment(self, segment: ImmutableSegment) -> None:
+        self.add_segment(segment)  # atomic swap by name
 
     def acquire_segments(self) -> List[ImmutableSegment]:
         return list(self._segments.values())

@@ -13,10 +13,20 @@ port's broker on ``"cuda"`` must answer the SSB queries as the numpy
 oracle does, through the kernel; over a four-segment table it must give
 the CPU's rows for the SSB and surface queries, through the segmented
 compaction; and the selection kernel must cut a run of equal order keys
-where the CPU does.
+where the CPU does. The over-budget pipeline (K13) must give every
+segment of a nine-segment table the CPU's partial, 20 times in a row (a
+missing wait between the copy stream and the compute stream would let a
+staging slot be overwritten while a kernel still reads it), also with each
+race widened by spins queued on the streams, and with any one of its three
+waits dropped under the widened race it must give wrong partials (so the
+equality above is what would catch the loss of a wait); and the
+device tier must give the CPU's rows with the segments hot, warm, cold
+and under a budget below the working set.
 """
 import pytest
 import torch
+
+from pinot_tpu_torch.tools import ssb
 
 pytestmark = pytest.mark.cuda
 
@@ -161,7 +171,6 @@ def test_ssb_on_cuda_matches_oracle(cuda, tmp_path):
     from pinot_tpu_torch.broker import Broker, connect
     from pinot_tpu_torch.ops import compact as C
     from pinot_tpu_torch.server import TableDataManager
-    from pinot_tpu_torch.tools import ssb
 
     seg_dir = ssb.build_segment_dir(1 << 16, str(tmp_path))
     dm = TableDataManager("lineorder", device=cuda)
@@ -196,7 +205,6 @@ def test_many_segments_on_cuda_match_cpu(cuda, tmp_path):
     from pinot_tpu_torch.query.context import build_query_context
     from pinot_tpu_torch.query.sql import parse_sql
     from pinot_tpu_torch.server import TableDataManager
-    from pinot_tpu_torch.tools import ssb
 
     d = ssb.build_table_dir([50_000, 40_000, 60_000, 30_000], str(tmp_path))
     queries = {}
@@ -239,3 +247,225 @@ def test_select_kernel_tie_order_on_cuda(cuda):
         got = fn(tuple(c.to(cuda) for c in cols), n_docs, ())
         for key in want:
             assert torch.equal(got[key].cpu(), want[key]), (order, key)
+
+
+PIPE_SQL = [ssb.spec_to_sql(p, v, g) for qid, p, v, g in ssb.QUERIES
+            if qid.startswith("q1")] + [
+    "SELECT d_year, SUM(lo_revenue), MIN(lo_quantity), COUNT(*) FROM "
+    "lineorder WHERE lo_discount BETWEEN 1 AND 3 GROUP BY d_year "
+    "ORDER BY d_year OPTION(groupByStrategy=dense)"]
+
+
+@pytest.fixture()
+def nine_segments(tmp_path):
+    """Nine segments of distinct rows on the card and on the CPU: an odd
+    count reuses each of the pipeline's two slots several times."""
+    from pinot_tpu_torch.server import TableDataManager
+
+    d = ssb.build_table_dir([100_000 + 1_000 * k for k in range(9)],
+                                str(tmp_path))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        dm = TableDataManager("lineorder", device=dev)
+        dm.add_table_dir(d)
+        out[dev] = dm
+    return out
+
+
+def _pipelined_partials(dm, sql):
+    from pinot_tpu_torch.engine import batch, serving
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.sql import parse_sql
+
+    ex = serving.execute_segments(build_query_context(parse_sql(sql)),
+                                  dm.acquire_segments())
+    assert set(ex.routes) == {batch.PIPELINED}, (sql, ex.routes)
+    return ex.partials
+
+
+@pytest.mark.parametrize("query", range(len(PIPE_SQL)))
+def test_pipeline_on_cuda_matches_cpu_per_segment(cuda, nine_segments,
+                                                  monkeypatch, query):
+    """Every segment's partial streamed through the double buffer on the
+    card equals the CPU's, and the streamed columns stay out of the
+    segments' device cache."""
+    from pinot_tpu_torch.engine import pipeline
+
+    monkeypatch.setenv("PINOT_HBM_BUDGET_BYTES", "1")
+    sql = PIPE_SQL[query]
+    before = pipeline.STATS["pipelined_segments"]
+    got = _pipelined_partials(nine_segments["cuda"], sql)
+    assert pipeline.STATS["pipelined_segments"] == before + 9
+    assert len(pipeline.LAST_RUN["h2d"]) == 9      # one copy per segment
+    assert got == _pipelined_partials(nine_segments["cpu"], sql)
+    segs = nine_segments["cuda"].acquire_segments()
+    assert not [k for s in segs for k in s._device
+                if not k[0].startswith("__")]
+
+
+def test_pipeline_on_cuda_repeats_20_times(cuda, nine_segments,
+                                           monkeypatch):
+    monkeypatch.setenv("PINOT_HBM_BUDGET_BYTES", "1")
+    sql = PIPE_SQL[-1]
+    want = _pipelined_partials(nine_segments["cpu"], sql)
+    for _ in range(20):
+        assert _pipelined_partials(nine_segments["cuda"], sql) == want
+
+
+SLEEP_CYCLES = 50_000_000        # about 25 ms at the H100's 1.98 GHz
+
+
+def _seg_device(dm):
+    """The device the segments resolved to (``cuda:N``: the pipeline keys
+    its copy stream by the index)."""
+    return dm.acquire_segments()[0].device
+
+
+def _widen_race(monkeypatch, dev, kernel_sleep: bool, copy_sleep: bool):
+    """Make every pipeline race wide: a spin of SLEEP_CYCLES queued on the
+    compute stream before each pipelined kernel and/or on the copy stream
+    before each copy event. The host fill of a 100k-row segment is far
+    shorter than that, so a missing wait lets a slot be read before its
+    copy lands or overwritten while a kernel still reads it. The device
+    slots start from zeros: a read too early then sees valid dictionary
+    ids (zeros or another segment's), never garbage."""
+    from pinot_tpu_torch.engine import pipeline
+
+    slots = pipeline._slots
+
+    def zeroed(*a, **k):
+        out = slots(*a, **k)
+        for bufs in out:
+            for _pinned, d in bufs:
+                d.zero_()
+        torch.cuda.synchronize()
+        return out
+    monkeypatch.setattr(pipeline, "_slots", zeroed)
+    if kernel_sleep:
+        build = pipeline.build_kernel
+
+        def slow_build(*a, **k):
+            fn = build(*a, **k)
+
+            def slow(*args):
+                torch.cuda._sleep(SLEEP_CYCLES)
+                return fn(*args)
+            return slow
+        monkeypatch.setattr(pipeline, "build_kernel", slow_build)
+    if copy_sleep:
+        copy = pipeline._copy_stream(dev)
+        record = torch.cuda.Event.record
+
+        def slow_record(self, stream=None):
+            if stream is not None and stream == copy:
+                with torch.cuda.stream(copy):
+                    torch.cuda._sleep(SLEEP_CYCLES)
+            return record(self, stream)
+        monkeypatch.setattr(torch.cuda.Event, "record", slow_record)
+
+
+@pytest.mark.parametrize("sleep", ["kernel", "copy", "both"])
+@pytest.mark.parametrize("query", [0, len(PIPE_SQL) - 1])
+def test_pipeline_on_cuda_matches_cpu_with_wide_races(cuda, nine_segments,
+                                                      monkeypatch, sleep,
+                                                      query):
+    """With slow kernels, slow copies or both, every wait holds: each
+    segment's partial still equals the CPU's."""
+    monkeypatch.setenv("PINOT_HBM_BUDGET_BYTES", "1")
+    sql = PIPE_SQL[query]
+    want = _pipelined_partials(nine_segments["cpu"], sql)
+    _widen_race(monkeypatch, _seg_device(nine_segments["cuda"]),
+                sleep in ("kernel", "both"),
+                sleep in ("copy", "both"))
+    assert _pipelined_partials(nine_segments["cuda"], sql) == want
+
+
+# each wait, and the sleep that opens the race it closes: the host's wait
+# on the slot's last copy (slow copies: the refill lands before the copy
+# reads), the copy stream's wait on the slot's last kernel (slow kernels:
+# the next copy overwrites the slot under it), the compute stream's wait
+# on the copy (slow copies: the kernel reads the slot before it lands)
+WAITS = {"host": "copy", "copy": "kernel", "compute": "copy"}
+
+
+@pytest.mark.parametrize("wait", list(WAITS))
+def test_pipeline_on_cuda_needs_each_wait(cuda, nine_segments, monkeypatch,
+                                          wait):
+    """Dropping any one of the three waits gives wrong partials once the
+    race it closes is wide: the test above would catch its loss."""
+    from pinot_tpu_torch.engine import pipeline
+
+    monkeypatch.setenv("PINOT_HBM_BUDGET_BYTES", "1")
+    sql = PIPE_SQL[0]
+    want = _pipelined_partials(nine_segments["cpu"], sql)
+    dev = _seg_device(nine_segments["cuda"])
+    _widen_race(monkeypatch, dev, WAITS[wait] == "kernel",
+                WAITS[wait] == "copy")
+    if wait == "host":
+        monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                            lambda self: None)
+    else:
+        copy = pipeline._copy_stream(dev)
+        wait_event = torch.cuda.Stream.wait_event
+
+        def some_waits(self, event):
+            if (self == copy) == (wait == "copy"):
+                return None              # the dropped wait
+            return wait_event(self, event)
+        monkeypatch.setattr(torch.cuda.Stream, "wait_event", some_waits)
+    got = _pipelined_partials(nine_segments["cuda"], sql)
+    torch.cuda.synchronize()
+    assert got != want, f"dropping the {wait} wait changed nothing"
+
+
+def test_tier_demote_and_promote_on_cuda(cuda, nine_segments):
+    """Rows on the card equal the CPU's with the segments hot, warm, cold
+    and under a budget below the working set; the tracked device bytes
+    equal the tensors held after each step."""
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.engine import batch
+    from pinot_tpu_torch.engine.tier import (TIER_COLD, TIER_WARM,
+                                             global_tier, reconcile_devmem)
+    from pinot_tpu_torch.utils.devmem import global_device_memory
+
+    brokers = {}
+    for dev, dm in nine_segments.items():
+        b = Broker(device=dev)
+        b.register_table(dm)
+        brokers[dev] = connect(b)
+    segs = nine_segments["cuda"].acquire_segments()
+    sqls = [ssb.spec_to_sql(p, v, g) for _q, p, v, g in ssb.QUERIES]
+    want = [brokers["cpu"](sql).rows for sql in sqls]
+    # the registry is process-wide: start it from what these tables hold
+    # (segments of earlier tests were dropped without remove_segment)
+    live = segs + nine_segments["cpu"].acquire_segments()
+    for s in live:
+        s.evict_device()
+    batch.clear_stack_cache()
+    global_device_memory.clear()
+
+    def check():
+        for sql, rows in zip(sqls, want):
+            assert _close(brokers["cuda"](sql).rows, rows), sql
+            rec = reconcile_devmem(live)
+            assert all(r["tracked"] == r["actual"] for r in rec.values()), \
+                rec
+
+    try:
+        global_tier.configure(budget_bytes=1 << 40)
+        check()
+        for to in (TIER_WARM, TIER_COLD):
+            for s in segs:
+                assert global_tier.demote(s, to)
+            p0 = global_tier.promotions
+            check()
+            assert global_tier.promotions >= p0 + len(segs)
+        d0 = global_tier.demotions
+        global_tier.configure(budget_bytes=16 << 20)
+        check()
+        assert global_tier.demotions > d0
+    finally:
+        global_tier.configure(budget_bytes=None)
+        for s in live:
+            s.evict_device()
+        batch.clear_stack_cache()

@@ -67,6 +67,24 @@ def test_importing_every_module_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+MEMORY_PLANE = tuple(f"pinot_tpu_torch.{m}" for m in (
+    "utils.metrics", "utils.devmem", "utils.heat", "engine.tier",
+    "engine.pipeline", "ops.plan_cache"))
+
+
+def test_walk_covers_the_memory_plane():
+    """The import checks above reach the device-memory modules."""
+    import pkgutil
+
+    import pinot_tpu_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(
+        pinot_tpu_torch.__path__, "pinot_tpu_torch.")}
+    assert set(MEMORY_PLANE) <= walked
+    srcs = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {m.replace(".", "/") + ".py" for m in MEMORY_PLANE} <= srcs
+
+
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch,
                                                           tmp_path):
     from pinot_tpu_torch.broker import Broker
