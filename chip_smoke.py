@@ -38,11 +38,35 @@ Phases, each printed as it runs; any failure exits non-zero:
              batched dense, or per segment), and each segmented compaction
              is held against the plain version on its own inputs and timed
              like the single-segment ones;
-   hooks   - what the device-memory hooks (heat, tier access and pins,
-             the pipeline's router, the plan cache's feedback) cost an
-             unbudgeted query on both tables: calls per query, host time
-             per call, and each query's p50 with the hooks live against
-             stubbed, in alternating pairs in this process;
+   concurrent - cross-query micro-batching (engine/ragged.py, K14) on
+             both tables with no budget: 32 clients released in waves by
+             a barrier send literal variants of q1.1, q1.2, q3.1 and q4.1
+             (tools/ssb.CONCURRENT, bench.py's QPS_SHAPES) with window
+             8 ms: a serial warm-up wave, a cold fused wave that builds
+             the cubes, one wave at each pow2 rung below 32, then 3
+             measured fused and 3 measured serial waves; every fused
+             digest must equal its serial one, each shape must fuse at
+             least once, no fused dispatch may fail or time out, every
+             cube must be on the card, the tracked device bytes must equal
+             the tensors held after each shape, and memory must come back
+             after the cubes are cleared; a lone query with batching on
+             must take the no-peers path every run, and a q1.1 with
+             OPTION(timeoutMs=1) on the 8-segment table must raise
+             QueryTimeoutError. Printed, ungated: queries/s and p50/p99
+             per mode, fused share, batch sizes, solo fallbacks by reason,
+             cube-build and combine ms (CUDA events), the cube cache's
+             hits, misses and rebuilds in the measured fused waves, the
+             device's idle share over one fused wave, and the lone query's
+             p50 with batching on and off in alternating pairs, with the
+             spread of the pair deltas;
+   hooks   - what the hooks of the device-memory slice (heat, tier
+             access and pins, the pipeline's router, the plan cache's
+             feedback) and of the serving slice (the accountant's
+             registration, sample points and result fence, the
+             micro-batcher's no-peers check) cost an unbudgeted serial
+             query on both tables: calls per query, host time per call,
+             and each query's p50 with the hooks live against one
+             slice's hooks stubbed, in alternating pairs in this process;
 8. tier    - the 8-segment table again, under a device budget of 512 MiB
              (global_tier.configure and PINOT_HBM_BUDGET_BYTES; the table's
              columns are 9x that, the ratio of SSB SF1000 to the port's
@@ -76,7 +100,9 @@ the pinot_tpu_torch package beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -736,18 +762,432 @@ def multi_phase(table_dir: str, digests: dict, tile: int,
     return multi_launches, totals, n_segmented, segs, p50
 
 
+CONCURRENCY = 32                 # concurrent phase: clients per wave
+WINDOW_MS = 8.0                  # the admission window (bench.py's QPS run)
+MEASURED_WAVES = 3               # measured fused and serial waves each
+LONE_PAIRS = 9                   # lone query: on/off pairs, ABBA
+LONE_ITERS = 3                   # lone query: timed runs per arm and pair
+LONG_TIMEOUT = " OPTION(timeoutMs=600000)"
+
+
+def _drive_wave(query, sqls, rows, latencies, errors) -> float:
+    """One synchronized wave: len(sqls) threads released together by a
+    barrier, each running its query once; returns the wave's wall s."""
+    import threading
+
+    barrier = threading.Barrier(len(sqls))
+
+    def worker(k):
+        try:
+            barrier.wait(60)
+            t0 = time.perf_counter()
+            res = query(sqls[k])
+            latencies.append((time.perf_counter() - t0) * 1e3)
+            rows[k] = res.rows
+        except Exception as e:  # noqa: BLE001 - collected, fails the phase
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(len(sqls))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return time.perf_counter() - t0
+
+
+def _p(values, q: float) -> float:
+    """Nearest-rank percentile."""
+    v = sorted(values)
+    return v[max(0, min(len(v) - 1, math.ceil(len(v) * q / 100) - 1))]
+
+
+def _profile_wave(query, sqls, errors) -> dict:
+    """One fused wave under torch.profiler: the device's busy time (the
+    sum of its kernels' and copies' times) and its idle share of the
+    wave's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_s = _drive_wave(query, sqls, [None] * len(sqls), [], errors)
+        torch.cuda.synchronize()
+    busy_ms = sum(_dev_ms(e) for e in _on_device(prof.key_averages()))
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3))}
+
+
+def _cuda_census(top: int = 8) -> list:
+    """The live CUDA tensors the garbage collector can reach, grouped by
+    (shape, dtype), largest first: what a failed memory check holds."""
+    import gc
+    from collections import Counter
+
+    import torch
+
+    sizes = Counter()
+    counts = Counter()
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                key = (tuple(obj.shape), str(obj.dtype))
+                sizes[key] += obj.untyped_storage().nbytes()
+                counts[key] += 1
+        except Exception:  # noqa: BLE001 - objects mid-teardown
+            continue
+    return [{"shape": k[0], "dtype": k[1], "count": counts[k],
+             "bytes": b} for k, b in sizes.most_common(top)]
+
+
+def _k14_alone(segs, make, device: str) -> dict:
+    """K14 timed alone on the card, with no other query's work queued
+    between its events: the cube build on the first segment (CUDA events
+    over 5 builds), and one combine of the variants sharing variant 0's
+    plan structure on every segment, as many as the batcher's weight cap
+    lets one dispatch take (CUDA events over 20 combines, and the host's
+    time to issue one)."""
+    import torch
+
+    from pinot_tpu_torch.engine import ragged, serving
+    from pinot_tpu_torch.engine.executor import resolve_params
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.sql import parse_sql
+
+    variants = [serving.plan_segments(
+        build_query_context(parse_sql(make(k))), segs).plans
+        for k in range(CONCURRENCY)]
+    spec = ragged.cube_spec_for(variants[0][0])[0]
+    # as many queries as the batcher fuses at most (its weight cap)
+    cap = 1 << (ragged.ITEM_CELL_BUDGET // spec.cube_space).bit_length() - 1
+    same = [v for v in variants if ragged.cube_spec_for(v[0])[0] == spec
+            ][:max(cap // len(segs), 1)]
+    build = ragged.build_cube_kernel(spec)
+    p0 = same[0][0]
+    cols = p0.segment.device_cols(p0.col_names)
+    params0 = resolve_params(p0)
+    cubes = [build(p.segment.device_cols(p.col_names), p.segment.n_docs,
+                   resolve_params(p)) for p in same[0]]
+    stacked = {k: torch.stack([c[k] for c in cubes]) for k in cubes[0]}
+    items = [(j, resolve_params(p)) for v in same for j, p in enumerate(v)]
+    npad = ragged._pow2(len(items))
+    items += [items[0]] * (npad - len(items))
+    params = tuple(torch.stack([it[1][i] for it in items])
+                   for i in range(len(items[0][1])))
+    seg_idx = torch.tensor([j for j, _p in items], device=device)
+    combine = ragged.build_cube_combine_kernel(spec)
+    on_card = device.startswith("cuda")
+    out = {"cube_space": spec.cube_space, "segments": len(segs),
+           "queries": len(same), "padded": npad}
+    if on_card:
+        out.update(
+            build_ms=cuda_time_ms(lambda: build(cols, p0.segment.n_docs,
+                                                params0), 5),
+            combine_ms=cuda_time_ms(lambda: combine(stacked, seg_idx,
+                                                    params), 20),
+            combine_host_ms=host_time_ms(lambda: combine(stacked, seg_idx,
+                                                         params), 20))
+    return out
+
+
+@contextlib.contextmanager
+def _k14_events(on_card: bool):
+    """Inside the block, every K14 cube build and combine the engine
+    launches records a CUDA event pair around it on the launching thread's
+    stream: yields {"build": [(start, end, cube_space)], "combine": [...]}
+    (left empty off the card). The engine looks both builders up in its
+    module at each dispatch, so wrapping them there times every call."""
+    import torch
+
+    from pinot_tpu_torch.engine import ragged
+
+    log = {"build": [], "combine": []}
+    if not on_card:
+        yield log
+        return
+    saved = {"build": ragged.build_cube_kernel,
+             "combine": ragged.build_cube_combine_kernel}
+
+    def timed(kind):
+        def make(spec, *a, **k):
+            fn = saved[kind](spec, *a, **k)
+
+            def kernel(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args)
+                end.record()
+                log[kind].append((start, end, spec.cube_space))
+                return out
+            return kernel
+        return make
+
+    ragged.build_cube_kernel = timed("build")
+    ragged.build_cube_combine_kernel = timed("combine")
+    try:
+        yield log
+    finally:
+        ragged.build_cube_kernel = saved["build"]
+        ragged.build_cube_combine_kernel = saved["combine"]
+
+
+def _event_ms(log, kind: str) -> list:
+    return [(a.elapsed_time(b), space) for a, b, space in log[kind]]
+
+
+def _cube_devices(device: str):
+    """(cubes held by the cube cache, devices off ``device`` holding any
+    of their tensors); keeps no reference to them."""
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+
+    cubes = list(global_cube_cache._entries.values()) \
+        + list(global_cube_cache._stacked.values())
+    return len(cubes), {str(t.device) for c in cubes for t in c.values()
+                        if not str(t.device).startswith(device)}
+
+
+def _counters() -> dict:
+    from pinot_tpu_torch.utils.metrics import global_metrics
+
+    return dict(global_metrics.snapshot()["counters"])
+
+
+def _delta(after: dict, before: dict, name: str) -> int:
+    return after.get(name, 0) - before.get(name, 0)
+
+
+def concurrent_phase(single, segs, device: str = "cuda") -> int:
+    """Cross-query micro-batching under 32 concurrent clients on both
+    tables, with no budget: per table and concurrent shape (tools/ssb.
+    CONCURRENT) a serial warm-up wave, a cold fused wave (builds the
+    cubes), one wave at each pow2 rung below 32, then MEASURED_WAVES fused
+    and MEASURED_WAVES serial waves, fused digests held to serial ones;
+    then the lone query with batching on against off in alternating pairs,
+    and a 1 ms timeout.
+    Returns the K1 launches of the serial waves."""
+    import torch
+
+    from pinot_tpu_torch.broker import Broker, QueryTimeoutError, connect
+    from pinot_tpu_torch.engine import batch, ragged
+    from pinot_tpu_torch.engine.ragged import global_batcher
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import ssb
+
+    on_card = device.startswith("cuda")
+    t_start = time.perf_counter()
+    live = [single] + list(segs)
+    global_cube_cache.clear()
+    batch.clear_stack_cache()
+    _sync(device)
+    baseline = torch.cuda.memory_allocated() if on_card else 0
+    resident0 = {s.uid: set(s._device) for s in live}
+    c_start = _counters()
+    serial_launches = 0
+    tables = {"1 segment": [single], f"{len(segs)} segments": segs}
+    queries = {}
+    for label, table in tables.items():
+        dm = TableDataManager("lineorder", device=device)
+        for seg in table:
+            dm.add_segment(seg)
+        broker = Broker(device=device)
+        broker.register_table(dm)
+        queries[label] = connect(broker)
+
+    def serial(query, sqls, rows, lat, errors) -> float:
+        nonlocal serial_launches
+        global_batcher.configure(enabled=False)
+        before = C.launches
+        wall = _drive_wave(query, sqls, rows, lat, errors)
+        serial_launches += C.launches - before
+        return wall
+
+    def fused(query, sqls, rows, lat, errors) -> float:
+        global_batcher.configure(enabled=True, window_ms=WINDOW_MS,
+                                 max_batch=CONCURRENCY)
+        return _drive_wave(query, sqls, rows, lat, errors)
+
+    for label, query in queries.items():
+        for shape, make in ssb.CONCURRENT:
+            t_shape = time.perf_counter()
+            sqls = [make(k) + LONG_TIMEOUT for k in range(CONCURRENCY)]
+            errors = []
+            n = len(sqls)
+            serial(query, sqls, [None] * n, [], errors)       # warm-up
+            c0 = _counters()
+            t0 = time.perf_counter()
+            with _k14_events(on_card) as log:
+                fused(query, sqls, [None] * n, [], errors)    # cold
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            builds = _event_ms(log, "build")
+            rung = 2
+            while rung < CONCURRENCY:
+                fused(query, sqls[:rung], [None] * rung, [], errors)
+                rung *= 2
+            c1 = _counters()
+            fused_rows, fused_lat, fused_wall = [None] * n, [], 0.0
+            with _k14_events(on_card) as log:
+                for _ in range(MEASURED_WAVES):
+                    fused_wall += fused(query, sqls, fused_rows, fused_lat,
+                                        errors)
+            c2 = _counters()
+            combines = [ms for ms, _s in _event_ms(log, "combine")]
+            rebuilds = _event_ms(log, "build")
+            serial_rows, serial_lat, serial_wall = [None] * n, [], 0.0
+            for _ in range(MEASURED_WAVES):
+                serial_wall += serial(query, sqls, serial_rows, serial_lat,
+                                      errors)
+            global_batcher.configure(enabled=True, window_ms=WINDOW_MS,
+                                     max_batch=CONCURRENCY)
+            prof = _profile_wave(query, sqls, errors) if on_card else None
+            c3 = _counters()
+            alone = _k14_alone(tables[label], make, device)
+            if errors:
+                raise AssertionError(f"{label} {shape}: {errors[0]}")
+            same = [ssb._digest(a) == ssb._digest(b)
+                    for a, b in zip(fused_rows, serial_rows)]
+            dispatches = _delta(c2, c1, "batched_dispatches")
+            batched = _delta(c2, c1, "batched_queries")
+            n_measured = n * MEASURED_WAVES
+            row = {
+                "table": label, "shape": shape, "clients": n,
+                "waves": MEASURED_WAVES, "digests_equal": sum(same),
+                "qps_fused": n_measured / fused_wall,
+                "qps_serial": n_measured / serial_wall,
+                "qps_ratio": serial_wall / fused_wall,
+                "p50_fused_ms": statistics.median(fused_lat),
+                "p99_fused_ms": _p(fused_lat, 99),
+                "p50_serial_ms": statistics.median(serial_lat),
+                "p99_serial_ms": _p(serial_lat, 99),
+                "fused_share": batched / n_measured,
+                "batched_dispatches": dispatches,
+                "mean_batch": batched / dispatches if dispatches else 0.0,
+                "solo_fallbacks": {r: _delta(c2, c1, f"solo_fallback_{r}")
+                                   for r in ragged._SOLO_REASONS},
+                "cold_wave_ms": cold_ms,
+                "cold_cube_builds": len(builds),
+                "cold_build_ms_per_segment": (
+                    statistics.mean(ms for ms, _f in builds)
+                    if builds else None),
+                "cube_space": builds[0][1] if builds else None,
+                "combine_ms_per_dispatch": (statistics.mean(combines)
+                                            if combines else None),
+                "combines": len(combines),
+                # cube reads and rebuilds in the measured fused waves:
+                # a working set past the cube cache's entry cap rebuilds
+                "measured_cube_hits": _delta(c2, c1, "cube_cache_hits"),
+                "measured_cube_misses": _delta(c2, c1, "cube_cache_misses"),
+                "measured_cube_builds": len(rebuilds),
+                "measured_build_ms": sum(ms for ms, _s in rebuilds),
+                "fused_dispatches_all_waves": _delta(
+                    c3, c0, "batched_dispatches"),
+                "profile_fused_wave": prof,
+                "k14_alone": alone,
+                "seconds": time.perf_counter() - t_shape}
+            phase("concurrent", **row)
+            if not all(same):
+                raise AssertionError(f"{label} {shape}: "
+                                     f"{same.count(False)} fused digests "
+                                     "differ from the serial ones")
+            if row["fused_dispatches_all_waves"] == 0:
+                raise AssertionError(f"{label} {shape}: no fused dispatch")
+            n_cubes, off = _cube_devices(device)
+            if not n_cubes or off:
+                raise AssertionError(f"{label} {shape}: cubes {n_cubes}, "
+                                     f"off the card on {off}")
+            _reconcile_or_fail(live, f"concurrent {label} {shape}")
+
+    # the lone query: batching on (no peers: solo at once) against off,
+    # in alternating pairs (on, off, off, on, ...) so drift cancels
+    lone = ssb.CONCURRENT[0][1](0) + LONG_TIMEOUT
+    lone_rows = {}
+    for label, query in queries.items():
+        query(lone)                                   # warm-up
+        runs = {"on": [], "off": []}
+        deltas = []
+        c0 = _counters()
+        for pair in range(LONE_PAIRS):
+            p50 = {}
+            for arm in (("on", "off") if pair % 2 == 0 else ("off", "on")):
+                global_batcher.configure(enabled=arm == "on",
+                                         window_ms=WINDOW_MS)
+                times = []
+                for _ in range(LONE_ITERS):
+                    t0 = time.perf_counter()
+                    query(lone)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                runs[arm] += times
+                p50[arm] = statistics.median(times)
+            deltas.append(p50["on"] - p50["off"])
+        if _delta(_counters(), c0, "solo_fallback_no_peers") \
+                != LONE_PAIRS * LONE_ITERS:
+            raise AssertionError(f"{label}: a lone query did not take "
+                                 "the no-peers path every run")
+        lone_rows[label] = {
+            "pairs": LONE_PAIRS, "iters_per_arm": LONE_ITERS,
+            "p50_batching_on_ms": statistics.median(runs["on"]),
+            "p50_batching_off_ms": statistics.median(runs["off"]),
+            "pair_delta_ms_median": statistics.median(deltas),
+            "pair_delta_ms_min": min(deltas),
+            "pair_delta_ms_max": max(deltas)}
+    global_batcher.configure(enabled=True, window_ms=WINDOW_MS)
+    timed_out = False
+    try:
+        queries[f"{len(segs)} segments"](ssb.CONCURRENT[0][1](1)
+                                         + " OPTION(timeoutMs=1)")
+    except QueryTimeoutError:
+        timed_out = True
+    if not timed_out:
+        raise AssertionError("a q1.1 with timeoutMs=1 did not time out")
+
+    c_end = _counters()
+    bad = {r: _delta(c_end, c_start, r) for r in (
+        "fused_dispatch_errors", "solo_fallback_leader_error",
+        "solo_fallback_timeout")}
+    global_cube_cache.clear()
+    batch.clear_stack_cache()
+    global_batcher.configure(enabled=ragged.default_enabled(),
+                             window_ms=ragged.DEFAULT_WINDOW_MS,
+                             max_batch=ragged.DEFAULT_MAX_BATCH)
+    _sync(device)
+    leaked = (torch.cuda.memory_allocated() - baseline) if on_card else 0
+    phase("concurrent_done", lone=lone_rows, timeout_1ms_raised=timed_out,
+          errors=bad, serial_k1_launches=serial_launches,
+          leaked_bytes=leaked, seconds=time.perf_counter() - t_start)
+    if any(bad.values()):
+        raise AssertionError(f"fused dispatch errors or fallbacks: {bad}")
+    if leaked > MEM_SLACK:
+        new_cols = {s.name: sorted(map(str, set(s._device)
+                                       - resident0[s.uid]))
+                    for s in live if set(s._device) - resident0[s.uid]}
+        raise AssertionError(f"{leaked} bytes still allocated after the "
+                             f"concurrent phase; columns made resident in "
+                             f"it: {new_cols}; live CUDA tensors: "
+                             f"{_cuda_census()}")
+    return serial_launches
+
+
 HOOK_PAIRS = 6                   # hooks phase: live/stubbed pairs, ABBA
 HOOK_ITERS = 5                   # timed runs per query and arm
 HOOK_CALLS = 2000                # calls per hook in its own timing
 
 
-def _hook_points():
-    """Every hook of the device-memory slice that an unbudgeted query
-    reaches, as (owner, attribute, stub): the stub does nothing and keeps
-    every route (no budget, no measurement, no pin)."""
+HOOK_GROUPS = ("memory", "serving")
+
+
+def _hook_points(group=None):
+    """Every hook of the device-memory slice ("memory") and of the serving
+    slice ("serving") that an unbudgeted serial query reaches, or those
+    of one group, as (owner, attribute, stub): the stub does nothing and
+    keeps every route (no budget, no measurement, no pin, no batching)."""
     import contextlib
 
     from pinot_tpu_torch.engine import batch
+    from pinot_tpu_torch.engine.accounting import global_accountant
+    from pinot_tpu_torch.engine.ragged import global_batcher
     from pinot_tpu_torch.engine.tier import global_tier
     from pinot_tpu_torch.ops.plan_cache import global_plan_cache
     from pinot_tpu_torch.utils.heat import global_segment_heat
@@ -755,7 +1195,9 @@ def _hook_points():
     def nothing(*_a, **_k):
         return None
 
-    return [(global_segment_heat, "touch", nothing),
+    groups = {
+        "memory": [
+            (global_segment_heat, "touch", nothing),
             (global_segment_heat, "device_access", nothing),
             (global_tier, "on_access", nothing),
             (global_tier, "pinned", lambda _u: contextlib.nullcontext()),
@@ -763,16 +1205,25 @@ def _hook_points():
             (batch, "group_stack_bytes", lambda _p, _b: 0),
             (global_plan_cache, "measured_for", nothing),
             (global_plan_cache, "overflowed", lambda *_a: False),
-            (global_plan_cache, "record_measured", nothing)]
+            (global_plan_cache, "record_measured", nothing)],
+        "serving": [
+            (global_accountant, "register", nothing),
+            (global_accountant, "unregister", nothing),
+            (global_accountant, "set_deadline", nothing),
+            (global_accountant, "sample", nothing),
+            (global_accountant, "track_result", nothing),
+            (global_batcher, "submit", nothing)]}
+    return [h for g in HOOK_GROUPS if group in (None, g) for h in groups[g]]
 
 
-def _swap_hooks(make):
-    """Replace every hook by ``make(name, original, stub)``; returns the
-    function that puts the originals back."""
+def _swap_hooks(make, group=None):
+    """Replace every hook (of ``group``, or of both) by ``make(name,
+    original, stub)``; returns the function that puts the originals
+    back."""
     import types
 
     saved = []
-    for owner, name, stub in _hook_points():
+    for owner, name, stub in _hook_points(group):
         orig = getattr(owner, name)
         saved.append((owner, name, orig))
         setattr(owner, name, make(name, orig, stub))
@@ -787,16 +1238,22 @@ def _swap_hooks(make):
 
 
 def hooks_phase(single, segs, device: str = "cuda") -> None:
-    """What the slice's hooks cost an unbudgeted query, on the host: the
-    calls each hook gets per query, each hook's time per call, and the p50
-    of every SSB query with the hooks live against the same with every
-    hook stubbed, in alternating pairs (live, stubbed, stubbed, live, ...)
-    in one process, on the single segment and on the many-segment table
-    (both resident)."""
+    """What the memory and serving slices' hooks cost an unbudgeted
+    serial query, on the host: the calls each hook gets per query, each
+    hook's time per call, and, for each slice in turn, the p50 of every
+    SSB query with the hooks live against the same with that slice's
+    hooks stubbed, in alternating pairs (live, stubbed, stubbed, live,
+    ...) in one process, on the single segment and on the many-segment
+    table (both resident)."""
     from collections import Counter
+
+    import numpy as np
 
     from pinot_tpu_torch.broker import Broker, connect
     from pinot_tpu_torch.engine import pipeline, serving
+    from pinot_tpu_torch.engine.accounting import ResourceAccountant
+    from pinot_tpu_torch.engine.executor import resolve_params
+    from pinot_tpu_torch.engine.ragged import global_batcher
     from pinot_tpu_torch.engine.tier import TierManager
     from pinot_tpu_torch.ops.plan_cache import KernelPlanCache
     from pinot_tpu_torch.query.context import build_query_context
@@ -817,16 +1274,23 @@ def hooks_phase(single, segs, device: str = "cuda") -> None:
         broker.register_table(dm)
         queries[label] = connect(broker)
 
-    # calls per query: one run of each query with counting hooks
-    calls = {}
+    # calls per query, and the host time spent inside each slice's hooks,
+    # from one run of each query with counting hooks
+    calls, inside = {}, {}
+    group_of = {name: g for g in HOOK_GROUPS
+                for _o, name, _s in _hook_points(g)}
     for label, query in queries.items():
         for qid, sql in sqls:
-            counts = Counter()
+            counts, spent = Counter(), Counter()
 
-            def counting(name, orig, _stub, counts=counts):
+            def counting(name, orig, _stub, counts=counts, spent=spent):
                 def hook(*a, **k):
                     counts[name] += 1
-                    return orig(*a, **k)
+                    t0 = time.perf_counter()
+                    try:
+                        return orig(*a, **k)
+                    finally:
+                        spent[group_of[name]] += time.perf_counter() - t0
                 return hook
             restore = _swap_hooks(counting)
             try:
@@ -834,6 +1298,8 @@ def hooks_phase(single, segs, device: str = "cuda") -> None:
             finally:
                 restore()
             calls[f"{label} {qid}"] = dict(counts)
+            inside[f"{label} {qid}"] = {g: spent[g] * 1e6
+                                        for g in HOOK_GROUPS}
 
     # time per call, on private instances where a hook writes state
     seg = segs[0]
@@ -848,6 +1314,17 @@ def hooks_phase(single, segs, device: str = "cuda") -> None:
     def pin():
         with tier.pinned({seg.uid}):
             pass
+
+    acct = ResourceAccountant()
+    acct.register("hooks-timing")        # a query runs on this thread
+
+    def register_unregister():
+        acct.register("hooks-timing-2")
+        acct.unregister("hooks-timing-2")
+    group = ex.plans
+    resolved = [resolve_params(p) for p in group]
+    host_out = {"matched": np.zeros(8, np.int64),
+                "agg0_sum": np.zeros(8, np.int64)}
     per_call = {
         "touch": lambda: heat.touch(seg, "lineorder", seg.n_docs),
         "device_access": lambda: heat.device_access(seg, True),
@@ -863,8 +1340,14 @@ def hooks_phase(single, segs, device: str = "cuda") -> None:
         "record_measured": lambda: cache.record_measured(
             cpx.kernel_plan, seg.bucket, 1, seg.n_docs, segment=seg,
             params=cpx.params),
+        "register + unregister": register_unregister,
+        "sample": acct.sample,
+        "track_result": lambda: acct.track_result(host_out),
+        "submit (no peers)": lambda: global_batcher.submit(
+            group, resolved, seg.bucket, ("dense",)),
         "device_col hit (all hooks)": lambda: seg.device_col(col),
-        "cache get (no hooks)": lambda: seg._device.get(key)}
+        "cache get (no hooks)": lambda: seg._device.get(key),
+        "thread CPU clock (in a loop)": time.thread_time}
     us = {}
     for name, fn in per_call.items():
         fn()
@@ -872,46 +1355,61 @@ def hooks_phase(single, segs, device: str = "cuda") -> None:
         for _ in range(HOOK_CALLS):
             fn()
         us[name] = (time.perf_counter() - t0) / HOOK_CALLS * 1e6
+    # one read of the per-thread CPU clock right after a query (the JAX
+    # package's accountant reads it at every sample point; the port's
+    # does not)
+    after = []
+    for _ in range(30):
+        list(queries.values())[-1](sqls[0][1])
+        t0 = time.perf_counter()
+        time.thread_time()
+        after.append((time.perf_counter() - t0) * 1e6)
+    us["thread CPU clock (right after a query)"] = statistics.median(after)
 
-    # live against stubbed, alternating so drift cancels within a pair
-    times = {(label, qid, arm): [] for label in queries
-             for qid, _sql in sqls for arm in ("live", "stubbed")}
-    for pair in range(HOOK_PAIRS):
-        arms = ("live", "stubbed") if pair % 2 == 0 else ("stubbed", "live")
-        for arm in arms:
-            restore = (_swap_hooks(lambda _n, _o, stub: stub)
-                       if arm == "stubbed" else lambda: None)
-            try:
-                for label, query in queries.items():
-                    for qid, sql in sqls:
-                        query(sql)       # warm-up
-                        runs = []
-                        for _ in range(HOOK_ITERS):
-                            t0 = time.perf_counter()
-                            query(sql)
-                            runs.append((time.perf_counter() - t0) * 1e3)
-                        times[(label, qid, arm)].append(
-                            statistics.median(runs))
-            finally:
-                restore()
-    for label in queries:
-        rows = []
-        for qid, _sql in sqls:
-            live = times[(label, qid, "live")]
-            stub = times[(label, qid, "stubbed")]
-            deltas = [a - b for a, b in zip(live, stub)]
-            rows.append({"qid": qid, "live_p50_ms": live,
-                         "stubbed_p50_ms": stub,
-                         "delta_ms_median": statistics.median(deltas),
-                         "delta_ms_min": min(deltas),
-                         "delta_ms_max": max(deltas)})
-        phase("hooks_ab", table=label, pairs=HOOK_PAIRS,
-              iters_per_arm=HOOK_ITERS, queries=rows,
-              sum_live_ms=sum(statistics.median(r["live_p50_ms"])
-                              for r in rows),
-              sum_stubbed_ms=sum(statistics.median(r["stubbed_p50_ms"])
-                                 for r in rows))
-    phase("hooks", calls_per_query=calls, us_per_call=us,
+    # live against one group stubbed, alternating so drift cancels
+    # within a pair
+    for group in HOOK_GROUPS:
+        times = {(label, qid, arm): [] for label in queries
+                 for qid, _sql in sqls for arm in ("live", "stubbed")}
+        for pair in range(HOOK_PAIRS):
+            arms = (("live", "stubbed") if pair % 2 == 0
+                    else ("stubbed", "live"))
+            for arm in arms:
+                restore = (_swap_hooks(lambda _n, _o, stub: stub, group)
+                           if arm == "stubbed" else lambda: None)
+                try:
+                    for label, query in queries.items():
+                        for qid, sql in sqls:
+                            query(sql)       # warm-up
+                            runs = []
+                            for _ in range(HOOK_ITERS):
+                                t0 = time.perf_counter()
+                                query(sql)
+                                runs.append((time.perf_counter() - t0)
+                                            * 1e3)
+                            times[(label, qid, arm)].append(
+                                statistics.median(runs))
+                finally:
+                    restore()
+        for label in queries:
+            rows = []
+            for qid, _sql in sqls:
+                live = times[(label, qid, "live")]
+                stub = times[(label, qid, "stubbed")]
+                deltas = [a - b for a, b in zip(live, stub)]
+                rows.append({"qid": qid, "live_p50_ms": live,
+                             "stubbed_p50_ms": stub,
+                             "delta_ms_median": statistics.median(deltas),
+                             "delta_ms_min": min(deltas),
+                             "delta_ms_max": max(deltas)})
+            phase("hooks_ab", hooks=group, table=label, pairs=HOOK_PAIRS,
+                  iters_per_arm=HOOK_ITERS, queries=rows,
+                  sum_live_ms=sum(statistics.median(r["live_p50_ms"])
+                                  for r in rows),
+                  sum_stubbed_ms=sum(statistics.median(r["stubbed_p50_ms"])
+                                     for r in rows))
+    phase("hooks", calls_per_query=calls, us_inside_per_query=inside,
+          us_per_call=us,
           seconds=time.perf_counter() - t_start)
 
 
@@ -1297,7 +1795,9 @@ def surface_phase(seg_list, label: str):
         times = []
         for _ in range(ITERS if on_card else 1):
             t0 = time.perf_counter()
-            res = query(sql)
+            # the grouped HLL runs the host path for ~17 s on one segment:
+            # past the broker's default deadline (bench.py's option too)
+            res = query(sql + LONG_TIMEOUT)
             times.append((time.perf_counter() - t0) * 1e3)
         check = "rows equal"
         if name == "percentile":
@@ -1332,7 +1832,7 @@ def surface_phase(seg_list, label: str):
         phase("surface", table=label, name=name, kind=kind, check=check,
               rows=len(res.rows), p50_ms=statistics.median(times),
               times_ms=times, routes=sorted(set(ex.routes)),
-              profile=(profile_query(query, sql)
+              profile=(profile_query(query, sql + LONG_TIMEOUT)
                        if on_card and device.type == "cuda" else None))
 
 
@@ -1358,6 +1858,7 @@ def main() -> int:
     table_dir = table_phase()
     seg_launches, seg_totals, n_segmented, segs, multi_p50 = multi_phase(
         table_dir, digests, tile)
+    concurrent_launches = concurrent_phase(single, segs)
     hooks_phase(single, segs)
     tier_launches = tier_phase(segs, single, digests, multi_p50, tile)
     drift_launches = drift_phase(single)
@@ -1371,8 +1872,8 @@ def main() -> int:
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/compact.cu",
         "replaces": "pinot_tpu/ops/compact.py:252",
-        "launches": launches + seg_launches + tier_launches
-        + drift_launches,
+        "launches": launches + seg_launches + concurrent_launches
+        + tier_launches + drift_launches,
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -1387,6 +1888,7 @@ def main() -> int:
         "tile_rows": tile,
         "single_segment_launches": launches,
         "segmented_launches": seg_launches,
+        "concurrent_launches": concurrent_launches,
         "tier_launches": tier_launches,
         "drift_launches": drift_launches,
         **{f"segmented_{k}": v for k, v in seg_totals.items()},
@@ -1399,8 +1901,9 @@ def main() -> int:
               f"segmented_* = the same sums over one launch per "
               f"segmented-route query ({n_segmented}) on the "
               f"{TABLE_SEGMENTS}-segment table; launches = the single-"
-              "segment run's, the 8-segment run's, the budgeted (tier) "
-              "run's and the drift run's"}]}))
+              "segment run's, the 8-segment run's, the concurrent "
+              "phase's serial waves', the budgeted (tier) run's and the "
+              "drift run's"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

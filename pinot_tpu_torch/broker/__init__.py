@@ -1,1 +1,2 @@
-from .broker import Broker, Connection, connect  # noqa: F401
+from .broker import (DEFAULT_TIMEOUT_MS, Broker, Connection,  # noqa: F401
+                     QueryTimeoutError, connect)

@@ -25,10 +25,17 @@ stacked columns would exceed the device budget
 (``pipeline.group_stack_bytes > pipeline.hbm_budget_bytes``) streams
 through the double-buffered pipeline instead (K13, engine/pipeline.py).
 
+Before a group dispatches, it is offered to the cross-query micro-batcher
+(engine/ragged.global_batcher, K14): when concurrent queries share its
+plan structure, they fuse into one cube dispatch and the group takes the
+FUSED route. The accountant's ``sample()`` runs before each plan and each
+group (a killed or timed-out query raises there), and every transferred
+output passes ``track_result``.
+
 Memory: the stack cache is a device-memory pool (``utils/devmem``), and a
 stack insert enforces the shared tier budget (engine/tier.py) with the
 group's segments protected. Every group dispatch pins its segments in the
-tier for its whole run. Cross-query micro-batching (K14) is not ported.
+tier for its whole run.
 """
 from __future__ import annotations
 
@@ -44,10 +51,12 @@ from ..ops.kernels import (COMPACT_GROUP_LIMIT, build_kernel,
                            segmented_compact_ok)
 from ..query.planner import CompiledPlan
 from ..utils.devmem import global_device_memory
+from .accounting import global_accountant
 from .executor import (execute_plan, extract_partial, resolve_params,
                        run_kernel, to_host)
 from .pipeline import (execute_kernel_plans_pipelined, group_stack_bytes,
                        hbm_budget_bytes)
+from .ragged import global_batcher
 from .tier import global_tier
 
 # routes a plan's execution can take (TableExecution.routes)
@@ -55,6 +64,7 @@ SEGMENTED = "segmented compact"
 BATCHED = "batched dense"
 PER_SEGMENT = "per-segment"
 PIPELINED = "pipelined"
+FUSED = "fused"
 
 # stacked-column cache: ((segment uid, name) pairs, cols, bucket) -> tuple
 # of (S, bucket) device tensors; a bounded LRU. Keyed by the segments'
@@ -134,14 +144,17 @@ def execute_plans_batched(plans: List[CompiledPlan]
                           ) -> Tuple[List[Any], List[str]]:
     """Execute all plans, same-structure kernel plans together. Returns
     the partials in input order and each plan's route: SEGMENTED,
-    BATCHED, PIPELINED, PER_SEGMENT, or the plan kind for non-kernel
-    plans."""
+    BATCHED, PIPELINED, PER_SEGMENT, FUSED, or the plan kind for
+    non-kernel plans."""
     results: List[Any] = [None] * len(plans)
     routes: List[str] = [""] * len(plans)
     groups: Dict[Tuple, List[int]] = {}
     resolved: Dict[int, Tuple[torch.Tensor, ...]] = {}
 
     for i, plan in enumerate(plans):
+        # the preemption point between per-segment launches: raises once
+        # the query was killed or is past its deadline
+        global_accountant.sample()
         if plan.kind != "kernel":
             results[i] = execute_plan(plan)
             routes[i] = plan.kind
@@ -167,7 +180,19 @@ def execute_plans_batched(plans: List[CompiledPlan]
                _param_sig(params) + shape_sig)
         groups.setdefault(key, []).append(i)
 
-    for (kind, plan_struct, bucket, _sig), idxs in groups.items():
+    for (kind, plan_struct, bucket, sig), idxs in groups.items():
+        global_accountant.sample()
+        if global_batcher.enabled:
+            # cross-query micro-batching: concurrent queries sharing this
+            # plan structure fuse into one cube dispatch; None means solo
+            fused = global_batcher.submit(
+                [plans[i] for i in idxs], [resolved[i] for i in idxs],
+                bucket, (kind,) + sig)
+            if fused is not None:
+                for k, i in enumerate(idxs):
+                    results[i] = fused[k]
+                    routes[i] = FUSED
+                continue
         if len(idxs) == 1 or (kind == "segc" and len(idxs)
                               * plan_struct.group_space
                               > COMPACT_GROUP_LIMIT):
@@ -223,6 +248,7 @@ def _run_batched(plans, idxs, plan_struct, bucket, resolved,
                resolved[i]) for i, p in zip(idxs, group)]
     host = to_host({name: torch.stack([o[name] for o in outs])
                     for name in outs[0]})
+    global_accountant.track_result(host)
     for k, i in enumerate(idxs):
         per_seg = {name: v[k] for name, v in host.items()}
         if int(per_seg.pop("group_overflow", 0)):
@@ -264,6 +290,7 @@ def _run_segmented_compact(plans, idxs, plan_struct, bucket, resolved,
     if int(out.pop("group_overflow", 0)):
         out = run(cap, xfer_compact=False)
         out.pop("overflow", None)
+    global_accountant.track_result(out)
     space = plan_struct.group_space
     matched = out.pop("matched")
     gi = out.pop("group_idx", None)

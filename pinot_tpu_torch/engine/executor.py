@@ -6,7 +6,9 @@ as host numpy in one transfer; ``extract_partial`` (copied) turns them
 into the same value-space partial states as the reference, so the broker
 reduce merges them unchanged. ``pruned`` and ``fast`` plans answer
 directly, ``host`` plans run the numpy host path (engine/host_eval.py) and
-``kselect`` plans the device selection kernel (ops/kernels.py).
+``kselect`` plans the device selection kernel (ops/kernels.py). Every
+transferred output passes the accountant's ``track_result`` fence
+(engine/accounting.py).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from ..query.sql import Star
 from ..segment.immutable import ImmutableSegment
 from ..utils.metrics import global_metrics
 from . import host_eval
+from .accounting import global_accountant
 from .tier import global_tier
 
 
@@ -111,7 +114,9 @@ def run_select_kernel(plan: CompiledPlan) -> Dict[str, np.ndarray]:
     cols = seg.device_cols(plan.col_names)
     params = resolve_params(plan)
     fn = build_select_kernel(plan.select_plan, seg.bucket)
-    return to_host(fn(cols, seg.n_docs, params))
+    host = to_host(fn(cols, seg.n_docs, params))
+    global_accountant.track_result(host)
+    return host
 
 
 def extract_select(plan: CompiledPlan, out: Dict[str, np.ndarray]
@@ -215,6 +220,7 @@ def run_kernel(plan: CompiledPlan,
             global_metrics.count("group_xfer_overflow_retries")
             host = _run(plan, cols, params, cap, False)
             host.pop("overflow", None)
+    global_accountant.track_result(host)
     return host
 
 

@@ -42,7 +42,9 @@ from freshly staged columns, never through ``run_kernel``, whose device
 cache would make resident the very working set this path avoids.
 
 The router (engine/batch.execute_plans_batched) sends a dense group here
-when ``group_stack_bytes`` exceeds ``hbm_budget_bytes``.
+when ``group_stack_bytes`` exceeds ``hbm_budget_bytes``. The accountant
+samples before each segment (a killed or timed-out query stops there) and
+sizes the transferred outputs (``track_result``).
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ import torch
 from ..ops.kernels import build_kernel
 from ..query.planner import CompiledPlan
 from ..segment.immutable import _upload
+from .accounting import global_accountant
 from .executor import extract_partial, to_host
 
 # the JAX package's default, half of a 16 GB TPU v5e; the port uses it on
@@ -177,6 +180,7 @@ def _stream_cuda(group: List[CompiledPlan], bucket: int, fn,
     outs = []
     stage(0)
     for k, plan in enumerate(group):
+        global_accountant.sample()
         s = k % 2
         if k + 1 < len(group):
             stage(k + 1)                     # next copy before this kernel
@@ -194,6 +198,7 @@ def _stream_host(group: List[CompiledPlan], bucket: int, fn,
                  params: List[Tuple]) -> List[Dict[str, torch.Tensor]]:
     outs = []
     for k, plan in enumerate(group):
+        global_accountant.sample()
         t0 = time.perf_counter()
         cols = _staged_cols(plan, bucket)
         LAST_RUN["fill_s"] += time.perf_counter() - t0
@@ -228,6 +233,7 @@ def execute_kernel_plans_pipelined(plans: List[CompiledPlan],
     outs = run(group, bucket, fn, params)
     host = to_host({name: torch.stack([o[name] for o in outs])
                     for name in outs[0]})
+    global_accountant.track_result(host)
     results = []
     dense_fn = None
     for k, plan in enumerate(group):
@@ -241,5 +247,6 @@ def execute_kernel_plans_pipelined(plans: List[CompiledPlan],
             per_seg = to_host(dense_fn(_staged_cols(plan, bucket),
                                        plan.segment.n_docs, params[k]))
             per_seg.pop("group_overflow", None)
+            global_accountant.track_result(per_seg)
         results.append(extract_partial(plan, per_seg))
     return results

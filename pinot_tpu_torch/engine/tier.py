@@ -425,18 +425,24 @@ def tier_health(snapshot: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def reconcile_devmem(segments) -> Dict[str, Dict[str, int]]:
-    """Tracked-vs-actual bytes of the port's two pools: the check that no
-    promote/demote/evict path leaks accounting. ``segments`` is the live
-    segment set whose device caches back the segment_cols pool; the
-    actual bytes are read from ``ImmutableSegment._device`` and
-    ``engine/batch._STACK_CACHE``. Verification only, never on a serving
-    path."""
+    """Tracked-vs-actual bytes of the port's four pools: the check that
+    no promote/demote/evict path leaks accounting. ``segments`` is the
+    live segment set whose device caches back the segment_cols pool; the
+    actual bytes are read from ``ImmutableSegment._device``,
+    ``engine/batch._STACK_CACHE`` and the cube cache's per-segment and
+    stacked entries (ops/plan_cache.global_cube_cache). Verification
+    only, never on a serving path."""
+    from ..ops.plan_cache import global_cube_cache
     from . import batch
     actual = {
         "segment_cols": sum(int(t.nbytes) for s in segments
                             for t in list(s._device.values())),
         "stack_cache": sum(nbytes_of(v)
                            for v in list(batch._STACK_CACHE.values())),
+        "cube_cache": sum(
+            nbytes_of(v) for v in list(global_cube_cache._entries.values())),
+        "cube_stacked": sum(
+            nbytes_of(v) for v in list(global_cube_cache._stacked.values())),
     }
     snap = global_device_memory.snapshot()
     return {p: {"tracked": snap.get(p, {}).get("bytes", 0),

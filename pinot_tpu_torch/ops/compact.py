@@ -26,6 +26,7 @@ bytes (int32, int64, float32, float64) move natively.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Sequence
 
 import torch
@@ -39,8 +40,10 @@ MAX_COLS = 8
 # most rows one call takes (compact.cu rejects more: tile starts are int32)
 MAX_ROWS = (1 << 31) - 1 - (1 << 16)
 
-# calls that launched the CUDA kernel (chip_smoke.py resets and reads it)
+# calls that launched the CUDA kernel (chip_smoke.py resets and reads it);
+# concurrent queries launch from many threads, so it moves under a lock
 launches = 0
+_LAUNCH_LOCK = threading.Lock()
 
 
 def default_slots_cap(n: int) -> int:
@@ -161,7 +164,8 @@ def _compact_cuda(mask: torch.Tensor, cols: Sequence[torch.Tensor],
     if rc != 0:
         raise RuntimeError(f"compaction kernel launch failed: CUDA error "
                            f"{rc}")
-    launches += 1
+    with _LAUNCH_LOCK:
+        launches += 1
     # scratch words 1..2 hold the int32 scalars the last tile wrote
     n_valid, matched, overflow = scratch.view(torch.int32)[2:5].unbind()
     return valid, outs, n_valid, matched, overflow
@@ -173,7 +177,10 @@ _KERNEL = None  # (pinot_compact, tile rows, scratch header words)
 def _bound_kernel():
     global _KERNEL
     if _KERNEL is None:
-        _KERNEL = bind(cuda_build.library("compact"))
+        lib = cuda_build.library("compact")   # builds under its lock
+        with cuda_build._LOCK:                # bind once, for every thread
+            if _KERNEL is None:
+                _KERNEL = bind(lib)
     return _KERNEL
 
 

@@ -278,20 +278,28 @@ def _eval_pred(p: Pred, cols, params, bucket: int,
         return _mv_any(_val_negate(m, arr) if p.negated else m)
     if isinstance(p, IdRange):
         arr = cols[p.col]
-        m = torch.ones(arr.shape, dtype=torch.bool, device=arr.device)
+        # out of place, so torch.func.vmap can carry it over stacked
+        # params (engine/ragged.py evaluates it for N queries at once)
+        parts = []
         if p.lo_param is not None:
-            m &= torch.ge(*_promote(arr, params[p.lo_param]))
+            parts.append(torch.ge(*_promote(arr, params[p.lo_param])))
         if p.hi_param is not None:
-            m &= torch.le(*_promote(arr, params[p.hi_param]))
+            parts.append(torch.le(*_promote(arr, params[p.hi_param])))
         if p.lo_param is None and arr.dim() == 2:
-            m &= arr >= 0   # hi-only MV range: exclude the -1 pad slots
+            parts.append(arr >= 0)  # hi-only MV range: not the -1 pads
+        if not parts:
+            parts.append(torch.ones(arr.shape, dtype=torch.bool,
+                                    device=arr.device))
+        m = parts[0]
+        for part in parts[1:]:
+            m = m & part
         return _mv_any(_val_negate(m, arr) if p.negated else m)
     if isinstance(p, InSet):
         arr = cols[p.col]
         vals = params[p.param]  # (n,) sorted ascending
         if p.n > INSET_SEARCH_MIN:
             a, v = _promote(arr, vals)
-            idx = torch.searchsorted(v, a.contiguous()).clamp_(0, p.n - 1)
+            idx = torch.searchsorted(v, a.contiguous()).clamp(0, p.n - 1)
             m = v[idx] == a
         else:
             m = (arr.unsqueeze(-1) == vals).any(dim=-1)

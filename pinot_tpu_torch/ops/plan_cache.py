@@ -12,16 +12,22 @@ runs:
   that overflowed once goes straight to full capacity next time instead
   of paying the doomed tight run and its retry (engine/executor.py).
 
-The retrace detector, donated accumulators and the cube cache come with
-the micro-batching slice.
+It also holds the cube cache of cross-query micro-batching
+(``CubeCache``, engine/ragged.py). The retrace detector and the donated
+accumulators come with a slice that caches compiled plans.
 """
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..engine.tier import global_tier
+from ..utils.devmem import global_device_memory, nbytes_of
+from ..utils.metrics import global_metrics
 
 MAX_ENTRIES = 512
 
@@ -92,4 +98,135 @@ class KernelPlanCache:
             self._overflowed.clear()
 
 
+class CubeCache:
+    """(cube spec, segment uid) -> the device-resident literal-free cube of
+    engine/ragged.py. Queries sharing a plan structure differ only in
+    their literal params, so one unmasked group-by over the union of the
+    predicate and group dimensions answers all of them. Keyed by the
+    segment's process-unique load uid (names recur across tables and
+    reloads; uids never do), so a reload never serves stale cells; the
+    name rides along for ``evict_containing``.
+
+    A cube is published only once its build has completed on the device
+    (engine/ragged._build_cube fences before returning), so a reader on
+    any thread or stream sees finished cells. Neither the cache's lock
+    nor a build runs inside the other: builds take the segment's and the
+    tier's locks, and a demotion calls ``evict_containing`` from inside
+    the tier, so ``global_tier.enforce`` is called outside this lock."""
+
+    def __init__(self, maxsize: int = 16):
+        self._entries: "OrderedDict[Tuple, Dict[str, torch.Tensor]]" = \
+            OrderedDict()
+        # (spec, uid tuple, name tuple) -> {name: [S, ...]} stacked cubes:
+        # a warm fused dispatch would otherwise re-stack every cube
+        self._stacked: "OrderedDict[Tuple, Dict[str, torch.Tensor]]" = \
+            OrderedDict()
+        # key -> Event while a build is in flight: concurrent leaders
+        # missing the same key must not each run the full segment scan
+        self._building: Dict[Tuple, threading.Event] = {}
+        self._maxsize = maxsize
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    def entry(self, spec, segment, build_fn) -> Dict[str, torch.Tensor]:
+        key = (spec, segment.uid, segment.name)
+        while True:
+            with self._lock:
+                hit = self._entries.get(key)
+                if hit is not None:
+                    self._entries.move_to_end(key)
+                    self.hits += 1
+                    waiting = None
+                else:
+                    waiting = self._building.get(key)
+                    if waiting is None:
+                        self._building[key] = threading.Event()
+                        self.misses += 1
+            if hit is not None:
+                global_metrics.count("cube_cache_hits")
+                return hit
+            if waiting is None:
+                break               # this thread builds
+            # another leader is scanning this segment: wait for its cube
+            # (on its failure the loop re-enters and this thread builds)
+            waiting.wait(timeout=600)
+        global_metrics.count("cube_cache_misses")
+        try:
+            built = build_fn()
+        except BaseException:
+            with self._lock:
+                ev = self._building.pop(key, None)
+            if ev is not None:
+                ev.set()
+            raise
+        with self._lock:
+            # publish before signalling: a woken waiter must find the entry
+            built = self._entries.setdefault(key, built)
+            global_device_memory.add("cube_cache", key, nbytes_of(built))
+            self._entries.move_to_end(key)
+            while len(self._entries) > self._maxsize:
+                old_key, _old = self._entries.popitem(last=False)
+                global_device_memory.remove("cube_cache", old_key)
+            global_metrics.gauge("cube_cache_entries", len(self._entries))
+            ev = self._building.pop(key, None)
+        if ev is not None:
+            ev.set()
+        # shared-budget admission outside self._lock: the cube is a new
+        # device resident charged to the one budget
+        global_tier.enforce(protect={segment.uid})
+        return built
+
+    def stacked(self, spec, segments, per_segment: List[Dict[str, Any]]
+                ) -> Dict[str, torch.Tensor]:
+        """{name: [S, ...]} stack of the given segments' cubes, cached by
+        (spec, uid tuple) so a warm fused dispatch copies nothing.
+        ``per_segment`` are the ``entry`` results for the same segments,
+        in order."""
+        key = (spec, tuple(s.uid for s in segments),
+               tuple(s.name for s in segments))
+        with self._lock:
+            hit = self._stacked.get(key)
+            if hit is not None:
+                self._stacked.move_to_end(key)
+                return hit
+        stacked = {name: torch.stack([c[name] for c in per_segment])
+                   for name in per_segment[0]}
+        with self._lock:
+            stacked = self._stacked.setdefault(key, stacked)
+            global_device_memory.add("cube_stacked", key,
+                                     nbytes_of(stacked))
+            self._stacked.move_to_end(key)
+            while len(self._stacked) > self._maxsize:
+                old_key, _old = self._stacked.popitem(last=False)
+                global_device_memory.remove("cube_stacked", old_key)
+        global_tier.enforce(protect={s.uid for s in segments})
+        return stacked
+
+    def evict_containing(self, segment_name: str) -> None:
+        with self._lock:
+            for key in [k for k in self._entries if k[2] == segment_name]:
+                del self._entries[key]
+                global_device_memory.remove("cube_cache", key)
+            for key in [k for k in self._stacked if segment_name in k[2]]:
+                del self._stacked[key]
+                global_device_memory.remove("cube_stacked", key)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "entries": len(self._entries),
+                    "stacked": len(self._stacked)}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._stacked.clear()
+            self.hits = 0
+            self.misses = 0
+        global_device_memory.drop_pool("cube_cache")
+        global_device_memory.drop_pool("cube_stacked")
+
+
 global_plan_cache = KernelPlanCache()
+global_cube_cache = CubeCache()

@@ -336,8 +336,8 @@ class ImmutableSegment:
 
     def demote_device(self, drop_warm: bool = False) -> None:
         """Tier demotion (engine/tier.py): drop the device residents and
-        every stacked copy containing this segment (a demotion that left a
-        stacked copy resident would free nothing). The warm host arrays
+        every stacked copy and cube containing this segment (a demotion
+        that left a stacked copy resident would free nothing). The warm host arrays
         survive for a cheap re-promotion unless ``drop_warm`` (host ->
         disk: the memmap is the only copy left). The drain is atomic with
         concurrent inserts (_res_lock), so devmem never tracks a tensor
@@ -349,7 +349,9 @@ class ImmutableSegment:
             if drop_warm:
                 self._drop_warm_locked()
         from ..engine.batch import evict_stacks_containing
+        from ..ops.plan_cache import global_cube_cache
         evict_stacks_containing(self.name)
+        global_cube_cache.evict_containing(self.name)
 
     def _drop_warm_locked(self) -> bool:
         # caller holds self._res_lock
@@ -368,8 +370,8 @@ class ImmutableSegment:
 
     def evict_device(self) -> None:
         """Full unload: device and warm copies gone, every stacked copy
-        holding this segment's columns dropped (engine/batch), tier state
-        cold."""
+        holding this segment's columns (engine/batch) and every cube of it
+        (ops/plan_cache) dropped, tier state cold."""
         self.demote_device(drop_warm=True)
         global_tier.on_evicted(self)
 

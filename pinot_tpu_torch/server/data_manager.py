@@ -14,6 +14,7 @@ from typing import Dict, List, Union
 import torch
 
 from ..device import resolve_device
+from ..ops.plan_cache import global_cube_cache
 from ..segment import segdir
 from ..segment.immutable import ImmutableSegment
 
@@ -51,9 +52,9 @@ class TableDataManager:
 
     def remove_segment(self, name: str) -> None:
         """Drop a segment and release its device residency now (padded
-        columns, warm copies and every stacked copy holding it), so the
-        device-memory registry stops counting it; queries in flight keep
-        their own tensor references."""
+        columns, warm copies, every stacked copy and cube holding it), so
+        the device-memory registry stops counting it; queries in flight
+        keep their own tensor references."""
         with self._lock:
             segs = dict(self._segments)
             seg = segs.pop(name, None)
@@ -63,7 +64,12 @@ class TableDataManager:
             segdir.invalidate(seg.dir)
 
     def replace_segment(self, segment: ImmutableSegment) -> None:
-        self.add_segment(segment)  # atomic swap by name
+        """Atomic swap by name; the replaced segment's cubes are released
+        (they are keyed by its uid and could never be served again)."""
+        old = self._segments.get(segment.name)
+        self.add_segment(segment)
+        if old is not None and old is not segment:
+            global_cube_cache.evict_containing(old.name)
 
     def acquire_segments(self) -> List[ImmutableSegment]:
         return list(self._segments.values())

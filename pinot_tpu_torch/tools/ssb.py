@@ -1,8 +1,9 @@
 """The SSB Q1.1-Q4.3 workload: data, queries and a numpy oracle.
 
 The port's own copy of ``bench.py``'s ``gen_columns``, ``QUERIES``,
-``spec_to_sql``, ``oracle_run`` and ``_digest``, so ``chip_smoke.py`` and
-the port need nothing from the JAX package. The 13 queries (reference:
+``QPS_SHAPES`` (here ``CONCURRENT``), ``spec_to_sql``, ``oracle_run`` and
+``_digest``, so ``chip_smoke.py`` and the port need nothing from the JAX
+package. The 13 queries (reference:
 pinot-integration-tests/src/test/resources/ssb/ssb_query_set.yaml) run
 over one flat, denormalized ``lineorder`` table: the dimension attributes
 each query touches are dictionary-encoded columns, hierarchically
@@ -211,6 +212,40 @@ SURFACE = [
     ("host", "SELECT UPPER(s_region), SUM(lo_revenue) FROM lineorder "
              "WHERE d_yearmonthnum = 199401 GROUP BY UPPER(s_region) "
              "ORDER BY UPPER(s_region) LIMIT 10", "host"),
+]
+
+# concurrent traffic (bench.py's QPS_SHAPES): literal-variant generators
+# per SSB shape. Each variant keeps the plan structure (eq stays eq,
+# BETWEEN keeps both bounds, OR-of-equals keeps its width) and varies only
+# literal values, so concurrent variants share the KernelPlan the
+# cross-query micro-batcher (engine/ragged.py) keys on. make(k) is the
+# SQL of variant k, with no OPTION clause.
+CONCURRENT = [
+    ("q1.1", lambda i:
+        f"SELECT SUM(lo_extendedprice * lo_discount) FROM lineorder "
+        f"WHERE d_year = {1992 + i % 7} "
+        f"AND lo_discount BETWEEN {i % 4} AND {i % 4 + 2} "
+        f"AND lo_quantity < {20 + i % 15}"),
+    ("q1.2", lambda i:
+        f"SELECT SUM(lo_extendedprice * lo_discount) FROM lineorder "
+        f"WHERE d_yearmonthnum = {199201 + (i % 7) * 100 + i % 12} "
+        f"AND lo_discount BETWEEN {1 + i % 4} AND {3 + i % 4} "
+        f"AND lo_quantity BETWEEN {10 + i % 10} AND {30 + i % 10}"),
+    ("q3.1", lambda i:
+        f"SELECT c_nation, s_nation, d_year, SUM(lo_revenue) "
+        f"FROM lineorder WHERE c_region = '{REGIONS[i % 5]}' "
+        f"AND s_region = '{REGIONS[(i // 5) % 5]}' "
+        f"AND d_year BETWEEN {1992 + i % 2} AND {1996 + i % 3} "
+        f"GROUP BY c_nation, s_nation, d_year "
+        f"ORDER BY c_nation, s_nation, d_year LIMIT 100000"),
+    ("q4.1", lambda i:
+        f"SELECT d_year, c_nation, "
+        f"SUM(lo_revenue - lo_supplycost) FROM lineorder "
+        f"WHERE c_region = '{REGIONS[i % 5]}' "
+        f"AND s_region = '{REGIONS[(i // 5) % 5]}' "
+        f"AND (p_mfgr = 'MFGR#{1 + i % 4}' OR p_mfgr = 'MFGR#{2 + i % 4}')"
+        f" GROUP BY d_year, c_nation ORDER BY d_year, c_nation "
+        f"LIMIT 100000"),
 ]
 
 

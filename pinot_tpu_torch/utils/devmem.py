@@ -21,10 +21,11 @@ from .metrics import global_metrics
 # the pools the port has:
 #   segment_cols  segment/immutable.ImmutableSegment._device tensors
 #   stack_cache   engine/batch._STACK_CACHE stacked column tuples
-# The JAX package's cube_cache, cube_stacked, plan_cache_acc and vector
-# pools come with the slices that port the cube cache (micro-batching),
-# the donated plan-cache accumulators and the vector index.
-POOLS = ("segment_cols", "stack_cache")
+#   cube_cache    ops/plan_cache.CubeCache per-segment cubes (micro-batching)
+#   cube_stacked  ops/plan_cache.CubeCache stacks of those cubes
+# The JAX package's plan_cache_acc and vector pools come with the slices
+# that port the donated plan-cache accumulators and the vector index.
+POOLS = ("segment_cols", "stack_cache", "cube_cache", "cube_stacked")
 
 
 def nbytes_of(tree: Any) -> int:

@@ -21,8 +21,14 @@ race widened by spins queued on the streams, and with any one of its three
 waits dropped under the widened race it must give wrong partials (so the
 equality above is what would catch the loss of a wait); and the
 device tier must give the CPU's rows with the segments hot, warm, cold
-and under a budget below the working set.
+and under a budget below the working set. Cross-query micro-batching
+(K14) must give the serial rows under 32 concurrent threads with its
+cubes on the card, and a cube read by a follower while its build is
+still queued behind a spin on another stream must equal the CPU's;
+published without the fence on its build, it must not.
 """
+import time
+
 import pytest
 import torch
 
@@ -469,3 +475,167 @@ def test_tier_demote_and_promote_on_cuda(cuda, nine_segments):
         for s in live:
             s.evict_device()
         batch.clear_stack_cache()
+
+
+@pytest.fixture()
+def cube_table(tmp_path):
+    """One 2^17-row SSB segment on the card and on the CPU (every
+    concurrent shape's cube fits its bucket), with an empty cube cache
+    before and after (the tier tests above reconcile the cube pools)."""
+    from pinot_tpu_torch.engine.ragged import global_batcher
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.server import TableDataManager
+
+    seg_dir = ssb.build_segment_dir(1 << 17, str(tmp_path))
+    global_cube_cache.clear()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        dm = TableDataManager("lineorder", device=dev)
+        dm.add_segment_dir(seg_dir)
+        out[dev] = dm
+    yield out
+    global_batcher.configure(enabled=True, window_ms=4.0, max_batch=32)
+    global_cube_cache.clear()
+    for dm in out.values():
+        for s in dm.acquire_segments():
+            s.evict_device()
+
+
+def test_fused_vs_serial_under_32_threads_on_cuda(cuda, cube_table):
+    """32 concurrent variants of each concurrent shape on the card: the
+    fused rows equal the serial ones and the CPU's, the waves fuse, and
+    every cube lives on the card."""
+    import threading
+
+    from pinot_tpu_torch.broker import Broker
+    from pinot_tpu_torch.engine.ragged import global_batcher
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.utils.metrics import global_metrics
+
+    brokers = {}
+    for dev, dm in cube_table.items():
+        brokers[dev] = Broker(device=dev)
+        brokers[dev].register_table(dm)
+    counters = global_metrics.snapshot()["counters"]
+    fused0 = counters.get("batched_dispatches", 0)
+    errors0 = counters.get("fused_dispatch_errors", 0)
+    for _shape, make in ssb.CONCURRENT:
+        sqls = [make(k) + " OPTION(timeoutMs=600000)" for k in range(32)]
+        global_batcher.configure(enabled=False)
+        serial = [brokers["cuda"].query(s).rows for s in sqls]
+        assert all(_close(a, brokers["cpu"].query(s).rows)
+                   for a, s in zip(serial, sqls))
+        global_batcher.configure(enabled=True, window_ms=8.0, max_batch=32)
+        rows = [None] * 32
+        errs = []
+        barrier = threading.Barrier(32)
+
+        def run(k):
+            try:
+                barrier.wait(30)
+                rows[k] = brokers["cuda"].query(sqls[k]).rows
+            except Exception as e:  # noqa: BLE001 - asserted below
+                errs.append(repr(e))
+
+        threads = [threading.Thread(target=run, args=(k,))
+                   for k in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errs, errs
+        assert rows == serial
+    counters = global_metrics.snapshot()["counters"]
+    assert counters.get("batched_dispatches", 0) > fused0
+    assert counters.get("fused_dispatch_errors", 0) == errors0
+    cubes = list(global_cube_cache._entries.values()) \
+        + list(global_cube_cache._stacked.values())
+    assert cubes and all(t.device.type == "cuda"
+                         for c in cubes for t in c.values())
+
+
+RACE_CYCLES = 4 * SLEEP_CYCLES    # about 100 ms
+
+
+def _cube_race(cube_table, fence: bool, monkeypatch):
+    """A leader builds a q1.1 cube on a side stream held back by a spin;
+    a follower on the default stream asks the cache for the same cube
+    while that build is in flight and runs the fused path on it. Returns
+    (the follower's partial, the CPU's)."""
+    import threading
+
+    from pinot_tpu_torch.engine import ragged
+    from pinot_tpu_torch.engine.executor import (extract_partial,
+                                                 resolve_params,
+                                                 run_kernel)
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.planner import SegmentPlanner
+    from pinot_tpu_torch.query.sql import parse_sql
+
+    if not fence:
+        monkeypatch.setattr(ragged, "_fence", lambda tree: None)
+    # the spin goes inside the cube build, after the build's own uploads
+    # of its params (a pageable upload waits for the stream, spin and all)
+    build = ragged.build_cube_kernel
+
+    def slow_build(spec):
+        fn = build(spec)
+
+        def slow(*args):
+            torch.cuda._sleep(RACE_CYCLES)
+            return fn(*args)
+        return slow
+    monkeypatch.setattr(ragged, "build_cube_kernel", slow_build)
+    sql = ssb.CONCURRENT[0][1](3)
+    plans = {dev: SegmentPlanner(build_query_context(parse_sql(sql)),
+                                 dm.acquire_segments()[0]).plan()
+             for dev, dm in cube_table.items()}
+    want = extract_partial(plans["cpu"], run_kernel(plans["cpu"]))
+    plan = plans["cuda"]
+    spec = ragged.cube_spec_for(plan)[0]
+    params = resolve_params(plan)
+    plan.segment.device_cols(plan.col_names)      # resident before
+    side = torch.cuda.Stream()
+    # poison the side stream's free blocks of the cube's size: a read
+    # before the build writes them sees -7s, not a stale cube
+    with torch.cuda.stream(side):
+        junk = [torch.full((spec.cube_space + 1,), -7, dtype=torch.int64,
+                           device="cuda") for _ in range(4)]
+    torch.cuda.synchronize()
+    del junk
+    global_cube_cache.clear()
+    batcher = ragged.RaggedBatcher(enabled=True)
+    got = {}
+
+    def leader():
+        with torch.cuda.stream(side):
+            sub = ragged._Submission([plan], [params], None)
+            got["leader"] = batcher._execute_fused(spec, [sub])[id(sub)][0]
+
+    t = threading.Thread(target=leader)
+    t.start()
+    deadline = time.perf_counter() + 10
+    while not global_cube_cache._building and "leader" not in got:
+        assert time.perf_counter() < deadline
+        time.sleep(1e-4)
+    sub = ragged._Submission([plan], [params], None)
+    follower = batcher._execute_fused(spec, [sub])[id(sub)][0]
+    t.join(30)
+    torch.cuda.synchronize()
+    assert global_cube_cache.stats()["misses"] == 1   # one build, shared
+    return follower, want
+
+
+def test_cube_read_during_its_build_equals_cpu(cuda, cube_table,
+                                               monkeypatch):
+    follower, want = _cube_race(cube_table, True, monkeypatch)
+    assert vars(follower) == vars(want)
+
+
+def test_cube_read_during_its_build_needs_the_fence(cuda, cube_table,
+                                                    monkeypatch):
+    """Publishing the cube before its build finished lets the follower
+    read unwritten cells: the test above would catch the fence's loss."""
+    follower, want = _cube_race(cube_table, False, monkeypatch)
+    assert vars(follower) != vars(want)

@@ -85,6 +85,28 @@ def test_walk_covers_the_memory_plane():
     assert {m.replace(".", "/") + ".py" for m in MEMORY_PLANE} <= srcs
 
 
+SERVING_PLANE = tuple(f"pinot_tpu_torch.{m}" for m in (
+    "engine.accounting", "engine.scheduler", "engine.ragged"))
+
+
+def test_walk_covers_the_serving_plane():
+    """The import checks above reach the accountant, the admission
+    window and the cross-query micro-batcher, and the broker imports
+    them (the batcher runs by default)."""
+    import pkgutil
+
+    import pinot_tpu_torch
+    from pinot_tpu_torch.broker import broker
+
+    walked = {m.name for m in pkgutil.walk_packages(
+        pinot_tpu_torch.__path__, "pinot_tpu_torch.")}
+    assert set(SERVING_PLANE) <= walked
+    srcs = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {m.replace(".", "/") + ".py" for m in SERVING_PLANE} <= srcs
+    assert broker.global_accountant is not None
+    assert broker.global_batcher is not None
+
+
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch,
                                                           tmp_path):
     from pinot_tpu_torch.broker import Broker
