@@ -92,7 +92,34 @@ Phases, each printed as it runs; any failure exits non-zero:
              on the 8-segment table: each must plan its kind and equal the
              same query under OPTION(forceHostExecution=true) (the numpy
              host path): sketch states bitwise, percentile centroids
-             against a numpy build of the same split to a relative 1e-9.
+             against a numpy build of the same split to a relative 1e-9;
+10. star, multistage - the multi-stage engine: bench.py's star schema
+             (tools/star.py: orders PINOT_SMOKE_MS_ROWS rows, default 2^24,
+             in 4 segments; customers 60,000; parts 2,000; seed 16) built
+             under .torch_cache/, then five shapes (join_gb, join3_gb,
+             join_window, a running window sum, a partition window sum)
+             in literal variants through Broker(device="cuda") on five
+             planes: fused (K19 csr, state cap 2^25), fused at the default
+             cap (join_gb, join3_gb: must fall back to the mailbox plane),
+             fused sort (K16 inside K19), mailbox with device joins (K16
+             on the parts stage) and mailbox with numpy joins. Every row
+             list must equal a numpy oracle written here (gathers,
+             bincount, lexsort + cumsum), each plane must take its
+             backends, K16, K17 (scan and segment agg) and K19 must
+             launch, no query may leave memory on the card and tracked
+             device bytes must equal held; per (shape, plane) the p50,
+             launches, CUDA-event ms per query of each device function
+             and the device's busy and idle share (torch.profiler, the
+             last variant). Then K17's CUDA scan is held against its plain
+             version on 120 edge cases (n = 1, tile edges, one partition,
+             every row a reset, int64 past 2^53, each op over int64 and
+             float64: bitwise, float64 sums to a relative 1e-12) and on
+             the path's own inputs, and timed beside torch.cumsum; K16,
+             the segment agg and K19 are timed alone on their inputs.
+
+The SSB phases run at 2^25 rows by default (2^26 before the multi-stage
+phase was added), so that the star schema's 2^24 orders rows fit the
+run's time limit.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, and without
@@ -111,7 +138,10 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-N_ROWS = int(os.environ.get("PINOT_SMOKE_ROWS", 1 << 26))
+# the SSB paths' depth: 2^25 rows (2^26 before the multi-stage phase),
+# so that the phase's 2^24-row star schema fits the time limit
+DEFAULT_ROWS = 1 << 25
+N_ROWS = int(os.environ.get("PINOT_SMOKE_ROWS", DEFAULT_ROWS))
 ITERS = 3
 TABLE_SEGMENTS = 8
 CACHE = os.path.join(ROOT, ".torch_cache")
@@ -366,10 +396,13 @@ def segment_phase() -> str:
     cuts = [f"{N_ROWS} rows of lineorder in one segment; SSB SF10 has "
             f"{SSB_SF10_ROWS} (scale factor here "
             f"{N_ROWS / SSB_SF10_ROWS * 10:.2f})",
-            "dimension tables denormalized onto lineorder (as bench.py)"]
+            "dimension tables denormalized onto lineorder (as bench.py)",
+            f"the default depth {DEFAULT_ROWS} is half the earlier 2^26, "
+            "so that the multi-stage phase's 2^24-row star schema fits the "
+            "run's time limit"]
     if "PINOT_SMOKE_ROWS" in os.environ:
         cuts.append(f"PINOT_SMOKE_ROWS={N_ROWS} overrides the default "
-                    f"{1 << 26}")
+                    f"{DEFAULT_ROWS}")
     phase("segment", rows=N_ROWS, dir=os.path.relpath(seg_dir, ROOT),
           cached=cached, seconds=time.perf_counter() - t0, cuts=cuts)
     return seg_dir
@@ -465,18 +498,19 @@ def compact_split_ms(fn, reps: int = 10) -> dict:
     return out
 
 
-def profile_query(query, sql: str, top: int = 6) -> dict:
+def profile_query(query, sql: str, top: int = 6, results=None) -> dict:
     """One run of a query under torch.profiler: the device's busy time
     (the sum of its kernels' times), its idle share of the run's wall
     time, the compaction kernel's share, and the torch ops with the most
-    device time."""
+    device time. The query's result is appended to ``results`` when one
+    is given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        query(sql)
+        res = query(sql)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -490,6 +524,8 @@ def profile_query(query, sql: str, top: int = 6) -> dict:
     ops = sorted(((e.key, _dev_ms(e), e.count) for e in events
                   if e not in on_device and _dev_ms(e) > 0),
                  key=lambda t: -t[1])
+    if results is not None:
+        results.append(res)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "memcpy_memset_ms": copy_ms,
@@ -878,8 +914,19 @@ def _k14_alone(segs, make, device: str) -> dict:
     seg_idx = torch.tensor([j for j, _p in items], device=device)
     combine = ragged.build_cube_combine_kernel(spec)
     on_card = device.startswith("cuda")
+    # bounds (bytes at HBM_BYTES_PER_S): a build reads the plan's columns
+    # once and writes its cube's cells once; a combine reads each item's
+    # cube once and writes its results once
+    cube = build(cols, p0.segment.n_docs, params0)
+    res = combine(stacked, seg_idx, params)
     out = {"cube_space": spec.cube_space, "segments": len(segs),
-           "queries": len(same), "padded": npad}
+           "queries": len(same), "padded": npad,
+           "build_bound_ms": _nbytes(*cols, *cube.values())
+           / HBM_BYTES_PER_S * 1e3,
+           "combine_bound_ms": (npad * _nbytes(*cube.values())
+                                + _nbytes(*res.values()))
+           / HBM_BYTES_PER_S * 1e3}
+    del cube, res
     if on_card:
         out.update(
             build_ms=cuda_time_ms(lambda: build(cols, p0.segment.n_docs,
@@ -1413,7 +1460,9 @@ def hooks_phase(single, segs, device: str = "cuda") -> None:
           seconds=time.perf_counter() - t_start)
 
 
-TIER_BUDGET = 512 << 20          # the tier phase's device budget
+# the tier phase's device budget: 1/9 of the 8-segment table's columns
+# (512 MiB at 2^26 rows)
+TIER_BUDGET = (512 << 20) * N_ROWS // (1 << 26)
 MEM_SLACK = 64 << 20             # allowance in the memory checks
 
 
@@ -1836,6 +1885,508 @@ def surface_phase(seg_list, label: str):
                        if on_card and device.type == "cuda" else None))
 
 
+# ---------------------------------------------------------------------------
+# the multi-stage engine (K16, K17, K19) over the star schema
+# ---------------------------------------------------------------------------
+
+MS_ROWS = int(os.environ.get("PINOT_SMOKE_MS_ROWS", 1 << 24))
+MS_VARIANTS = 3                  # literal variants of each shape
+MS_STATE_CAP = 1 << 25           # PINOT_FUSED_MAX_STATE of the fused plane
+# (plane, OPTION(multistageFused=...), env, variants run)
+MS_PLANES = (
+    ("fused_csr", "true", {"PINOT_FUSED_MAX_STATE": str(MS_STATE_CAP)},
+     MS_VARIANTS),
+    ("fused_default_cap", "true", {}, 1),      # join_gb, join3_gb only
+    ("fused_sort", "true", {"PINOT_FUSED_MAX_STATE": str(MS_STATE_CAP),
+                            "PINOT_FUSED_MAX_CSR": "0"}, 1),
+    ("mailbox_device", "false", {}, MS_VARIANTS),
+    ("mailbox_numpy", "false", {"PINOT_DEVICE_JOIN_MIN_ROWS": str(1 << 62)},
+     1),
+)
+SCAN_EDGE_SEED = 1717
+
+
+def star_phase():
+    """The star schema at MS_ROWS orders rows, built with the port's
+    builder under .torch_cache/ (cached across runs of one machine)."""
+    from pinot_tpu_torch.tools import star
+
+    t0 = time.perf_counter()
+    tables = star.star_tables(MS_ROWS)
+    dirs = star.build_tables(os.path.join(CACHE, f"star_{MS_ROWS}"), tables)
+    phase("star", orders=MS_ROWS, customers=star.CUST_ROWS,
+          parts=star.PART_ROWS, segments={k: len(v) for k, v in dirs.items()},
+          seconds=time.perf_counter() - t0)
+    return tables, dirs
+
+
+def _ms_rows(rows) -> list:
+    """Rows with every number as an int (the star schema's sums, counts
+    and ranks are integral; a fraction fails the check)."""
+    out = []
+    for r in rows:
+        t = []
+        for x in r:
+            if isinstance(x, str):
+                t.append(x)
+            elif float(x) != int(x):
+                raise AssertionError(f"fractional value {x!r} in {r}")
+            else:
+                t.append(int(x))
+        out.append(tuple(t))
+    return out
+
+
+def ms_oracle(tables) -> dict:
+    """{shape: variant -> rows}, with numpy alone: c_id and p_id are
+    arange, so each join is a gather; group sums are np.bincount; ROW_NUMBER
+    and running sums come from a lexsort by (nation, o_key) and a cumsum
+    within each partition."""
+    import numpy as np
+
+    cust, part, orders = (tables[k][0] for k in ("customers", "parts",
+                                                 "orders"))
+    names, nat_of = np.unique(cust["c_nation"], return_inverse=True)
+    brands, br_of = np.unique(part["p_brand"], return_inverse=True)
+    o_nat = nat_of[orders["o_cust"]]
+    o_br = br_of[orders["o_part"]]
+    price, key = orders["o_price"], orders["o_key"]
+    nb = len(brands)
+    count = np.bincount(o_nat, minlength=len(names))
+    gcount = np.bincount(o_nat * nb + o_br, minlength=len(names) * nb)
+    m = price > 3750
+    fk, fn, fp = key[m], o_nat[m], price[m]
+    order = np.lexsort((fk, fn))
+    sn = fn[order]
+    new = np.r_[True, sn[1:] != sn[:-1]]
+    start = np.maximum.accumulate(np.where(new, np.arange(len(sn)), 0))
+    rn = np.arange(len(sn)) - start + 1
+    top = np.argsort(-fk, kind="stable")[:50]
+
+    def join_gb(i):
+        s = np.bincount(o_nat, weights=price + i % 7, minlength=len(names))
+        return [(str(names[k]), int(s[k]), int(count[k]))
+                for k in range(len(names)) if count[k]][:10]
+
+    def join3_gb(i):
+        s = np.bincount(o_nat * nb + o_br, weights=price * 2 + i % 5,
+                        minlength=len(names) * nb)
+        return [(str(names[g // nb]), str(brands[g % nb]), int(s[g]))
+                for g in range(len(s)) if gcount[g]][:40]
+
+    def join_window(i):
+        return [(str(names[sn[j]]), int(fk[order[j]]) + i % 3, int(rn[j]))
+                for j in range(min(50, len(sn)))]
+
+    def win_running(i):
+        v = (fp + i % 4)[order]
+        cs = np.cumsum(v)
+        run = np.empty_like(cs)
+        run[order] = cs - (cs[start] - v[start])
+        return [(str(names[fn[j]]), int(fk[j]), int(run[j])) for j in top]
+
+    def win_partition(i):
+        tot = np.bincount(fn, weights=fp + i % 4, minlength=len(names))
+        return [(str(names[fn[j]]), int(fk[j]), int(tot[fn[j]]))
+                for j in top]
+
+    return {"join_gb": join_gb, "join3_gb": join3_gb,
+            "join_window": join_window, "win_running": win_running,
+            "win_partition": win_partition}
+
+
+MS_KINDS = ("k16", "k17_scan", "k17_agg", "k19")
+
+
+@contextlib.contextmanager
+def _ms_events(on_card: bool):
+    """Inside the block, every call of the multi-stage device functions
+    records a CUDA event pair around it and keeps the first call's inputs
+    of each kind: yields {kind: [(start, end)], "inputs": {kind: args}}.
+    K16 is looked up by name in device_join and fused, the K17 scan in
+    window, the segment agg and K19 in their own modules, so wrapping
+    those names times every call."""
+    import torch
+
+    from pinot_tpu_torch.multistage import device_join, fused, window
+
+    log = {k: [] for k in MS_KINDS}
+    log["inputs"] = {}
+    # (module, name, kind, key of the kept inputs): K16 keeps the mailbox
+    # plane's call (the parts stage), not the one inside K19's sort kind
+    sites = ((device_join, "device_equi_join", "k16", "k16"),
+             (fused, "device_equi_join", "k16", "k16_in_k19"),
+             (window, "seg_scan", "k17_scan", "k17_scan"),
+             (window, "_segment_agg", "k17_agg", "k17_agg"),
+             (fused, "_fused_program", "k19", "k19"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, *_k in sites]
+
+    def timed(fn, kind, key):
+        def call(*args):
+            if key != "k16_in_k19":
+                log["inputs"].setdefault(key, args)
+            if not on_card:
+                return fn(*args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            log[kind].append((start, end))
+            return out
+        return call
+
+    for (mod, name, kind, key), (_m, _n, fn) in zip(sites, saved):
+        setattr(mod, name, timed(fn, kind, key))
+    try:
+        yield log
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _ms_counts() -> dict:
+    from pinot_tpu_torch.multistage import device_join, fused, window
+    from pinot_tpu_torch.ops import join as ops_join
+    from pinot_tpu_torch.ops import segscan
+
+    return {"k16": ops_join.launches, "k17_scan": segscan.launches,
+            "k17_agg": window.segment_agg_launches, "k19": fused.launches,
+            **{f"join_{k}": v for k, v in device_join.STATS.items()},
+            **{k: v for k, v in fused.STATS.items()}}
+
+
+def _reset_ms_counts() -> None:
+    from pinot_tpu_torch.multistage import window
+    from pinot_tpu_torch.ops import join as ops_join
+    from pinot_tpu_torch.ops import segscan
+    from pinot_tpu_torch.multistage import fused
+
+    ops_join.launches = segscan.launches = 0
+    window.segment_agg_launches = fused.launches = 0
+
+
+def _nbytes(*tensors) -> int:
+    """Bytes of the distinct tensors among ``tensors`` (a tensor passed
+    twice is read once)."""
+    import torch
+
+    seen = {}
+    for t in tensors:
+        if isinstance(t, torch.Tensor):
+            seen[(t.data_ptr(), t.numel())] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def _kept_bytes(log) -> int:
+    """Device bytes of the inputs _ms_events keeps for the checks."""
+    flat = []
+    for args in log["inputs"].values():
+        for a in args:
+            flat.extend(a if isinstance(a, (list, tuple)) else [a])
+    return _nbytes(*flat)
+
+
+def _left_on_card(on_card: bool, base_mem: int, log) -> int:
+    """Device bytes allocated past the phase's start, beside the kept
+    inputs: what a query left behind."""
+    import torch
+
+    if not on_card:
+        return 0
+    return torch.cuda.memory_allocated() - base_mem - _kept_bytes(log)
+
+
+def _plane_env(env: dict):
+    @contextlib.contextmanager
+    def scope():
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return scope()
+
+
+def multistage_phase(dirs, tables, live_segments=(),
+                     device: str = "cuda") -> dict:
+    """The five star shapes on every plane through Broker(device) and
+    connect(broker)(sql): digests equal to the numpy oracle's, the
+    backends each plane must take, K16, K17 (scan and segment agg) and
+    K19 launched on the card, per (shape, plane) the p50, the device
+    functions' launches and CUDA-event ms per query and the device's busy
+    and idle share (torch.profiler); then the device-memory check: the
+    tracked device bytes are what they were before the phase and equal
+    the tensors held by ``live_segments`` (the segments of earlier phases
+    still on the card) and the star tables' segments. Returns the device
+    functions' launches and the first inputs of each."""
+    import torch
+
+    from pinot_tpu_torch.broker import connect
+    from pinot_tpu_torch.tools import star
+    from pinot_tpu_torch.utils.devmem import global_device_memory
+
+    on_card = device.startswith("cuda")
+    broker = star.load_broker(dirs, device)
+    query = connect(broker)
+    oracle = ms_oracle(tables)
+    segments = [s for name in dirs
+                for s in broker.table(name).acquire_segments()]
+    if on_card:
+        # a first profiler session pays the profiler's set-up (seconds):
+        # spend it outside the timed runs
+        profile_query(lambda _sql: torch.ones(1, device=device) + 1, "")
+    _sync(device)
+    base_mem = torch.cuda.memory_allocated() if on_card else 0
+    tracked0 = global_device_memory.snapshot()
+    t_start = time.perf_counter()
+    _reset_ms_counts()                   # the multistage path starts here
+    inputs: dict = {}
+    with _ms_events(on_card) as log:
+        for plane, fused_opt, env, n_var in MS_PLANES:
+            with _plane_env(env):
+                for shape, make in star.SHAPES:
+                    if plane == "fused_default_cap" and shape not in (
+                            "join_gb", "join3_gb"):
+                        continue     # the window shapes fit the default
+                    before = _ms_counts()
+                    n_ev = {k: len(log[k]) for k in MS_KINDS}
+                    times = []
+                    prof = None
+                    for i in range(n_var):
+                        sql = make(i) + f" OPTION(multistageFused={fused_opt}" \
+                            ",timeoutMs=600000)"
+                        t0 = time.perf_counter()
+                        if on_card and i == n_var - 1:
+                            # the last variant runs under the profiler
+                            got = []
+                            prof = profile_query(query, sql, results=got)
+                            res = got[0]
+                        else:
+                            res = query(sql)
+                        times.append((time.perf_counter() - t0) * 1e3)
+                        rows = _ms_rows(res.rows)
+                        want = oracle[shape](i)
+                        if rows != want:
+                            raise AssertionError(
+                                f"{shape} on {plane}, variant {i}: rows "
+                                f"differ from the oracle: {rows[:3]} vs "
+                                f"{want[:3]}")
+                        left = _left_on_card(on_card, base_mem, log)
+                        if left > MEM_SLACK:
+                            raise AssertionError(
+                                f"{shape} on {plane}: {left} bytes left on "
+                                "the card after the query")
+                    after = _ms_counts()
+                    delta = {k: after[k] - before[k] for k in after}
+                    _sync(device)
+                    ev_ms = {k: (sum(a.elapsed_time(b)
+                                     for a, b in log[k][n_ev[k]:]) / n_var
+                                 if on_card else None) for k in MS_KINDS}
+                    _check_plane(shape, plane, delta, n_var, on_card)
+                    phase("multistage_query", shape=shape, plane=plane,
+                          variants=n_var, ok=True,
+                          p50_ms=statistics.median(times), times_ms=times,
+                          profiled_variant=n_var - 1 if on_card else None,
+                          backends={k: v for k, v in delta.items()
+                                    if k.startswith(("join_", "fused_"))
+                                    and v},
+                          launches={k: delta[k] for k in MS_KINDS},
+                          device_fn_ms_per_query=ev_ms, profile=prof)
+    counts = _ms_counts()                # ... and ends here
+    inputs = log["inputs"]
+    for kind in MS_KINDS:
+        if counts[kind] == 0 and on_card:
+            raise AssertionError(f"the multistage path never launched "
+                                 f"{kind}")
+    _sync(device)
+    if global_device_memory.snapshot() != tracked0:
+        raise AssertionError("the multistage phase changed the tracked "
+                             "device bytes")
+    _reconcile_or_fail(list(live_segments) + segments, "multistage")
+    left = _left_on_card(on_card, base_mem, log)
+    phase("multistage_done", seconds=time.perf_counter() - t_start,
+          launches={k: counts[k] for k in MS_KINDS},
+          device_bytes_left=left, kept_inputs_bytes=_kept_bytes(log),
+          tracked_equals_held=True)
+    if left > MEM_SLACK:
+        raise AssertionError(f"{left} bytes left on the card after the "
+                             "multistage phase")
+    return {"launches": counts, "inputs": inputs}
+
+
+def _check_plane(shape, plane, delta, n_var, on_card) -> None:
+    """The backends each plane must take on the star schema: the fused
+    plane serves every query (K19) at the raised state cap; at the default
+    cap the two shapes without a WHERE (2^24 probe rows) fall back to the
+    mailbox plane; the sort kind runs K16 inside the chain; the mailbox
+    plane joins parts on the device (K16) and shuffles customers (past
+    the broadcast bound) with numpy; the numpy plane never joins on the
+    device."""
+    from pinot_tpu_torch.multistage import device_join, window
+
+    windowed = shape.startswith(("join_window", "win_"))
+    three = shape == "join3_gb"
+    # the probe of the parts stage is every orders row, and about a
+    # quarter of them pass the window shapes' WHERE o_price > 3750
+    join_on_device = MS_ROWS >= device_join._min_probe_rows()
+    window_on_device = MS_ROWS // 5 >= window._device_window_min_rows()
+    fails = []
+    if plane in ("fused_csr", "fused_sort") and delta["fused_plans"] != n_var:
+        fails.append("fused plane did not serve every query")
+    if plane == "fused_default_cap":
+        big = MS_ROWS > (1 << 23)       # 2^24 probe rows: over the cap
+        if big and delta["fused_fallbacks"] != n_var:
+            fails.append("the default state cap did not fall back")
+        if not big and delta["fused_plans"] != n_var:
+            fails.append("fused plane did not serve every query")
+    if on_card and plane == "fused_sort" and delta["k16"] < n_var:
+        fails.append("the sort kind did not run K16")
+    if plane == "mailbox_device" and three and join_on_device and \
+            delta["join_device_joins"] != n_var:
+        fails.append("the parts stage did not join on the device")
+    if plane.startswith("mailbox") and delta["fused_plans"]:
+        fails.append("the mailbox plane ran a fused plan")
+    if plane == "mailbox_numpy" and delta["join_device_joins"]:
+        fails.append("the numpy plane joined on the device")
+    if on_card and windowed and window_on_device:
+        kind = "k17_agg" if shape == "win_partition" else "k17_scan"
+        if delta[kind] < n_var:
+            fails.append(f"the window stage did not launch {kind}")
+    if fails:
+        raise AssertionError(f"{shape} on {plane}: {fails}; {delta}")
+
+
+def _scan_edge_inputs(tile: int, device: str):
+    """(label, op, vals, flags) edge cases of the K17 kernel: n = 1, one
+    partition, every row a reset, partition starts on tile edges, int64
+    values past 2^53, each op over int64 and float64."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SCAN_EDGE_SEED)
+    n = 33 * tile + 7
+
+    def flags(kind, size):
+        f = np.zeros(size, dtype=bool)
+        if kind == "every":
+            f[:] = True
+        elif kind == "tile_edges":
+            for k in range(0, size, tile):
+                f[k] = True
+                f[max(k - 1, 0)] = True
+        elif kind == "sparse":
+            f = rng.random(size) < 0.001
+        f[:1] = True
+        return f
+
+    out = []
+    for size in (1, tile - 1, tile, tile + 1, n):
+        for fk in ("one", "every", "tile_edges", "sparse"):
+            for dtype in ("int64", "float64"):
+                for op in ("sum", "min", "max"):
+                    if dtype == "int64":
+                        lim = 2**50 if op == "sum" else 2**62
+                        v = rng.integers(-lim, lim, size).astype(np.int64)
+                    elif op == "sum":
+                        v = rng.random(size) * 1e9
+                    else:
+                        v = np.round(rng.normal(0, 1e3, size), 1)
+                    out.append((f"n={size},{fk},{dtype},{op}", op,
+                                torch.from_numpy(v).to(device),
+                                torch.from_numpy(flags(fk, size)).to(
+                                    device)))
+    return out
+
+
+def _scan_err(op, got, want) -> float:
+    """Max abs difference of the kernel against the plain version;
+    raises unless int64 and min/max are bitwise equal and float64 sums
+    agree to a relative 1e-12."""
+    import torch
+
+    if got.dtype == torch.float64 and op == "sum":
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+        return float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+        raise AssertionError(f"segmented {op} over {got.dtype} differs")
+    return 0.0
+
+
+def segscan_check(ms_inputs: dict, tile: int, device: str = "cuda") -> dict:
+    """K17's kernel held against its plain version on each window
+    shape's own inputs and on the edge cases, and timed at the main
+    path's shape (CUDA events), beside torch.cumsum over the same n (no
+    PyTorch call computes a segmented scan); also K16, the segment agg
+    and K19 timed alone on their main-path inputs."""
+    import torch
+
+    from pinot_tpu_torch.multistage import fused, window
+    from pinot_tpu_torch.ops import join as ops_join
+    from pinot_tpu_torch.ops import segscan as S
+
+    on_card = device.startswith("cuda")
+    err = 0.0
+    for label, op, vals, flags in _scan_edge_inputs(tile, device):
+        got = S.seg_scan(op, vals, flags)
+        err = max(err, _scan_err(op, got, S.seg_scan_reference(op, vals,
+                                                               flags)))
+    phase("segscan_edges", cases=len(_scan_edge_inputs(tile, "cpu")),
+          max_abs_err=err)
+    op, vals, flags = ms_inputs["k17_scan"]
+    n = vals.shape[0]
+    got = S.seg_scan(op, vals, flags)
+    err = max(err, _scan_err(op, got, S.seg_scan_reference(op, vals,
+                                                           flags)))
+    row = {"name": "segscan", "n": n, "op": op, "dtype": str(vals.dtype),
+           "max_abs_err": err,
+           "bound_ms": S.scan_bytes(n) / HBM_BYTES_PER_S * 1e3}
+    if on_card:
+        row.update(
+            ms=cuda_time_ms(lambda: S.seg_scan(op, vals, flags), 20),
+            plain_ms=cuda_time_ms(
+                lambda: S.seg_scan_reference(op, vals, flags), 5),
+            cumsum_ms=cuda_time_ms(lambda: torch.cumsum(vals, 0), 20),
+            host_ms=host_time_ms(lambda: S.seg_scan(op, vals, flags), 20))
+    phase("kernel_at_multistage_path", **row)
+
+    # the traced device functions alone on their main-path inputs
+    lk, rk, max_dup = ms_inputs["k16"]
+    match, r_idx = ops_join.device_equi_join(lk, rk, max_dup)
+    k16 = {"name": "k16_device_equi_join", "probe": lk.shape[0],
+           "build": rk.shape[0], "max_dup": max_dup,
+           "bound_ms": _nbytes(lk, rk, match, r_idx) / HBM_BYTES_PER_S
+           * 1e3}
+    op_a, segs, a_vals, ids = ms_inputs["k17_agg"]
+    agg_out = window._segment_agg(op_a, segs, a_vals, ids)
+    agg = {"name": "k17_segment_agg", "op": op_a, "n": a_vals.shape[0],
+           "segments": segs,
+           "bound_ms": _nbytes(a_vals, ids, agg_out) / HBM_BYTES_PER_S
+           * 1e3}
+    spec, seed_pos, seed_idx, args = ms_inputs["k19"]
+    k19_out = fused._fused_program(spec, seed_pos, seed_idx, args)
+    k19 = {"name": "k19_fused_program",
+           "stages": [list(s[:4]) for s in spec],
+           "base_rows": seed_pos.shape[0],
+           "bound_ms": _nbytes(seed_pos, seed_idx, *args, *k19_out)
+           / HBM_BYTES_PER_S * 1e3}
+    if on_card:
+        k16["ms"] = cuda_time_ms(
+            lambda: ops_join.device_equi_join(lk, rk, max_dup), 10)
+        agg["ms"] = cuda_time_ms(
+            lambda: window._segment_agg(op_a, segs, a_vals, ids), 10)
+        k19["ms"] = cuda_time_ms(
+            lambda: fused._fused_program(spec, seed_pos, seed_idx, args), 5)
+    for r in (k16, agg, k19):
+        phase("traced_at_multistage_path", **r)
+    return {**row, "traced": {"k16": k16, "k17_agg": agg, "k19": k19}}
+
+
 def main() -> int:
     import torch
 
@@ -1850,6 +2401,7 @@ def main() -> int:
     smi = device_phase()
     build_phase()
     from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops import segscan as S
     tile = C.tile_rows()
     err = max(kernel_phase(), edge_phase(tile))
     repeat_check(CHECK_N[0])
@@ -1864,8 +2416,13 @@ def main() -> int:
     drift_launches = drift_phase(single)
     single.evict_device()
     from pinot_tpu_torch.segment import load_segment
-    surface_phase([load_segment(seg_dir, "cuda")], "1 segment")
+    surface_seg = load_segment(seg_dir, "cuda")
+    surface_phase([surface_seg], "1 segment")
     surface_phase(segs, f"{len(segs)} segments")
+    tables, star_dirs = star_phase()
+    ms = multistage_phase(star_dirs, tables, [single, surface_seg, *segs])
+    ms_launches = ms["launches"]
+    scan = segscan_check(ms.pop("inputs"), S.tile_rows())
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "compact",
@@ -1903,7 +2460,31 @@ def main() -> int:
               f"{TABLE_SEGMENTS}-segment table; launches = the single-"
               "segment run's, the 8-segment run's, the concurrent "
               "phase's serial waves', the budgeted (tier) run's and the "
-              "drift run's"}]}))
+              "drift run's"}, {
+        "name": "segscan",
+        "route": "cuda",
+        "source": "pinot_tpu_torch/ops/csrc/segscan.cu",
+        "replaces": "pinot_tpu/multistage/window.py:154",
+        "launches": ms_launches["k17_scan"],
+        "max_abs_err": scan["max_abs_err"],
+        "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "cumsum_ms": scan["cumsum_ms"],
+        "host_ms": scan["host_ms"],
+        "n": scan["n"],
+        "op": scan["op"],
+        "dtype": scan["dtype"],
+        "at": "one launch on the first window shape's own inputs (the "
+              f"star schema at {MS_ROWS} orders rows); ms, plain_ms = CUDA "
+              "events over 20 / 5 back-to-back calls; no PyTorch call "
+              "computes a segmented scan (library_ms null): cumsum_ms is "
+              "torch.cumsum over the same n, the unsegmented floor; "
+              "launches = the multistage phase's; max_abs_err over the "
+              "path's inputs and the edge cases (float64 sums: relative "
+              "1e-12; int64 and min/max: bitwise)"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,12 @@ registrations are what the cross-query micro-batcher (engine/ragged.py)
 counts as peers; ``micro_batch`` and ``micro_batch_window_ms`` configure
 that process-wide batcher.
 
-Joins, window functions, set operations, CTEs, views, subqueries,
-EXPLAIN, hybrid tables, quotas, workload admission and tracing are not
-ported yet and raise ``NotImplementedError``.
+JOINs and window functions go to the multi-stage engine
+(``multistage/executor.execute_multistage``), registered with the
+accountant under the same query id and ``timeoutMs`` deadline, as the
+reference does. Set operations, CTEs, views, subqueries, EXPLAIN, hybrid
+tables, quotas, workload admission and tracing are not ported yet and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,9 +35,10 @@ from ..engine.accounting import QueryKilledError, global_accountant
 from ..engine.ragged import global_batcher
 from ..engine.reduce import ResultTable, reduce_partials
 from ..engine.serving import execute_planned, plan_segments
+from ..multistage import execute_multistage, is_multistage
 from ..query.context import build_query_context
 from ..query.sql import (Exists, InSubquery, ScalarSubquery, SelectStmt,
-                         SqlError, WindowFunc, ast_children, parse_sql)
+                         SqlError, ast_children, parse_sql)
 from ..server.data_manager import TableDataManager
 from ..utils.metrics import global_metrics
 
@@ -51,16 +55,12 @@ def _unported_feature(stmt: Any) -> str:
         return type(stmt).__name__
     if stmt.explain or stmt.analyze:
         return "EXPLAIN"
-    if stmt.joins:
-        return "JOIN"
     if stmt.ctes:
         return "WITH"
     found: List[str] = []
 
     def walk(e: Any) -> None:
-        if isinstance(e, WindowFunc):
-            found.append("window functions")
-        elif isinstance(e, (InSubquery, Exists, ScalarSubquery)):
+        if isinstance(e, (InSubquery, Exists, ScalarSubquery)):
             found.append("subqueries")
         for c in ast_children(e):
             walk(c)
@@ -112,6 +112,13 @@ class Broker:
                        or uuid.uuid4().hex[:12])[:64]
         timeout_ms = int(stmt.options.get("timeoutMs", DEFAULT_TIMEOUT_MS))
         deadline = t0 + timeout_ms / 1e3
+        if is_multistage(stmt):
+            # the v2 engine, registered with the accountant like any query
+            global_accountant.register(query_id, deadline=deadline)
+            try:
+                return execute_multistage(self, stmt)
+            finally:
+                global_accountant.unregister(query_id)
         ctx = build_query_context(stmt)
         global_accountant.register(query_id, deadline=deadline)
         try:

@@ -1,1 +1,5 @@
-"""Only the single-stage cost model (``costs.py``) is ported so far."""
+"""The multi-stage (v2) engine: joins and window functions, on one
+device. Port of ``pinot_tpu/multistage`` without the networked stage
+plane (``dispatch.py``) and without EXPLAIN."""
+from .relation import Relation  # noqa: F401
+from .executor import execute_multistage, is_multistage  # noqa: F401

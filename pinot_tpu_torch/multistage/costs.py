@@ -1,25 +1,167 @@
-"""Group-by strategy cost model, main-path subset.
+"""Cost model: the group-by strategy and the multi-stage engine's
+estimates.
 
-Port of ``ir_selectivity``, ``compact_slots_cap``,
-``scaled_compact_cap``, ``choose_group_strategy`` and the selectivity
-drift test (``selectivity_drift``) from
-``pinot_tpu/multistage/costs.py``. The port's compaction
-(``ops/compact.py``) is exact on every device, so the capacity always
-takes the reference's exact branch (``CAP_SAFETY_XLA``), and the
-strategy choice always takes its non-scatter branch. The join
-estimates and join ordering of the reference module belong to the
-multi-stage engine, which is not ported yet.
+Port of ``pinot_tpu/multistage/costs.py``:
+
+- the multi-stage estimates from segment metadata (``TableStats``,
+  ``selectivity``, ``scan_cardinality``, ``join_cardinality``), the
+  greedy INNER-join order (``order_inner_joins``) and the fused-vs-
+  mailbox plane choice (``choose_multistage_plane``); estimates only
+  steer physical choices, correctness never depends on them;
+- ``ir_selectivity``, ``compact_slots_cap``, ``scaled_compact_cap``,
+  ``choose_group_strategy`` and the selectivity drift test
+  (``selectivity_drift``). The port's compaction (``ops/compact.py``)
+  is exact on every device, so the capacity always takes the
+  reference's exact branch (``CAP_SAFETY_XLA``), and the strategy choice
+  always takes its non-scatter branch.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
+
+from ..query.sql import (Between, BoolAnd, BoolNot, BoolOr, Comparison,
+                         Identifier, InList, IsNull, Like, Literal)
 
 DEFAULT_SEL = 0.25          # Calcite's RelMdUtil guess for opaque predicates
 EQ_DEFAULT_SEL = 0.15       # eq against an un-profiled column
 MIN_SEL = 1e-6
+
+
+class TableStats:
+    """Aggregated column statistics for one table's loaded segments."""
+
+    def __init__(self, total_docs: int,
+                 cols: Dict[str, Dict[str, Any]]):
+        self.total_docs = total_docs
+        self.cols = cols          # col -> {ndv, min, max}
+
+    @classmethod
+    def from_segments(cls, segments: Sequence[Any]) -> "TableStats":
+        total = 0
+        cols: Dict[str, Dict[str, Any]] = {}
+        for seg in segments:
+            total += seg.n_docs
+            for name, m in seg.columns.items():
+                c = cols.setdefault(name, {"ndv": 0, "min": None,
+                                           "max": None})
+                # only profiled cardinalities count: consuming mutable
+                # segments report 0, and flooring them to 1 would fake an
+                # NDV of n_segments and poison equality selectivity
+                c["ndv"] += int(getattr(m, "cardinality", 0) or 0)
+                for attr, pick in (("min", min), ("max", max)):
+                    v = getattr(m, attr, None)
+                    if v is None or isinstance(v, str):
+                        continue
+                    cur = c[attr]
+                    c[attr] = v if cur is None else pick(cur, v)
+        return cls(total, cols)
+
+    def ndv(self, col: str) -> Optional[int]:
+        c = self.cols.get(col)
+        if c is None or not c["ndv"]:
+            return None
+        # summing per-segment cardinalities over-counts shared values;
+        # cap at totalDocs (an NDV can never exceed the row count)
+        return min(c["ndv"], max(self.total_docs, 1))
+
+    def value_range(self, col: str) -> Optional[Tuple[float, float]]:
+        c = self.cols.get(col)
+        if c is None or c["min"] is None or c["max"] is None:
+            return None
+        return float(c["min"]), float(c["max"])
+
+
+def _col_of(e: Any) -> Optional[str]:
+    return e.name.split(".")[-1] if isinstance(e, Identifier) else None
+
+
+def selectivity(pred: Any, stats: TableStats) -> float:
+    """Fraction of rows a single-table predicate keeps (RelMdSelectivity
+    analog over segment metadata)."""
+    if pred is None:
+        return 1.0
+    if isinstance(pred, BoolAnd):
+        s = 1.0
+        for c in pred.children:
+            s *= selectivity(c, stats)
+        return max(s, MIN_SEL)
+    if isinstance(pred, BoolOr):
+        s = 1.0
+        for c in pred.children:
+            s *= 1.0 - selectivity(c, stats)
+        return max(1.0 - s, MIN_SEL)
+    if isinstance(pred, BoolNot):
+        return max(1.0 - selectivity(pred.child, stats), MIN_SEL)
+    if isinstance(pred, Comparison):
+        col = _col_of(pred.lhs) or _col_of(pred.rhs)
+        if col is None:
+            return DEFAULT_SEL
+        if pred.op == "==":
+            ndv = stats.ndv(col)
+            return max(1.0 / ndv, MIN_SEL) if ndv else EQ_DEFAULT_SEL
+        if pred.op == "!=":
+            ndv = stats.ndv(col)
+            return 1.0 - (1.0 / ndv if ndv else EQ_DEFAULT_SEL)
+        # range: fraction of the [min, max] span on the literal side
+        lit = pred.rhs if isinstance(pred.rhs, Literal) else (
+            pred.lhs if isinstance(pred.lhs, Literal) else None)
+        rng = stats.value_range(col)
+        if lit is None or rng is None or \
+                not isinstance(lit.value, (int, float)) or \
+                isinstance(lit.value, bool):
+            return DEFAULT_SEL
+        lo, hi = rng
+        if hi <= lo:
+            return DEFAULT_SEL
+        frac = (float(lit.value) - lo) / (hi - lo)
+        frac = min(max(frac, 0.0), 1.0)
+        op = pred.op
+        if isinstance(pred.lhs, Literal):   # lit <op> col: flip
+            op = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}.get(op, op)
+        return max(frac if op in ("<", "<=") else 1.0 - frac, MIN_SEL)
+    if isinstance(pred, Between):
+        col = _col_of(pred.expr)
+        rng = stats.value_range(col) if col else None
+        if rng and isinstance(pred.lo, Literal) and \
+                isinstance(pred.hi, Literal) and \
+                isinstance(pred.lo.value, (int, float)) and \
+                isinstance(pred.hi.value, (int, float)):
+            lo, hi = rng
+            if hi > lo:
+                frac = (min(float(pred.hi.value), hi)
+                        - max(float(pred.lo.value), lo)) / (hi - lo)
+                s = min(max(frac, MIN_SEL), 1.0)
+                return 1.0 - s if pred.negated else s
+        return DEFAULT_SEL
+    if isinstance(pred, InList):
+        col = _col_of(pred.expr)
+        ndv = stats.ndv(col) if col else None
+        k = len(pred.values)
+        s = min(k / ndv, 1.0) if ndv else min(k * EQ_DEFAULT_SEL, 0.5)
+        s = max(s, MIN_SEL)
+        return 1.0 - s if pred.negated else s
+    if isinstance(pred, Like):
+        return 0.05 if not pred.negated else 0.95
+    if isinstance(pred, IsNull):
+        return 0.1 if not pred.negated else 0.9
+    return DEFAULT_SEL
+
+
+def scan_cardinality(stats: TableStats, pred: Any) -> float:
+    return max(stats.total_docs * selectivity(pred, stats), 1.0)
+
+
+def join_cardinality(l_rows: float, r_rows: float,
+                     l_ndv: Optional[int], r_ndv: Optional[int]) -> float:
+    """|L x R| / max(NDV_l, NDV_r) — System-R / RelMdRowCount equi-join
+    estimate; missing NDVs degrade to max(|L|, |R|) (FK-join guess)."""
+    ndv = max(l_ndv or 0, r_ndv or 0)
+    if ndv <= 0:
+        return max(l_rows, r_rows)
+    return max(l_rows * r_rows / ndv, 1.0)
 
 
 # relative per-row cost constants (1.0 = one fused streaming pass). These
@@ -223,3 +365,105 @@ def choose_group_strategy(n_rows: int, space: int, sel: float,
     trace["cost_dense"] = round(cost_dense)
     trace["cost_compact"] = round(cost_compact)
     return ("compact" if cost_compact < cost_dense else "dense"), trace
+
+
+def order_inner_joins(joins: List[Any], base_label: str,
+                      table_rows: Dict[str, float],
+                      key_ndv_fn, equi_fn) -> Tuple[List[Any], List[Dict]]:
+    """Greedy smallest-intermediate-first join order.
+
+    ``joins``: the SQL JoinClause list. Only maximal runs of INNER joins
+    reorder; LEFT joins are barriers (their probe side must contain every
+    previously joined table, and null-extension order is semantic).
+    ``equi_fn(join, joined_labels) -> bool`` tells whether the join's ON
+    has an equi condition against the already-joined set (a reorder
+    candidate must, or it would degenerate to a cross join).
+    Returns (new_join_order, per-step estimate trace).
+    """
+    trace: List[Dict] = []
+    out: List[Any] = []
+    joined: Set[str] = {base_label}
+    rows = table_rows.get(base_label, 1.0)
+    pending = list(joins)
+    while pending:
+        # the barrier prefix rule: any LEFT join must wait until every
+        # join textually before it has executed (its semantics depend on
+        # the accumulated left side), so only the INNER prefix of the
+        # remaining list competes
+        candidates = []
+        for i, j in enumerate(pending):
+            if j.join_type != "inner":
+                break
+            if equi_fn(j, joined):
+                candidates.append((i, j))
+        if not candidates:
+            # either the head is a LEFT join or no inner candidate
+            # connects yet: execute the head in textual order
+            i, j = 0, pending[0]
+            est = None
+        else:
+            best = None
+            for i, j in candidates:
+                r = table_rows.get(j.table.label, 1.0)
+                ndv_l, ndv_r = key_ndv_fn(j, joined)
+                est = join_cardinality(rows, r, ndv_l, ndv_r)
+                if best is None or est < best[0]:
+                    best = (est, i, j)
+            est, i, j = best
+        out.append(j)
+        pending.pop(i)
+        r = table_rows.get(j.table.label, 1.0)
+        ndv_l, ndv_r = key_ndv_fn(j, joined)
+        rows = join_cardinality(rows, r, ndv_l, ndv_r) \
+            if j.join_type == "inner" else max(rows, 1.0)
+        trace.append({"table": j.table.label, "rightRows": round(r),
+                      "estRows": round(rows)})
+        joined.add(j.table.label)
+    return out, trace
+
+
+# ---------------------------------------------------------------------------
+# Whole-plan compilation: fused-vs-mailbox plane choice
+# ---------------------------------------------------------------------------
+
+FUSED_MIN_ROWS = 100_000    # est. probe rows below which the device
+                            # round-trip cannot beat host hash_join
+FUSED_MAX_WIDTH = 256       # joined-relation column budget: the fused
+                            # gather materializes every needed column
+
+
+def _fused_min_rows() -> int:
+    import os
+    return int(os.environ.get("PINOT_FUSED_MIN_ROWS", FUSED_MIN_ROWS))
+
+
+def choose_multistage_plane(n_dev: int, est_rows: float, width: int,
+                            key_card: Optional[float] = None,
+                            force: Optional[str] = None
+                            ) -> Tuple[str, Dict]:
+    """'fused' or 'mailbox' for a co-located multi-stage plan.
+
+    Estimates only ever steer the physical choice — the fused planner
+    (multistage/fused.py) re-checks every gate exactly against the
+    scanned relations and falls back to the mailbox plane, so
+    correctness never depends on the numbers here. ``force`` carries
+    the OPTION(multistageFused=...) override; it wins whenever the
+    plan is structurally fuseable at all."""
+    trace: Dict[str, Any] = {"nDev": n_dev, "estRows": round(est_rows),
+                             "width": width}
+    if key_card is not None:
+        trace["keyCard"] = round(key_card)
+    if force in ("fused", "mailbox"):
+        trace["forced"] = force
+        return force, trace
+    if est_rows < _fused_min_rows():
+        trace["reason"] = f"estRows<{_fused_min_rows()}"
+        return "mailbox", trace
+    if width > FUSED_MAX_WIDTH:
+        trace["reason"] = f"width>{FUSED_MAX_WIDTH}"
+        return "mailbox", trace
+    if key_card is not None and key_card > 2**31 - 1:
+        trace["reason"] = "keyCard>int32"
+        return "mailbox", trace
+    trace["reason"] = "fused"
+    return "fused", trace

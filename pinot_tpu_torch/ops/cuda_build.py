@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # kernel library name -> its sources under csrc/
-SOURCES: Dict[str, List[str]] = {"compact": ["compact.cu"]}
+SOURCES: Dict[str, List[str]] = {"compact": ["compact.cu"],
+                                  "segscan": ["segscan.cu"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -1,7 +1,6 @@
 """Kernel plan IR: the hashable structure a per-segment query compiles to.
 
-Copy of ``pinot_tpu/ops/ir.py`` without the multi-stage fused IR (not
-ported yet).
+Copy of ``pinot_tpu/ops/ir.py``.
 
 Reference parity: this is the TPU-native analog of pinot-core's physical
 operator tree (FilterPlanNode.java:195 constructPhysicalOperator +
@@ -240,6 +239,62 @@ class SelectPlan:
     select_cols: Tuple[int, ...]
     order: Tuple[Tuple[int, bool, int], ...]
     k: int
+
+
+# ---------------------------------------------------------------------------
+# Cross-stage fused IR (whole-plan compilation, multistage/fused.py)
+#
+# A multi-stage join pipeline runs as ONE device program: each stage
+# boundary that the mailbox plane would serve with a host exchange becomes
+# an explicit Exchange node ('hash' -> a bucket exchange across devices,
+# 'broadcast' -> replication of the build side). The nodes carry exactly
+# the static facts the verifier (analysis/plan_verify.py PV2xx) needs:
+# partition count, key slots, dtypes, and the per-shard shapes that must
+# stay stable across collective boundaries. Like KernelPlan, everything
+# here is frozen/hashable.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Exchange:
+    """One stage boundary inside a fused plan. ``partitions`` is the
+    device count the exchange runs over (1 = one device); ``key_slots``
+    are the table ordinals naming which already-joined table each
+    probe-key slot gathers from; ``cap`` is the pow2 per-device bucket
+    capacity of a hash exchange (0 for broadcast — replication has no
+    bucket)."""
+    kind: str                           # 'hash' | 'broadcast'
+    partitions: int
+    key_slots: Tuple[int, ...]          # probe-side owner table ordinals
+    key_dtype: str = "int32"
+    cap: int = 0
+
+
+@dataclass(frozen=True)
+class FusedJoin:
+    """One join stage of the fused program: the exchange that feeds it
+    plus the dense-formulation statics (ops/join.device_equi_join).
+    ``build_rows`` is the padded build-side length (static shape);
+    ``max_dup`` the pow2 build-key multiplicity bound."""
+    exchange: Exchange
+    how: str                            # 'inner' | 'left'
+    max_dup: int
+    build_rows: int
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """The whole-plan IR: N join stages over ``n_tables`` relations,
+    probe seed of ``base_rows`` (padded) rows sharded over
+    ``partitions`` devices. ``pos_bound`` = base_rows * prod(max_dup)
+    is the canonical-position domain — it must fit the accumulator
+    dtype (``acc_dtype``) or the host cannot restore hash_join's
+    canonical row order after the program returns."""
+    stages: Tuple[FusedJoin, ...]
+    n_tables: int
+    base_rows: int
+    partitions: int
+    pos_bound: int
+    acc_dtype: str = "int32"
 
 
 @dataclass(frozen=True)

@@ -25,7 +25,13 @@ and under a budget below the working set. Cross-query micro-batching
 (K14) must give the serial rows under 32 concurrent threads with its
 cubes on the card, and a cube read by a follower while its build is
 still queued behind a spin on another stream must equal the CPU's;
-published without the fence on its build, it must not.
+published without the fence on its build, it must not. The segmented
+scan (K17) must equal its plain version (bitwise for int64 and for
+min/max, to a relative 1e-12 for float64 sums) at sizes on and around
+its tile, with one partition, every row a reset, partition starts on
+tile edges and flags off a word boundary; the star schema's join and
+window shapes on the card must give the CPU's rows on every plane, and a
+fuzzer seed on the card the oracle's.
 """
 import time
 
@@ -639,3 +645,136 @@ def test_cube_read_during_its_build_needs_the_fence(cuda, cube_table,
     read unwritten cells: the test above would catch the fence's loss."""
     follower, want = _cube_race(cube_table, False, monkeypatch)
     assert vars(follower) != vars(want)
+
+
+# -- the multi-stage engine: K17's segmented scan, K16, K19 ---------------
+
+SCAN_SIZES = [1, 2, "tile-1", "tile", "tile+1", "33*tile+7", 1 << 22]
+SCAN_FLAGS = ("first", "every", "sparse", "tile_edges", "none")
+
+
+def _scan_inputs(n, flags_kind, dtype, op, tile, seed):
+    """Values and flags on the host, from a seed: int64 values past 2^53
+    (sums kept inside int64), float64 sums of positive values (so a
+    relative bound means something), signed floats with both zeros for
+    min and max."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if dtype == "int64":
+        lim = 2**50 if op == "sum" else 2**62
+        v = rng.integers(-lim, lim, n).astype(np.int64)
+    elif op == "sum":
+        v = rng.random(n) * 1e9
+    else:
+        v = np.round(rng.normal(0, 1e3, n), 1)
+        v[rng.random(n) < 0.01] = -0.0
+    f = np.zeros(n, dtype=bool)
+    if flags_kind == "every":
+        f[:] = True
+    elif flags_kind == "sparse":
+        f = rng.random(n) < 0.001
+    elif flags_kind == "tile_edges":
+        for k in range(0, n, tile):
+            f[k:k + 1] = True
+            f[max(k - 1, 0)] = True
+    if flags_kind != "none" and n:
+        f[0] = True
+    return v, f
+
+
+def _scan_equal(got, want, dtype, op):
+    if dtype == "float64" and op == "sum":
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+    else:
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", ["int64", "float64"])
+@pytest.mark.parametrize("flags_kind", SCAN_FLAGS)
+@pytest.mark.parametrize("n", SCAN_SIZES, ids=str)
+def test_segscan_kernel_equals_plain_version(cuda, n, flags_kind, dtype,
+                                             op):
+    """Bitwise for int64 and for min/max, relative 1e-12 for float64
+    sums (the two add in different orders)."""
+    from pinot_tpu_torch.ops import segscan as S
+
+    tile = S.tile_rows()
+    n = _size(n, tile)
+    v, f = _scan_inputs(n, flags_kind, dtype, op, tile, n + 7)
+    vals = torch.from_numpy(v).to(cuda)
+    flags = torch.from_numpy(f).to(cuda)
+    before = S.launches
+    got = S.seg_scan(op, vals, flags)
+    torch.cuda.synchronize()
+    assert S.launches == before + 1
+    _scan_equal(got, S.seg_scan_reference(op, vals, flags), dtype, op)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_segscan_kernel_flags_off_a_word_boundary(cuda, offset):
+    """A flags slice that does not start on a 4-byte boundary takes the
+    kernel's byte loads."""
+    from pinot_tpu_torch.ops import segscan as S
+
+    n = 5 * S.tile_rows() + 11
+    v, f = _scan_inputs(n + offset, "sparse", "int64", "sum", 4096, 3)
+    flags = torch.from_numpy(f).to(cuda)[offset:]
+    vals = torch.from_numpy(v).to(cuda)[offset:]
+    _scan_equal(S.seg_scan("sum", vals, flags),
+                S.seg_scan_reference("sum", vals, flags), "int64", "sum")
+
+
+def test_segscan_kernel_repeats_bitwise(cuda):
+    from pinot_tpu_torch.ops import segscan as S
+
+    v, f = _scan_inputs(1 << 22, "sparse", "float64", "sum", 4096, 5)
+    vals = torch.from_numpy(v).to(cuda)
+    flags = torch.from_numpy(f).to(cuda)
+    runs = [S.seg_scan("sum", vals, flags) for _ in range(20)]
+    torch.cuda.synchronize()
+    # one kernel, one association order: bitwise across launches
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+
+
+def test_star_schema_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The star schema's shapes on every plane: the card's rows equal
+    the CPU's, through K16, K17 and K19 on the card."""
+    from pinot_tpu_torch.multistage import window
+    from pinot_tpu_torch.ops import join as ops_join
+    from pinot_tpu_torch.ops import segscan
+    from pinot_tpu_torch.multistage import fused
+    from pinot_tpu_torch.tools import star
+
+    for k in ("PINOT_DEVICE_JOIN_MIN_ROWS", "PINOT_DEVICE_WINDOW_MIN_ROWS",
+              "PINOT_FUSED_MIN_ROWS"):
+        monkeypatch.setenv(k, "0")
+    dirs = star.build_tables(str(tmp_path), star.star_tables(1 << 15))
+    on_card = star.load_broker(dirs, "cuda")
+    on_cpu = star.load_broker(dirs, "cpu")
+    counts0 = (ops_join.launches, segscan.launches,
+               window.segment_agg_launches, fused.launches)
+    for csr in ("4194304", "0"):
+        monkeypatch.setenv("PINOT_FUSED_MAX_CSR", csr)
+        for name, make in star.SHAPES:
+            for opt in ("true", "false"):
+                sql = make(1) + f" OPTION(multistageFused={opt})"
+                assert on_card.query(sql).rows == on_cpu.query(sql).rows, \
+                    (name, opt, csr)
+    counts = (ops_join.launches, segscan.launches,
+              window.segment_agg_launches, fused.launches)
+    assert all(b > a for a, b in zip(counts0, counts)), (counts0, counts)
+
+
+def test_fuzz_on_cuda_matches_oracle(cuda, tmp_path, monkeypatch):
+    """A fuzzer seed through Broker(device="cuda") on both paths, with
+    the window stage's device functions on (K17 on the card)."""
+    from test_torch_fuzz import fuzz_broker, run_specs
+
+    monkeypatch.setenv("PINOT_DEVICE_WINDOW_MIN_ROWS", "0")
+    broker, data = fuzz_broker(str(tmp_path), "cuda")
+    failures, kinds = run_specs(broker, data, 5, 60)
+    assert not failures, failures[:5]
+    assert "window" in kinds

@@ -1,0 +1,137 @@
+"""The JAX package's query fuzzer through the port.
+
+``pinot_tpu/tools/fuzzer.py``'s ``QueryGenerator`` draws seeded specs —
+aggregations, selections and (``kind="window"``) window functions —
+over a two-segment ``fz`` table built by the port's builder from the
+fuzzer's own data. Each spec runs through ``Broker(device="cpu")`` on
+the kernel path and under ``OPTION(forceHostExecution=true)``, and both
+digests (``fuzzer.digest``: a row multiset, floats to a relative 1e-9)
+must equal the fuzzer's independent numpy oracle. The window specs go
+through the multi-stage engine; with the window threshold at 0 its
+device functions run (on the CPU, their plain versions). EXISTS
+subqueries (``with_exists``) are not ported and not drawn. A few seeds
+run in tier-1; the soak of more seeds is slow-marked; the card-only
+suite (tests/test_torch_cuda.py) runs a seed on CUDA.
+
+The fuzzer module is loaded from its file: it needs only numpy, while
+the JAX package's ``__init__`` imports JAX, which the card's machine
+does not have.
+"""
+import importlib.util
+import os
+import sys
+
+import pytest
+
+from pinot_tpu_torch.broker import Broker
+from pinot_tpu_torch.segment import SegmentBuilder
+from pinot_tpu_torch.server import TableDataManager
+from pinot_tpu_torch.spi import (DataType, FieldSpec, FieldType, Schema,
+                                 TableConfig)
+
+N_ROWS = 4000
+
+
+def _load_fuzzer():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "pinot_tpu", "tools", "fuzzer.py")
+    spec = importlib.util.spec_from_file_location("_pinot_fuzzer", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod         # its dataclasses look it up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+fuzzer = _load_fuzzer()
+# the columns of fuzzer.fuzz_schema()
+SCHEMA = Schema("fz", [
+    FieldSpec("ci", DataType.INT),
+    FieldSpec("chi", DataType.INT),
+    FieldSpec("cs", DataType.STRING),
+    FieldSpec("m1", DataType.LONG, FieldType.METRIC),
+    FieldSpec("m2", DataType.DOUBLE, FieldType.METRIC),
+    FieldSpec("nm", DataType.LONG, FieldType.METRIC),
+    FieldSpec("ns", DataType.STRING),
+    FieldSpec("mv", DataType.INT, single_value=False),
+])
+
+
+def fuzz_broker(out: str, device: str = "cpu"):
+    """(broker, data): the fuzzer's rows as two segments of table fz."""
+    data = fuzzer.make_data(N_ROWS)
+    b = SegmentBuilder(SCHEMA, TableConfig("fz"))
+    dm = TableDataManager("fz", device=device)
+    for i, sl in enumerate((slice(0, N_ROWS // 2),
+                            slice(N_ROWS // 2, N_ROWS))):
+        dm.add_segment_dir(b.build({k: v[sl] for k, v in data.items()},
+                                   out, f"s{i}"))
+    broker = Broker(device=device)
+    broker.register_table(dm)
+    return broker, data
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    return fuzz_broker(str(tmp_path_factory.mktemp("fuzz")))
+
+
+def test_schema_matches_the_fuzzers():
+    from pinot_tpu.tools.fuzzer import fuzz_schema
+
+    assert [(f.name, f.data_type.name, f.field_type.name, f.single_value)
+            for f in fuzz_schema().fields] == \
+        [(f.name, f.data_type.name, f.field_type.name, f.single_value)
+         for f in SCHEMA.fields]
+
+
+def run_specs(broker, data, seed: int, n: int, reference=None):
+    """Failures of n specs of ``seed`` on both paths: (sql, why). With a
+    ``reference`` broker (the JAX package's), rows equal to its rows pass
+    too: the port's contract is the reference, and the reference's own
+    disagreements with the oracle are its faults (ROADMAP Queue 3)."""
+    gen = fuzzer.QueryGenerator(seed, with_exists=False)
+    failures = []
+    kinds = set()
+    for _ in range(n):
+        spec = gen.generate()
+        kinds.add(spec.kind)
+        sql = fuzzer.render_sql(spec)
+        try:
+            want = fuzzer.digest(fuzzer.oracle_rows(spec, data, N_ROWS))
+            for path_sql in (sql, sql.replace(
+                    "OPTION(", "OPTION(forceHostExecution=true,")):
+                got = fuzzer.digest(broker.query(path_sql).rows)
+                if got != want and (reference is None or got != fuzzer.digest(
+                        reference.query(path_sql).rows)):
+                    failures.append((path_sql, f"{len(got)} rows vs "
+                                     f"{len(want)} from the oracle"))
+        except Exception as e:  # noqa: BLE001 — collected for the report
+            failures.append((sql, f"{type(e).__name__}: {e}"))
+    return failures, kinds
+
+
+@pytest.mark.parametrize("seed,window_rows", [(5, "0"), (9, "200000"),
+                                              (31, "0")])
+def test_fuzz_port_against_oracle(setup, seed, window_rows, monkeypatch):
+    monkeypatch.setenv("PINOT_DEVICE_WINDOW_MIN_ROWS", window_rows)
+    broker, data = setup
+    failures, kinds = run_specs(broker, data, seed, 30)
+    assert not failures, failures[:5]
+    assert kinds == {"agg", "select", "window"}
+
+
+@pytest.mark.slow
+def test_fuzz_port_soak(setup, monkeypatch):
+    from pinot_tpu.broker import Broker as JaxBroker
+    from pinot_tpu.server import TableDataManager as JaxTable
+
+    monkeypatch.setenv("PINOT_DEVICE_WINDOW_MIN_ROWS", "0")
+    broker, data = setup
+    jb, jdm = JaxBroker(), JaxTable("fz")
+    for seg in broker.table("fz").acquire_segments():
+        jdm.add_segment_dir(seg.dir)
+    jb.register_table(jdm)
+    n = int(os.environ.get("PINOT_FUZZ_N", 300))
+    for seed in (20260730, 1, 2, 3):
+        failures, _ = run_specs(broker, data, seed, n, reference=jb)
+        assert not failures, (seed, failures[:5])
