@@ -116,6 +116,35 @@ Phases, each printed as it runs; any failure exits non-zero:
              float64: bitwise, float64 sums to a relative 1e-12) and on
              the path's own inputs, and timed beside torch.cumsum; K16,
              the segment agg and K19 are timed alone on their inputs.
+11. vector - vector search (K15): the SIFT1M- and GloVe-100-shaped table
+             of tools/vec.py (PINOT_SMOKE_VEC_ROWS rows, default 2^20, in
+             2 segments; emb_l2 128-d l2 and emb_cos 100-d cosine, both
+             with the IVF layer at the default 724 lists, seed 7) built
+             under .torch_cache/ (the IVF host build timed apart), then
+             per column, for k in {10, 100} and nprobe in {default, 4x,
+             >= n_lists (the exact scan)}, 16 query vectors through
+             Broker(device="cuda") in three plans (ORDER BY score: host;
+             LIMIT: kselect; SUM(views): the kernel plan with the
+             docmask). The exact scan must equal a float64 numpy oracle at
+             every rank apart from its neighbours by twice 1e-5 of the
+             summed terms; recall@k is printed for every nprobe, recall@10
+             at the default nprobe must reach 0.95 on emb_cos (the metric
+             bench_vector.py gates) and equal the plain version's on the
+             same layout on emb_l2 (the reference's balanced assignment
+             loses recall there: its share of documents outside their 8
+             nearest lists is printed); SUM(views) and the kselect rows
+             must match the segments' top-k; 16 threads in 3 waves
+             through the VectorBatcher must fuse and give the serial rows;
+             demotion and a fresh search give the same rows, a budget of
+             half the pool demotes and gives them too, tracked == held.
+             Then each kernel on the path's inputs (batch 16 and 1, k 10
+             and 100, flat and IVF) against its plain version, bitwise
+             against its stages, batched == solo bitwise, timed beside the
+             plain version, torch.topk(torch.matmul) and the bound, split
+             by kernel (torch.profiler); and off the path on edge cases
+             (dims 1, 3, 100, 128, 256; batches 1, 3, 16; k 1, 64, n;
+             duplicate rows; a zero query; signed zeros, one value, -inf
+             in the select; k past a probe's reach).
 
 The SSB phases run at 2^25 rows by default (2^26 before the multi-stage
 phase was added), so that the star schema's 2^24 orders rows fit the
@@ -2387,6 +2416,725 @@ def segscan_check(ms_inputs: dict, tile: int, device: str = "cuda") -> dict:
     return {**row, "traced": {"k16": k16, "k17_agg": agg, "k19": k19}}
 
 
+# ---------------------------------------------------------------------------
+# vector search (K15)
+# ---------------------------------------------------------------------------
+
+VEC_ROWS = int(os.environ.get("PINOT_SMOKE_VEC_ROWS", 1 << 20))
+VEC_QUERIES = 16                 # query vectors per column: one fused batch
+VEC_KS = (10, 100)               # ann-benchmarks' k for SIFT1M / GloVe-100
+VEC_RECALL_BAR = 0.95            # bench_vector.py's RECALL_BAR (cosine)
+VEC_RECALL_COLUMN = "emb_cos"    # the metric bench_vector.py gates
+VEC_CHOICES = 8                  # index/vector._BALANCE_CHOICES
+VEC_TOL = 1e-5                   # of the summed terms' magnitude
+VEC_WINDOW_MS = 8.0              # the batched wave's admission window
+VEC_WAVES = 3                    # batched waves of VEC_QUERIES threads
+F32_OPS_PER_S = 67e12            # H100 SXM float32 peak (data sheet)
+VEC_EDGE_SHAPES = (              # (n, dim, batch, metric)
+    (3001, 128, 16, "l2"), (70001, 100, 3, "cosine"),
+    (4097, 3, 16, "cosine"), (1001, 1, 1, "l2"), (2000, 256, 16, "cosine"))
+
+
+@contextlib.contextmanager
+def _ivf_build_timer(times: dict):
+    """Adds the host seconds of the IVF layer's k-means, balanced
+    assignment and page layout (index/vector.py), summed over the build's
+    threads, to ``times`` while inside."""
+    import threading
+
+    from pinot_tpu_torch.index import vector as vix
+
+    names = {"_fit_centroids": "kmeans_s", "_balanced_assign": "assign_s",
+             "_page_layout": "layout_s"}
+    saved = {n: getattr(vix, n) for n in names}
+    lock = threading.Lock()
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                with lock:
+                    times[names[name]] = times.get(names[name], 0.0) + \
+                        time.perf_counter() - t0
+        return timed
+
+    for n, fn in saved.items():
+        setattr(vix, n, wrap(n, fn))
+    try:
+        yield times
+    finally:
+        for n, fn in saved.items():
+            setattr(vix, n, fn)
+
+
+def _vec_scale(mat, qs, metric: str) -> float:
+    """The magnitude of the terms a float32 score sums: 1 for cosine, 4
+    max(|m|^2, |q|^2) for l2 (2 m.q - |m|^2 - |q|^2 cancels them)."""
+    import numpy as np
+
+    if metric == "cosine":
+        return 1.0
+    sq = max(float(np.einsum("ij,ij->i", mat, mat).max()),
+             float(np.einsum("ij,ij->i", qs, qs).max()))
+    return 4.0 * max(sq, 1.0)
+
+
+def _vec_oracle(mat, metric: str):
+    """q -> float64 scores of every row (cosine of normalised rows, or
+    minus the squared l2 distance)."""
+    import numpy as np
+
+    m = mat.astype(np.float64)
+    if metric == "cosine":
+        m /= np.maximum(np.linalg.norm(m, axis=1, keepdims=True), 1e-30)
+        return lambda q: m @ (q / max(float(np.linalg.norm(q)), 1e-30))
+    sq = np.einsum("ij,ij->i", m, m)
+    return lambda q: -(sq - 2.0 * (m @ q) + float(q @ q))
+
+
+def _apart(scores_desc, tol: float):
+    """Ranks (all but the last of ``scores_desc``) whose score is more
+    than 2 tol from both neighbours'."""
+    import numpy as np
+
+    s = np.asarray(scores_desc, dtype=np.float64)
+    with np.errstate(invalid="ignore"):
+        gap = np.abs(np.diff(s)) > 2 * tol
+    lo = np.concatenate([[True], gap[:-1]])
+    return lo & gap
+
+
+def _vec_compare(got, want, scale: float) -> float:
+    """Kernel (scores, ids) against the plain version's on one device:
+    finite at the same places, scores within VEC_TOL x scale, ids equal
+    at every rank apart from its neighbours. Returns the max abs error."""
+    import torch
+
+    gs, gi = (t.cpu() for t in got)
+    ws, wi = (t.cpu() for t in want)
+    fin = torch.isfinite(ws)
+    if not torch.equal(fin, torch.isfinite(gs)):
+        raise AssertionError("-inf at other places than the plain version")
+    err = float((gs[fin] - ws[fin]).abs().max()) if fin.any() else 0.0
+    if err > VEC_TOL * scale:
+        raise AssertionError(f"scores differ by {err} > {VEC_TOL * scale}")
+    for r in range(ws.shape[0]):
+        ok = torch.from_numpy(_apart(ws[r].numpy(), VEC_TOL * scale))
+        if not torch.equal(gi[r, :-1][ok], wi[r, :-1][ok]):
+            raise AssertionError(f"row {r}: ids differ where apart")
+    return err
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) \
+        and torch.equal(a[1], b[1])
+
+
+def _vec_args(reader, qn, k: int, eff: int):
+    """(search function, plain version, its arguments, k_pad) for the
+    reader's flat scan (eff 0) or IVF probe, as search_batch calls it."""
+    import torch
+
+    from pinot_tpu_torch.ops import vecsearch as V
+
+    dev = reader.ensure_device()
+    qt = torch.from_numpy(qn).to(reader.device)
+    n = len(reader.matrix)
+    if not eff:
+        k_pad = min(V._pow2(k), n)
+        return (V.flat_search, V.flat_search_reference,
+                (qt, dev["matrix"], dev["row_sq"], reader.metric, k_pad),
+                k_pad)
+    max_pages = reader.max_pages_for(eff)
+    k_pad = min(V._pow2(k), max_pages * reader.ivf["pages"].shape[1])
+    return (V.ivf_search, V.ivf_search_reference,
+            (qt, dev["paged"], dev["paged_sq"], dev["centroids"],
+             dev["cent_sq"], dev["pages"], dev["pageptr"], reader.metric,
+             k_pad, eff, max_pages, n), k_pad)
+
+
+def _vec_page_idx(args):
+    """The page slots of each query's IVF probe, by the plain version."""
+    import torch
+
+    from pinot_tpu_torch.ops import vecsearch as V
+
+    (qt, _paged, _sq, cents, cent_sq, pages, pageptr, metric, _k, eff,
+     max_pages, _n) = args
+    out = []
+    for q in qt:
+        cs = V.score_reference(cents, cent_sq, q, V._mode(metric, False))
+        lists = V.select_reference(cs[None], eff)[1][0]
+        out.append(V.expand_pages(lists, pageptr, max_pages,
+                                  pages.shape[0] - 1))
+    return torch.stack(out)
+
+
+def _vec_stages(args):
+    """The IVF search by its stages (CUDA tensors)."""
+    from pinot_tpu_torch.ops import vecsearch as V
+
+    (qt, paged, paged_sq, cents, cent_sq, pages, pageptr, metric, k_pad,
+     eff, max_pages, n) = args
+    cs = V.score(cents, cents.shape[0], cent_sq, qt, V._mode(metric, False))
+    lists = V.select(cs, eff)[1]
+    sims, pidx = V.score_pages(qt, paged, paged_sq, pages, pageptr, lists,
+                               max_pages, n, V._mode(metric))
+    return V.select(sims, k_pad, pages=pages, page_idx=pidx)
+
+
+def _vec_bound(args, ivf: bool, pidx=None):
+    """(bound ms, bound_by): the larger of the bytes the search must move
+    over 3.35 TB/s and its float32 operations over 67 TFLOP/s. IVF counts
+    the centroids and the documents of the pages this run's probes
+    reach (row, squared norm and id each)."""
+    from pinot_tpu_torch.ops import vecsearch as V
+
+    qt, metric = args[0], args[-5] if ivf else args[3]
+    nq, dim = qt.shape
+    l2 = metric == "l2"
+    if not ivf:
+        n = args[1].shape[0] - 1
+        k_pad = args[4]
+        nbytes = V.search_bytes(n, dim, nq, k_pad, l2)
+        ops = 2 * n * dim * nq
+    else:
+        cents, pages, k_pad, n_docs = args[3], args[5], args[8], args[11]
+        # the documents of the probed pages (sentinels are not read)
+        rows = int((pages[pidx.long()] != n_docs).sum())
+        nbytes = (V.search_bytes(cents.shape[0], dim, nq, k_pad, l2)
+                  + rows * (dim * 4 + 4 + (4 if l2 else 0)))
+        ops = 2 * cents.shape[0] * dim * nq + 2 * rows * dim
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _vec_yardstick(args, ivf: bool, pidx=None):
+    """torch.topk(torch.matmul(...)) over the same rows: the matrix for
+    the flat scan, the probed pages (gathered) for IVF."""
+    import torch
+
+    qt = args[0]
+    if not ivf:
+        m, k_pad = args[1][:-1], args[4]
+        return lambda: torch.topk(qt @ m.T, k_pad)
+    paged, k_pad = args[1], args[8]
+    idx = pidx.long()
+
+    def run():
+        v = paged[idx]                                  # (nq, pages, P, dim)
+        s = torch.matmul(v.flatten(1, 2), qt[:, :, None])[..., 0]
+        return torch.topk(s, k_pad)
+    return run
+
+
+VEC_KERNELS = ("vec_score", "vec_pages", "vec_select_block",
+               "vec_select_cand", "vec_radix", "vec_emit", "vec_sort",
+               "vec_unpack")
+
+
+PROFILE_TRIES = 3                # profiler windows tried for device events
+
+
+def vec_split_ms(fn, reps: int = 10):
+    """Device ms per call of each kernel of a search (and its memsets),
+    from torch.profiler over ``reps`` calls; None when no window of
+    PROFILE_TRIES recorded a device event (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(VEC_KERNELS + ("memset",), 0.0)
+        for e in _on_device(prof.key_averages()):
+            key = next((k for k in VEC_KERNELS if k in e.key),
+                       "memset" if "emset" in e.key else None)
+            if key:
+                out[key] += _dev_ms(e) / reps
+        if any(out.values()):
+            return out
+    return None
+
+
+def _vec_profile(query, sql: str) -> dict:
+    """profile_query of one vector query, tried PROFILE_TRIES times until
+    the profiler records device events; the device figures are None
+    (not measured) when it never does."""
+    for _ in range(PROFILE_TRIES):
+        prof = profile_query(query, sql)
+        if prof["device_busy_ms"] > 0:
+            return prof
+    return {**prof, **dict.fromkeys(
+        ("device_busy_ms", "device_idle_share", "memcpy_memset_ms",
+         "kernel_busy_ms", "kernel_idle_share"))}
+
+
+def vector_kernel_rows(reader, col: str, qn, k: int, eff: int,
+                       on_card: bool) -> list:
+    """The kernel on the path's own inputs (a reader of the table and its
+    fused batch of queries) at batch 16 and 1: held to the plain version,
+    equal bitwise to its stages, batched == solo bitwise, and timed beside
+    the plain version, the yardstick and the bound."""
+    rows = []
+    for b in (len(qn), 1):
+        fn, ref, args, k_pad = _vec_args(reader, qn[:b], k, eff)
+        got = fn(*args)
+        want = ref(*args)
+        err = _vec_compare(got, want,
+                           _vec_scale(reader.matrix, qn, reader.metric))
+        pidx = _vec_page_idx(args) if eff else None
+        if on_card:
+            from pinot_tpu_torch.ops import vecsearch as V
+            staged = _vec_stages(args) if eff else V.select(
+                V.score(args[1], args[1].shape[0] - 1, args[2], args[0],
+                        V._mode(reader.metric)), k_pad)
+            if not _same_bits(got, staged):
+                raise AssertionError(f"{col}: search != its stages, bitwise")
+        if b > 1:
+            for i in range(b):
+                _f, _r, a1, _k = _vec_args(reader, qn[i:i + 1], k, eff)
+                solo = fn(*a1)
+                if not _same_bits(solo, (got[0][i:i + 1], got[1][i:i + 1])):
+                    raise AssertionError(f"{col}: batched != solo, query {i}")
+        bound, by = _vec_bound(args, bool(eff), pidx)
+        row = {"column": col, "mode": "ivf" if eff else "flat",
+               "nprobe": eff, "batch": b, "k": k, "k_pad": k_pad,
+               "max_abs_err": err, "bound_ms": bound, "bound_by": by}
+        if on_card:
+            row.update(ms=cuda_time_ms(lambda: fn(*args), 10),
+                       plain_ms=cuda_time_ms(lambda: ref(*args), 2),
+                       torch_ms=cuda_time_ms(
+                           _vec_yardstick(args, bool(eff), pidx), 10),
+                       split_ms=vec_split_ms(lambda: fn(*args)))
+        rows.append(row)
+        phase("vector_kernel", **row)
+    return rows
+
+
+def vector_edge_check(device: str = "cuda") -> float:
+    """The kernels against their plain versions off the path: n not a
+    multiple of any tile, dim in {1, 3, 100, 128, 256}, batch in {1, 3,
+    16}, k in {1, 64, n}; the select on signed zeros, one value, few
+    values and -inf (bitwise); duplicate rows and a zero query through
+    readers on the card and on the CPU (ids exactly equal); a probe that
+    cannot reach k (k_pad past max_pages x 64)."""
+    import numpy as np
+    import torch
+
+    from pinot_tpu_torch.index.vector import VectorIndexReader
+    from pinot_tpu_torch.ops import vecsearch as V
+
+    err, cases = 0.0, 0
+    for n, dim, b, metric in VEC_EDGE_SHAPES:
+        rng = np.random.default_rng(n + dim)
+        m = rng.standard_normal((n, dim)).astype(np.float32)
+        r = VectorIndexReader.from_matrix(m, metric, device=device)
+        qn = np.stack([r._query_vec(q) for q in
+                       m[rng.integers(0, n, b)] + 0.01 * rng.standard_normal(
+                           (b, dim)).astype(np.float32)])
+        for k in (1, 64, n):
+            _f, _r, args, _k = _vec_args(r, qn, k, 0)
+            err = max(err, _vec_compare(V.flat_search(*args),
+                                        V.flat_search_reference(*args),
+                                        _vec_scale(m, qn, metric)))
+            cases += 1
+        r.evict_device()
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+    # rows of 9,000 take the one-block select for k <= 4096, rows of
+    # 300,000 the multi-block radix select
+    for kind in ("signed-zeros", "zeros", "few-values", "neg-inf"):
+        for n in (9000, 300_000):
+            s = torch.randn(3, n, device=device, generator=g)
+            s = {"signed-zeros": torch.where(s > 0, 0.0, -0.0),
+                 "zeros": torch.zeros_like(s),
+                 "few-values": torch.round(s * 2) / 2,
+                 "neg-inf": s.masked_fill(s < 0.5, float("-inf"))}[kind]
+            for k in (1, 100, 5000):
+                if not _same_bits(V.select(s, k), V.select_reference(s, k)):
+                    raise AssertionError(f"select differs on {kind}, n {n},"
+                                         f" k {k}")
+                cases += 1
+    rng = np.random.default_rng(3)
+    m = rng.standard_normal((3000, 12)).astype(np.float32)
+    dup = m.copy()
+    dup[1::2] = dup[0::2]
+    qs = m[:3] + 0.01
+    for metric in ("cosine", "l2"):
+        for data, qv in ((dup, qs), (m, np.zeros_like(qs))):
+            for nprobe in (None, 16):
+                got, want = (VectorIndexReader.from_matrix(
+                    data, metric, device=d).build_ivf(16, seed=7)
+                    .search_batch(qv, 64, nprobe) for d in (device, "cpu"))
+                if not np.array_equal(got[1], want[1]):
+                    raise AssertionError(f"tie rule differs ({metric})")
+                err = max(err, float(np.abs(got[0] - want[0]).max()))
+                cases += 1
+    # one list's probe: max_pages x 64 = 512 slots, k_pad = 512 < k
+    got, want = (VectorIndexReader.from_matrix(m, device=d)
+                 .build_ivf(16, seed=7).search_batch(qs, 1000, 1)
+                 for d in (device, "cpu"))
+    if not (got[1] < 0).any() or not np.array_equal(got[1] < 0,
+                                                    want[1] < 0):
+        raise AssertionError("the unreachable-k padding differs")
+    phase("vector_edges", cases=cases + 1, max_abs_err=err)
+    return err
+
+
+def _vec_spilled_share(reader) -> float:
+    """Share of the reader's documents whose IVF list is none of their
+    VEC_CHOICES nearest centroids: the balanced assignment's round-robin
+    fallback, which the default probe cannot reach."""
+    import numpy as np
+
+    from pinot_tpu_torch.index import vector as vix
+
+    ivf = reader.ivf
+    n, page = len(reader.matrix), ivf["pages"].shape[1]
+    lists = np.repeat(np.arange(len(ivf["pageptr"]) - 1),
+                      np.diff(ivf["pageptr"]) * page)
+    flat = ivf["pages"].reshape(-1)
+    doc_list = np.empty(n, dtype=np.int64)
+    doc_list[flat[flat < n]] = lists[flat < n]
+    space = vix._ivf_space(reader.matrix, reader.metric)
+    c = ivf["centroids"].astype(np.float64)
+    csq = (c * c).sum(1)
+    spilled = 0
+    for i in range(0, n, 1 << 16):
+        d = csq[None] - 2.0 * (space[i:i + (1 << 16)].astype(np.float64)
+                               @ c.T)
+        mine = d[np.arange(len(d)), doc_list[i:i + (1 << 16)]]
+        spilled += int(((d < mine[:, None]).sum(1) >= VEC_CHOICES).sum())
+    return spilled / n
+
+
+def _vec_plain_recall(segs, col: str, queries, k: int, tops) -> float:
+    """recall@k of the plain version's IVF search at the default nprobe
+    over the same layouts, on the CPU: what the reference algorithm
+    itself reaches on this data."""
+    import numpy as np
+
+    from pinot_tpu_torch.index.vector import VectorIndexReader
+
+    scores, ids, base = [], [], 0
+    for s in segs:
+        r = s.index_reader(col, "vector")
+        cpu = VectorIndexReader.from_matrix(r.matrix, r.metric, device="cpu")
+        cpu.ivf = r.ivf
+        sc, d = cpu.search_batch(queries, k, None)
+        scores.append(sc)
+        ids.append(np.where(d >= 0, d + base, -1))
+        base += s.n_docs
+    sc, d = np.concatenate(scores, 1), np.concatenate(ids, 1)
+    hits = 0
+    for i, top in enumerate(tops):
+        order = np.argsort(-sc[i], kind="stable")[:k]
+        hits += len(set(d[i][order].tolist()) & set(top[:k].tolist()))
+    return hits / (k * len(tops))
+
+
+def _vec_sqls(col: str, qv, k: int, nprobe):
+    from pinot_tpu_torch.tools import vec
+
+    vs = vec.vs(col, qv, k, nprobe)
+    return {"host": f"SELECT id FROM vt WHERE {vs} ORDER BY {vs} DESC "
+                    f"LIMIT {k}",
+            "kselect": f"SELECT id FROM vt WHERE {vs} LIMIT {k}",
+            "kernel": f"SELECT SUM(views) FROM vt WHERE {vs}"}
+
+
+def _vec_union(segs, col: str, qv, k: int, nprobe):
+    """The table-wide ids of every segment's top-k (the filter's rows),
+    searched again; these launches are a check's and are not counted."""
+    import numpy as np
+
+    from pinot_tpu_torch.ops import vecsearch as V
+
+    counts = V.flat_launches, V.ivf_launches
+    out, base = [], 0
+    for s in segs:
+        _sc, docs = s.index_reader(col, "vector").search_batch(
+            qv[None], k, nprobe)
+        out.append(base + docs[0][docs[0] >= 0])
+        base += s.n_docs
+    V.flat_launches, V.ivf_launches = counts
+    return np.concatenate(out)
+
+
+def _vec_batched(query, col: str, queries, k: int, serial: list) -> dict:
+    """VEC_WAVES waves of one thread per query vector, released by a
+    barrier, through the VectorBatcher: every row list must equal its
+    serial one and the waves must fuse."""
+    import threading
+
+    from pinot_tpu_torch.engine import vector_exec as vx
+    from pinot_tpu_torch.utils.metrics import global_metrics
+
+    def count(name):
+        return global_metrics.snapshot()["counters"].get(name, 0)
+
+    vx.global_vector_batcher.configure(enabled=True, window_ms=VEC_WINDOW_MS,
+                                       max_batch=len(queries))
+    d0, q0 = count("vector_batched_dispatches"), count(
+        "vector_batched_queries")
+    errors = []
+    for _ in range(VEC_WAVES):
+        rows = [None] * len(queries)
+        barrier = threading.Barrier(len(queries))
+
+        def run(i):
+            try:
+                barrier.wait(timeout=60)
+                rows[i] = query(_vec_sqls(col, queries[i], k, None)["host"]
+                                ).rows
+            except Exception as e:  # noqa: BLE001 - collected, fails below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(queries))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if errors:
+            raise AssertionError(f"batched wave failed: {errors[:3]}")
+        if rows != serial:
+            raise AssertionError(f"{col}: batched rows != serial rows")
+    vx.global_vector_batcher.configure(window_ms=vx.DEFAULT_WINDOW_MS,
+                                       max_batch=vx.DEFAULT_MAX_BATCH)
+    out = {"column": col, "k": k, "threads": len(queries),
+           "waves": VEC_WAVES,
+           "fused_dispatches": count("vector_batched_dispatches") - d0,
+           "fused_queries": count("vector_batched_queries") - q0}
+    if out["fused_dispatches"] == 0:
+        raise AssertionError(f"{col}: no fused vector dispatch")
+    phase("vector_batched", **out)
+    return out
+
+
+def vector_phase(live_segments=(), device: str = "cuda") -> dict:
+    """VECTOR_SIMILARITY through Broker(device=...) on the SIFT1M- and
+    GloVe-100-shaped table (tools/vec.py): see the module doc. The
+    reconciliations also count the device tensors of ``live_segments``
+    (the segments of earlier phases)."""
+    import numpy as np
+
+    from pinot_tpu_torch.broker import connect
+    from pinot_tpu_torch.engine import vector_exec as vx
+    from pinot_tpu_torch.engine.tier import global_tier
+    from pinot_tpu_torch.ops import vecsearch as V
+    from pinot_tpu_torch.tools import vec
+    from pinot_tpu_torch.utils.devmem import global_device_memory
+
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+    cols, queries = vec.vec_table(VEC_ROWS, n_queries=VEC_QUERIES)
+    gen_s = time.perf_counter() - t_phase
+    out = os.path.join(CACHE, f"vec_table_{VEC_ROWS}_{vec.SEGMENTS}")
+    cached = all(os.path.exists(os.path.join(out, f"vt_{i}",
+                                             "metadata.json"))
+                 for i in range(vec.SEGMENTS))
+    ivf_times: dict = {}
+    t0 = time.perf_counter()
+    with _ivf_build_timer(ivf_times):
+        dirs = vec.build_table(out, cols)
+    build_s = time.perf_counter() - t0
+    broker = vec.load_broker(dirs, device)
+    query = connect(broker)
+    segs = broker.table("vt").acquire_segments()
+    live = list(live_segments) + segs
+    t0 = time.perf_counter()
+    for s in segs:
+        for col in vec.COLUMNS:
+            s.index_reader(col, "vector").ensure_device()
+    _sync(device)
+    r0 = segs[0].index_reader("emb_l2", "vector")
+    phase("vector_setup", rows=VEC_ROWS, segments=len(segs),
+          columns={c: {"dim": d, "metric": m, "n_lists": r0.n_lists,
+                       "nprobe_default": r0.nprobe_default,
+                       "spilled_share": [_vec_spilled_share(
+                           s.index_reader(c, "vector")) for s in segs]}
+                   for c, (d, m, _s) in vec.COLUMNS.items()},
+          gen_s=gen_s, build_s=build_s, cached=cached,
+          ivf_host_s=ivf_times, upload_s=time.perf_counter() - t0,
+          vector_pool_bytes=global_device_memory.pool_bytes("vector"))
+    _reconcile_or_fail(live, "vector upload")
+
+    V.flat_launches = V.ivf_launches = 0
+    recall, serial_rows, checked = {}, {}, 0
+    for col, (_dim, metric, _s) in vec.COLUMNS.items():
+        oracle = _vec_oracle(cols[col], metric)
+        scale = _vec_scale(cols[col], queries[col], metric)
+        views = cols["views"].astype(np.int64)
+        n_lists = segs[0].index_reader(col, "vector").n_lists
+        default = segs[0].index_reader(col, "vector").nprobe_default
+        for k in VEC_KS:
+            for label, nprobe in (("default", None), ("4x", 4 * default),
+                                  ("exact", n_lists)):
+                lat = {"host": [], "kselect": [], "kernel": []}
+                hits, tops = 0, []
+                for qv in queries[col]:
+                    sqls = _vec_sqls(col, qv, k, nprobe)
+                    res = {}
+                    for shape, sql in sqls.items():
+                        t1 = time.perf_counter()
+                        res[shape] = query(sql).rows
+                        lat[shape].append((time.perf_counter() - t1) * 1e3)
+                    got = [int(r[0]) for r in res["host"]]
+                    s64 = oracle(qv.astype(np.float64))
+                    top = np.argpartition(-s64, k)[: k + 1]
+                    top = top[np.argsort(-s64[top], kind="stable")]
+                    tops.append(top)
+                    hits += len(set(got) & set(top[:k].tolist()))
+                    union = _vec_union(segs, col, qv, k, nprobe)
+                    if res["kernel"][0][0] != int(views[union].sum()):
+                        raise AssertionError(f"{col} SUM(views) != the "
+                                             "segments' top-k views")
+                    ks = [int(r[0]) for r in res["kselect"]]
+                    if len(ks) != k or not set(ks) <= set(union.tolist()):
+                        raise AssertionError(f"{col} kselect rows")
+                    if label == "exact":
+                        ok = _apart(s64[top], VEC_TOL * scale)
+                        bad = [r for r in range(k)
+                               if ok[r] and got[r] != int(top[r])]
+                        if bad:
+                            raise AssertionError(
+                                f"{col} exact scan != oracle at ranks {bad}")
+                        checked += int(ok.sum())
+                    if label == "default" and k == VEC_KS[0]:
+                        serial_rows.setdefault(col, []).append(res["host"])
+                recall[(col, k, label)] = hits / (k * len(queries[col]))
+                row = {"column": col, "k": k, "nprobe": label,
+                       f"recall_at_{k}": recall[(col, k, label)],
+                       **{f"p50_{s}_ms": statistics.median(v)
+                          for s, v in lat.items()}}
+                if label == "default" and k == VEC_KS[0]:
+                    row["plain_recall_at_10"] = plain = _vec_plain_recall(
+                        segs, col, queries[col], k, tops)
+                    # the kernels reach what the reference algorithm
+                    # reaches on the same layout (one id of slack: a
+                    # near-tie may fall either way)
+                    if abs(plain - recall[(col, k, label)]) > 1.0 / (
+                            k * len(queries[col])):
+                        raise AssertionError(
+                            f"{col}: recall@10 {recall[(col, k, label)]} "
+                            f"!= the plain version's {plain}")
+                phase("vector_query", **row)
+        if col == VEC_RECALL_COLUMN and \
+                recall[(col, VEC_KS[0], "default")] < VEC_RECALL_BAR:
+            raise AssertionError(f"{col}: recall@10 at the default nprobe "
+                                 f"{recall[(col, VEC_KS[0], 'default')]} "
+                                 f"< {VEC_RECALL_BAR}")
+        _vec_batched(query, col, list(queries[col]), VEC_KS[0],
+                     serial_rows[col])
+    launches = {"flat": V.flat_launches, "ivf": V.ivf_launches}
+    phase("vector_path", launches=launches, exact_ranks_checked=checked)
+    if not all(launches.values()):
+        raise AssertionError(f"a vector kernel never launched: {launches}")
+    _reconcile_or_fail(live, "vector queries")
+
+    # one query of each plan under torch.profiler
+    if on_card:
+        for shape in ("host", "kernel"):
+            sql = _vec_sqls("emb_l2", queries["emb_l2"][0], VEC_KS[0],
+                            None)[shape]
+            phase("vector_profile", shape=shape, **_vec_profile(query, sql))
+
+    # evict and search afresh; a budget that counts the pool
+    sql = _vec_sqls("emb_l2", queries["emb_l2"][1], VEC_KS[0], None)["host"]
+    before = query(sql).rows
+    for s in segs:
+        s.demote_device()
+    vx.clear_memo()
+    _reconcile_or_fail(live, "vector eviction")
+    if global_device_memory.pool_bytes("vector") != 0:
+        raise AssertionError("vector pool not empty after eviction")
+    if query(sql).rows != before:
+        raise AssertionError("rows differ after evict_device")
+    pool = global_device_memory.pool_bytes("vector")
+    d0 = global_tier.demotions
+    try:
+        global_tier.configure(budget_bytes=pool // 2)
+        vx.clear_memo()
+        after = query(sql).rows
+    finally:
+        global_tier.configure(budget_bytes=None)
+    if after != before or global_tier.demotions <= d0:
+        raise AssertionError("the tier budget did not count the vector pool")
+    _reconcile_or_fail(live, "vector budget")
+    phase("vector_memory", evicted_equal=True, budget_bytes=pool // 2,
+          demotions=global_tier.demotions - d0)
+
+    # the kernels on the path's own inputs, then off it
+    rows = []
+    for col in vec.COLUMNS:
+        reader = segs[0].index_reader(col, "vector")
+        qn = np.stack([reader._query_vec(q) for q in queries[col]])
+        for eff in (0, reader.nprobe_default):
+            for k in VEC_KS:
+                rows += vector_kernel_rows(reader, col, qn, k, eff, on_card)
+    edge_err = vector_edge_check(device)
+    for s in segs:
+        s.evict_device()
+    vx.clear_memo()
+    phase("vector_done", seconds=time.perf_counter() - t_phase)
+    return {"launches": launches, "rows": rows, "edge_err": edge_err}
+
+
+def _vec_kernel_entries(vsearch: dict) -> list:
+    """The kernels-line entries of K15: the headline at the fused batch
+    (16 queries, k = 10) on the SIFT-shaped column, every measured shape
+    beside it."""
+    out = []
+    for mode, name, line in (("flat", "vecsearch_flat", 284),
+                             ("ivf", "vecsearch_ivf", 316)):
+        rows = [r for r in vsearch["rows"] if r["mode"] == mode]
+        head = next(r for r in rows if r["column"] == "emb_l2"
+                    and r["batch"] == VEC_QUERIES and r["k"] == VEC_KS[0])
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pinot_tpu_torch/ops/csrc/vecsearch.cu",
+            "replaces": f"pinot_tpu/index/vector.py:{line}",
+            "launches": vsearch["launches"][mode],
+            "max_abs_err": max([r["max_abs_err"] for r in rows]
+                               + [vsearch["edge_err"]]),
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": None,
+            "torch_ms": head["torch_ms"],
+            "shapes": [{k: r[k] for k in ("column", "batch", "k", "k_pad",
+                                          "nprobe", "ms", "plain_ms",
+                                          "torch_ms", "bound_ms")}
+                       for r in rows],
+            "at": f"one search of {VEC_QUERIES} queries, k = {VEC_KS[0]} "
+                  f"(k_pad {head['k_pad']}), over one {VEC_ROWS // 2}-row "
+                  "segment of the 128-d l2 column"
+                  + (f" at nprobe {head['nprobe']}" if head["nprobe"] else
+                     " (the exact scan)")
+                  + "; ms, plain_ms, torch_ms = CUDA events over 10 / 2 / "
+                  "10 calls; no single PyTorch call computes the search "
+                  "(library_ms null): torch_ms is torch.topk(torch.matmul) "
+                  "over the same rows (IVF: the probed pages, gathered); "
+                  "launches = the vector phase's broker queries and "
+                  "batched waves; max_abs_err = scores against the plain "
+                  "version on the path's inputs and the edge cases"})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2423,6 +3171,7 @@ def main() -> int:
     ms = multistage_phase(star_dirs, tables, [single, surface_seg, *segs])
     ms_launches = ms["launches"]
     scan = segscan_check(ms.pop("inputs"), S.tile_rows())
+    vsearch = vector_phase([single, surface_seg, *segs])
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "compact",
@@ -2484,7 +3233,8 @@ def main() -> int:
               "torch.cumsum over the same n, the unsegmented floor; "
               "launches = the multistage phase's; max_abs_err over the "
               "path's inputs and the edge cases (float64 sums: relative "
-              "1e-12; int64 and min/max: bitwise)"}]}))
+              "1e-12; int64 and min/max: bitwise)"},
+        *_vec_kernel_entries(vsearch)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

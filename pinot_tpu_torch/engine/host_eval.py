@@ -7,11 +7,11 @@ SelectionOnlyOperator + NoDictionaryGroupKeyGenerator play in pinot-core —
 the general path behind the optimized ones. Everything here is vectorized
 numpy over the segment memmaps; no Python-per-row loops.
 
-Port of ``pinot_tpu/engine/host_eval.py`` (numpy, no device code). The
-index package is not ported: index predicates (TEXT_MATCH, JSON_MATCH,
-VECTOR_SIMILARITY) and VECTOR_SIMILARITY as a value raise
-``NotImplementedError``, and the inverted- and range-index shortcuts of
-the filter scan are left out (the scan gives the same mask).
+Port of ``pinot_tpu/engine/host_eval.py`` (numpy, no device code), with
+the index predicates (TEXT_MATCH, JSON_MATCH, VECTOR_SIMILARITY through
+index/predicates.py), VECTOR_SIMILARITY as a value (engine/vector_exec's
+exact host scores) and the inverted- and range-index shortcuts of the
+filter scan. Geo index predicates come with the geo index.
 """
 from __future__ import annotations
 
@@ -27,10 +27,6 @@ from ..query.sql import (Between, BinaryOp, BoolAnd, BoolNot, BoolOr,
 from ..query import functions as F
 from ..ops import aggregations
 from ..segment.immutable import ImmutableSegment
-
-
-# index predicates: their masks come from a secondary index
-INDEX_PREDICATES = ("text_match", "json_match", "vector_similarity")
 
 
 def virtual_column(seg, name: str) -> Optional[np.ndarray]:
@@ -85,9 +81,12 @@ def eval_value(e: Any, seg: ImmutableSegment,
 def _eval_func(e: FuncCall, seg: ImmutableSegment,
                sel: Optional[np.ndarray]) -> np.ndarray:
     if e.name == "vector_similarity":
-        raise NotImplementedError(
-            "VECTOR_SIMILARITY needs the vector index, which is not yet "
-            "ported to pinot_tpu_torch")
+        # VECTOR_SIMILARITY as a VALUE (ORDER BY score / select-list
+        # column): exact per-doc similarity over the selected rows; the
+        # candidate selection already ran on the device through the
+        # filter's memoized search (engine/vector_exec.py)
+        from .vector_exec import order_scores
+        return order_scores(seg, e, sel)
     fd = F.lookup(e.name)
     if fd is None:
         raise SqlError(f"unknown function {e.name!r}")
@@ -292,6 +291,52 @@ def eval_filter(e: Any, seg: ImmutableSegment) -> np.ndarray:
         mvm = _mv_meta(seg, e.lhs)
         if mvm is not None and isinstance(e.rhs, Literal):
             return _mv_pred_mask(seg, e.lhs.name, e.op, e.rhs.value)
+        # InvertedIndexFilterOperator analog: EQ/NEQ on a dict column with
+        # an inverted index answers in O(selectivity) from posting lists
+        if e.op in ("==", "!=") and isinstance(e.lhs, Identifier) \
+                and isinstance(e.rhs, Literal):
+            m = seg.columns.get(e.lhs.name)
+            if m is not None and getattr(m, "has_dict", False) \
+                    and "inverted" in getattr(m, "indexes", {}):
+                # coerce the literal like the scan path (_align_str) does;
+                # on a non-coercible literal fall through so the scan path
+                # raises the same SqlError as without the index
+                val = e.rhs.value
+                if m.data_type.is_numeric and isinstance(val, str):
+                    try:
+                        val = float(val) if ("." in val or "e" in val.lower()
+                                            ) else int(val)
+                    except ValueError:
+                        val = None
+                elif not m.data_type.is_numeric:
+                    val = str(val)
+                if val is not None:
+                    d = seg.dictionary(e.lhs.name)
+                    did = d.index_of(val)
+                    mask = seg.index_reader(e.lhs.name, "inverted") \
+                        .mask_for_ids([did] if did >= 0 else [], n)
+                    return ~mask if e.op == "!=" else mask
+        # RangeIndexBasedFilterOperator analog: chunk zone maps on raw
+        # numeric columns let the scan skip non-candidate chunks entirely
+        if e.op in ("<", "<=", ">", ">=", "==") \
+                and isinstance(e.lhs, Identifier) \
+                and isinstance(e.rhs, Literal) \
+                and isinstance(e.rhs.value, (int, float)) \
+                and not isinstance(e.rhs.value, bool):
+            m = seg.columns.get(e.lhs.name)
+            if m is not None and not getattr(m, "has_dict", False) \
+                    and "range" in getattr(m, "indexes", {}):
+                rd = seg.index_reader(e.lhs.name, "range")
+                v = e.rhs.value
+                lo, hi = {"<": (None, v), "<=": (None, v), ">": (v, None),
+                          ">=": (v, None), "==": (v, v)}[e.op]
+                np_op = {"==": np.equal, "<": np.less, "<=": np.less_equal,
+                         ">": np.greater, ">=": np.greater_equal}[e.op]
+                vals = np.asarray(seg.fwd(e.lhs.name))
+                cand = rd.candidate_mask(lo, hi, n)
+                mask = np.zeros(n, dtype=bool)
+                mask[cand] = np_op(vals[:n][cand], v)
+                return mask
         l = eval_value(e.lhs, seg)
         r = eval_value(e.rhs, seg)
         l, r = _align_str(l, r)
@@ -349,10 +394,11 @@ def eval_filter(e: Any, seg: ImmutableSegment) -> np.ndarray:
         return ~m if e.negated else m
     if isinstance(e, Literal) and isinstance(e.value, bool):
         return np.full(n, e.value, dtype=bool)
-    if isinstance(e, FuncCall) and e.name in INDEX_PREDICATES:
-        raise NotImplementedError(
-            f"{e.name.upper()} needs the index package, which is not yet "
-            "ported to pinot_tpu_torch")
+    if isinstance(e, FuncCall):
+        from ..index.predicates import try_index_filter_mask
+        idx_mask = try_index_filter_mask(seg, e)
+        if idx_mask is not None:
+            return idx_mask
     if isinstance(e, (FuncCall, Identifier, Cast, CaseWhen)):
         # boolean-valued expression used as a predicate
         # (startsWith(col, 'x'), boolean column, ...)

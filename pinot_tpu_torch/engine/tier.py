@@ -425,18 +425,21 @@ def tier_health(snapshot: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def reconcile_devmem(segments) -> Dict[str, Dict[str, int]]:
-    """Tracked-vs-actual bytes of the port's four pools: the check that
+    """Tracked-vs-actual bytes of the port's five pools: the check that
     no promote/demote/evict path leaks accounting. ``segments`` is the
     live segment set whose device caches back the segment_cols pool; the
-    actual bytes are read from ``ImmutableSegment._device``,
+    actual bytes are read from ``ImmutableSegment._device``, every live
+    vector index reader (index/vector.live_readers),
     ``engine/batch._STACK_CACHE`` and the cube cache's per-segment and
     stacked entries (ops/plan_cache.global_cube_cache). Verification
     only, never on a serving path."""
+    from ..index import vector as vix
     from ..ops.plan_cache import global_cube_cache
     from . import batch
     actual = {
         "segment_cols": sum(int(t.nbytes) for s in segments
                             for t in list(s._device.values())),
+        "vector": sum(r.device_bytes() for r in vix.live_readers()),
         "stack_cache": sum(nbytes_of(v)
                            for v in list(batch._STACK_CACHE.values())),
         "cube_cache": sum(

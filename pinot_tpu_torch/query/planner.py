@@ -2,10 +2,11 @@
 
 Port of ``pinot_tpu/query/planner.py``, kept line for line where the two
 agree. What differs: the execution platform is the segment's torch device
-type instead of ``jax.default_backend()``; index, vector and geo
-predicates, plan verification, spans and the plan-cache drift loop are not
-ported (index, vector and geo filters plan the host path, whose
-evaluator reports them as not yet ported).
+type instead of ``jax.default_backend()``; geo index predicates (they come
+with the geo index: a geo filter plans the host path, which evaluates the
+ST_* function row by row), plan verification, spans and the plan-cache
+drift loop are not ported. TEXT_MATCH, JSON_MATCH and VECTOR_SIMILARITY
+filters become a ``docmask`` kernel param, as in the reference.
 
 Reference parity: pinot-core/.../plan/maker/InstancePlanMakerImplV2.java:137
 (makeInstancePlan) / :234 (makeSegmentPlanNode) chooses Aggregation /
@@ -474,9 +475,13 @@ class SegmentPlanner:
             return self._is_null(e)
         if isinstance(e, Literal) and isinstance(e.value, bool):
             return TrueP() if e.value else FalseP()
-        # TEXT_MATCH / JSON_MATCH / VECTOR_SIMILARITY and geo index
-        # predicates need the index package, which is not ported: such
-        # filters plan the host path
+        from ..index.predicates import is_index_predicate, index_filter_mask
+        if is_index_predicate(e):
+            # TEXT_MATCH / JSON_MATCH / VECTOR_SIMILARITY: the index
+            # evaluates host-side into a doc mask shipped as a kernel param
+            # (SqlError propagates when the index is missing: a user
+            # error, not a host fallback)
+            return self._mask_pred(index_filter_mask(self.seg, e))
         if isinstance(e, FuncCall):
             p = self._dict_transform_bool(e)
             if p is not None:
@@ -654,8 +659,28 @@ class SegmentPlanner:
                     f"cannot compare numeric column with {v!r}") from None
         return v
 
+    def _mask_pred(self, mask) -> Pred:
+        """Host-computed doc mask -> constant-folded pred or docmask
+        kernel param."""
+        if not mask.any():
+            return FalseP()
+        if mask.all():
+            return TrueP()
+        return MaskParamP(self.b.add_param(("docmask", mask)))
+
     def _raw_cmp(self, name: str, m, op: str, v: Any) -> Pred:
         v = self._cast_for(m, v)  # coerce string literals; PlanError if not
+        if op == "==" and "bloom" in getattr(m, "indexes", {}):
+            # BloomFilterSegmentPruner analog: a definite miss folds the
+            # predicate (and possibly the whole segment plan) to FalseP.
+            # Coerce the literal to the column dtype first so its string
+            # hash matches how the build stringified the typed array
+            # (int literal 5 vs stored float "5.0" must not false-prune).
+            reader = self.seg.index_reader(name, "bloom")
+            probe = (np.asarray(v, dtype=m.data_type.np_dtype)
+                     if m.data_type.is_numeric else v)
+            if reader is not None and not reader.might_contain(probe):
+                return FalseP()
         # min/max constant folding = ColumnValueSegmentPruner for raw columns
         mn, mx = m.min, m.max
         if mn is not None and mx is not None and isinstance(v, (int, float)):
@@ -1154,6 +1179,21 @@ class SegmentPlanner:
             if n not in self.seg.columns and n not in virtual:
                 raise PlanError(f"unknown column {n!r}; segment has "
                                 f"{list(self.seg.columns)}")
+        self._validate_vector_calls()
+
+    def _validate_vector_calls(self) -> None:
+        """VECTOR_SIMILARITY validation over the filter, select list AND
+        order-by before any execution: a malformed call (missing index,
+        dim mismatch, k <= 0, non-numeric ARRAY) is a plain SqlError on
+        every path, never a PlanError that would demote to the host."""
+        from ..engine.vector_exec import validate_call, vector_calls
+        ctx = self.ctx
+        calls = vector_calls(
+            ctx.filter,
+            *[i for i in ctx.select_items if not hasattr(i, "kind")],
+            *[o.expr for o in ctx.order_by])
+        for call in calls:
+            validate_call(self.seg, call)
 
     # -- top-level ---------------------------------------------------------
     def plan(self) -> CompiledPlan:

@@ -203,8 +203,21 @@ class SegmentBuilder:
         for f in self.schema.fields:
             arr = cols[f.name]
             if f.name in idx_cfg.vector_index_columns:
-                raise NotImplementedError(
-                    "vector index columns are not yet ported (Slice E)")
+                from .. import index as index_pkg
+                vcfg = idx_cfg.vector_index_columns[f.name]
+                cmeta = {
+                    "dataType": f.data_type.value,
+                    "fieldType": f.field_type.value,
+                    "encoding": "VECTOR",
+                    "fwdDtype": "float32",
+                    "cardinality": 0,
+                }
+                extra = index_pkg.build_indexes_for_column(
+                    f.name, ["vector"], seg_dir, values=arr, ids=None,
+                    cardinality=0, configs={"vector": vcfg})
+                cmeta["indexes"] = extra
+                meta["columns"][f.name] = cmeta
+                continue
             cmeta = self._build_column(
                 f, arr, seg_dir,
                 shared_dict=(shared_dicts or {}).get(f.name))
@@ -363,9 +376,21 @@ class SegmentBuilder:
                 cmeta["min"] = _json_scalar(arr.min())
                 cmeta["max"] = _json_scalar(arr.max())
 
-        if self.table_config.indexing.indexes_for(f.name):
-            raise NotImplementedError(
-                f"secondary indexes on {f.name!r} are not yet ported")
+        kinds = self.table_config.indexing.indexes_for(f.name)
+        if kinds:
+            from .. import index as index_pkg
+            if "inverted" in kinds and not use_dict:
+                raise ValueError(f"inverted index needs a dictionary "
+                                 f"column: {f.name!r}")
+            if isinstance(arr, Categorical):  # indexes need materialized rows
+                arr = np.asarray(arr.values, dtype=object)[arr.codes]
+            # the geo kind raises NotImplementedError in the registry
+            icfgs = {"geo": self.table_config.indexing
+                     .geo_index_columns.get(f.name) or {}}
+            cmeta["indexes"] = index_pkg.build_indexes_for_column(
+                f.name, kinds, seg_dir, values=arr,
+                ids=ids if use_dict else None,
+                cardinality=cardinality, configs=icfgs)
         return cmeta
 
     @staticmethod

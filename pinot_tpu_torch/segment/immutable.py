@@ -10,8 +10,10 @@ admission edge of the device tier (``engine/tier.py``): it charges the
 device-memory registry (``utils/devmem``), keeps the padded host array
 warm while a budget is armed, and lets the tier demote colder segments.
 A demoted segment's next read re-promotes it, from the warm copy when
-there is one. Secondary indexes are not ported (``index_reader`` finds
-none).
+there is one. Secondary indexes load lazily through ``index_reader``
+(index/registry.py); a vector index reader lives on the segment's device,
+accounts its tensors in the ``vector`` pool as (uid, col) and is demoted
+with the segment.
 """
 from __future__ import annotations
 
@@ -104,6 +106,7 @@ class ImmutableSegment:
         self.uid: int = next(_SEG_UID)
         self._fwd: Dict[str, np.ndarray] = {}
         self._dicts: Dict[str, Dictionary] = {}
+        self._index_readers: Dict[Tuple[str, str], Any] = {}
         self._nulls: Dict[str, Optional[np.ndarray]] = {}
         self._device: Dict[Tuple[str, int], torch.Tensor] = {}
         # warm tier (engine/tier.py): padded host arrays kept after a
@@ -170,18 +173,30 @@ class ImmutableSegment:
         return self._nulls[col]
 
     def index_reader(self, col: str, kind: str):
-        """Secondary-index reader; the index package is not ported, so
-        there is none."""
-        return None
+        """Lazy secondary-index reader; None when the column has no such
+        index."""
+        m = self.columns.get(col)
+        if m is None or kind not in m.indexes:
+            return None
+        key = (col, kind)
+        if key not in self._index_readers:
+            from .. import index as index_pkg
+            reader = index_pkg.load_index(self.dir, col, kind,
+                                          m.indexes[kind])
+            if kind == "vector":
+                # the reader's tensors live on this segment's device,
+                # account as (uid, col) in the vector pool, and their
+                # uploads admit THIS segment to the tier
+                reader.attach_owner(self, col)
+            self._index_readers[key] = reader
+        return self._index_readers[key]
 
     def raw_values(self, col: str) -> np.ndarray:
         """Decoded values (host-side; the host path and selection
         results)."""
         m = self.columns[col]
         if m.encoding == "VECTOR":
-            raise NotImplementedError(
-                f"VECTOR column {col!r} needs the vector index, which is "
-                "not yet ported to pinot_tpu_torch")
+            return np.asarray(self.index_reader(col, "vector").matrix)
         stored = self.fwd(col)
         if not m.single_value:
             d = self.dictionary(col)
@@ -352,6 +367,11 @@ class ImmutableSegment:
         from ..ops.plan_cache import global_cube_cache
         evict_stacks_containing(self.name)
         global_cube_cache.evict_containing(self.name)
+        # the vector pool's tensors demote with the segment; the readers
+        # upload again on their next search
+        for (_col, kind), rd in list(self._index_readers.items()):
+            if kind == "vector":
+                rd.evict_device()
 
     def _drop_warm_locked(self) -> bool:
         # caller holds self._res_lock

@@ -1,9 +1,10 @@
 """Table data manager: the segments of one table on one device.
 
 Port of the segment registry of ``pinot_tpu/server/data_manager.py``
-(add, remove, replace, acquire, a table directory, counts). Every segment
-of a table lives on the table's ``device``. ``reload`` (it needs the index
-package) and the mesh-resident table are not ported.
+(add, remove, replace, acquire, a table directory, counts, and ``reload``,
+which reconciles every segment's secondary indexes with the table config).
+Every segment of a table lives on the table's ``device``. The
+mesh-resident table is not ported.
 """
 from __future__ import annotations
 
@@ -21,11 +22,14 @@ from ..segment.immutable import ImmutableSegment
 
 class TableDataManager:
     def __init__(self, table_name: str,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 table_config=None):
         self.table_name = table_name
         self.device = resolve_device(device)
+        self.table_config = table_config  # TableConfig | None
         self._segments: Dict[str, ImmutableSegment] = {}
         self._lock = threading.Lock()
+        self._reload_lock = threading.Lock()
 
     def add_segment(self, segment: ImmutableSegment) -> None:
         if segment.device != self.device:
@@ -70,6 +74,37 @@ class TableDataManager:
         self.add_segment(segment)
         if old is not None and old is not segment:
             global_cube_cache.evict_containing(old.name)
+
+    def reload(self, table_config=None) -> Dict[str, List[str]]:
+        """Reconcile every hosted segment's secondary indexes with the
+        table config (segment/loader.py) and swap in freshly loaded
+        segments. Returns the union of per-segment {'added', 'removed'}
+        changes."""
+        from ..segment.loader import reconcile_indexes
+        cfg = table_config or self.table_config
+        if cfg is None:
+            raise ValueError("reload needs a TableConfig")
+        self.table_config = cfg
+        changes: Dict[str, List[str]] = {"added": [], "removed": []}
+        with self._reload_lock:  # one reconcile per table at a time
+            for seg in self.acquire_segments():
+                # in-flight queries may hold the OLD segment and open
+                # index files lazily; opening its readers now means it
+                # never touches a file this reload is about to delete
+                for col, m in seg.columns.items():
+                    for kind in list(m.indexes):
+                        try:
+                            seg.index_reader(col, kind)
+                        except (OSError, NotImplementedError):
+                            pass    # unreadable or not ported: not in use
+                delta = reconcile_indexes(seg.dir, cfg)
+                if delta["added"] or delta["removed"]:
+                    seg.evict_device()
+                    self.replace_segment(
+                        ImmutableSegment.load(seg.dir, self.device))
+                    changes["added"].extend(delta["added"])
+                    changes["removed"].extend(delta["removed"])
+        return changes
 
     def acquire_segments(self) -> List[ImmutableSegment]:
         return list(self._segments.values())

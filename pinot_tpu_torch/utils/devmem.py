@@ -23,9 +23,11 @@ from .metrics import global_metrics
 #   stack_cache   engine/batch._STACK_CACHE stacked column tuples
 #   cube_cache    ops/plan_cache.CubeCache per-segment cubes (micro-batching)
 #   cube_stacked  ops/plan_cache.CubeCache stacks of those cubes
-# The JAX package's plan_cache_acc and vector pools come with the slices
-# that port the donated plan-cache accumulators and the vector index.
-POOLS = ("segment_cols", "stack_cache", "cube_cache", "cube_stacked")
+#   vector        index/vector.VectorIndexReader device tensors
+# The JAX package's plan_cache_acc pool comes with the slice that ports
+# the donated plan-cache accumulators.
+POOLS = ("segment_cols", "stack_cache", "cube_cache", "cube_stacked",
+         "vector")
 
 
 def nbytes_of(tree: Any) -> int:

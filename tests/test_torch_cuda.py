@@ -778,3 +778,206 @@ def test_fuzz_on_cuda_matches_oracle(cuda, tmp_path, monkeypatch):
     failures, kinds = run_specs(broker, data, 5, 60)
     assert not failures, failures[:5]
     assert "window" in kinds
+
+
+# ---------------------------------------------------------------------------
+# K15: vector search (ops/csrc/vecsearch.cu)
+# ---------------------------------------------------------------------------
+
+def _vec_data(n, dim, seed, dup=False):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    m = rng.standard_normal((n, dim)).astype(np.float32)
+    if dup:
+        m[1::2] = m[0::2][: n // 2]          # every odd row repeats
+    return m
+
+
+def _upload_flat(m, metric, dev):
+    """The reader's flat upload set (sentinel row, squared norms)."""
+    from pinot_tpu_torch.index.vector import VectorIndexReader
+    r = VectorIndexReader.from_matrix(m, metric, device=dev)
+    return r, r.ensure_device()
+
+
+def _vs_queries(m, nq, seed, zero=False):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    qs = m[rng.integers(0, len(m), nq)] + 0.01 * rng.standard_normal(
+        (nq, m.shape[1])).astype(np.float32)
+    if zero:
+        qs[:] = 0.0
+    return qs.astype(np.float32)
+
+
+def _term_scale(m, qs, metric):
+    """The magnitude of the terms a score sums: 1 for cosine (unit
+    rows and queries), 2 |m||q| + |m|^2 + |q|^2 <= 4 max(|m|^2, |q|^2)
+    for l2, whose expanded form cancels them down to the distance."""
+    import numpy as np
+    if metric == "cosine":
+        return 1.0
+    sq = max(float((m.astype(np.float64) ** 2).sum(1).max()),
+             float((qs.astype(np.float64) ** 2).sum(1).max()))
+    return 4.0 * max(sq, 1.0)
+
+
+def _ids_equal_where_apart(got_s, got_i, want_s, want_i, scale, tol=1e-5):
+    """Scores within tol x scale (float32 sums in another order; scale is
+    the magnitude of the summed terms); ids equal at every rank whose
+    score is more than twice that from its neighbours' (the last rank's
+    successor is not shown, so the last rank is never compared)."""
+    import numpy as np
+    got_s, want_s = np.asarray(got_s), np.asarray(want_s)
+    fin = np.isfinite(want_s)
+    assert np.array_equal(fin, np.isfinite(got_s))
+    assert np.allclose(got_s[fin], want_s[fin], rtol=0, atol=tol * scale)
+    gap = np.abs(np.diff(want_s.astype(np.float64), axis=1)) > 2 * tol * scale
+    lo = np.concatenate([np.ones_like(gap[:, :1]), gap], axis=1)
+    hi = np.concatenate([gap, np.zeros_like(gap[:, :1])], axis=1)
+    apart = lo & hi
+    assert np.array_equal(np.asarray(got_i)[apart], np.asarray(want_i)[apart])
+
+
+SELECT_CASES = [  # (nq, S, k, kind)
+    (1, 1, 1, "randn"), (3, 724, 23, "randn"), (16, 70001, 16, "randn"),
+    (2, 5000, 5000, "randn"), (2, 9000, 4097, "randn"),
+    (3, 4096, 1, "zeros"), (3, 3000, 2048, "signed-zeros"),
+    (4, 10000, 100, "few-values"), (2, 3000, 64, "neg-inf"),
+    (1, 1 << 19, 1 << 19, "few-values"), (4, 300000, 100, "few-values"),
+    (2, 200000, 16, "signed-zeros"), (3, 150000, 1, "zeros")]
+
+
+@pytest.mark.parametrize("nq,S,k,kind", SELECT_CASES,
+                         ids=[f"{a}x{b}-k{c}-{d}" for a, b, c, d in
+                              SELECT_CASES])
+def test_vecsearch_select_equals_plain_version(cuda, nq, S, k, kind):
+    """The top-k kernels, bitwise against the stable sort on the same
+    scores: ties to the lower position, -0.0 below +0.0, -inf last; rows
+    up to 2^17 with k <= 4096 take the one-block select, the rest the
+    multi-block radix select."""
+    from pinot_tpu_torch.ops import vecsearch as V
+    g = torch.Generator(device=cuda)
+    g.manual_seed(S + k)
+    s = torch.randn(nq, S, device=cuda, generator=g)
+    if kind == "zeros":
+        s.zero_()
+    elif kind == "signed-zeros":
+        s = torch.where(s > 0, 0.0, -0.0)
+    elif kind == "few-values":
+        s = torch.round(s * 2) / 2
+    elif kind == "neg-inf":
+        s[:, ::3] = float("-inf")
+    vals, idx = V.select(s.contiguous(), k)
+    wv, wi = V.select_reference(s, k)
+    torch.cuda.synchronize()
+    assert torch.equal(vals.view(torch.int32), wv.view(torch.int32))
+    assert torch.equal(idx, wi)
+
+
+VEC_SHAPES = [  # (n, dim, nq, metric)
+    (3001, 128, 16, "l2"), (3001, 100, 3, "cosine"), (70001, 128, 1, "l2"),
+    (4097, 3, 16, "cosine"), (1001, 1, 3, "l2"), (2000, 256, 16, "cosine"),
+    (513, 36, 5, "l2")]
+
+
+@pytest.mark.parametrize("n,dim,nq,metric", VEC_SHAPES,
+                         ids=[f"{a}x{b}-b{c}-{d}" for a, b, c, d in
+                              VEC_SHAPES])
+def test_vecsearch_flat_equals_plain_version(cuda, n, dim, nq, metric):
+    """Scores to float32 rounding against the plain version, the search
+    equal bitwise to the select of the kernel's own scores, ids equal to
+    the plain search where the scores are apart, and batched == solo."""
+    import numpy as np
+    from pinot_tpu_torch.ops import vecsearch as V
+    m = _vec_data(n, dim, n + dim)
+    r, dev = _upload_flat(m, metric, cuda)
+    qn = np.stack([r._query_vec(q) for q in _vs_queries(m, nq, dim)])
+    qs = torch.from_numpy(qn).to(cuda)
+    mode = V._mode(metric)
+    s = V.score(dev["matrix"], n, dev["row_sq"], qs, mode)
+    want = torch.stack([V.score_reference(dev["matrix"][:n],
+                                          dev["row_sq"][:n], q, mode)
+                        for q in qs])
+    scale = _term_scale(m, qn, metric)
+    assert torch.allclose(s, want, rtol=0, atol=1e-5 * scale)
+    for k in (1, 64, n):
+        k_pad = min(V._pow2(k), n)
+        vals, idx = V.flat_search(qs, dev["matrix"], dev["row_sq"], metric,
+                                  k_pad)
+        sv, si = V.select(s, k_pad)
+        assert torch.equal(vals.view(torch.int32), sv.view(torch.int32))
+        assert torch.equal(idx, si)
+        wv, wi = V.flat_search_reference(qs, dev["matrix"], dev["row_sq"],
+                                         metric, k_pad)
+        _ids_equal_where_apart(vals.cpu(), idx.cpu(), wv.cpu(), wi.cpu(),
+                               scale)
+        for i in range(nq):
+            ov, oi = V.flat_search(qs[i:i + 1].contiguous(), dev["matrix"],
+                                   dev["row_sq"], metric, k_pad)
+            assert torch.equal(ov.view(torch.int32),
+                               vals[i:i + 1].view(torch.int32))
+            assert torch.equal(oi, idx[i:i + 1])
+    r.evict_device()
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+@pytest.mark.parametrize("case", ["duplicates", "zero-query"])
+def test_vecsearch_ties_equal_plain_version(cuda, metric, case):
+    """A zero query scores every row +0.0 under cosine in both versions
+    (the tie rule alone decides) and -|m|^2 exactly under l2: the ids and
+    scores are exactly the plain version's. Duplicate
+    rows score the same bits in the kernel, so each returned pair sits in
+    adjacent ranks, lower row first (the flat scan's tie rule); elsewhere
+    the ids equal the plain version's where the scores are apart."""
+    import numpy as np
+    from pinot_tpu_torch.index.vector import VectorIndexReader
+    m = _vec_data(3000, 12, 7, dup=case == "duplicates")
+    qs = _vs_queries(m, 3, 9, zero=case == "zero-query")
+    for nprobe in (None, 16):            # the IVF probe, the exact scan
+        got = VectorIndexReader.from_matrix(m, metric, device=cuda) \
+            .build_ivf(n_lists=16, seed=7).search_batch(qs, 64, nprobe)
+        want = VectorIndexReader.from_matrix(m, metric, device="cpu") \
+            .build_ivf(n_lists=16, seed=7).search_batch(qs, 64, nprobe)
+        if case == "zero-query":
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[0], want[0])
+            assert metric == "l2" or not got[0].any()
+            continue
+        _ids_equal_where_apart(*got, *want, _term_scale(m, qs, metric))
+        if nprobe is None:
+            continue
+        for scores, ids in zip(*got):
+            rank = {int(d): r for r, d in enumerate(ids)}
+            for d, r in rank.items():
+                partner = rank.get(d ^ 1)
+                if partner is not None and d < d ^ 1:
+                    assert partner == r + 1
+                    assert scores[r] == scores[partner]
+
+
+@pytest.mark.parametrize("metric,dim", [("cosine", 100), ("l2", 128),
+                                        ("l2", 3)])
+@pytest.mark.parametrize("k", [1, 10, 100, 2048])
+def test_vecsearch_ivf_equals_plain_version(cuda, metric, dim, k):
+    """The IVF probe at nprobe 1, the default and 4x it against the
+    plain version (ids where apart), k_pad past max_pages x 64 on the
+    small probes, and batched == solo bitwise."""
+    import numpy as np
+    from pinot_tpu_torch.index.vector import VectorIndexReader
+    m = _vec_data(6000, dim, dim + k)
+    qs = _vs_queries(m, 16, k)
+    got_r = VectorIndexReader.from_matrix(m, metric, device=cuda) \
+        .build_ivf(n_lists=64, seed=7)
+    want_r = VectorIndexReader.from_matrix(m, metric, device="cpu") \
+        .build_ivf(n_lists=64, seed=7)
+    for nprobe in (1, got_r.nprobe_default, 4 * got_r.nprobe_default):
+        gs, gd = got_r.search_batch(qs, k, nprobe)
+        ws, wd = want_r.search_batch(qs, k, nprobe)
+        _ids_equal_where_apart(gs, gd, ws, wd, _term_scale(m, qs, metric))
+        assert np.array_equal(gd < 0, wd < 0)
+        for i in (0, 7, 15):
+            ss, sd = got_r.search_batch(qs[i:i + 1], k, nprobe)
+            assert np.array_equal(ss.view(np.int32), gs[i:i + 1].view(np.int32))
+            assert np.array_equal(sd, gd[i:i + 1])
+    got_r.evict_device()

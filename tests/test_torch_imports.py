@@ -130,6 +130,30 @@ def test_walk_covers_the_multistage_plane():
     assert broker.execute_multistage is not None
 
 
+VECTOR_PLANE = tuple(f"pinot_tpu_torch.{m}" for m in (
+    "index.registry", "index.predicates", "index.csr", "index.inverted",
+    "index.range_index", "index.bloom", "index.text", "index.json_index",
+    "index.vector", "engine.vector_exec", "ops.vecsearch",
+    "segment.loader", "tools.vec"))
+
+
+def test_walk_covers_the_vector_plane():
+    """The import checks above reach the index package, the vector plane
+    and its kernels' module, and the kernel source is a library of the
+    builder."""
+    import pkgutil
+
+    import pinot_tpu_torch
+    from pinot_tpu_torch.ops import cuda_build
+
+    walked = {m.name for m in pkgutil.walk_packages(
+        pinot_tpu_torch.__path__, "pinot_tpu_torch.")}
+    assert set(VECTOR_PLANE) <= walked
+    srcs = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {m.replace(".", "/") + ".py" for m in VECTOR_PLANE} <= srcs
+    assert cuda_build.SOURCES["vecsearch"] == ["vecsearch.cu"]
+
+
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch,
                                                           tmp_path):
     from pinot_tpu_torch.broker import Broker

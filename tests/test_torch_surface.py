@@ -5,8 +5,8 @@ float columns and nulls, and a copy of it with upsert validDocIds, are
 served by the JAX ``Broker`` and ``Broker(device="cpu")``: fast, host,
 kselect and device-sketch queries, with and without enableNullHandling.
 Both planners must choose the same plan kind, and the rows must be equal
-(integers exactly, floats to a relative 1e-9). Index predicates, which
-need the unported index package, raise NotImplementedError.
+(integers exactly, floats to a relative 1e-9). Index predicates over a
+column without the index raise the same SqlError in both packages.
 """
 import os
 import shutil
@@ -150,6 +150,15 @@ def test_plan_kind_and_rows_match_jax(brokers, sql, kind):
 @pytest.mark.parametrize("pred", ["TEXT_MATCH(s, 'u01')",
                                   "JSON_MATCH(s, '\"$.a\" = 1')"])
 def test_index_predicates_are_not_ported(brokers, pred):
-    _jb, tb = brokers
-    with pytest.raises(NotImplementedError, match="index"):
-        connect(tb)(f"SELECT COUNT(*) FROM t WHERE {pred}")
+    """The index package is ported now: without the index on the column
+    both brokers raise the same SqlError (a user error, no host
+    fallback)."""
+    from pinot_tpu.query.sql import SqlError as JaxSqlError
+    from pinot_tpu_torch.query.sql import SqlError
+    jb, tb = brokers
+    sql = f"SELECT COUNT(*) FROM t WHERE {pred}"
+    with pytest.raises(SqlError, match="index") as got:
+        connect(tb)(sql)
+    with pytest.raises(JaxSqlError) as want:
+        jb.query(sql)
+    assert str(got.value) == str(want.value)

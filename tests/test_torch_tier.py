@@ -28,6 +28,7 @@ from pinot_tpu.utils.devmem import DeviceMemoryRegistry as JaxDevmem  # noqa
 from pinot_tpu.utils.heat import SegmentHeat as JaxHeat  # noqa: E402
 from pinot_tpu_torch.broker import Broker, connect  # noqa: E402
 from pinot_tpu_torch.engine import batch  # noqa: E402
+from pinot_tpu_torch.index import vector  # noqa: E402
 from pinot_tpu_torch.engine.tier import (TIER_COLD, TIER_HOT,  # noqa: E402
                                          TIER_WARM, TierManager,
                                          global_tier, reconcile_devmem,
@@ -50,6 +51,8 @@ def reset_port_memory(segments=()) -> None:
     vars(global_tier).pop("on_access", None)    # a test's hook
     for s in segments:
         s.evict_device()
+    for r in vector.live_readers():             # the vector pool
+        r.evict_device()
     batch.clear_stack_cache()
     global_device_memory.clear()
     global_segment_heat.clear()
