@@ -141,7 +141,10 @@ Phases, each printed as it runs; any failure exits non-zero:
              and 100, flat and IVF) against its plain version, bitwise
              against its stages, batched == solo bitwise, timed beside the
              plain version, torch.topk(torch.matmul) and the bound, split
-             by kernel (torch.profiler); and off the path on edge cases
+             by kernel (torch.profiler), the one-query IVF probe also with
+             the L2 cold (a 128 MiB write before each launch); the build
+             phase lists K15's kernels with their registers and spills
+             (build_vecsearch); and off the path on edge cases
              (dims 1, 3, 100, 128, 256; batches 1, 3, 16; k 1, 64, n;
              duplicate rows; a zero query; signed zeros, one value, -inf
              in the select; k past a probe's reach).
@@ -200,6 +203,28 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_cold_ms(fn, reps: int, flush_bytes: int = 128 << 20) -> float:
+    """Mean device time of fn() with the L2 cold: before each launch a
+    write of flush_bytes (over twice the card's 50 MB L2) to a scratch
+    tensor, then CUDA events around the launch alone."""
+    import torch
+
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
 def host_time_ms(fn, reps: int) -> float:
     """Mean host time to issue fn() over reps calls, no sync between: the
     wrapper's cost on the host clock, not the device's."""
@@ -251,6 +276,31 @@ def device_phase():
     return smi
 
 
+def ptxas_table(log: str) -> list:
+    """Per kernel of an nvcc -Xptxas -v log: its (mangled) entry name,
+    registers, static shared memory bytes, stack and spill bytes."""
+    import re
+
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, ln)
+            if m:
+                cur[key] = int(m.group(1))
+    return out
+
+
 def build_phase() -> None:
     from pinot_tpu_torch.ops import cuda_build
 
@@ -259,6 +309,9 @@ def build_phase() -> None:
     phase("build", seconds=time.perf_counter() - t0, libraries=sorted(logs),
           ptxas=[ln for log in logs.values() for ln in log.splitlines()
                  if "registers" in ln or "smem" in ln])
+    # K15's kernels by name: registers, spills, static shared memory (the
+    # scanning kernels' dynamic shared memory is in vecsearch.cu's Smem)
+    phase("build_vecsearch", kernels=ptxas_table(logs["vecsearch"]))
 
 
 MIXED8 = ("int32", "int64", "float32", "float64") * 2
@@ -2633,9 +2686,10 @@ def _vec_yardstick(args, ivf: bool, pidx=None):
     return run
 
 
-VEC_KERNELS = ("vec_score", "vec_pages", "vec_select_block",
-               "vec_select_cand", "vec_radix", "vec_emit", "vec_sort",
-               "vec_unpack")
+VEC_KERNELS = ("vec_flat_topk", "vec_flat_scores", "vec_probe",
+               "vec_ivf_topk", "vec_ivf_scores", "vec_expand",
+               "vec_select_block", "vec_select_cand", "vec_radix",
+               "vec_emit", "vec_sort", "vec_unpack")
 
 
 PROFILE_TRIES = 3                # profiler windows tried for device events
@@ -2685,7 +2739,8 @@ def vector_kernel_rows(reader, col: str, qn, k: int, eff: int,
     """The kernel on the path's own inputs (a reader of the table and its
     fused batch of queries) at batch 16 and 1: held to the plain version,
     equal bitwise to its stages, batched == solo bitwise, and timed beside
-    the plain version, the yardstick and the bound."""
+    the plain version, the yardstick and the bound (the one-query IVF probe
+    also with the L2 cold)."""
     rows = []
     for b in (len(qn), 1):
         fn, ref, args, k_pad = _vec_args(reader, qn[:b], k, eff)
@@ -2717,6 +2772,10 @@ def vector_kernel_rows(reader, col: str, qn, k: int, eff: int,
                        torch_ms=cuda_time_ms(
                            _vec_yardstick(args, bool(eff), pidx), 10),
                        split_ms=vec_split_ms(lambda: fn(*args)))
+            if eff and b == 1:
+                # one query's probe fits the L2 (~10 MB), which back-to-
+                # back launches keep hot and a broker query does not
+                row["cold_ms"] = cuda_cold_ms(lambda: fn(*args), 10)
         rows.append(row)
         phase("vector_kernel", **row)
     return rows
@@ -3102,6 +3161,8 @@ def _vec_kernel_entries(vsearch: dict) -> list:
         rows = [r for r in vsearch["rows"] if r["mode"] == mode]
         head = next(r for r in rows if r["column"] == "emb_l2"
                     and r["batch"] == VEC_QUERIES and r["k"] == VEC_KS[0])
+        one = next(r for r in rows if r["column"] == "emb_l2"
+                   and r["batch"] == 1 and r["k"] == VEC_KS[0])
         out.append({
             "name": name,
             "route": "cuda",
@@ -3116,9 +3177,13 @@ def _vec_kernel_entries(vsearch: dict) -> list:
             "bound_by": head["bound_by"],
             "library_ms": None,
             "torch_ms": head["torch_ms"],
+            "split_ms": head["split_ms"],
+            "one_query": {k: one[k] for k in ("ms", "cold_ms", "bound_ms",
+                                              "torch_ms") if k in one},
             "shapes": [{k: r[k] for k in ("column", "batch", "k", "k_pad",
-                                          "nprobe", "ms", "plain_ms",
-                                          "torch_ms", "bound_ms")}
+                                          "nprobe", "ms", "cold_ms",
+                                          "plain_ms", "torch_ms", "bound_ms")
+                        if k in r}
                        for r in rows],
             "at": f"one search of {VEC_QUERIES} queries, k = {VEC_KS[0]} "
                   f"(k_pad {head['k_pad']}), over one {VEC_ROWS // 2}-row "
@@ -3126,7 +3191,10 @@ def _vec_kernel_entries(vsearch: dict) -> list:
                   + (f" at nprobe {head['nprobe']}" if head["nprobe"] else
                      " (the exact scan)")
                   + "; ms, plain_ms, torch_ms = CUDA events over 10 / 2 / "
-                  "10 calls; no single PyTorch call computes the search "
+                  "10 back-to-back calls; cold_ms (IVF, one query) = events "
+                  "around each of 10 calls after a 128 MiB write (the L2 "
+                  "cold); split_ms = device ms by kernel (torch.profiler); "
+                  "no single PyTorch call computes the search "
                   "(library_ms null): torch_ms is torch.topk(torch.matmul) "
                   "over the same rows (IVF: the probed pages, gathered); "
                   "launches = the vector phase's broker queries and "

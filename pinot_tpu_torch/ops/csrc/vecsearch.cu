@@ -12,80 +12,115 @@
 // What bounds it: bytes. The flat scan reads the matrix (n x dim float32,
 // 256 MiB for a 2^19 x 128 segment: 80 us at 3.35 TB/s) and does 2 n dim B
 // flops, which at B = 16 queries and dim 128 is 4 flops a byte, under the
-// card's float32 rate (67 TFLOP/s, 20 a byte). The IVF probe reads only the
-// probed pages. So:
+// card's float32 rate (67 TFLOP/s, 20 a byte: the 2^30 FMAs take 32 us).
+// The IVF probe reads only the probed pages. So the design keeps the
+// matrix streaming at the memory rate and everything else on chip:
 //
-//   * Scoring (vec_score): a warp takes one matrix row at a time; lane l
-//     holds 16-byte units l, l + 32, ... of the row (one coalesced 512-byte
-//     load for dim 128, four rows in flight per warp) and of every query of
-//     the batch, which sit in registers for the whole kernel. Every row is
-//     thus read from device memory once for all queries of a launch (up to
-//     16; more run as further launches). Products are full float32 FMAs
-//     (no TF32, no bf16). Each lane's partial dot products are combined by
-//     a reduce-scatter butterfly over the 32 lanes (xor 16, 8, 4, 2, 1):
-//     16 shuffles for 16 queries instead of 80, leaving each query's sum in
-//     a fixed lane.
-//   * Batched == solo, bitwise: the per-(row, query) arithmetic depends on
-//     dim alone. A lane's partial runs over its units in the same order
-//     whatever the batch; the butterfly adds the lanes in the same tree for
-//     every query slot (each step adds a lane's value to its xor partner's,
-//     and a + b == b + a in IEEE arithmetic), and the slot a query takes
-//     does not change its tree. The IVF page kernel uses the same partials
-//     and tree, so a document scores the same bits in either plan.
-//   * Rows whose dim is not a multiple of 4 cannot take 16-byte loads
-//     (their rows are not 16-byte aligned); they take 4-byte loads with
-//     the same structure. dim is at most 2048 (512 on that path).
-//   * IVF (vec_pages): centroids are scored and their top-nprobe selected
-//     by the same two kernels. One block per (page slot, query) finds its
-//     page by walking that query's nprobe lists through pageptr (the
-//     ragged expansion, folded in here), records it for the document
-//     mapping, and scores the page's rows, which are contiguous in the
-//     page-major copy (32 KiB for 64 x 128). Sentinel documents (== n_docs)
-//     and slots past the ragged total score -inf without being read.
-//   * Top-k (vec_radix, vec_emit, sort, unpack): lax.top_k's order is score
-//     descending, ties to the lower position, with -0.0 below +0.0 and NaN
-//     above everything (XLA's total order). Each (score, position) becomes
-//     one 64-bit key: the float's orderable uint32 view, then 2^32 - 1 -
-//     position. Keys are unique, so the top k keys are exactly lax.top_k's
-//     answer. A radix select finds the k-th key 8 bits at a time: each
-//     block histograms the keys that share the prefix found so far into
-//     shared memory (warp-aggregated increments), adds it to the query's
-//     global histogram, and the last block to finish picks the next digit
-//     (a ticket counter; no host round trip). It stops as soon as the
-//     chosen bucket is taken whole, which for distinct scores is after at
-//     most 4 of the 8 digits. vec_emit then writes the keys at or above
-//     the threshold (exactly k of them, in any order) and a bitonic sort
-//     orders them: in shared memory up to 4096 keys, with global-memory
-//     stages above that. unpack turns keys back into (score, position),
-//     or into a document id through the IVF page table.
-//   * Three routes to the same keys, by size. A row of at most 2^17 scores
-//     with k <= 4096 (the centroid scores, an IVF probe) takes the digits
-//     in one block per query (vec_select_block: histogram, threshold,
-//     candidates and sort in shared memory), one launch. A longer row
-//     with k <= 1024 (the flat scan) goes in two phases: each block takes
-//     4096 scores into shared memory and writes its own top k
-//     (vec_select_cand), then one block per query selects among those
-//     candidates; the scores are read once. Larger k takes the multi-block
-//     radix select above. Every route returns the exact top k of the same
-//     unique keys, so the result does not depend on the route. A whole
-//     flat or IVF search is one call from the host (pinot_vec_flat,
-//     pinot_vec_ivf) with one scratch buffer.
+//   * Scoring (scan): a block of 128 threads walks tiles of 128 rows. Each
+//     tile comes into shared memory in k-slices of 32 floats (128 bytes of
+//     every row, and the same slice of each of the launch's up to 16
+//     queries) through a ring of 3 stages (2 at 16 queries, to fit more
+//     blocks) filled by cp.async (16-byte copies, cp.async.cg, straight to
+//     shared memory; a thread finds its copies' source rows once a tile):
+//     the block issues the copies of slice i + ST - 1 before it computes
+//     slice i, so they are in flight while it runs its FMAs. The rows'
+//     squared norms come the same way beside the first slice. Grids are
+//     persistent: 2 blocks per SM (3 for the flat scan's small top-k),
+//     each walking every grid-th tile. More blocks on an SM, not a deeper
+//     ring, is what kept the SMs busy (tools/vec_variants.py).
+//   * The tile: thread (row group rg, query group qg) of a warp holds the
+//     dot products of 4 rows x 4 queries in registers (for 16 queries;
+//     fewer rows or queries for smaller batches) and reads one float4 of
+//     each per 4 dims: 8 shared loads for 64 FMAs. There is no cross-lane
+//     reduction: each (row, query) dot product is one chain of fmaf over
+//     d = 0, 1, ..., dim - 1 from +0.0 in one thread, kept across the
+//     k-slices. Full float32 FMAs (no TF32, no bf16, no tensor cores).
+//   * Bank conflicts: a slice row is stored at a stride of 36 floats, not
+//     32. 36 / 4 = 9 is odd, so the 16-byte units of 8 consecutive rows
+//     (the 8 row groups of one load instruction) fall in 8 distinct groups
+//     of 4 banks; the 4 query groups read 4 consecutive query rows, each a
+//     broadcast. (A 128-byte-swizzled TMA tensor map would do the same;
+//     the padded layout needs no tensor map, no driver entry point and no
+//     16-byte alignment of the slice ends, and cp.async's zero fill gives
+//     the ragged last tile and the slice past dim for free.)
+//   * Batched == solo, bitwise: the chain depends on the row's and the
+//     query's values alone, not on B, on the query's slot, on the row's
+//     place in a tile or on the route. Rows whose dim is not a multiple of
+//     4 (or whose base is not 16-byte aligned) are staged by 4-byte copies
+//     into the same layout and scored by the same code. Padding is +0.0,
+//     and fmaf(0, 0, acc) == acc for every acc the chain can hold (it never
+//     holds -0.0: it starts at +0.0 and x + -x rounds to +0.0). |q|^2 is
+//     the same chain of q with itself. The IVF page kernel scores with the
+//     same code, and paged rows and norms are copies of the matrix's, so a
+//     document scores the same bits in the flat scan and in the probe; the
+//     centroids are scored by it too.
+//   * Top-k fused into the scoring pass (k2 <= 128 = KCAP): each block
+//     keeps, per query, a buffer of 192 keys (k2 <= 32) or 384 and a
+//     threshold. After each tile a thread appends its keys above the
+//     threshold (one shared atomic per query and warp); a buffer that
+//     could overflow on the next tile is cut to its top k by one warp (an
+//     8-bit radix select in registers and a 256-word shared histogram),
+//     which raises the threshold. Each cut also raises the query's shared
+//     threshold in global memory (atomicMax), which every block reads with
+//     each tile (a 16-byte cp.async beside the first slice): a key at or
+//     below any block's threshold is below k keys of the search, so a
+//     block appends only keys above both. At the end a block cuts its
+//     buffer to k and appends the keys not below the shared threshold to
+//     the query's candidate list (an atomic count beside the threshold).
+//     The (B, n) score matrix is never written. The flat scan then merges
+//     the candidates in one block per query (vec_select_block<true>): the
+//     thresholds' memset, the scan and the merge, three device operations
+//     a search. Larger k takes the scores route: the same scan writes the
+//     scores, then the select below.
+//   * IVF in two launches. vec_probe, one block per query: the centroid
+//     scores (by the scan, into shared memory), the top nprobe by the
+//     block's radix select, the lists ordered by rank, and the ragged
+//     expansion of their page runs into the query's page slots (a
+//     block-wide scan of the lists' page counts, then a binary search per
+//     slot), written once; it zeroes the query's ticket, threshold and
+//     count.
+//     vec_ivf_topk, grid (blocks per query, B): each block scans a run of
+//     the query's slots, two 64-row pages per tile, with the fused top-k,
+//     and the last block of each query to finish (a ticket counter that
+//     vec_probe zeroes) merges the blocks' keys, sorts them and maps them
+//     to documents. Sentinel documents (== n_docs) and slots past the
+//     ragged total (the pad page) score -inf without being read (their
+//     copies are zero fills). Positions are slots of the flattened
+//     (max_pages x P) probe, so ties go to the lower slot as in lax.top_k.
+//   * Top-k order (make_key, the radix selects, sort, unpack): lax.top_k's
+//     order is score descending, ties to the lower position, with -0.0
+//     below +0.0 and NaN above everything (XLA's total order). Each (score,
+//     position) becomes one 64-bit key: the float's orderable uint32 view,
+//     then 2^32 - 1 - position. Keys are unique, so the top k keys are
+//     exactly lax.top_k's answer, whichever route finds them. The select
+//     stage (pinot_vec_select) keeps three routes by size: one block per
+//     query for rows of at most 2^17 keys with k2 <= 4096
+//     (vec_select_block: histogram, threshold, candidates and sort in
+//     shared memory); per-block candidates of 4096-score chunks
+//     (vec_select_cand) then one block for long rows with k2 <= 1024; a
+//     multi-block radix select (vec_radix: 8 bits a pass, the last block
+//     of a pass picks the digit by a ticket counter, stopping once the
+//     chosen bucket is taken whole; vec_emit; a bitonic sort) above that.
 //
 // Nothing is allocated here: the wrapper (pinot_tpu_torch/ops/vecsearch.py)
 // passes outputs and scratch (sized by the *_scratch functions), and every
-// launch goes on its stream with no synchronisation. Every launch is
-// checked and the first CUDA error code is returned (0 on success). Plain
-// C interface, bound with ctypes.
+// launch goes on its stream with no synchronisation. Shared memory above
+// 48 KB is allowed once per kernel instance. Every launch is checked and
+// the first CUDA error code is returned (0 on success). Plain C interface,
+// bound with ctypes.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #define WARPS 8
 #define THREADS (WARPS * 32)
 #define FULL 0xffffffffu
 #define MAX_SLOTS 16       // queries scored per matrix row by one launch
-#define MAX_CH 16          // units a lane holds per row (16 x 4 x 32 = 2048)
+#define MAX_DIM_VEC 2048   // the largest dim taken (16-byte copies)
+#define MAX_DIM_SCALAR 512 // ... and with 4-byte copies
 #define PASSES 8           // 8-bit digits of the 64-bit key
 #define SELECT_ITEMS 16    // keys per thread of a radix block
 #define MAX_SELECT_BLOCKS 1024
@@ -95,6 +130,26 @@
 #define BLOCK_SELECT_MAX_S (1 << 17)
 #define CAND_CHUNK 4096    // scores per block of the two-phase select
 #define CAND_THREADS 256   // its first phase: 16 scores a thread
+
+// scoring tiles
+#define TILE_ROWS 128      // rows of a tile
+#define TILE_WARPS 4
+#define TILE_THREADS (TILE_WARPS * 32)
+#define KS 32              // floats of a row per stage (a k-slice)
+#define SP 36              // the stage's row stride in floats (SP / 4 odd)
+#define STAGES 3           // the cp.async ring of the scanning kernels
+#define PROBE_STAGES 8     // ... of vec_probe, which holds no candidates
+#define PROBE_LISTS 8192   // centroid scores vec_probe keeps in shared memory
+#define PROBE_SEL 4096     // ... and chosen lists (in its freed stages)
+#define BLOCKS_PER_SM 2    // persistent scoring blocks per SM, at most
+#define SMALL_BLOCKS_PER_SM 3  // ... for the flat scan's small top-k
+#define KCAP 128           // the largest k2 of the fused top-k
+#define KSMALL 32          // ... with its smaller candidate buffers
+#define MERGE_MAX 8192     // keys the last IVF block of a query merges
+
+// a tile row's source: a matrix row >= 0, or one of
+#define NO_READ (-1LL)     // a candidate scored -inf, not read
+#define NO_KEY (-2LL)      // not a candidate (past the rows)
 
 // per-query select state, in 32-bit words
 #define ST_PREFIX 0        // 2 words: the key prefix found so far
@@ -106,71 +161,6 @@
 
 enum { MODE_DOT = 0, MODE_L2 = 1, MODE_L2_NOQ = 2 };
 
-template <bool VEC>
-struct Unit;
-template <>
-struct Unit<true> {
-  typedef float4 T;
-  static constexpr int W = 4;
-  static __device__ __forceinline__ T load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  static __device__ __forceinline__ float dot(T m, T q, float acc) {
-    acc = fmaf(m.x, q.x, acc);
-    acc = fmaf(m.y, q.y, acc);
-    acc = fmaf(m.z, q.z, acc);
-    return fmaf(m.w, q.w, acc);
-  }
-  static __device__ __forceinline__ T zero() {
-    return make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-};
-template <>
-struct Unit<false> {
-  typedef float T;
-  static constexpr int W = 1;
-  static __device__ __forceinline__ T load(const float* p) { return __ldg(p); }
-  static __device__ __forceinline__ float dot(T m, T q, float acc) {
-    return fmaf(m, q, acc);
-  }
-  static __device__ __forceinline__ T zero() { return 0.f; }
-};
-
-template <int N>
-struct Log2 {
-  static constexpr int v = 1 + Log2<N / 2>::v;
-};
-template <>
-struct Log2<1> {
-  static constexpr int v = 0;
-};
-
-// Reduce-scatter over the warp: NQ partial sums per lane in, the full sum
-// of slot (lane >> (5 - log2 NQ)) out. Each halving step keeps half the
-// slots and adds the partner's copy of them; the remaining steps are the
-// plain butterfly. Every slot's sum is added in the same tree.
-template <int NQ>
-struct Reduce {
-  static __device__ __forceinline__ float run(float* p, int lane, int off) {
-    const bool upper = (lane & off) != 0;
-#pragma unroll
-    for (int i = 0; i < NQ / 2; ++i) {
-      const float send = upper ? p[i] : p[i + NQ / 2];
-      const float keep = upper ? p[i + NQ / 2] : p[i];
-      p[i] = keep + __shfl_xor_sync(FULL, send, off);
-    }
-    return Reduce<NQ / 2>::run(p, lane, off >> 1);
-  }
-};
-template <>
-struct Reduce<1> {
-  static __device__ __forceinline__ float run(float* p, int, int off) {
-    float v = p[0];
-    for (; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-    return v;
-  }
-};
-
 __device__ __forceinline__ float finish(float dot, int mode, float row_sq,
                                         float q_sq) {
   if (mode == MODE_DOT) return dot;
@@ -178,145 +168,26 @@ __device__ __forceinline__ float finish(float dot, int mode, float row_sq,
   return mode == MODE_L2 ? __fsub_rn(s, q_sq) : s;
 }
 
-// Loads the queries' units of this lane into registers and returns |q|^2 of
-// the query in this lane's slot (same partials and tree as a dot product).
-template <int NQ, int CH, bool VEC>
-__device__ __forceinline__ float load_queries(
-    const float* __restrict__ Q, int nq, int dim, int lane,
-    typename Unit<VEC>::T (&qr)[NQ][CH]) {
-  typedef Unit<VEC> U;
-  const int units = dim / U::W;
-  const int slot = lane >> (5 - Log2<NQ>::v);
-  float my_sq = 0.f;
-#pragma unroll
-  for (int j = 0; j < NQ; ++j) {
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int u = lane + 32 * c;
-      if (j < nq && u < units) {
-        qr[j][c] = U::load(Q + (long long)j * dim + (long long)u * U::W);
-        s = U::dot(qr[j][c], qr[j][c], s);
-      } else {
-        qr[j][c] = U::zero();
-      }
-    }
-    s = Reduce<1>::run(&s, lane, 16);
-    if (j == slot) my_sq = s;
-  }
-  return my_sq;
+// cp.async: 16 or 4 bytes global -> shared, zero-filled where !ok (no
+// bytes are read then; src is any valid address)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
 }
-
-// out[j * out_stride + r] = score of matrix row r against query j, for the
-// nq <= NQ queries of this launch.
-template <int NQ, int CH, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-    vec_score(const float* __restrict__ M, long long n, int dim,
-              const float* __restrict__ row_sq, const float* __restrict__ Q,
-              int nq, int mode, float* __restrict__ out,
-              long long out_stride) {
-  typedef Unit<VEC> U;
-  constexpr int R = CH >= 4 ? 1 : 4 / CH;  // rows in flight per warp
-  const int lane = threadIdx.x & 31;
-  const int units = dim / U::W;
-  typename U::T qr[NQ][CH];
-  const float q_sq = load_queries<NQ, CH, VEC>(Q, nq, dim, lane, qr);
-  const int slot = lane >> (5 - Log2<NQ>::v);
-  const bool writer = (lane & (32 / NQ - 1)) == 0 && slot < nq;
-  const long long warp0 = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const long long nwarps = (long long)gridDim.x * WARPS;
-  for (long long r0 = warp0 * R; r0 < n; r0 += nwarps * R) {
-    typename U::T m[R][CH];
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const int u = lane + 32 * c;
-        m[rr][c] = (r0 + rr < n && u < units)
-                       ? U::load(M + (r0 + rr) * dim + (long long)u * U::W)
-                       : U::zero();
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-      const long long r = r0 + rr;
-      if (r >= n) break;  // warp-uniform
-      float p[NQ];
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        p[j] = 0.f;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) {
-          if (lane + 32 * c < units) p[j] = U::dot(m[rr][c], qr[j][c], p[j]);
-        }
-      }
-      const float v = Reduce<NQ>::run(p, lane, 16);
-      if (writer) {
-        out[slot * out_stride + r] =
-            finish(v, mode, mode == MODE_DOT ? 0.f : row_sq[r], q_sq);
-      }
-    }
-  }
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
 }
-
-// One block per (page slot j, query b): the page of slot j in query b's
-// probe (the ragged expansion of its nprobe lists, in their order), scored
-// row by row; out is (nq, max_pages * P), page_idx (nq, max_pages).
-template <int CH, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-    vec_pages(const float* __restrict__ paged,
-              const float* __restrict__ paged_sq,
-              const int* __restrict__ pages, const int* __restrict__ pageptr,
-              const int* __restrict__ lists, int nprobe, int max_pages,
-              int n_pages, int P, int dim, int n_docs,
-              const float* __restrict__ Q, int mode, float* __restrict__ out,
-              int* __restrict__ page_idx) {
-  typedef Unit<VEC> U;
-  __shared__ int s_page;
-  const int j = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) {
-    const int* lb = lists + (long long)b * nprobe;
-    int acc = 0, page = n_pages;  // past the ragged total: the pad page
-    for (int t = 0; t < nprobe; ++t) {
-      const int l = lb[t];
-      const int start = pageptr[l], count = pageptr[l + 1] - start;
-      if (j < acc + count) {
-        page = start + (j - acc);
-        break;
-      }
-      acc += count;
-    }
-    s_page = page;
-    page_idx[(long long)b * max_pages + j] = page;
-  }
-  __syncthreads();
-  const int page = s_page;
-  const int units = dim / U::W;
-  typename U::T qr[1][CH];
-  const float q_sq =
-      load_queries<1, CH, VEC>(Q + (long long)b * dim, 1, dim, lane, qr);
-  float* ob = out + ((long long)b * max_pages + j) * P;
-  for (int r = warp; r < P; r += WARPS) {
-    const long long row = (long long)page * P + r;
-    if (pages[row] == n_docs) {
-      if (lane == 0) ob[r] = -INFINITY;
-      continue;
-    }
-    float p = 0.f;
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int u = lane + 32 * c;
-      if (u < units) {
-        p = U::dot(U::load(paged + row * dim + (long long)u * U::W), qr[0][c],
-                   p);
-      }
-    }
-    const float v = Reduce<1>::run(&p, lane, 16);
-    if (lane == 0) {
-      ob[r] = finish(v, mode, mode == MODE_DOT ? 0.f : paged_sq[row], q_sq);
-    }
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -652,12 +523,15 @@ __device__ void block_sort(unsigned long long* x, int n) {
 // The whole select of one query in one block, for rows of at most
 // BLOCK_SELECT_MAX_S keys and k2 <= SORT_CHUNK: the threshold, the k keys
 // at or above it and their sort in shared memory, in one launch. The row
-// is float scores (keys made from score and position) or, with KEYS, the
-// 64-bit keys of vec_select_cand's candidates (0 pads below every key).
+// (of S entries, the first counts[2 b] of them with counts) is float scores
+// (keys made from score and position) or, with KEYS, 64-bit keys: the
+// candidates of vec_select_cand (0 pads below every key) or of the fused
+// scan.
 template <bool KEYS>
 __global__ void __launch_bounds__(BLOCK_THREADS)
-    vec_select_block(const void* __restrict__ in, long long S, int k, int k2,
-                     float* __restrict__ vals, int* __restrict__ idx,
+    vec_select_block(const void* __restrict__ in, long long S,
+                     const unsigned long long* __restrict__ counts, int k,
+                     int k2, float* __restrict__ vals, int* __restrict__ idx,
                      const int* __restrict__ pages,
                      const int* __restrict__ page_idx, int P,
                      int max_pages) {
@@ -668,13 +542,14 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
   const float* sb = static_cast<const float*>(in) + (long long)b * S;
   const unsigned long long* kb =
       static_cast<const unsigned long long*>(in) + (long long)b * S;
+  const long long n = counts != nullptr ? (long long)counts[2 * b] : S;
   auto get = [&](long long i) {
     return KEYS ? kb[i] : make_key(sb[i], i);
   };
   if (threadIdx.x == 0) s_count = 0;
   const unsigned long long thr =
-      block_threshold<BLOCK_THREADS>(get, S, k, h);
-  block_emit<BLOCK_THREADS>(get, S, thr, x, k2, &s_count);
+      block_threshold<BLOCK_THREADS>(get, n, k, h);
+  block_emit<BLOCK_THREADS>(get, n, thr, x, k2, &s_count);
   __syncthreads();
   for (int t = k + threadIdx.x; t < k2; t += BLOCK_THREADS) x[t] = 0ull;
   __syncthreads();
@@ -717,6 +592,795 @@ __global__ void __launch_bounds__(CAND_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// scoring tiles
+// ---------------------------------------------------------------------------
+
+// The thread tile of a launch of NQ query slots: QG query groups x RG row
+// groups per warp; a thread holds RT rows (rg + RG i) x QT queries (qg + QG
+// j); a warp covers 32 rows, a block TILE_ROWS.
+template <int NQ>
+struct Cfg {
+  static constexpr int QG = NQ >= 4 ? 4 : NQ;
+  static constexpr int QT = NQ / QG;
+  static constexpr int RG = 32 / QG;
+  static constexpr int RT = QG;
+  static_assert(RG * RT == 32 && QG * QT == NQ, "thread tile");
+};
+static_assert(TILE_THREADS == TILE_ROWS, "a thread per tile row");
+static_assert(TILE_WARPS * 32 == TILE_ROWS, "a warp per 32 rows");
+
+// The fused top-k's two sizes: k2 <= KSMALL keeps 192 keys a query, larger
+// k2 (up to KCAP) 384, so that a buffer cut to k keys still takes one tile
+// of appends. At 16 queries a block holds 2 stages, so that three small
+// (or two big) blocks fit an SM.
+template <bool BIG>
+struct Topk {
+  static constexpr int BUFN = BIG ? 384 : 192;
+  static constexpr int BLOCKS = BIG ? BLOCKS_PER_SM : SMALL_BLOCKS_PER_SM;
+  static_assert(BUFN - TILE_ROWS >= (BIG ? KCAP : KSMALL), "headroom");
+  template <int NQ>
+  __host__ __device__ static constexpr int stages() {
+    return NQ == 16 ? 2 : STAGES;
+  }
+};
+
+// The dynamic shared memory of a scoring block: the stages, the rows of
+// the tiles in the ring, their squared norms and the queries' shared
+// thresholds as the tiles started, |q|^2, and for the fused top-k the
+// candidate buffers, thresholds, histograms and counts.
+template <int NQ, int ST = STAGES, int BUFN = 256>
+struct Smem {
+  static constexpr int STAGE_FLOATS = (TILE_ROWS + NQ) * SP;
+  static constexpr size_t STAGE_B = (size_t)ST * STAGE_FLOATS * 4;
+  static constexpr size_t RID_B = (size_t)ST * TILE_ROWS * 8;
+  static constexpr size_t GTS_B = (size_t)ST * NQ * 16;
+  static constexpr size_t RSQ_B = (size_t)ST * TILE_ROWS * 4;
+  static constexpr size_t QSQ_B = 16 * 4;
+  static constexpr size_t BUF_B = (size_t)NQ * BUFN * 8;
+  static constexpr size_t THR_B = (size_t)NQ * 8;
+  static constexpr size_t HIST_B = (size_t)TILE_WARPS * 256 * 4;
+  static constexpr size_t CNT_B = (size_t)NQ * 4;
+  static constexpr size_t scan_bytes = STAGE_B + RID_B + GTS_B + RSQ_B + QSQ_B;
+  static constexpr size_t topk_bytes =
+      scan_bytes + BUF_B + THR_B + HIST_B + CNT_B;
+
+  float* stages;
+  long long* rid;
+  unsigned long long* gts;
+  float* rsq;
+  float* qsq;
+  unsigned long long* buf;
+  unsigned long long* thr;
+  unsigned* hist;
+  unsigned* cnt;
+  __device__ explicit Smem(unsigned char* p) {
+    stages = reinterpret_cast<float*>(p);
+    p += STAGE_B;
+    rid = reinterpret_cast<long long*>(p);
+    p += RID_B;
+    gts = reinterpret_cast<unsigned long long*>(p);
+    p += GTS_B;
+    rsq = reinterpret_cast<float*>(p);
+    p += RSQ_B;
+    qsq = reinterpret_cast<float*>(p);
+    p += QSQ_B;
+    buf = reinterpret_cast<unsigned long long*>(p);
+    p += BUF_B;
+    thr = reinterpret_cast<unsigned long long*>(p);
+    p += THR_B;
+    hist = reinterpret_cast<unsigned*>(p);
+    p += HIST_B;
+    cnt = reinterpret_cast<unsigned*>(p);
+  }
+};
+
+// The rows of a flat scan: position p is matrix row p, for p < n.
+struct FlatRows {
+  const float* data;
+  const float* sq;
+  long long n;
+  int dim;
+  __device__ long long row_of(long long p) const { return p < n ? p : NO_KEY; }
+};
+
+// The rows of one query's IVF probe: position p = j P + r is row r of the
+// page in slot j. Sentinel documents and the pad page are NO_READ.
+struct PageRows {
+  const float* data;
+  const float* sq;
+  const int* pages;
+  const int* pidx;  // this query's page slots
+  long long S;      // max_pages * P
+  int P, n_pages, n_docs, dim;
+  __device__ long long row_of(long long p) const {
+    if (p >= S) return NO_KEY;
+    const unsigned j = (unsigned)p / P, r = (unsigned)p % P;  // S < 2^32
+    const int page = __ldg(&pidx[j]);
+    if (page == n_pages) return NO_READ;
+    const long long row = (long long)page * P + r;
+    return __ldg(&pages[row]) == n_docs ? NO_READ : row;
+  }
+};
+
+// Issues the 4-byte copies of one stage: k-slice [d0, d0 + KS) of the
+// tile's rows (rid) and of the nq queries, zero-filled past dim, past the
+// rows, for NO_READ rows and for query slots past nq.
+template <int NQ, class Rows>
+__device__ __forceinline__ void fill_stage(float* st, const long long* rid,
+                                           const Rows& R,
+                                           const float* __restrict__ Q,
+                                           int nq, int d0) {
+  constexpr int UNITS = (TILE_ROWS + NQ) * KS;
+#pragma unroll 4
+  for (int u = threadIdx.x; u < UNITS; u += TILE_THREADS) {
+    const int lr = u / KS, c = u % KS;
+    const int d = d0 + c;
+    const float* src = R.data;
+    bool ok = d < R.dim;
+    if (lr < TILE_ROWS) {
+      const long long row = rid[lr];
+      ok = ok && row >= 0;
+      if (ok) src = R.data + row * R.dim + d;
+    } else {
+      ok = ok && lr - TILE_ROWS < nq;
+      if (ok) src = Q + (long long)(lr - TILE_ROWS) * R.dim + d;
+    }
+    cp_async4(st + lr * SP + c, src, ok);
+  }
+}
+
+// The 16-byte copies of a thread: units tid + TILE_THREADS i of a stage,
+// all in column 4 (tid % 8) of rows tid / 8 + 16 i (tile rows, then the
+// query rows). Their sources are found once a tile (set) and offset by
+// the k-slice (fill).
+template <int NQ>
+struct VecUnits {
+  static constexpr int UNITS = (TILE_ROWS + NQ) * (KS / 4);
+  static constexpr int PER = (UNITS + TILE_THREADS - 1) / TILE_THREADS;
+  static_assert(TILE_THREADS % (KS / 4) == 0, "a fixed column a thread");
+  const float* src[PER];
+  unsigned ok;  // bit i: unit i has a source row
+  template <class Rows>
+  __device__ __forceinline__ void set(const long long* rid, const Rows& R,
+                                      const float* __restrict__ Q, int nq) {
+    const int c = threadIdx.x % (KS / 4);
+    ok = 0;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int lr = threadIdx.x / (KS / 4) + (TILE_THREADS / (KS / 4)) * i;
+      long long row = -1;
+      const float* base = Q;
+      if (lr < TILE_ROWS) {
+        row = rid[lr];
+        base = R.data;
+      } else if (lr - TILE_ROWS < nq) {
+        row = lr - TILE_ROWS;
+      }
+      src[i] = row >= 0 ? base + row * R.dim + 4 * c : R.data;
+      if (row >= 0 && threadIdx.x + TILE_THREADS * i < UNITS) ok |= 1u << i;
+    }
+  }
+  __device__ __forceinline__ void fill(float* st, int d0, int dim) const {
+    const int c = threadIdx.x % (KS / 4);
+    const bool in_dim = d0 + 4 * c < dim;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      if (threadIdx.x + TILE_THREADS * i < UNITS) {
+        const int lr = threadIdx.x / (KS / 4) + (TILE_THREADS / (KS / 4)) * i;
+        const bool has = in_dim && ((ok >> i) & 1u);
+        cp_async16(st + lr * SP + 4 * c, has ? src[i] + d0 : src[i], has);
+      }
+    }
+  }
+};
+
+// Adds one k-slice of the stage to the thread's dot products, 4 dims at a
+// time, each (row, query) chain in dim order.
+template <int NQ>
+__device__ __forceinline__ void score_stage(
+    const float* st, float (&acc)[Cfg<NQ>::RT][Cfg<NQ>::QT]) {
+  typedef Cfg<NQ> C;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* rows = st + (warp * 32 + lane % C::RG) * SP;
+  const float* qs = st + (TILE_ROWS + lane / C::RG) * SP;
+#pragma unroll
+  for (int c = 0; c < KS; c += 4) {
+    float4 m[C::RT], q[C::QT];
+#pragma unroll
+    for (int i = 0; i < C::RT; ++i)
+      m[i] = *reinterpret_cast<const float4*>(rows + i * C::RG * SP + c);
+#pragma unroll
+    for (int j = 0; j < C::QT; ++j)
+      q[j] = *reinterpret_cast<const float4*>(qs + j * C::QG * SP + c);
+    // dim c, c + 1, c + 2, c + 3 in turn, each over every (row, query): the
+    // tile's independent chains interleave
+#pragma unroll
+    for (int i = 0; i < C::RT; ++i)
+#pragma unroll
+      for (int j = 0; j < C::QT; ++j) acc[i][j] = fmaf(m[i].x, q[j].x, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < C::RT; ++i)
+#pragma unroll
+      for (int j = 0; j < C::QT; ++j) acc[i][j] = fmaf(m[i].y, q[j].y, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < C::RT; ++i)
+#pragma unroll
+      for (int j = 0; j < C::QT; ++j) acc[i][j] = fmaf(m[i].z, q[j].z, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < C::RT; ++i)
+#pragma unroll
+      for (int j = 0; j < C::QT; ++j) acc[i][j] = fmaf(m[i].w, q[j].w, acc[i][j]);
+  }
+}
+
+// The scoring loop of a block: nt tiles, t0, t0 + step, ..., through the
+// ring of stages; epi(p0, rs, acc) after each tile's last k-slice, with p0
+// the tile's first position and rs its slot in the ring of the tiles' rows
+// (sm.rid), their squared norms (sm.rsq, copied beside the first slice for
+// the l2 modes) and, with gthr, the queries' shared thresholds as the tile
+// started (sm.gts, from gthr: 16 bytes a query). sm.qsq[q] is |q|^2 of
+// query slot q for MODE_L2: the documents' chain over the staged query
+// slices of the block's first tile. Every thread of the block calls it
+// with the same arguments.
+template <int NQ, bool VEC, int ST, int BUFN, class Rows, class Epi>
+__device__ __forceinline__ void scan(const Rows& R,
+                                     const float* __restrict__ Q, int nq,
+                                     int mode, const unsigned long long* gthr,
+                                     long long t0, long long nt,
+                                     long long step,
+                                     const Smem<NQ, ST, BUFN>& sm, Epi epi) {
+  typedef Cfg<NQ> C;
+  constexpr int STAGE_FLOATS = Smem<NQ, ST, BUFN>::STAGE_FLOATS;
+  const int nks = (R.dim + KS - 1) / KS;
+  const long long total = nt * nks;
+  // the stage being filled and the stage being scored: k-slice, tile of
+  // the block, ring slot of the stage and of the tile's rows (no 64-bit
+  // divisions in the loop)
+  struct Cursor {
+    int ks, slot, rslot;
+    long long lt;
+  };
+  Cursor f{0, 0, 0, 0}, c{0, 0, 0, 0};
+  VecUnits<NQ> vu;
+  auto advance = [&](Cursor& u) {
+    u.slot = u.slot + 1 == ST ? 0 : u.slot + 1;
+    if (++u.ks == nks) {
+      u.ks = 0;
+      ++u.lt;
+      u.rslot = u.rslot + 1 == ST ? 0 : u.rslot + 1;
+    }
+  };
+  auto fill = [&]() {
+    long long* rr = sm.rid + f.rslot * TILE_ROWS;
+    if (f.ks == 0) {  // block-uniform
+      const long long row =
+          R.row_of((t0 + f.lt * step) * TILE_ROWS + threadIdx.x);
+      rr[threadIdx.x] = row;
+      cp_async4(sm.rsq + f.rslot * TILE_ROWS + threadIdx.x,
+                row >= 0 ? R.sq + row : R.sq, row >= 0 && mode != MODE_DOT);
+      if (gthr != nullptr && threadIdx.x < NQ) {
+        cp_async16(reinterpret_cast<float*>(sm.gts +
+                                            (f.rslot * NQ + threadIdx.x) * 2),
+                   reinterpret_cast<const float*>(gthr + 2 * threadIdx.x),
+                   (int)threadIdx.x < nq);
+      }
+      __syncthreads();
+      if (VEC) vu.set(rr, R, Q, nq);
+    }
+    if (VEC) {
+      vu.fill(sm.stages + f.slot * STAGE_FLOATS, f.ks * KS, R.dim);
+    } else {
+      fill_stage<NQ>(sm.stages + f.slot * STAGE_FLOATS, rr, R, Q, nq,
+                     f.ks * KS);
+    }
+    advance(f);
+  };
+  float acc[C::RT][C::QT];
+#pragma unroll
+  for (int i = 0; i < C::RT; ++i)
+#pragma unroll
+    for (int j = 0; j < C::QT; ++j) acc[i][j] = 0.f;
+  float qacc = 0.f;  // |q|^2 of query slot threadIdx.x < NQ
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < total) fill();
+    cp_async_commit();
+  }
+  for (long long it = 0; it < total; ++it) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // stage it is in; stage it - 1 is free
+    if (it + ST - 1 < total) fill();
+    cp_async_commit();
+    const float* st = sm.stages + c.slot * STAGE_FLOATS;
+    score_stage<NQ>(st, acc);
+    if (c.lt == 0 && mode == MODE_L2 && threadIdx.x < NQ) {
+      const float* qr = st + (TILE_ROWS + threadIdx.x) * SP;
+#pragma unroll
+      for (int d = 0; d < KS; ++d) qacc = fmaf(qr[d], qr[d], qacc);
+    }
+    if (c.ks == nks - 1) {
+      if (c.lt == 0) {  // block-uniform
+        if (threadIdx.x < NQ) sm.qsq[threadIdx.x] = qacc;
+        __syncthreads();
+      }
+      epi((t0 + c.lt * step) * TILE_ROWS, c.rslot, acc);
+#pragma unroll
+      for (int i = 0; i < C::RT; ++i)
+#pragma unroll
+        for (int j = 0; j < C::QT; ++j) acc[i][j] = 0.f;
+    }
+    advance(c);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Writes the thread's scores of a tile: out[q * stride + p].
+template <int NQ, class S>
+__device__ __forceinline__ void write_scores(
+    const S& sm, int nq, int mode, float* out, long long stride, long long p0,
+    int rs, const float (&acc)[Cfg<NQ>::RT][Cfg<NQ>::QT]) {
+  typedef Cfg<NQ> C;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < C::RT; ++i) {
+    const int lr = warp * 32 + lane % C::RG + i * C::RG;
+    const long long row = sm.rid[rs * TILE_ROWS + lr];
+    if (row == NO_KEY) continue;
+    const float sq = sm.rsq[rs * TILE_ROWS + lr];
+#pragma unroll
+    for (int j = 0; j < C::QT; ++j) {
+      const int q = lane / C::RG + j * C::QG;
+      if (q < nq) {
+        out[q * stride + p0 + lr] =
+            row < 0 ? -INFINITY : finish(acc[i][j], mode, sq, sm.qsq[q]);
+      }
+    }
+  }
+}
+
+// Keeps the k largest of the *cnt keys of buf (k <= *cnt <= BUFN) in
+// buf[0..k), in any order, and sets *thr to a key t with every kept key
+// >= t and every other < t: a radix select by one warp, the keys in
+// registers, h its 256-word histogram. t is published to the query's
+// shared threshold *gthr (a raise only), if there is one.
+template <int BUFN>
+__device__ void keep_top(unsigned long long* buf, unsigned* cnt,
+                         unsigned long long* thr, int k, unsigned* h,
+                         unsigned long long* gthr) {
+  const int lane = threadIdx.x & 31;
+  const int c = (int)*cnt;
+  unsigned long long x[BUFN / 32];
+#pragma unroll
+  for (int i = 0; i < BUFN / 32; ++i)
+    x[i] = lane + 32 * i < c ? buf[lane + 32 * i] : 0ull;
+  unsigned long long prefix = 0;
+  unsigned krem = (unsigned)k;
+  for (int pass = 0; pass < PASSES; ++pass) {
+    const int shift = 56 - 8 * pass;
+    const unsigned long long hi = pass ? (~0ull << (64 - 8 * pass)) : 0ull;
+    for (int t = lane; t < 256; t += 32) h[t] = 0;
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < BUFN / 32; ++i) {
+      const bool in = lane + 32 * i < c && (x[i] & hi) == prefix;
+      const unsigned d = (unsigned)(x[i] >> shift) & 255u;
+      const unsigned act = __ballot_sync(FULL, in);
+      if (in) {  // one increment per digit among the lanes
+        const unsigned peers = __match_any_sync(act, d);
+        if (__ffs(peers) - 1 == lane) atomicAdd(&h[d], (unsigned)__popc(peers));
+      }
+    }
+    __syncwarp();
+    unsigned above, count;
+    const int d = pick_digit([&](int t) { return h[t]; }, krem, &above,
+                             &count);
+    krem -= above;
+    prefix |= (unsigned long long)d << shift;
+    __syncwarp();
+    if (count == krem) break;  // the bucket is taken whole
+  }
+  unsigned base = 0;
+#pragma unroll
+  for (int i = 0; i < BUFN / 32; ++i) {
+    const bool take = lane + 32 * i < c && x[i] >= prefix;
+    const unsigned m = __ballot_sync(FULL, take);
+    if (take) buf[base + __popc(m & ((1u << lane) - 1u))] = x[i];
+    base += __popc(m);
+  }
+  __syncwarp();
+  if (lane == 0) {
+    *thr = prefix;
+    *cnt = (unsigned)k;
+    if (gthr != nullptr) atomicMax(gthr, prefix);
+  }
+  __syncwarp();
+}
+
+template <int NQ, int ST, int BUFN>
+__device__ __forceinline__ void init_topk(const Smem<NQ, ST, BUFN>& sm) {
+  if (threadIdx.x < NQ) {
+    sm.thr[threadIdx.x] = 0ull;  // below every key
+    sm.cnt[threadIdx.x] = 0u;
+  }
+}
+
+// The fused top-k after a tile: the thread's keys above their query's
+// threshold (the block's own, or the shared one if higher) go to its
+// buffer; then each buffer that the next tile could overflow is cut to its
+// top k. A key at or below a threshold is below k keys of the search, so
+// no key of the top k is dropped.
+template <int NQ, int ST, int BUFN>
+__device__ __forceinline__ void append_keys(
+    const Smem<NQ, ST, BUFN>& sm, int nq, int mode, int k, long long p0,
+    int rs, unsigned long long* gthr,
+    const float (&acc)[Cfg<NQ>::RT][Cfg<NQ>::QT]) {
+  typedef Cfg<NQ> C;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the thread's keys and whether each beats its query's thresholds, all
+  // computed before the (rare) appends
+  unsigned long long key[C::RT][C::QT];
+  unsigned takes = 0;
+  unsigned long long lim[C::QT];
+#pragma unroll
+  for (int j = 0; j < C::QT; ++j) {
+    const int q = lane / C::RG + j * C::QG;
+    const unsigned long long g = sm.gts[(rs * NQ + q) * 2];
+    const unsigned long long t = sm.thr[q];
+    lim[j] = g > t ? g : t;
+  }
+#pragma unroll
+  for (int i = 0; i < C::RT; ++i) {
+    const int lr = warp * 32 + lane % C::RG + i * C::RG;
+    const long long row = sm.rid[rs * TILE_ROWS + lr];
+    const float sq = sm.rsq[rs * TILE_ROWS + lr];
+#pragma unroll
+    for (int j = 0; j < C::QT; ++j) {
+      const int q = lane / C::RG + j * C::QG;
+      const float s =
+          row < 0 ? -INFINITY : finish(acc[i][j], mode, sq, sm.qsq[q]);
+      key[i][j] = make_key(s, p0 + lr);
+      if (row != NO_KEY && q < nq && key[i][j] > lim[j])
+        takes |= 1u << (i * C::QT + j);
+    }
+  }
+  if (__any_sync(FULL, takes != 0)) {
+#pragma unroll
+    for (int i = 0; i < C::RT; ++i) {
+#pragma unroll
+      for (int j = 0; j < C::QT; ++j) {
+        const bool take = (takes >> (i * C::QT + j)) & 1u;
+        if (__ballot_sync(FULL, take) == 0) continue;
+        // one atomic per query among the warp's lanes that take a key
+        const int q = lane / C::RG + j * C::QG;
+        const unsigned peers = __match_any_sync(FULL, take ? q : -1);
+        if (take) {
+          const int leader = __ffs(peers) - 1;
+          unsigned base = 0;
+          if (lane == leader) base = atomicAdd(&sm.cnt[q], __popc(peers));
+          base = __shfl_sync(peers, base, leader);
+          sm.buf[q * BUFN + base + __popc(peers & ((1u << lane) - 1u))] =
+              key[i][j];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int q = warp; q < nq; q += TILE_WARPS) {
+    if (sm.cnt[q] > BUFN - TILE_ROWS) {
+      keep_top<BUFN>(sm.buf + q * BUFN, &sm.cnt[q], &sm.thr[q], k,
+                     sm.hist + warp * 256, gthr + 2 * q);
+    }
+  }
+}
+
+// The block's candidate keys of each query (cut to its top k if it holds
+// more) that are not below the query's shared threshold
+// gthr[2 q] (no key of the search's top k is), appended to out[q *
+// qstride ..] at the count gthr[2 q + 1].
+template <int NQ, int ST, int BUFN>
+__device__ __forceinline__ void flush_topk(const Smem<NQ, ST, BUFN>& sm,
+                                           int nq, int k,
+                                           unsigned long long* gthr,
+                                           unsigned long long* out,
+                                           long long qstride) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int q = warp; q < nq; q += TILE_WARPS) {
+    unsigned c = sm.cnt[q];
+    if (c > (unsigned)k) {
+      keep_top<BUFN>(sm.buf + q * BUFN, &sm.cnt[q], &sm.thr[q], k,
+                     sm.hist + warp * 256, gthr + 2 * q);
+      c = (unsigned)k;
+    }
+    const unsigned long long g = __ldcg(gthr + 2 * q);
+    for (unsigned t0 = 0; t0 < c; t0 += 32) {
+      const unsigned t = t0 + lane;
+      const unsigned long long key = t < c ? sm.buf[q * BUFN + t] : 0ull;
+      const bool keep = t < c && key >= g;
+      const unsigned m = __ballot_sync(FULL, keep);
+      unsigned long long base = 0;
+      if (lane == 0 && m) base = atomicAdd(gthr + 2 * q + 1, __popc(m));
+      base = __shfl_sync(FULL, base, 0);
+      if (keep) out[q * qstride + base + __popc(m & ((1u << lane) - 1u))] = key;
+    }
+  }
+}
+
+static __device__ __forceinline__ long long flat_tiles(long long n) {
+  return (n + TILE_ROWS - 1) / TILE_ROWS;
+}
+
+// out[q * out_stride + r] = score of matrix row r (r < n) against query q,
+// for the nq <= NQ queries of this launch; a persistent grid.
+template <int NQ, bool VEC>
+__global__ void __launch_bounds__(TILE_THREADS, BLOCKS_PER_SM)
+    vec_flat_scores(const float* __restrict__ M, long long n, int dim,
+                    const float* __restrict__ row_sq,
+                    const float* __restrict__ Q, int nq, int mode,
+                    float* __restrict__ out, long long out_stride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem<NQ> sm(smem_raw);
+  const FlatRows R{M, row_sq, n, dim};
+  const long long tiles = flat_tiles(n);
+  const long long nt = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  scan<NQ, VEC>(R, Q, nq, mode, nullptr, blockIdx.x, nt, gridDim.x, sm,
+                [&](long long p0, int rs,
+                    const float(&acc)[Cfg<NQ>::RT][Cfg<NQ>::QT]) {
+                  write_scores<NQ>(sm, nq, mode, out, out_stride, p0, rs,
+                                   acc);
+                });
+}
+
+// The flat scan with the fused top-k: each block appends its candidate
+// keys of query q to cand[q * gridDim.x * BUFN ..]; gthr (16 bytes a query,
+// zeroed before the launch) holds the queries' shared thresholds and the
+// counts of their appended keys.
+template <int NQ, bool VEC, bool BIG>
+__global__ void __launch_bounds__(TILE_THREADS, Topk<BIG>::BLOCKS)
+    vec_flat_topk(const float* __restrict__ M, long long n, int dim,
+                  const float* __restrict__ row_sq,
+                  const float* __restrict__ Q, int nq, int mode, int k,
+                  int k2, unsigned long long* gthr,
+                  unsigned long long* __restrict__ cand) {
+  typedef Topk<BIG> T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem<NQ, T::template stages<NQ>(), T::BUFN> sm(smem_raw);
+  const FlatRows R{M, row_sq, n, dim};
+  const long long tiles = flat_tiles(n);
+  const long long nt = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  init_topk(sm);
+  scan<NQ, VEC>(R, Q, nq, mode, gthr, blockIdx.x, nt, gridDim.x, sm,
+                [&](long long p0, int rs,
+                    const float(&acc)[Cfg<NQ>::RT][Cfg<NQ>::QT]) {
+                  append_keys(sm, nq, mode, k, p0, rs, gthr, acc);
+                });
+  flush_topk(sm, nq, k, gthr, cand, (long long)gridDim.x * T::BUFN);
+}
+
+// The ragged page-run expansion of one query's nprobe lists (in their
+// order) into max_pages page slots: slot j takes page pageptr[l] + j -
+// (pages of the lists before l) of the list l whose run holds j, or the pad
+// page n_pages past the ragged total. Lists go TILE_THREADS at a time: a
+// block-wide scan of their page counts, then a binary search per slot in
+// the chunk's run. Called by every thread of the block.
+__device__ void expand_pages(const int* lists, int nprobe,
+                             const int* __restrict__ pageptr, int max_pages,
+                             int n_pages, int* __restrict__ out) {
+  __shared__ int s_cum[TILE_THREADS];
+  __shared__ int s_start[TILE_THREADS];
+  __shared__ int s_warp[TILE_WARPS];
+  __shared__ int s_end;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int carry = 0;  // pages of the lists before the chunk
+  for (int base = 0; base < nprobe && carry < max_pages;
+       base += TILE_THREADS) {
+    const int t = base + threadIdx.x;
+    const int len = nprobe - base < TILE_THREADS ? nprobe - base
+                                                 : TILE_THREADS;
+    int c = 0, start = 0;
+    if (t < nprobe) {
+      const int l = lists[t];
+      start = pageptr[l];
+      c = pageptr[l + 1] - start;
+    }
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    int off = carry;
+    for (int w = 0; w < warp; ++w) off += s_warp[w];
+    s_cum[threadIdx.x] = off + incl - c;
+    s_start[threadIdx.x] = start;
+    if (threadIdx.x == TILE_THREADS - 1) s_end = off + incl;
+    __syncthreads();
+    const int end = s_end < max_pages ? s_end : max_pages;
+    for (int j = carry + threadIdx.x; j < end; j += TILE_THREADS) {
+      int lo = 0, hi = len - 1;  // the last list of the chunk starting <= j
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (s_cum[mid] <= j) lo = mid; else hi = mid - 1;
+      }
+      out[j] = s_start[lo] + (j - s_cum[lo]);
+    }
+    carry = s_end;
+    __syncthreads();  // before s_cum and s_warp are written again
+  }
+  for (int j = carry + threadIdx.x; j < max_pages; j += TILE_THREADS)
+    out[j] = n_pages;
+}
+
+// Stage entry: page_idx (nq, max_pages) from given lists (nq, nprobe).
+__global__ void __launch_bounds__(TILE_THREADS)
+    vec_expand(const int* __restrict__ lists, int nprobe,
+               const int* __restrict__ pageptr, int max_pages, int n_pages,
+               int* __restrict__ page_idx) {
+  const int b = blockIdx.x;
+  expand_pages(lists + (long long)b * nprobe, nprobe, pageptr, max_pages,
+               n_pages, page_idx + (long long)b * max_pages);
+}
+
+// One block per query: the centroid scores (scan, into shared memory, or
+// cscores past PROBE_LISTS lists), their top nprobe (the block's radix
+// select), the lists in rank order (in shared memory, or sel and lists past
+// PROBE_SEL), and their page-run expansion into page_idx. Zeroes the
+// query's ticket, shared threshold and key count of vec_ivf_topk.
+template <bool VEC>
+__global__ void __launch_bounds__(TILE_THREADS)
+    vec_probe(const float* __restrict__ cents,
+              const float* __restrict__ cent_sq, int n_lists, int dim,
+              const float* __restrict__ Q, int mode, int nprobe,
+              const int* __restrict__ pageptr, int max_pages, int n_pages,
+              float* __restrict__ cscores, unsigned long long* __restrict__ sel,
+              int* __restrict__ lists, int* __restrict__ page_idx,
+              unsigned* __restrict__ tickets,
+              unsigned long long* __restrict__ gthr) {
+  typedef Smem<1, PROBE_STAGES> S;
+  static_assert(PROBE_SEL * 12 <= S::STAGE_B, "chosen lists in the stages");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned h[256];
+  __shared__ unsigned s_count;
+  const S sm(smem_raw);
+  const int b = blockIdx.x;
+  const float* q = Q + (long long)b * dim;
+  float* cs = n_lists <= PROBE_LISTS
+                  ? reinterpret_cast<float*>(smem_raw + S::scan_bytes)
+                  : cscores + (long long)b * n_lists;
+  if (threadIdx.x == 0) {
+    tickets[b] = 0;
+    gthr[2 * b] = 0ull;
+    gthr[2 * b + 1] = 0ull;
+    s_count = 0;
+  }
+  const FlatRows R{cents, cent_sq, n_lists, dim};
+  scan<1, VEC>(R, q, 1, mode, nullptr, 0, flat_tiles(n_lists), 1, sm,
+               [&](long long p0, int rs, const float(&acc)[1][1]) {
+                 write_scores<1>(sm, 1, mode, cs, 0, p0, rs, acc);
+               });
+  auto get = [&](long long i) { return make_key(cs[i], i); };
+  const unsigned long long thr =
+      block_threshold<TILE_THREADS>(get, n_lists, nprobe, h);
+  // the chosen keys and lists in the (now free) stages, or in sel, lists
+  const bool small = nprobe <= PROBE_SEL;
+  unsigned long long* sb =
+      small ? reinterpret_cast<unsigned long long*>(sm.stages)
+            : sel + (long long)b * nprobe;
+  block_emit<TILE_THREADS>(get, n_lists, thr, sb, nprobe, &s_count);
+  __syncthreads();
+  int* lb = small ? reinterpret_cast<int*>(sb + nprobe)
+                  : lists + (long long)b * nprobe;
+  for (int t = threadIdx.x; t < nprobe; t += TILE_THREADS) {
+    const unsigned long long key = sb[t];
+    int rank = 0;
+    for (int u = 0; u < nprobe; ++u) rank += sb[u] > key;
+    lb[rank] = (int)(0xffffffffu - (unsigned)key);
+  }
+  __syncthreads();
+  expand_pages(lb, nprobe, pageptr, max_pages, n_pages,
+               page_idx + (long long)b * max_pages);
+}
+
+// Block (c, b) scans tiles [c T / nb, (c + 1) T / nb) of query b's probe
+// of S = max_pages * P slots (T tiles).
+struct PageSpan {
+  long long t0, nt;
+  __device__ PageSpan(long long S) {
+    const long long T = (S + TILE_ROWS - 1) / TILE_ROWS;
+    t0 = blockIdx.x * T / gridDim.x;
+    nt = (blockIdx.x + 1) * T / gridDim.x - t0;
+  }
+};
+
+// Stage entry and the IVF scores route: out (nq, max_pages * P), the
+// scores of each query's probe (page_idx), -inf for sentinels.
+template <bool VEC>
+__global__ void __launch_bounds__(TILE_THREADS, BLOCKS_PER_SM)
+    vec_ivf_scores(const float* __restrict__ paged,
+                   const float* __restrict__ paged_sq,
+                   const int* __restrict__ pages,
+                   const int* __restrict__ page_idx, int max_pages,
+                   int n_pages, int P, int dim, int n_docs,
+                   const float* __restrict__ Q, int mode,
+                   float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem<1> sm(smem_raw);
+  const int b = blockIdx.y;
+  const long long S = (long long)max_pages * P;
+  const float* q = Q + (long long)b * dim;
+  const PageRows R{paged, paged_sq, pages, page_idx + (long long)b * max_pages,
+                   S, P, n_pages, n_docs, dim};
+  const PageSpan span(S);
+  float* ob = out + (long long)b * S;
+  scan<1, VEC>(R, q, 1, mode, nullptr, span.t0, span.nt, 1, sm,
+               [&](long long p0, int rs, const float(&acc)[1][1]) {
+                 write_scores<1>(sm, 1, mode, ob, 0, p0, rs, acc);
+               });
+}
+
+// The IVF probe's pages with the fused top-k: block (c, b) appends its
+// candidate keys to cand[b nb BUFN ..] (counted at gthr[2 b + 1]); the last
+// block of
+// query b to finish merges them, sorts the top k and maps them to
+// documents: vals, idx (nq, k). gthr and the tickets were zeroed by
+// vec_probe.
+template <bool VEC, bool BIG>
+__global__ void __launch_bounds__(TILE_THREADS, BLOCKS_PER_SM)
+    vec_ivf_topk(const float* __restrict__ paged,
+                 const float* __restrict__ paged_sq,
+                 const int* __restrict__ pages,
+                 const int* __restrict__ page_idx, int max_pages, int n_pages,
+                 int P, int dim, int n_docs, const float* __restrict__ Q,
+                 int mode, int k, int k2, unsigned long long* gthr,
+                 unsigned long long* cand, unsigned* tickets,
+                 float* __restrict__ vals, int* __restrict__ idx) {
+  typedef Topk<BIG> T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned long long x[KCAP];
+  __shared__ unsigned s_count;
+  __shared__ int s_last;
+  const Smem<1, T::template stages<1>(), T::BUFN> sm(smem_raw);
+  const int b = blockIdx.y, nb = gridDim.x;
+  const long long S = (long long)max_pages * P;
+  const float* q = Q + (long long)b * dim;
+  unsigned long long* gq = gthr + 2 * b;
+  const PageRows R{paged, paged_sq, pages, page_idx + (long long)b * max_pages,
+                   S, P, n_pages, n_docs, dim};
+  const PageSpan span(S);
+  init_topk(sm);
+  scan<1, VEC>(R, q, 1, mode, gq, span.t0, span.nt, 1, sm,
+               [&](long long p0, int rs, const float(&acc)[1][1]) {
+                 append_keys(sm, 1, mode, k, p0, rs, gq, acc);
+               });
+  unsigned long long* cb = cand + (long long)b * nb * T::BUFN;
+  flush_topk(sm, 1, k, gq, cb, 0);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(&tickets[b], 1u) == (unsigned)nb - 1;
+    s_count = 0;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  auto get = [&](long long i) { return __ldcg(cb + i); };
+  const long long S2 = (long long)__ldcg(gq + 1);
+  const unsigned long long thr =
+      block_threshold<TILE_THREADS>(get, S2, k, sm.hist);
+  block_emit<TILE_THREADS>(get, S2, thr, x, k2, &s_count);
+  __syncthreads();
+  for (int t = k + threadIdx.x; t < k2; t += TILE_THREADS) x[t] = 0ull;
+  __syncthreads();
+  block_sort<TILE_THREADS>(x, k2);
+  for (int t = threadIdx.x; t < k; t += TILE_THREADS) {
+    unpack_one(x[t], b, (long long)b * k + t, vals, idx, pages, page_idx, P,
+               max_pages);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -726,100 +1390,215 @@ static int pow2_at_least(int x) {
   return p;
 }
 
-// units a lane holds per row, rounded to a power of two; 0 if unsupported
-static int lane_units(int dim, bool vec) {
-  const int units = vec ? dim / 4 : dim;
-  const int ch = pow2_at_least((units + 31) / 32);
-  return ch <= MAX_CH ? ch : 0;
+static int max_dim(bool vec) { return vec ? MAX_DIM_VEC : MAX_DIM_SCALAR; }
+
+static bool dim_ok(int dim) {
+  return dim >= 1 && dim <= max_dim(dim % 4 == 0);
 }
 
-template <int NQ, int CH, bool VEC>
-static cudaError_t score_one(const float* M, long long n, int dim,
-                             const float* row_sq, const float* Q, int nq,
-                             int mode, float* out, long long out_stride,
-                             cudaStream_t s) {
-  constexpr int R = CH >= 4 ? 1 : 4 / CH;
-  long long blocks = (n + (long long)WARPS * R * 8 - 1) / ((long long)WARPS * R * 8);
-  if (blocks < 1) blocks = 1;
-  if (blocks > (1 << 20)) blocks = 1 << 20;
-  vec_score<NQ, CH, VEC><<<(unsigned)blocks, THREADS, 0, s>>>(
-      M, n, dim, row_sq, Q, nq, mode, out, out_stride);
-  return cudaGetLastError();
+// 16-byte copies need dim % 4 == 0 and 16-byte aligned bases
+static bool vec_route(int dim, const void* a, const void* b) {
+  return dim % 4 == 0 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
 }
+
+// The current device's SM count and shared memory per SM and reserved
+// per block, read once per device (the grids are sized on every call).
+struct DevInfo {
+  int sms, smem, reserved;
+};
+
+static DevInfo read_dev_info(int dev) {
+  DevInfo d{1, 0, 0};
+  if (cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || d.sms < 1) {
+    d.sms = 1;
+  }
+  if (cudaDeviceGetAttribute(&d.smem,
+                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                             dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&d.reserved,
+                             cudaDevAttrReservedSharedMemoryPerBlock,
+                             dev) != cudaSuccess) {
+    d.smem = d.reserved = 0;
+  }
+  return d;
+}
+
+static DevInfo dev_info() {
+  constexpr int kDevices = 64;
+  static DevInfo cache[kDevices];
+  static std::once_flag once[kDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) dev = 0;
+  if (dev < 0 || dev >= kDevices) return read_dev_info(dev);
+  std::call_once(once[dev], [dev] { cache[dev] = read_dev_info(dev); });
+  return cache[dev];
+}
+
+static long long sm_count() { return dev_info().sms; }
+
+static long long tiles_of(long long n) {
+  return (n + TILE_ROWS - 1) / TILE_ROWS;
+}
+
+// blocks of smem bytes that fit an SM, at most limit
+static long long per_sm(size_t smem, int limit = BLOCKS_PER_SM) {
+  const DevInfo d = dev_info();
+  const long long fit = (long long)d.smem / ((long long)smem + d.reserved);
+  return fit < 1 ? 1 : fit < limit ? fit : limit;
+}
+
+// shared memory of a flat scan block: the scores kernel (k2 == 0) or the
+// fused top-k's, for a launch of nqp query slots
+template <int NQ>
+static size_t flat_smem_nq(int k2) {
+  if (k2 == 0) return Smem<NQ>::scan_bytes;
+  if (k2 <= KSMALL) {
+    typedef Topk<false> T;
+    return Smem<NQ, T::template stages<NQ>(), T::BUFN>::topk_bytes;
+  }
+  typedef Topk<true> T;
+  return Smem<NQ, T::template stages<NQ>(), T::BUFN>::topk_bytes;
+}
+
+static size_t flat_smem(int nqp, int k2) {
+  switch (nqp) {
+    case 1: return flat_smem_nq<1>(k2);
+    case 2: return flat_smem_nq<2>(k2);
+    case 4: return flat_smem_nq<4>(k2);
+    case 8: return flat_smem_nq<8>(k2);
+  }
+  return flat_smem_nq<16>(k2);
+}
+
+// the persistent flat grid of a scan of up to nq queries a launch (sized
+// for the widest launch, so every launch of a search has the same grid);
+// k2 == 0 for the scores kernel
+static long long flat_grid(long long n, int nq, int k2) {
+  const int nqp = pow2_at_least(nq < MAX_SLOTS ? nq : MAX_SLOTS);
+  const int limit =
+      k2 > 0 && k2 <= KSMALL ? SMALL_BLOCKS_PER_SM : BLOCKS_PER_SM;
+  const long long g = per_sm(flat_smem(nqp, k2), limit) * sm_count();
+  const long long t = tiles_of(n);
+  return t < g ? t : g;
+}
+
+// candidate keys a fused block holds per query
+static int topk_bufn(int k2) {
+  return k2 <= KSMALL ? Topk<false>::BUFN : Topk<true>::BUFN;
+}
+
+static size_t ivf_topk_smem(int k2) {
+  return k2 <= KSMALL ? Smem<1, Topk<false>::stages<1>(),
+                             Topk<false>::BUFN>::topk_bytes
+                      : Smem<1, Topk<true>::stages<1>(),
+                             Topk<true>::BUFN>::topk_bytes;
+}
+
+// blocks per query of the IVF page kernels: the card's persistent blocks
+// over the queries, at most a block per tile, and at most MERGE_MAX keys
+// for the last block to merge
+static int ivf_blocks(int nq, long long S, int k2) {
+  long long b = (per_sm(ivf_topk_smem(k2)) * sm_count() + nq - 1) / nq;
+  if (b > tiles_of(S)) b = tiles_of(S);
+  if (b > MERGE_MAX / k2) b = MERGE_MAX / k2;
+  return b < 1 ? 1 : (int)b;
+}
+
+// Allows a kernel instance its dynamic shared memory, once.
+template <typename Kernel>
+static cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// What a flat scan launch writes: the fused top-k's keys (cand, and the
+// queries' shared thresholds gthr) or the scores (out).
+struct FlatOut {
+  unsigned long long* cand;
+  unsigned long long* gthr;
+  float* out;
+  long long out_stride;
+};
 
 template <int NQ, bool VEC>
-static cudaError_t score_ch(int ch, const float* M, long long n, int dim,
-                            const float* row_sq, const float* Q, int nq,
-                            int mode, float* out, long long out_stride,
-                            cudaStream_t s) {
-#define CASE_CH(C)                                                        \
-  case C:                                                                 \
-    if (NQ * C <= MAX_SLOTS)                                              \
-      return score_one<NQ, (NQ * C <= MAX_SLOTS ? C : 1), VEC>(           \
-          M, n, dim, row_sq, Q, nq, mode, out, out_stride, s);            \
-    break;
-  switch (ch) {
-    CASE_CH(1)
-    CASE_CH(2)
-    CASE_CH(4)
-    CASE_CH(8)
-    CASE_CH(16)
+static cudaError_t flat_launch(long long grid, const float* M, long long n,
+                               int dim, const float* row_sq, const float* Q,
+                               int nq, int mode, int k, int k2,
+                               const FlatOut& o, cudaStream_t s) {
+  const size_t smem = flat_smem_nq<NQ>(k2);
+  if (k2 == 0) {
+    static const cudaError_t attr = allow_smem(vec_flat_scores<NQ, VEC>, smem);
+    if (attr != cudaSuccess) return attr;
+    vec_flat_scores<NQ, VEC><<<(unsigned)grid, TILE_THREADS, smem, s>>>(
+        M, n, dim, row_sq, Q, nq, mode, o.out, o.out_stride);
+  } else if (k2 <= KSMALL) {
+    static const cudaError_t attr =
+        allow_smem(vec_flat_topk<NQ, VEC, false>, smem);
+    if (attr != cudaSuccess) return attr;
+    vec_flat_topk<NQ, VEC, false><<<(unsigned)grid, TILE_THREADS, smem, s>>>(
+        M, n, dim, row_sq, Q, nq, mode, k, k2, o.gthr, o.cand);
+  } else {
+    static const cudaError_t attr =
+        allow_smem(vec_flat_topk<NQ, VEC, true>, smem);
+    if (attr != cudaSuccess) return attr;
+    vec_flat_topk<NQ, VEC, true><<<(unsigned)grid, TILE_THREADS, smem, s>>>(
+        M, n, dim, row_sq, Q, nq, mode, k, k2, o.gthr, o.cand);
   }
-#undef CASE_CH
-  return cudaErrorInvalidValue;
-}
-
-template <bool VEC>
-static cudaError_t score_nq(int nq_pow2, int ch, const float* M, long long n,
-                            int dim, const float* row_sq, const float* Q,
-                            int nq, int mode, float* out, long long out_stride,
-                            cudaStream_t s) {
-  switch (nq_pow2) {
-    case 1: return score_ch<1, VEC>(ch, M, n, dim, row_sq, Q, nq, mode, out, out_stride, s);
-    case 2: return score_ch<2, VEC>(ch, M, n, dim, row_sq, Q, nq, mode, out, out_stride, s);
-    case 4: return score_ch<4, VEC>(ch, M, n, dim, row_sq, Q, nq, mode, out, out_stride, s);
-    case 8: return score_ch<8, VEC>(ch, M, n, dim, row_sq, Q, nq, mode, out, out_stride, s);
-    case 16: return score_ch<16, VEC>(ch, M, n, dim, row_sq, Q, nq, mode, out, out_stride, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <int CH, bool VEC>
-static cudaError_t pages_one(const float* paged, const float* paged_sq,
-                             const int* pages, const int* pageptr,
-                             const int* lists, int nq, int nprobe,
-                             int max_pages, int n_pages, int P, int dim,
-                             int n_docs, const float* Q, int mode, float* out,
-                             int* page_idx, cudaStream_t s) {
-  dim3 grid((unsigned)max_pages, (unsigned)nq);
-  vec_pages<CH, VEC><<<grid, THREADS, 0, s>>>(
-      paged, paged_sq, pages, pageptr, lists, nprobe, max_pages, n_pages, P,
-      dim, n_docs, Q, mode, out, page_idx);
   return cudaGetLastError();
 }
 
 template <bool VEC>
-static cudaError_t pages_ch(int ch, const float* paged, const float* paged_sq,
-                            const int* pages, const int* pageptr,
-                            const int* lists, int nq, int nprobe,
-                            int max_pages, int n_pages, int P, int dim,
-                            int n_docs, const float* Q, int mode, float* out,
-                            int* page_idx, cudaStream_t s) {
-#define CASE_CH(C)                                                          \
-  case C:                                                                   \
-    return pages_one<C, VEC>(paged, paged_sq, pages, pageptr, lists, nq,    \
-                             nprobe, max_pages, n_pages, P, dim, n_docs, Q, \
-                             mode, out, page_idx, s);
-  switch (ch) {
-    CASE_CH(1)
-    CASE_CH(2)
-    CASE_CH(4)
-    CASE_CH(8)
-    CASE_CH(16)
+static cudaError_t flat_nq(int nqp, long long grid, const float* M,
+                           long long n, int dim, const float* row_sq,
+                           const float* Q, int nq, int mode, int k, int k2,
+                           const FlatOut& o, cudaStream_t s) {
+#define CASE_NQ(N)                                                       \
+  case N:                                                                \
+    return flat_launch<N, VEC>(grid, M, n, dim, row_sq, Q, nq, mode, k, k2, \
+                               o, s);
+  switch (nqp) {
+    CASE_NQ(1)
+    CASE_NQ(2)
+    CASE_NQ(4)
+    CASE_NQ(8)
+    CASE_NQ(16)
   }
-#undef CASE_CH
+#undef CASE_NQ
   return cudaErrorInvalidValue;
 }
+
+// The flat scan of the n rows of M for nq queries, MAX_SLOTS a launch
+// (every row read once a launch): with k2 > 0 the fused top-k (the keys of
+// query q at o.cand + q * flat_grid(n, nq, k2) * topk_bufn(k2), its shared
+// threshold and count at o.gthr + 2 q, zeroed before), else the scores
+// (o.out).
+static cudaError_t flat_run(const float* M, long long n, int dim,
+                            const float* row_sq, const float* Q, int nq,
+                            int mode, int k, int k2, const FlatOut& o,
+                            cudaStream_t s) {
+  const bool vec = vec_route(dim, M, Q);
+  const long long grid = flat_grid(n, nq, k2);
+  for (int q0 = 0; q0 < nq; q0 += MAX_SLOTS) {
+    const int g = nq - q0 < MAX_SLOTS ? nq - q0 : MAX_SLOTS;
+    const int gp = pow2_at_least(g);
+    const float* Qg = Q + (long long)q0 * dim;
+    const FlatOut og =
+        k2 ? FlatOut{o.cand + q0 * grid * topk_bufn(k2), o.gthr + 2 * q0,
+                     nullptr, 0}
+           : FlatOut{nullptr, nullptr, o.out + q0 * o.out_stride,
+                     o.out_stride};
+    const cudaError_t err =
+        vec ? flat_nq<true>(gp, grid, M, n, dim, row_sq, Qg, g, mode, k, k2,
+                            og, s)
+            : flat_nq<false>(gp, grid, M, n, dim, row_sq, Qg, g, mode, k, k2,
+                             og, s);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 
 static long long align256(long long x) { return (x + 255) & ~255LL; }
 
@@ -865,7 +1644,7 @@ static cudaError_t select_run(const float* scores, int nq, long long S,
   cudaError_t err;
   if (select_in_one_block(S, k2)) {
     vec_select_block<false><<<(unsigned)nq, BLOCK_THREADS, 0, s>>>(
-        scores, S, k, k2, vals, idx, pages, page_idx, P, max_pages);
+        scores, S, nullptr, k, k2, vals, idx, pages, page_idx, P, max_pages);
     return cudaGetLastError();
   }
   if (select_in_two_phases(S, k2)) {
@@ -875,7 +1654,8 @@ static cudaError_t select_run(const float* scores, int nq, long long S,
                       s>>>(scores, S, k, k2, cand);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     vec_select_block<true><<<(unsigned)nq, BLOCK_THREADS, 0, s>>>(
-        cand, chunks * k2, k, k2, vals, idx, pages, page_idx, P, max_pages);
+        cand, chunks * k2, nullptr, k, k2, vals, idx, pages, page_idx, P,
+        max_pages);
     return cudaGetLastError();
   }
   unsigned long long* cand = static_cast<unsigned long long*>(scratch);
@@ -914,62 +1694,120 @@ static cudaError_t select_run(const float* scores, int nq, long long S,
   return cudaGetLastError();
 }
 
+// scratch of the fused flat route: the queries' shared thresholds (16
+// bytes each), then the blocks' keys (nq, grid, k2)
+static long long flat_gthr_bytes(int nq) { return align256((long long)nq * 16); }
+
+static long long flat_cand_bytes(int nq, long long n, int k2) {
+  return flat_gthr_bytes(nq) +
+         align256((long long)nq * flat_grid(n, nq, k2) * topk_bufn(k2) * 8);
+}
+
 static cudaError_t score_run(const float* M, long long n, int dim,
                              const float* row_sq, const float* Q, int nq,
                              int mode, float* out, long long out_stride,
                              cudaStream_t s) {
-  const bool vec = dim % 4 == 0;
-  const int ch = dim > 0 ? lane_units(dim, vec) : 0;
-  if (n < 0 || nq < 1 || ch == 0 || mode < 0 || mode > 2 ||
+  if (n < 0 || nq < 1 || !dim_ok(dim) || mode < 0 || mode > 2 ||
       out_stride < n) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
-  const int group = MAX_SLOTS / ch;
-  for (int q0 = 0; q0 < nq; q0 += group) {
-    const int g = nq - q0 < group ? nq - q0 : group;
-    const int gp = pow2_at_least(g);
-    const cudaError_t err =
-        vec ? score_nq<true>(gp, ch, M, n, dim, row_sq, Q + (long long)q0 * dim,
-                             g, mode, out + q0 * out_stride, out_stride, s)
-            : score_nq<false>(gp, ch, M, n, dim, row_sq,
-                              Q + (long long)q0 * dim, g, mode,
-                              out + q0 * out_stride, out_stride, s);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  return flat_run(M, n, dim, row_sq, Q, nq, mode, 0, 0,
+                  FlatOut{nullptr, nullptr, out, out_stride}, s);
 }
 
-static cudaError_t pages_run(const float* paged, const float* paged_sq,
-                             const int* pages, const int* pageptr,
-                             const int* lists, int nq, int nprobe,
-                             int max_pages, int n_pages, int P, int dim,
-                             int n_docs, const float* Q, int mode, float* out,
-                             int* page_idx, cudaStream_t s) {
-  const bool vec = dim % 4 == 0;
-  const int ch = dim > 0 ? lane_units(dim, vec) : 0;
-  if (nq < 1 || nq > 65535 || nprobe < 1 || max_pages < 1 || P < 1 ||
-      ch == 0 || mode < 0 || mode > 2) {
-    return cudaErrorInvalidValue;
-  }
-  return vec ? pages_ch<true>(ch, paged, paged_sq, pages, pageptr, lists, nq,
-                              nprobe, max_pages, n_pages, P, dim, n_docs, Q,
-                              mode, out, page_idx, s)
-             : pages_ch<false>(ch, paged, paged_sq, pages, pageptr, lists, nq,
-                               nprobe, max_pages, n_pages, P, dim, n_docs, Q,
-                               mode, out, page_idx, s);
+static bool ivf_args_ok(int nq, int nprobe, int max_pages, int P, int dim,
+                        int mode) {
+  return nq >= 1 && nq <= 65535 && nprobe >= 1 && max_pages >= 1 && P >= 1 &&
+         dim_ok(dim) && mode >= 0 && mode <= 2;
+}
+
+template <bool VEC>
+static cudaError_t ivf_scores_launch(const float* paged, const float* paged_sq,
+                                     const int* pages, const int* page_idx,
+                                     int nq, int max_pages, int n_pages, int P,
+                                     int dim, int n_docs, const float* Q,
+                                     int mode, float* out, cudaStream_t s) {
+  static const cudaError_t attr =
+      allow_smem(vec_ivf_scores<VEC>, Smem<1>::scan_bytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(ivf_blocks(nq, (long long)max_pages * P, 1), nq);
+  vec_ivf_scores<VEC><<<grid, TILE_THREADS, Smem<1>::scan_bytes, s>>>(
+      paged, paged_sq, pages, page_idx, max_pages, n_pages, P, dim, n_docs, Q,
+      mode, out);
+  return cudaGetLastError();
+}
+
+static cudaError_t ivf_scores_run(const float* paged, const float* paged_sq,
+                                  const int* pages, const int* page_idx,
+                                  int nq, int max_pages, int n_pages, int P,
+                                  int dim, int n_docs, const float* Q,
+                                  int mode, float* out, cudaStream_t s) {
+  return vec_route(dim, paged, Q)
+             ? ivf_scores_launch<true>(paged, paged_sq, pages, page_idx, nq,
+                                       max_pages, n_pages, P, dim, n_docs, Q,
+                                       mode, out, s)
+             : ivf_scores_launch<false>(paged, paged_sq, pages, page_idx, nq,
+                                        max_pages, n_pages, P, dim, n_docs, Q,
+                                        mode, out, s);
+}
+
+// The IVF scratch: what vec_probe writes for vec_ivf_topk (or the scores
+// route) to read.
+struct IvfScratch {
+  float* cscores;             // (nq, n_lists) past PROBE_LISTS lists
+  unsigned long long* sel;    // (nq, nprobe) keys of the chosen lists
+  int* lists;                 // (nq, nprobe) in rank order
+  int* page_idx;              // (nq, max_pages)
+  unsigned* tickets;          // (nq)
+  unsigned long long* gthr;   // (nq, 2) shared thresholds
+  char* tail;                 // the blocks' keys, or the scores route's
+};
+
+template <bool VEC>
+static cudaError_t probe_launch(const float* cents, const float* cent_sq,
+                                int n_lists, int dim, const float* Q, int nq,
+                                int mode, int nprobe, const int* pageptr,
+                                int max_pages, int n_pages,
+                                const IvfScratch& w, cudaStream_t s) {
+  constexpr size_t smem =
+      Smem<1, PROBE_STAGES>::scan_bytes + PROBE_LISTS * 4;
+  static const cudaError_t attr = allow_smem(vec_probe<VEC>, smem);
+  if (attr != cudaSuccess) return attr;
+  vec_probe<VEC><<<(unsigned)nq, TILE_THREADS, smem, s>>>(
+      cents, cent_sq, n_lists, dim, Q, mode, nprobe, pageptr, max_pages,
+      n_pages, w.cscores, w.sel, w.lists, w.page_idx, w.tickets, w.gthr);
+  return cudaGetLastError();
+}
+
+template <bool VEC, bool BIG>
+static cudaError_t ivf_topk_launch(const float* paged, const float* paged_sq,
+                                   const int* pages, int nq, int max_pages,
+                                   int n_pages, int P, int dim, int n_docs,
+                                   const float* Q, int mode, int k, int k2,
+                                   const IvfScratch& w, float* vals, int* idx,
+                                   cudaStream_t s) {
+  const size_t smem = ivf_topk_smem(k2);
+  static const cudaError_t attr = allow_smem(vec_ivf_topk<VEC, BIG>, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(ivf_blocks(nq, (long long)max_pages * P, k2), nq);
+  vec_ivf_topk<VEC, BIG><<<grid, TILE_THREADS, smem, s>>>(
+      paged, paged_sq, pages, w.page_idx, max_pages, n_pages, P, dim, n_docs,
+      Q, mode, k, k2, w.gthr, reinterpret_cast<unsigned long long*>(w.tail),
+      w.tickets, vals, idx);
+  return cudaGetLastError();
 }
 
 extern "C" {
 
 // Largest dim the kernels take: vec = 1 for dim a multiple of 4 (16-byte
-// loads), 0 otherwise.
-int pinot_vec_max_dim(int vec) { return vec ? 4 * 32 * MAX_CH : 32 * MAX_CH; }
+// copies), 0 otherwise.
+int pinot_vec_max_dim(int vec) { return max_dim(vec != 0); }
 
 // The stages, for tests and the chip check. out (nq, n), row stride
 // out_stride: the scores of the n rows of M (n, dim) against the queries
 // Q (nq, dim); mode 0: dot, 1: 2 m.q - row_sq - |q|^2, 2: 2 m.q - row_sq.
-// Queries go MAX_SLOTS / (units per lane) at a time.
+// Queries go MAX_SLOTS at a time; the bits are the fused scan's.
 int pinot_vec_score(const float* M, long long n, int dim, const float* row_sq,
                     const float* Q, int nq, int mode, float* out,
                     long long out_stride, void* stream) {
@@ -985,9 +1823,17 @@ int pinot_vec_pages(const float* paged, const float* paged_sq,
                     int nq, int nprobe, int max_pages, int n_pages, int P,
                     int dim, int n_docs, const float* Q, int mode, float* out,
                     int* page_idx, void* stream) {
-  return (int)pages_run(paged, paged_sq, pages, pageptr, lists, nq, nprobe,
-                        max_pages, n_pages, P, dim, n_docs, Q, mode, out,
-                        page_idx, static_cast<cudaStream_t>(stream));
+  if (!ivf_args_ok(nq, nprobe, max_pages, P, dim, mode)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  vec_expand<<<(unsigned)nq, TILE_THREADS, 0, s>>>(lists, nprobe, pageptr,
+                                                   max_pages, n_pages,
+                                                   page_idx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)ivf_scores_run(paged, paged_sq, pages, page_idx, nq, max_pages,
+                             n_pages, P, dim, n_docs, Q, mode, out, s);
 }
 
 long long pinot_vec_select_scratch(int nq, long long S, int k2) {
@@ -1011,18 +1857,36 @@ int pinot_vec_select(const float* scores, int nq, long long S, int k, int k2,
                          static_cast<cudaStream_t>(stream));
 }
 
-// The flat scan in one call: scores of the first n rows, then their top k.
+// The flat scan in one call: for k2 <= KCAP the shared thresholds zeroed,
+// the fused scan and the merge of the blocks' keys, else the scores of the
+// first n rows and their top k.
 long long pinot_vec_flat_scratch(int nq, long long n, int k2) {
+  if (k2 <= KCAP) return flat_cand_bytes(nq, n, k2);
   return align256((long long)nq * n * 4) + select_scratch(nq, n, k2);
 }
 
 int pinot_vec_flat(const float* M, long long n, int dim, const float* row_sq,
                    const float* Q, int nq, int mode, int k, int k2,
                    void* scratch, float* vals, int* idx, void* stream) {
-  if (!select_args_ok(nq, n, k, k2, nullptr, 0, 0)) {
+  if (!select_args_ok(nq, n, k, k2, nullptr, 0, 0) || !dim_ok(dim) ||
+      mode < 0 || mode > 2) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k2 <= KCAP) {
+    unsigned long long* gthr = static_cast<unsigned long long*>(scratch);
+    unsigned long long* cand = reinterpret_cast<unsigned long long*>(
+        static_cast<char*>(scratch) + flat_gthr_bytes(nq));
+    cudaError_t err = cudaMemsetAsync(gthr, 0, (size_t)nq * 16, s);
+    if (err == cudaSuccess)
+      err = flat_run(M, n, dim, row_sq, Q, nq, mode, k, k2,
+                     FlatOut{cand, gthr, nullptr, 0}, s);
+    if (err != cudaSuccess) return (int)err;
+    vec_select_block<true><<<(unsigned)nq, BLOCK_THREADS, 0, s>>>(
+        cand, flat_grid(n, nq, k2) * topk_bufn(k2), gthr + 1, k, k2, vals,
+        idx, nullptr, nullptr, 0, 0);
+    return (int)cudaGetLastError();
+  }
   float* scores = static_cast<float*>(scratch);
   cudaError_t err = score_run(M, n, dim, row_sq, Q, nq, mode, scores, n, s);
   if (err != cudaSuccess) return (int)err;
@@ -1032,33 +1896,44 @@ int pinot_vec_flat(const float* M, long long n, int dim, const float* row_sq,
                          vals, idx, nullptr, nullptr, 0, 0, s);
 }
 
-// The IVF probe in one call: centroid scores (mode_cent), their top
-// nprobe, the page scores (mode), their top k mapped to documents.
+// The IVF probe in one call: vec_probe (centroid scores in mode_cent, the
+// top nprobe lists, the page slots), then for k2 <= KCAP vec_ivf_topk (the
+// pages' scores in mode, their top k mapped to documents), else the pages'
+// scores and the select.
 static long long ivf_layout(int nq, int n_lists, int nprobe, int max_pages,
-                            int P, int k2, long long* off) {
+                            int P, int k2, char* base, IvfScratch* w) {
   const long long S = (long long)max_pages * P;
-  const long long sizes[6] = {
-      align256((long long)nq * n_lists * 4),       // centroid scores
-      align256((long long)nq * nprobe * 4),        // their top values
-      align256((long long)nq * nprobe * 4),        // the lists
-      align256((long long)nq * S * 4),             // page scores
-      align256((long long)nq * max_pages * 4),     // page_idx
-      0};
-  const long long sel = select_scratch(nq, n_lists, pow2_at_least(nprobe));
-  const long long sel2 = select_scratch(nq, S, k2);
-  long long total = 0;
-  for (int i = 0; i < 5; ++i) {
+  const long long sizes[7] = {
+      n_lists > PROBE_LISTS ? align256((long long)nq * n_lists * 4) : 0,
+      align256((long long)nq * nprobe * 8),
+      align256((long long)nq * nprobe * 4),
+      align256((long long)nq * max_pages * 4),
+      align256((long long)nq * 4),
+      align256((long long)nq * 16),
+      k2 <= KCAP ? align256((long long)nq * ivf_blocks(nq, S, k2) *
+                            topk_bufn(k2) * 8)
+                 : align256((long long)nq * S * 4) +
+                       select_scratch(nq, S, k2)};
+  long long off[7], total = 0;
+  for (int i = 0; i < 7; ++i) {
     off[i] = total;
     total += sizes[i];
   }
-  off[5] = total;
-  return total + (sel > sel2 ? sel : sel2);
+  if (w != nullptr) {
+    w->cscores = reinterpret_cast<float*>(base + off[0]);
+    w->sel = reinterpret_cast<unsigned long long*>(base + off[1]);
+    w->lists = reinterpret_cast<int*>(base + off[2]);
+    w->page_idx = reinterpret_cast<int*>(base + off[3]);
+    w->tickets = reinterpret_cast<unsigned*>(base + off[4]);
+    w->gthr = reinterpret_cast<unsigned long long*>(base + off[5]);
+    w->tail = base + off[6];
+  }
+  return total;
 }
 
 long long pinot_vec_ivf_scratch(int nq, int n_lists, int nprobe,
                                 int max_pages, int P, int k2) {
-  long long off[6];
-  return ivf_layout(nq, n_lists, nprobe, max_pages, P, k2, off);
+  return ivf_layout(nq, n_lists, nprobe, max_pages, P, k2, nullptr, nullptr);
 }
 
 int pinot_vec_ivf(const float* paged, const float* paged_sq,
@@ -1068,33 +1943,43 @@ int pinot_vec_ivf(const float* paged, const float* paged_sq,
                   int n_docs, int mode_cent, int mode, int k, int k2,
                   void* scratch, float* vals, int* idx, void* stream) {
   const long long S = (long long)max_pages * P;
-  if (nprobe < 1 || nprobe > n_lists ||
+  if (nprobe > n_lists || mode_cent < 0 || mode_cent > 2 ||
+      !ivf_args_ok(nq, nprobe, max_pages, P, dim, mode) ||
       !select_args_ok(nq, S, k, k2, pages, P, max_pages)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  long long off[6];
-  ivf_layout(nq, n_lists, nprobe, max_pages, P, k2, off);
-  char* base = static_cast<char*>(scratch);
-  float* cscores = reinterpret_cast<float*>(base + off[0]);
-  float* cvals = reinterpret_cast<float*>(base + off[1]);
-  int* lists = reinterpret_cast<int*>(base + off[2]);
-  float* sims = reinterpret_cast<float*>(base + off[3]);
-  int* page_idx = reinterpret_cast<int*>(base + off[4]);
-  void* sel = base + off[5];
-  cudaError_t err = score_run(cents, n_lists, dim, cent_sq, Q, nq, mode_cent,
-                              cscores, n_lists, s);
-  if (err == cudaSuccess)
-    err = select_run(cscores, nq, n_lists, nprobe, pow2_at_least(nprobe), sel,
-                     cvals, lists, nullptr, nullptr, 0, 0, s);
-  if (err == cudaSuccess)
-    err = pages_run(paged, paged_sq, pages, pageptr, lists, nq, nprobe,
-                    max_pages, n_pages, P, dim, n_docs, Q, mode, sims,
-                    page_idx, s);
-  if (err == cudaSuccess)
-    err = select_run(sims, nq, S, k, k2, sel, vals, idx, pages, page_idx, P,
-                     max_pages, s);
-  return (int)err;
+  IvfScratch w;
+  ivf_layout(nq, n_lists, nprobe, max_pages, P, k2,
+             static_cast<char*>(scratch), &w);
+  cudaError_t err =
+      vec_route(dim, cents, Q)
+          ? probe_launch<true>(cents, cent_sq, n_lists, dim, Q, nq, mode_cent,
+                               nprobe, pageptr, max_pages, n_pages, w, s)
+          : probe_launch<false>(cents, cent_sq, n_lists, dim, Q, nq,
+                                mode_cent, nprobe, pageptr, max_pages,
+                                n_pages, w, s);
+  if (err != cudaSuccess) return (int)err;
+  if (k2 <= KCAP) {
+    const bool vec = vec_route(dim, paged, Q);
+#define IVF_TOPK(V, B)                                                     \
+  ivf_topk_launch<V, B>(paged, paged_sq, pages, nq, max_pages, n_pages, P, \
+                        dim, n_docs, Q, mode, k, k2, w, vals, idx, s)
+    if (k2 <= KSMALL) {
+      err = vec ? IVF_TOPK(true, false) : IVF_TOPK(false, false);
+    } else {
+      err = vec ? IVF_TOPK(true, true) : IVF_TOPK(false, true);
+    }
+#undef IVF_TOPK
+    return (int)err;
+  }
+  float* sims = reinterpret_cast<float*>(w.tail);
+  err = ivf_scores_run(paged, paged_sq, pages, w.page_idx, nq, max_pages,
+                       n_pages, P, dim, n_docs, Q, mode, sims, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)select_run(sims, nq, S, k, k2,
+                         w.tail + align256((long long)nq * S * 4), vals, idx,
+                         pages, w.page_idx, P, max_pages, s);
 }
 
 }  // extern "C"

@@ -29,12 +29,15 @@ The kernels are held against them on the card: scores to float32 rounding
 (the sums run in another order), ids exactly where the scores are apart.
 ``score`` and ``select`` expose the kernels' two stages, with
 ``score_reference`` and ``select_reference`` beside them; the selection is
-bitwise equal to its plain version on the same scores. No single PyTorch
+bitwise equal to its plain version on the same scores. For ``k_pad`` up to
+128 a search fuses them (the scan keeps each block's top keys on chip), and
+``select(score(...))`` returns its results bitwise. No single PyTorch
 call computes either function (``torch.topk(torch.matmul(...))`` is the
 two-call yardstick the chip check times, used nowhere here).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Optional, Tuple
@@ -181,9 +184,9 @@ def flat_search(qs: torch.Tensor, matrix: torch.Tensor,
     nq, dim = qs.shape
     _check_dim(dim)
     k2 = _pow2(k_pad)
-    scratch = _empty(kb["flat_scratch"](nq, n, k2), qs.device)
     vals, idx = _outputs(nq, k_pad, qs.device)
-    with torch.cuda.device(qs.device):
+    with _on(qs.device):                   # the grid is the card's
+        scratch = _empty(kb["flat_scratch"](nq, n, k2), qs.device)
         rc = kb["flat"](matrix.data_ptr(), n, dim, row_sq.data_ptr(),
                         qs.data_ptr(), nq, _mode(metric), k_pad, k2,
                         scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(),
@@ -228,10 +231,10 @@ def ivf_search(qs: torch.Tensor, paged: torch.Tensor, paged_sq: torch.Tensor,
     nq, dim = qs.shape
     _check_dim(dim)
     n_lists, k2 = cents.shape[0], _pow2(k_pad)
-    scratch = _empty(kb["ivf_scratch"](nq, n_lists, nprobe, max_pages, page,
-                                       k2), dev)
     vals, idx = _outputs(nq, k_pad, dev)
-    with torch.cuda.device(dev):
+    with _on(dev):
+        scratch = _empty(kb["ivf_scratch"](nq, n_lists, nprobe, max_pages,
+                                           page, k2), dev)
         rc = kb["ivf"](paged.data_ptr(), paged_sq.data_ptr(),
                        pages.data_ptr(), pageptr.data_ptr(),
                        cents.data_ptr(), cent_sq.data_ptr(), qs.data_ptr(),
@@ -264,8 +267,17 @@ def _empty(nbytes: int, dev: torch.device) -> torch.Tensor:
 
 
 def _outputs(nq: int, k: int, dev: torch.device):
-    return (torch.empty((nq, k), dtype=torch.float32, device=dev),
-            torch.empty((nq, k), dtype=torch.int32, device=dev))
+    """(vals (nq, k) float32, idx (nq, k) int32), one allocation."""
+    both = torch.empty((2, nq, k), dtype=torch.int32, device=dev)
+    return both[0].view(torch.float32), both[1]
+
+
+def _on(dev: torch.device):
+    """The launch's device scope: nothing to switch when dev is current
+    (a search's common case, and the switch costs the host microseconds)."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _check_dim(dim: int) -> None:
@@ -278,8 +290,8 @@ def _check_dim(dim: int) -> None:
 def score(matrix: torch.Tensor, n: int, sq: torch.Tensor, qs: torch.Tensor,
           mode: int) -> torch.Tensor:
     """(nq, n) float32 scores of the first ``n`` rows of ``matrix`` (CUDA
-    kernel ``vec_score``); ``sq`` holds the rows' squared norms (read
-    for the l2 modes)."""
+    kernel ``vec_flat_scores``: the fused scan's bits); ``sq`` holds the
+    rows' squared norms (read for the l2 modes)."""
     if qs.device.type == "cpu":
         return torch.stack([score_reference(matrix[:n], sq[:n], q, mode)
                             for q in qs])
@@ -300,7 +312,8 @@ def score_pages(qs: torch.Tensor, paged: torch.Tensor,
                 pageptr: torch.Tensor, lists: torch.Tensor, max_pages: int,
                 n_docs: int, mode: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scores (nq, max_pages * page), page_idx (nq, max_pages)) of the IVF
-    probe of ``lists`` (nq, nprobe) (CUDA kernel ``vec_pages``)."""
+    probe of ``lists`` (nq, nprobe) (CUDA kernels ``vec_expand`` and
+    ``vec_ivf_scores``)."""
     if qs.device.type == "cpu":
         out, pidx = [], []
         for q, lst in zip(qs, lists):

@@ -981,3 +981,214 @@ def test_vecsearch_ivf_equals_plain_version(cuda, metric, dim, k):
             assert np.array_equal(ss.view(np.int32), gs[i:i + 1].view(np.int32))
             assert np.array_equal(sd, gd[i:i + 1])
     got_r.evict_device()
+
+
+# the fused top-k's cap on k_pad (vecsearch.cu KCAP): 127 and 128 take the
+# fused route, 129 the scores route
+ROUTE_KS = (127, 128, 129)
+
+
+def _bits_equal(a, b):
+    return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) \
+        and torch.equal(a[1], b[1])
+
+
+def _ivf_reader(m, metric, dev, n_lists=16):
+    from pinot_tpu_torch.index.vector import VectorIndexReader
+    return VectorIndexReader.from_matrix(m, metric, device=dev) \
+        .build_ivf(n_lists=n_lists, seed=7)
+
+
+def _ivf_call(r, qs, k_pad, nprobe):
+    """The arguments of ivf_search as the reader passes them."""
+    dev = r.ensure_device()
+    return (qs, dev["paged"], dev["paged_sq"], dev["centroids"],
+            dev["cent_sq"], dev["pages"], dev["pageptr"], r.metric, k_pad,
+            nprobe, r.max_pages_for(nprobe), len(r.matrix))
+
+
+def _ivf_by_stages(args):
+    """The IVF search through its stage kernels: centroid scores, their
+    top nprobe, the pages' scores, their top k mapped to documents."""
+    from pinot_tpu_torch.ops import vecsearch as V
+    (qs, paged, paged_sq, cents, cent_sq, pages, pageptr, metric, k_pad,
+     nprobe, max_pages, n) = args
+    cs = V.score(cents, cents.shape[0], cent_sq, qs, V._mode(metric, False))
+    lists = V.select(cs, nprobe)[1]
+    sims, pidx = V.score_pages(qs, paged, paged_sq, pages, pageptr, lists,
+                               max_pages, n, V._mode(metric))
+    return V.select(sims, k_pad, pages=pages, page_idx=pidx)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_vecsearch_fused_route_equals_scores_route(cuda, metric):
+    """k_pad just below, at and above the fused top-k's cap, at n not a
+    multiple of the 128-row tile: the flat search equals the select of the
+    score kernel's output bitwise, and the fused routes' results are the
+    prefixes of the scores route's (the keys are unique)."""
+    import numpy as np
+    from pinot_tpu_torch.ops import vecsearch as V
+    n, dim = 128 * 37 + 45, 128
+    m = _vec_data(n, dim, 31)
+    r, dev = _upload_flat(m, metric, cuda)
+    qn = np.stack([r._query_vec(q) for q in _vs_queries(m, 16, 5)])
+    qs = torch.from_numpy(qn).to(cuda)
+    s = V.score(dev["matrix"], n, dev["row_sq"], qs, V._mode(metric))
+    got = {}
+    for k in ROUTE_KS:
+        got[k] = V.flat_search(qs, dev["matrix"], dev["row_sq"], metric, k)
+        assert _bits_equal(got[k], V.select(s, k))
+    for k in ROUTE_KS[:2]:
+        assert _bits_equal(got[k], tuple(t[:, :k].contiguous()
+                                         for t in got[ROUTE_KS[2]]))
+    r.evict_device()
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_vecsearch_ivf_fused_route_equals_stages(cuda, metric):
+    """The IVF probe at k_pad just below, at and above the fused top-k's
+    cap equals its stage kernels bitwise (the fused routes merge each
+    block's keys in the last block; the scores route selects among all)."""
+    import numpy as np
+    m = _vec_data(6000, 100, 41)
+    r = _ivf_reader(m, metric, cuda)
+    qn = np.stack([r._query_vec(q) for q in _vs_queries(m, 16, 6)])
+    qs = torch.from_numpy(qn).to(cuda)
+    from pinot_tpu_torch.ops import vecsearch as V
+    got = {}
+    for k in ROUTE_KS:
+        args = _ivf_call(r, qs, k, 4)
+        got[k] = V.ivf_search(*args)
+        assert _bits_equal(got[k], _ivf_by_stages(args))
+    for k in ROUTE_KS[:2]:
+        assert _bits_equal(got[k], tuple(t[:, :k].contiguous()
+                                         for t in got[ROUTE_KS[2]]))
+    r.evict_device()
+
+
+def _off_boundary(t):
+    """A copy of ``t`` whose data starts 4 bytes past a 16-byte boundary
+    (the kernels then take their 4-byte copies)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("dim", [1, 3, 36, 100, 128, 256])
+def test_vecsearch_copy_routes_score_alike(cuda, dim):
+    """The 16-byte-copy route (dim % 4 == 0 on 16-byte aligned data) and
+    the 4-byte-copy route (the same data one float off the boundary) give
+    the same bits: scores, flat searches on both sides of the fused cap,
+    and the IVF probe."""
+    import numpy as np
+    from pinot_tpu_torch.ops import vecsearch as V
+    n = 3001
+    m = _vec_data(n, dim, dim)
+    r, dev = _upload_flat(m, "l2", cuda)
+    qn = np.stack([r._query_vec(q) for q in _vs_queries(m, 5, dim)])
+    qs = torch.from_numpy(qn).to(cuda)
+    mat, q_off, mat_off = dev["matrix"], _off_boundary(qs), \
+        _off_boundary(dev["matrix"])
+    mode = V._mode("l2")
+    assert torch.equal(V.score(mat, n, dev["row_sq"], qs, mode).view(
+        torch.int32), V.score(mat_off, n, dev["row_sq"], q_off, mode).view(
+        torch.int32))
+    for k in (16, 256):
+        assert _bits_equal(
+            V.flat_search(qs, mat, dev["row_sq"], "l2", k),
+            V.flat_search(q_off, mat_off, dev["row_sq"], "l2", k))
+    r.evict_device()
+    ri = _ivf_reader(m, "l2", cuda)
+    for k in (16, 256):
+        a = _ivf_call(ri, qs, k, 4)
+        assert _bits_equal(V.ivf_search(*a),
+                           V.ivf_search(q_off, *a[1:]))
+    ri.evict_device()
+
+
+@pytest.mark.parametrize("nq", [1, 3, 16, 17])
+def test_vecsearch_batches_equal_solo(cuda, nq):
+    """B in {1, 3, 16, 17} (17 takes two scan launches): every query's
+    row of a batched flat search and IVF probe equals its solo search
+    bitwise, and the flat search equals select(score(...))."""
+    import numpy as np
+    from pinot_tpu_torch.ops import vecsearch as V
+    m = _vec_data(5000, 128, 51)
+    r = _ivf_reader(m, "l2", cuda, n_lists=32)
+    dev = r.ensure_device()
+    qn = np.stack([r._query_vec(q) for q in _vs_queries(m, nq, nq)])
+    qs = torch.from_numpy(qn).to(cuda)
+    n = len(m)
+    flat = V.flat_search(qs, dev["matrix"], dev["row_sq"], "l2", 16)
+    assert _bits_equal(flat, V.select(V.score(dev["matrix"], n,
+                                              dev["row_sq"], qs,
+                                              V._mode("l2")), 16))
+    ivf = V.ivf_search(*_ivf_call(r, qs, 16, 6))
+    for i in range(nq):
+        one = qs[i:i + 1].contiguous()
+        assert _bits_equal(
+            V.flat_search(one, dev["matrix"], dev["row_sq"], "l2", 16),
+            (flat[0][i:i + 1], flat[1][i:i + 1]))
+        assert _bits_equal(V.ivf_search(*_ivf_call(r, one, 16, 6)),
+                           (ivf[0][i:i + 1], ivf[1][i:i + 1]))
+    r.evict_device()
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_vecsearch_document_scores_alike_in_both_plans(cuda, metric):
+    """A document that the IVF probe and the exact scan both return for a
+    query carries the same score bits in both (the same chain over a
+    bitwise copy of its row and norm)."""
+    import numpy as np
+    m = _vec_data(8000, 100 if metric == "cosine" else 128, 61)
+    r = _ivf_reader(m, metric, cuda, n_lists=32)
+    qs = _vs_queries(m, 8, 7)
+    ivf_s, ivf_d = r.search_batch(qs, 64, 24)
+    flat_s, flat_d = r.search_batch(qs, 64, r.n_lists)
+    common = 0
+    for i in range(len(qs)):
+        flat = dict(zip(flat_d[i].tolist(), flat_s[i].view(np.int32)))
+        for d, s in zip(ivf_d[i].tolist(), ivf_s[i].view(np.int32)):
+            if d >= 0 and d in flat:
+                assert flat[d] == s
+                common += 1
+    assert common >= len(qs) * 8
+    r.evict_device()
+
+
+def test_vecsearch_ivf_repeats_bitwise(cuda):
+    """20 IVF searches in a row give the same bits (each probe zeroes the
+    tickets its last blocks merge by)."""
+    import numpy as np
+    from pinot_tpu_torch.ops import vecsearch as V
+    m = _vec_data(6000, 128, 71)
+    r = _ivf_reader(m, "l2", cuda)
+    qs = torch.from_numpy(np.stack([r._query_vec(q) for q in
+                                    _vs_queries(m, 16, 8)])).to(cuda)
+    args = _ivf_call(r, qs, 16, 4)
+    first = V.ivf_search(*args)
+    for _ in range(20):
+        assert _bits_equal(V.ivf_search(*args), first)
+    r.evict_device()
+
+
+def test_vecsearch_ivf_past_the_probe_shared_memory(cuda):
+    """More lists than vec_probe keeps centroid scores for in shared
+    memory (8,192) and more probed lists than it ranks there (4,096): the
+    probe's global-memory paths equal its stage kernels bitwise and the
+    plain version where the scores are apart."""
+    import numpy as np
+    from pinot_tpu_torch.ops import vecsearch as V
+    m = _vec_data(12_000, 8, 81)
+    r = _ivf_reader(m, "l2", cuda, n_lists=8_200)
+    qn = np.stack([r._query_vec(q) for q in _vs_queries(m, 3, 9)])
+    qs = torch.from_numpy(qn).to(cuda)
+    args = _ivf_call(r, qs, 16, 4_200)
+    got = V.ivf_search(*args)
+    assert _bits_equal(got, _ivf_by_stages(args))
+    want = V.ivf_search_reference(*args)
+    _ids_equal_where_apart(got[0].cpu(), got[1].cpu(), want[0].cpu(),
+                           want[1].cpu(), _term_scale(m, qn, "l2"))
+    r.evict_device()
