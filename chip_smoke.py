@@ -114,8 +114,17 @@ Phases, each printed as it runs; any failure exits non-zero:
              version on 120 edge cases (n = 1, tile edges, one partition,
              every row a reset, int64 past 2^53, each op over int64 and
              float64: bitwise, float64 sums to a relative 1e-12) and on
-             the path's own inputs, and timed beside torch.cumsum; K16,
-             the segment agg and K19 are timed alone on their inputs.
+             the path's own inputs, and timed (events hot and with the L2
+             cold, device split, host issue) beside torch.cumsum; K17's
+             CUDA partition aggregate is held against its plain version
+             (on the CPU copy) on the path's inputs and on 274 edge cases
+             (each op and dtype; segments 1, 8, cap - 1, cap, cap + 1,
+             2^20; n 1, 255, 2,048, 2,049 and the path's; both zeros;
+             int64 near its limits: bitwise, float64 sums and averages to
+             a relative 1e-12), bitwise across 20 launches, and timed
+             beside the torch ops it replaced, on the path's segments and
+             on 4,096, 65,536 and 2^20; K16 and K19 are timed alone on
+             their inputs.
 11. vector - vector search (K15): the SIFT1M- and GloVe-100-shaped table
              of tools/vec.py (PINOT_SMOKE_VEC_ROWS rows, default 2^20, in
              2 segments; emb_l2 128-d l2 and emb_cos 100-d cosine, both
@@ -309,9 +318,11 @@ def build_phase() -> None:
     phase("build", seconds=time.perf_counter() - t0, libraries=sorted(logs),
           ptxas=[ln for log in logs.values() for ln in log.splitlines()
                  if "registers" in ln or "smem" in ln])
-    # K15's kernels by name: registers, spills, static shared memory (the
-    # scanning kernels' dynamic shared memory is in vecsearch.cu's Smem)
-    phase("build_vecsearch", kernels=ptxas_table(logs["vecsearch"]))
+    # K15's and K17's kernels by name: registers, spills, static shared
+    # memory (the dynamic shared memory is in the sources: vecsearch.cu's
+    # Smem, segscan.cu's SMEM_BYTES, segagg.cu's bins)
+    for name in ("vecsearch", "segscan", "segagg"):
+        phase(f"build_{name}", kernels=ptxas_table(logs[name]))
 
 
 MIXED8 = ("int32", "int64", "float32", "float64") * 2
@@ -2128,24 +2139,23 @@ def _ms_events(on_card: bool):
 
 
 def _ms_counts() -> dict:
-    from pinot_tpu_torch.multistage import device_join, fused, window
+    from pinot_tpu_torch.multistage import device_join, fused
     from pinot_tpu_torch.ops import join as ops_join
-    from pinot_tpu_torch.ops import segscan
+    from pinot_tpu_torch.ops import segagg, segscan
 
     return {"k16": ops_join.launches, "k17_scan": segscan.launches,
-            "k17_agg": window.segment_agg_launches, "k19": fused.launches,
+            "k17_agg": segagg.launches, "k19": fused.launches,
             **{f"join_{k}": v for k, v in device_join.STATS.items()},
             **{k: v for k, v in fused.STATS.items()}}
 
 
 def _reset_ms_counts() -> None:
-    from pinot_tpu_torch.multistage import window
-    from pinot_tpu_torch.ops import join as ops_join
-    from pinot_tpu_torch.ops import segscan
     from pinot_tpu_torch.multistage import fused
+    from pinot_tpu_torch.ops import join as ops_join
+    from pinot_tpu_torch.ops import segagg, segscan
 
-    ops_join.launches = segscan.launches = 0
-    window.segment_agg_launches = fused.launches = 0
+    ops_join.launches = segscan.launches = segagg.launches = 0
+    fused.launches = 0
 
 
 def _nbytes(*tensors) -> int:
@@ -2400,16 +2410,60 @@ def _scan_err(op, got, want) -> float:
     return 0.0
 
 
+def kernel_split_ms(fn, names, reps: int = 10):
+    """Device ms per call of each named kernel of fn (substrings of the
+    kernels' names) and of its memsets, from torch.profiler over ``reps``
+    calls; None when no window of PROFILE_TRIES recorded every call's
+    device operations (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(tuple(names) + ("memset",), 0.0)
+        whole = True
+        for e in _on_device(prof.key_averages()):
+            key = next((k for k in names if k in e.key),
+                       "memset" if "emset" in e.key else None)
+            if key:
+                out[key] += _dev_ms(e) / reps
+                whole = whole and e.count == reps
+        if whole and any(out.values()):
+            return out
+    return None
+
+
+def _timed(row: dict, fn, plain, names, cold: bool = True) -> dict:
+    """The kernel's times on its inputs, into row: ms (CUDA events over 20
+    back-to-back calls), cold_ms (events around each of 10 calls after a
+    128 MiB write), host_ms (host clock to issue a call), the device split
+    by torch.profiler (device_ms its sum) and plain_ms (the plain version,
+    events over 5 calls)."""
+    row["ms"] = cuda_time_ms(fn, 20)
+    if cold:
+        row["cold_ms"] = cuda_cold_ms(fn, 10)
+    row["host_ms"] = host_time_ms(fn, 20)
+    split = kernel_split_ms(fn, names)
+    row["split_ms"] = split
+    row["device_ms"] = sum(split.values()) if split else None
+    row["memset_ms"] = split["memset"] if split else None
+    row["plain_ms"] = cuda_time_ms(plain, 5)
+    return row
+
+
 def segscan_check(ms_inputs: dict, tile: int, device: str = "cuda") -> dict:
-    """K17's kernel held against its plain version on each window
-    shape's own inputs and on the edge cases, and timed at the main
-    path's shape (CUDA events), beside torch.cumsum over the same n (no
-    PyTorch call computes a segmented scan); also K16, the segment agg
-    and K19 timed alone on their main-path inputs."""
+    """K17's scan held against its plain version on the window shapes'
+    own inputs and on the edge cases, and timed at the main path's shape
+    beside torch.cumsum over the same n (no PyTorch call computes a
+    segmented scan)."""
     import torch
 
-    from pinot_tpu_torch.multistage import fused, window
-    from pinot_tpu_torch.ops import join as ops_join
     from pinot_tpu_torch.ops import segscan as S
 
     on_card = device.startswith("cuda")
@@ -2426,29 +2480,156 @@ def segscan_check(ms_inputs: dict, tile: int, device: str = "cuda") -> dict:
     err = max(err, _scan_err(op, got, S.seg_scan_reference(op, vals,
                                                            flags)))
     row = {"name": "segscan", "n": n, "op": op, "dtype": str(vals.dtype),
-           "max_abs_err": err,
+           "max_abs_err": err, "tile_rows": tile,
            "bound_ms": S.scan_bytes(n) / HBM_BYTES_PER_S * 1e3}
     if on_card:
-        row.update(
-            ms=cuda_time_ms(lambda: S.seg_scan(op, vals, flags), 20),
-            plain_ms=cuda_time_ms(
-                lambda: S.seg_scan_reference(op, vals, flags), 5),
-            cumsum_ms=cuda_time_ms(lambda: torch.cumsum(vals, 0), 20),
-            host_ms=host_time_ms(lambda: S.seg_scan(op, vals, flags), 20))
+        _timed(row, lambda: S.seg_scan(op, vals, flags),
+               lambda: S.seg_scan_reference(op, vals, flags),
+               ("segscan_pass",))
+        row["cumsum_ms"] = cuda_time_ms(lambda: torch.cumsum(vals, 0), 20)
     phase("kernel_at_multistage_path", **row)
+    return row
 
-    # the traced device functions alone on their main-path inputs
+
+AGG_EDGE_SEED = 1718
+# beside the path's: the shared-memory route's cap, and the global route
+AGG_TIMED_SEGS = (4096, 1 << 16, 1 << 20)
+
+
+def _agg_err(op, got, want) -> float:
+    """Max abs difference of the kernel against the plain version; raises
+    unless int64, counts and min/max are bitwise equal and float64 sums
+    and averages agree to a relative 1e-12."""
+    import torch
+
+    if got.dtype != want.dtype:
+        raise AssertionError(f"{op}: {got.dtype} against {want.dtype}")
+    if got.dtype == torch.float64 and op in ("sum", "avg"):
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+        return float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+        raise AssertionError(f"segment {op} over {got.dtype} differs")
+    return 0.0
+
+
+def _agg_edge_inputs(n_path: int, cap: int):
+    """(label, op, segs, vals, ids) edge cases of the segment agg on the
+    host, from a seed: each op and dtype, segs in {1, 8, cap - 1, cap,
+    cap + 1, 2^20}, n at 1, at the reduce's block edges (256 and 2,048
+    rows) and at the path's size; both zeros; int64 values near the
+    limits."""
+    import numpy as np
+
+    rng = np.random.default_rng(AGG_EDGE_SEED)
+    out = []
+    for segs in (1, 8, cap - 1, cap, cap + 1, 1 << 20):
+        for n in (1, 255, 2048, 2049, n_path):
+            for dtype in ("int64", "float64"):
+                for op in ("sum", "count", "avg", "min", "max"):
+                    if n == n_path and segs not in (8, cap + 1):
+                        continue          # full-size rows on two routes
+                    ids = rng.integers(0, segs, n).astype(np.int64)
+                    if op == "count":
+                        v = np.ones(n, dtype=dtype)
+                    elif dtype == "int64":
+                        v = rng.integers(-2**63, 2**63 - 1, n,
+                                         dtype=np.int64)
+                    elif op in ("sum", "avg"):
+                        v = rng.random(n) * 1e9
+                    else:
+                        v = np.round(rng.normal(0, 1e3, n), 1)
+                        v[rng.random(n) < 0.02] = 0.0
+                        v[rng.random(n) < 0.02] = -0.0
+                    out.append((f"segs={segs},n={n},{dtype},{op}", op, segs,
+                                v, ids))
+    zeros = np.array([0.0, -0.0, -0.0, 0.0] * 64)
+    zid = np.repeat(np.arange(2), 128).astype(np.int64)
+    lim = np.iinfo(np.int64)
+    big = np.array([lim.max, lim.min, lim.max, 1, lim.min, -1] * 43,
+                   dtype=np.int64)
+    for segs in (2, 1 << 20):
+        for op in ("min", "max"):
+            out.append((f"zeros,segs={segs},{op}", op, segs, zeros, zid))
+        for op in ("sum", "count", "avg", "min", "max"):
+            out.append((f"limits,segs={segs},{op}", op, segs, big,
+                        np.arange(len(big), dtype=np.int64) % 2))
+    return out
+
+
+def segagg_check(ms_inputs: dict, device: str = "cuda") -> dict:
+    """K17's partition aggregate held against its plain version (on the
+    CPU copy of the inputs, where scatter_reduce_ keeps its rows' order)
+    on the path's own inputs and on the edge cases, bitwise across 20
+    launches on its shared-memory route, and timed on the path's inputs
+    and on the same rows into AGG_TIMED_SEGS segments (the global route)
+    beside the torch ops it replaced (segment_agg_reference on the
+    card)."""
+    import torch
+
+    from pinot_tpu_torch.ops import segagg as A
+
+    on_card = device.startswith("cuda")
+    cap = A.cap() if on_card else 4096
+    op, segs, vals, ids = ms_inputs["k17_agg"]
+    n = vals.shape[0]
+    err = 0.0
+    edges = _agg_edge_inputs(n, cap)
+    for label, e_op, e_segs, v, i in edges:
+        hv, hi = torch.from_numpy(v), torch.from_numpy(i)
+        got = A.segment_agg(e_op, e_segs, hv.to(device), hi.to(device))
+        try:
+            err = max(err, _agg_err(e_op, got.cpu(), A.segment_agg_reference(
+                e_op, e_segs, hv, hi)))
+        except AssertionError as exc:
+            raise AssertionError(f"segment agg edge {label}: {exc}")
+    phase("segagg_edges", cases=len(edges), cap=cap, max_abs_err=err)
+    got = A.segment_agg(op, segs, vals, ids)
+    err = max(err, _agg_err(op, got.cpu(), A.segment_agg_reference(
+        op, segs, vals.cpu(), ids.cpu())))
+    runs = [A.segment_agg(op, segs, vals, ids) for _ in range(20)]
+    if not all(torch.equal(r, runs[0]) for r in runs[1:]):
+        raise AssertionError("segment agg differs across 20 launches")
+    names = ("segagg_reduce", "segagg_combine", "segagg_atomic",
+             "segagg_gather")
+    row = {"name": "segagg", "n": n, "op": op, "dtype": str(vals.dtype),
+           "segments": segs, "cap": cap, "max_abs_err": err,
+           "repeats_bitwise": 20,
+           "bound_ms": A.agg_bytes(op, n) / HBM_BYTES_PER_S * 1e3}
+    if on_card:
+        _timed(row, lambda: A.segment_agg(op, segs, vals, ids),
+               lambda: A.segment_agg_reference(op, segs, vals, ids), names)
+        row["torch_ms"] = row["plain_ms"]
+        row["at_segments"] = []
+        g = torch.Generator(device=vals.device)
+        g.manual_seed(AGG_EDGE_SEED)
+        for many in AGG_TIMED_SEGS:
+            wide = torch.randint(0, many, (n,), device=vals.device,
+                                 generator=g)
+            got = A.segment_agg(op, many, vals, wide)
+            e = _agg_err(op, got.cpu(), A.segment_agg_reference(
+                op, many, vals.cpu(), wide.cpu()))
+            r = {"segments": many, "max_abs_err": e,
+                 "route": "shared" if many <= cap else "global"}
+            _timed(r, lambda w=wide, m=many: A.segment_agg(op, m, vals, w),
+                   lambda w=wide, m=many: A.segment_agg_reference(
+                       op, m, vals, w), names, cold=False)
+            r["torch_ms"] = r["plain_ms"]
+            row["at_segments"].append(r)
+    phase("kernel_at_multistage_path", **row)
+    return row
+
+
+def traced_check(ms_inputs: dict, device: str = "cuda") -> dict:
+    """K16 and K19 (torch ops) timed alone on their main-path inputs."""
+    from pinot_tpu_torch.multistage import fused
+    from pinot_tpu_torch.ops import join as ops_join
+
+    on_card = device.startswith("cuda")
     lk, rk, max_dup = ms_inputs["k16"]
     match, r_idx = ops_join.device_equi_join(lk, rk, max_dup)
     k16 = {"name": "k16_device_equi_join", "probe": lk.shape[0],
            "build": rk.shape[0], "max_dup": max_dup,
            "bound_ms": _nbytes(lk, rk, match, r_idx) / HBM_BYTES_PER_S
-           * 1e3}
-    op_a, segs, a_vals, ids = ms_inputs["k17_agg"]
-    agg_out = window._segment_agg(op_a, segs, a_vals, ids)
-    agg = {"name": "k17_segment_agg", "op": op_a, "n": a_vals.shape[0],
-           "segments": segs,
-           "bound_ms": _nbytes(a_vals, ids, agg_out) / HBM_BYTES_PER_S
            * 1e3}
     spec, seed_pos, seed_idx, args = ms_inputs["k19"]
     k19_out = fused._fused_program(spec, seed_pos, seed_idx, args)
@@ -2460,13 +2641,11 @@ def segscan_check(ms_inputs: dict, tile: int, device: str = "cuda") -> dict:
     if on_card:
         k16["ms"] = cuda_time_ms(
             lambda: ops_join.device_equi_join(lk, rk, max_dup), 10)
-        agg["ms"] = cuda_time_ms(
-            lambda: window._segment_agg(op_a, segs, a_vals, ids), 10)
         k19["ms"] = cuda_time_ms(
             lambda: fused._fused_program(spec, seed_pos, seed_idx, args), 5)
-    for r in (k16, agg, k19):
+    for r in (k16, k19):
         phase("traced_at_multistage_path", **r)
-    return {**row, "traced": {"k16": k16, "k17_agg": agg, "k19": k19}}
+    return {"k16": k16, "k19": k19}
 
 
 # ---------------------------------------------------------------------------
@@ -3238,7 +3417,10 @@ def main() -> int:
     tables, star_dirs = star_phase()
     ms = multistage_phase(star_dirs, tables, [single, surface_seg, *segs])
     ms_launches = ms["launches"]
-    scan = segscan_check(ms.pop("inputs"), S.tile_rows())
+    ms_inputs = ms.pop("inputs")
+    scan = segscan_check(ms_inputs, S.tile_rows())
+    agg = segagg_check(ms_inputs)
+    traced_check(ms_inputs)
     vsearch = vector_phase([single, surface_seg, *segs])
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
@@ -3290,18 +3472,61 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "cumsum_ms": scan["cumsum_ms"],
+        "device_ms": scan["device_ms"],
+        "memset_ms": scan["memset_ms"],
+        "cold_ms": scan["cold_ms"],
         "host_ms": scan["host_ms"],
+        "tile_rows": scan["tile_rows"],
         "n": scan["n"],
         "op": scan["op"],
         "dtype": scan["dtype"],
         "at": "one launch on the first window shape's own inputs (the "
               f"star schema at {MS_ROWS} orders rows); ms, plain_ms = CUDA "
-              "events over 20 / 5 back-to-back calls; no PyTorch call "
-              "computes a segmented scan (library_ms null): cumsum_ms is "
-              "torch.cumsum over the same n, the unsegmented floor; "
+              "events over 20 / 5 back-to-back calls; cold_ms = events "
+              "around each of 10 calls after a 128 MiB write (the L2 "
+              "cold); device_ms, memset_ms = device time by torch.profiler "
+              "(all of a call's device operations; its memsets); host_ms = "
+              "host clock to issue a call; no PyTorch call computes a "
+              "segmented scan (library_ms null): cumsum_ms is torch.cumsum "
+              "over the same n, the unsegmented floor; launches = the "
+              "multistage phase's; max_abs_err over the path's inputs and "
+              "the edge cases (float64 sums: relative 1e-12; int64 and "
+              "min/max: bitwise)"}, {
+        "name": "segagg",
+        "route": "cuda",
+        "source": "pinot_tpu_torch/ops/csrc/segagg.cu",
+        "replaces": "pinot_tpu/multistage/window.py:451",
+        "launches": ms_launches["k17_agg"],
+        "max_abs_err": agg["max_abs_err"],
+        "ms": agg["ms"],
+        "plain_ms": agg["plain_ms"],
+        "bound_ms": agg["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "torch_ms": agg["torch_ms"],
+        "device_ms": agg["device_ms"],
+        "memset_ms": agg["memset_ms"],
+        "cold_ms": agg["cold_ms"],
+        "host_ms": agg["host_ms"],
+        "split_ms": agg["split_ms"],
+        "segments": agg["segments"],
+        "n": agg["n"],
+        "op": agg["op"],
+        "dtype": agg["dtype"],
+        "at_segments": agg["at_segments"],
+        "at": "the partition window's own inputs (the star schema at "
+              f"{MS_ROWS} orders rows; its segments padded to a power of "
+              "two as the reference pads them); ms, plain_ms = CUDA events "
+              "over 20 / 5 back-to-back calls; plain_ms = torch_ms = the "
+              "torch ops the port ran before this kernel "
+              "(segment_agg_reference on the card); no single PyTorch call "
+              "computes it (library_ms null); cold_ms, device_ms, host_ms "
+              "as for segscan; at_segments = the same rows and op into "
+              "other segment counts (ids from a seed), each with its route; "
               "launches = the multistage phase's; max_abs_err over the "
-              "path's inputs and the edge cases (float64 sums: relative "
-              "1e-12; int64 and min/max: bitwise)"},
+              "path's inputs and the edge cases (float64 sums and "
+              "averages: relative 1e-12; int64, counts, min/max: bitwise, "
+              "against the plain version on the CPU)"},
         *_vec_kernel_entries(vsearch)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

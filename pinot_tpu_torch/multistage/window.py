@@ -4,7 +4,8 @@ Port of ``pinot_tpu/multistage/window.py``. The evaluator is host numpy,
 as in the reference; its two device functions (K17) run on the caller's
 device: the segmented running scan through ``ops/segscan.seg_scan`` (a
 hand-written CUDA kernel on the card) and the per-partition aggregate of
-an unordered window as torch ops (``_segment_agg``). Both take the device
+an unordered window through ``ops/segagg.segment_agg`` (another
+hand-written kernel). Both take the device
 path at ``PINOT_DEVICE_WINDOW_MIN_ROWS`` rows (default 200,000) and
 above, for clean numeric inputs.
 
@@ -22,13 +23,14 @@ the same scans run on the device.
 from __future__ import annotations
 
 import os
-import threading
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..engine import host_eval
+# the reference's _segment_agg_jit; chip_smoke.py times it by this name
+from ..ops.segagg import segment_agg as _segment_agg
 from ..ops.segscan import seg_scan
 from ..query.sql import (FuncCall, Identifier, OrderItem, SelectItem,
                          SelectStmt, SqlError, WindowFunc)
@@ -420,40 +422,6 @@ def _device_partition_agg(rel, wf: WindowFunc, pk: np.ndarray,
                            ).to(device)
     out = _segment_agg(name, n_seg_p, vals, ids)
     return out.cpu().numpy(), v
-
-
-# calls of _segment_agg on a CUDA tensor (chip_smoke.py resets and reads
-# it), under a lock like the kernels' counters
-segment_agg_launches = 0
-_LAUNCH_LOCK = threading.Lock()
-
-
-def _segment_agg(op: str, segs: int, vals: torch.Tensor,
-                 ids: torch.Tensor) -> torch.Tensor:
-    """Per-segment sum/count/avg/min/max of ``vals`` over ``segs``
-    segments keyed by ``ids``, gathered back to the rows (the reference's
-    ``_segment_agg_jit``, as torch ops)."""
-    global segment_agg_launches
-    if op in ("sum", "count"):
-        per = torch.zeros(segs, dtype=vals.dtype, device=vals.device
-                          ).index_add_(0, ids, vals)
-    elif op == "avg":
-        s = torch.zeros(segs, dtype=vals.dtype, device=vals.device
-                        ).index_add_(0, ids, vals)
-        c = torch.zeros(segs, dtype=vals.dtype, device=vals.device
-                        ).index_add_(0, ids, torch.ones_like(vals))
-        per = s / c
-    else:
-        fill = (torch.iinfo(vals.dtype) if vals.dtype == torch.int64
-                else torch.finfo(vals.dtype))
-        per = torch.full((segs,), fill.max if op == "min" else fill.min,
-                         dtype=vals.dtype, device=vals.device
-                         ).scatter_reduce_(0, ids, vals,
-                                           "amin" if op == "min" else "amax")
-    if vals.device.type == "cuda":
-        with _LAUNCH_LOCK:
-            segment_agg_launches += 1
-    return per.index_select(0, ids)
 
 
 def _arg_value(rel, wf: WindowFunc, sidx: np.ndarray, i: int = 0,

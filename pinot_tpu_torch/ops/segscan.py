@@ -20,19 +20,20 @@ different orders. No single PyTorch call computes a segmented scan.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from . import cuda_build
+from .stream_scratch import StreamScratch, device_scope
 
 OPS = {"sum": 0, "min": 1, "max": 2}
 DTYPES = {torch.int64: 0, torch.float64: 1}
 
 # calls that launched the CUDA kernel (chip_smoke.py resets and reads it);
-# concurrent queries launch from many threads, so it moves under a lock
+# concurrent queries launch from many threads, so it moves under the
+# scratch's lock, taken for each launch
 launches = 0
-_LAUNCH_LOCK = threading.Lock()
+_SCRATCH = StreamScratch()
 
 
 def seg_scan(op: str, vals: torch.Tensor, flags: torch.Tensor
@@ -93,24 +94,30 @@ def scan_bytes(n: int) -> int:
 
 def _seg_scan_cuda(op: str, vals: torch.Tensor, flags: torch.Tensor
                    ) -> torch.Tensor:
-    """Launch the kernel: one scratch memset and the pass on the current
-    stream."""
+    """Launch the kernel: one device operation on the current stream, with
+    the stream's scratch (zeroed once) and the next epoch."""
     global launches
     fn, tile, header = _bound_kernel()
     n = vals.shape[0]
     dev = vals.device
     out = torch.empty_like(vals)
-    words = header + 3 * -(-n // tile)
-    scratch = torch.empty(words, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(vals.data_ptr(), flags.data_ptr(), out.data_ptr(), n,
-                DTYPES[vals.dtype], OPS[op], scratch.data_ptr(), words,
-                torch.cuda.current_stream(dev).cuda_stream)
+    if n == 0:
+        return out
+    with device_scope(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with _SCRATCH.lock:
+            scratch, epoch = _SCRATCH.take(dev, stream,
+                                           header + 3 * -(-n // tile))
+            rc = fn(vals.data_ptr(), flags.data_ptr(), out.data_ptr(), n,
+                    DTYPES[vals.dtype], OPS[op], scratch.data_ptr(),
+                    scratch.numel(), epoch, stream)
+            if rc != 0:
+                _SCRATCH.drop(dev, stream)
+            else:
+                launches += 1
     if rc != 0:
         raise RuntimeError(f"segmented scan kernel launch failed: CUDA "
                            f"error {rc}")
-    with _LAUNCH_LOCK:
-        launches += 1
     return out
 
 
@@ -132,7 +139,8 @@ def bind(lib: ctypes.CDLL):
     of segscan.cu."""
     vp = ctypes.c_void_p
     lib.pinot_segscan.argtypes = [vp, vp, vp, ctypes.c_int64, ctypes.c_int,
-                                  ctypes.c_int, vp, ctypes.c_int64, vp]
+                                  ctypes.c_int, vp, ctypes.c_int64,
+                                  ctypes.c_uint, vp]
     lib.pinot_segscan.restype = ctypes.c_int
     for fn in (lib.pinot_segscan_tile, lib.pinot_segscan_header_words):
         fn.argtypes = []

@@ -739,12 +739,248 @@ def test_segscan_kernel_repeats_bitwise(cuda):
         assert torch.equal(r, runs[0])
 
 
+def test_segscan_back_to_back_sizes_on_one_scratch(cuda):
+    """Calls of different n, one after another on one stream and so on one
+    scratch buffer, each checked: a status word an earlier call left (its
+    epoch) must never read as this call's."""
+    from pinot_tpu_torch.ops import segscan as S
+
+    tile = S.tile_rows()
+    runs = []
+    for k, n in enumerate((300 * tile + 5, 3 * tile, 1, 1000 * tile + 77,
+                           2 * tile - 1, 300 * tile + 5)):
+        for op, dtype in (("sum", "float64"), ("max", "int64")):
+            v, f = _scan_inputs(n, "none" if k % 2 else "sparse", dtype, op,
+                                tile, n + k)
+            vals = torch.from_numpy(v).to(cuda)
+            flags = torch.from_numpy(f).to(cuda)
+            runs.append((S.seg_scan(op, vals, flags), vals, flags, dtype, op))
+    torch.cuda.synchronize()
+    for got, vals, flags, dtype, op in runs:
+        _scan_equal(got, S.seg_scan_reference(op, vals, flags), dtype, op)
+
+
+def test_segscan_two_streams_from_two_threads(cuda):
+    """Two threads scanning at once, each on its own stream (each with
+    its own scratch), 10 calls each: every result equals the plain
+    version."""
+    import threading
+
+    from pinot_tpu_torch.ops import segscan as S
+
+    n = 200 * S.tile_rows() + 3
+    inputs = []
+    for seed in (1, 2):
+        v, f = _scan_inputs(n, "none", "float64", "sum", 4096, seed)
+        inputs.append((torch.from_numpy(v).to(cuda),
+                       torch.from_numpy(f).to(cuda)))
+    want = [S.seg_scan("sum", v, f) for v, f in inputs]
+    torch.cuda.synchronize()
+    got, errors = [[], []], []
+
+    def work(i):
+        try:
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                for _ in range(10):
+                    got[i].append(S.seg_scan("sum", *inputs[i]))
+            s.synchronize()
+        except Exception as e:          # noqa: BLE001  (reported below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for i in (0, 1):
+        assert len(got[i]) == 10
+        for g in got[i]:
+            assert torch.equal(g, want[i])   # one association order
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", ["int64", "float64"])
+def test_segscan_8_and_16_byte_routes_give_the_same_bits(cuda, op, dtype):
+    """vals[1:] is 8-byte aligned only (the 8-byte copies); its contiguous
+    clone is 16-byte aligned (the 16-byte copies): the same bits, float64
+    sums included."""
+    from pinot_tpu_torch.ops import segscan as S
+
+    n = 37 * S.tile_rows() + 9
+    v, f = _scan_inputs(n + 1, "sparse", dtype, op, 4096, 11)
+    vals = torch.from_numpy(v).to(cuda)[1:]
+    flags = torch.from_numpy(f).to(cuda)[1:]
+    assert vals.data_ptr() % 16 == 8
+    aligned = vals.clone()
+    assert aligned.data_ptr() % 16 == 0
+    a = S.seg_scan(op, vals, flags)
+    b = S.seg_scan(op, aligned, flags.clone())
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+    _scan_equal(a, S.seg_scan_reference(op, vals, flags), dtype, op)
+
+
+# -- K17's partition aggregate (ops/csrc/segagg.cu) ---------------------
+
+AGG_OPS = ("sum", "count", "avg", "min", "max")
+AGG_SEGS = (1, 2, 8, "cap-1", "cap", "cap+1", 65536)
+AGG_N = (1, 4095, 4096, 4097, 1 << 22)
+
+
+def _agg_inputs(op, dtype, segs, n, seed):
+    """Values and ids on the host, from a seed: int64 over the whole range
+    (sums wrap, as the plain version's), positive float64 sums (so a
+    relative bound means something), signed floats with both zeros for
+    min and max; ones for count, as the window stage passes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, segs, n).astype(np.int64)
+    if op == "count":
+        v = np.ones(n, dtype=np.int64 if dtype == "int64" else np.float64)
+    elif dtype == "int64":
+        v = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+    elif op in ("sum", "avg"):
+        v = rng.random(n) * 1e9
+    else:
+        v = np.round(rng.normal(0, 1e3, n), 1)
+        v[rng.random(n) < 0.02] = 0.0
+        v[rng.random(n) < 0.02] = -0.0
+    return v, ids
+
+
+def _agg_equal(got, want, op):
+    assert got.dtype == want.dtype
+    if got.dtype == torch.float64 and op in ("sum", "avg"):
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+    else:
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+def _agg_segs(segs, cap):
+    return {"cap-1": cap - 1, "cap": cap, "cap+1": cap + 1}.get(segs, segs)
+
+
+@pytest.mark.parametrize("n", AGG_N)
+@pytest.mark.parametrize("segs", AGG_SEGS, ids=str)
+@pytest.mark.parametrize("dtype", ["int64", "float64"])
+@pytest.mark.parametrize("op", AGG_OPS)
+def test_segagg_kernel_equals_plain_version(cuda, op, dtype, segs, n):
+    """Bitwise for int64, counts and min/max (against the plain version on
+    the CPU: on the card scatter_reduce_ keeps either zero), relative
+    1e-12 for float64 sums and averages."""
+    from pinot_tpu_torch.ops import segagg as A
+
+    segs = _agg_segs(segs, A.cap())
+    v, ids = _agg_inputs(op, dtype, segs, n, segs + n)
+    vals = torch.from_numpy(v).to(cuda)
+    idt = torch.from_numpy(ids).to(cuda)
+    before = A.launches
+    got = A.segment_agg(op, segs, vals, idt)
+    torch.cuda.synchronize()
+    assert A.launches == before + 1
+    want = A.segment_agg_reference(op, segs, torch.from_numpy(v),
+                                   torch.from_numpy(ids))
+    _agg_equal(got.cpu(), want, op)
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("segs", [8, 1 << 16])
+def test_segagg_both_zeros(cuda, op, segs):
+    """A segment holding +0.0 and -0.0 gives -0.0 for min and +0.0 for max,
+    whichever comes first, on both routes."""
+    import numpy as np
+
+    from pinot_tpu_torch.ops import segagg as A
+
+    v = np.array([0.0, -0.0, -0.0, 0.0, 3.0, -0.0, 0.0, -2.0] * 1000)
+    ids = np.tile(np.array([0, 0, 1, 1, 2, 2, 3, 3]), 1000).astype(np.int64)
+    got = A.segment_agg(op, segs, torch.from_numpy(v).to(cuda),
+                        torch.from_numpy(ids).to(cuda)).cpu()
+    want = A.segment_agg_reference(op, segs, torch.from_numpy(v),
+                                   torch.from_numpy(ids))
+    _agg_equal(got, want, op)
+    # segments 0 and 1 hold only zeros: their min and max are zeros
+    zeros = got[torch.from_numpy(ids <= 1)]
+    assert bool(torch.all(zeros == 0))
+    assert bool(torch.all(torch.signbit(zeros) == (op == "min")))
+
+
+@pytest.mark.parametrize("op", ["sum", "avg"])
+def test_segagg_repeats_bitwise_on_the_shared_memory_route(cuda, op):
+    from pinot_tpu_torch.ops import segagg as A
+
+    for segs in (8, A.cap()):
+        v, ids = _agg_inputs(op, "float64", segs, 1 << 22, 5)
+        vals = torch.from_numpy(v).to(cuda)
+        idt = torch.from_numpy(ids).to(cuda)
+        runs = [A.segment_agg(op, segs, vals, idt) for _ in range(20)]
+        torch.cuda.synchronize()
+        for r in runs[1:]:
+            assert torch.equal(r, runs[0])
+
+
+def test_segagg_int64_near_the_limits(cuda):
+    import numpy as np
+
+    from pinot_tpu_torch.ops import segagg as A
+
+    lim = np.iinfo(np.int64)
+    v = np.array([lim.max, lim.min, lim.max, 1, lim.min, -1, 0, lim.max],
+                 dtype=np.int64)
+    ids = np.array([0, 0, 1, 1, 2, 2, 3, 3], dtype=np.int64)
+    for op in AGG_OPS:
+        for segs in (4, 1 << 13):
+            got = A.segment_agg(op, segs, torch.from_numpy(v).to(cuda),
+                                torch.from_numpy(ids).to(cuda)).cpu()
+            want = A.segment_agg_reference(op, segs, torch.from_numpy(v),
+                                           torch.from_numpy(ids))
+            assert torch.equal(got.view(torch.int64),
+                               want.view(torch.int64)), (op, segs)
+
+
+def test_segagg_two_streams_from_two_threads(cuda):
+    import threading
+
+    from pinot_tpu_torch.ops import segagg as A
+
+    inputs = []
+    for seed in (1, 2):
+        v, ids = _agg_inputs("sum", "float64", 64, 1 << 20, seed)
+        inputs.append((torch.from_numpy(v).to(cuda),
+                       torch.from_numpy(ids).to(cuda)))
+    want = [A.segment_agg("sum", 64, v, i) for v, i in inputs]
+    torch.cuda.synchronize()
+    got, errors = [[], []], []
+
+    def work(k):
+        try:
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                for _ in range(10):
+                    got[k].append(A.segment_agg("sum", 64, *inputs[k]))
+            s.synchronize()
+        except Exception as e:          # noqa: BLE001  (reported below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for k in (0, 1):
+        assert len(got[k]) == 10
+        for g in got[k]:
+            assert torch.equal(g, want[k])
+
+
 def test_star_schema_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     """The star schema's shapes on every plane: the card's rows equal
     the CPU's, through K16, K17 and K19 on the card."""
-    from pinot_tpu_torch.multistage import window
     from pinot_tpu_torch.ops import join as ops_join
-    from pinot_tpu_torch.ops import segscan
+    from pinot_tpu_torch.ops import segagg, segscan
     from pinot_tpu_torch.multistage import fused
     from pinot_tpu_torch.tools import star
 
@@ -754,8 +990,8 @@ def test_star_schema_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     dirs = star.build_tables(str(tmp_path), star.star_tables(1 << 15))
     on_card = star.load_broker(dirs, "cuda")
     on_cpu = star.load_broker(dirs, "cpu")
-    counts0 = (ops_join.launches, segscan.launches,
-               window.segment_agg_launches, fused.launches)
+    counts0 = (ops_join.launches, segscan.launches, segagg.launches,
+               fused.launches)
     for csr in ("4194304", "0"):
         monkeypatch.setenv("PINOT_FUSED_MAX_CSR", csr)
         for name, make in star.SHAPES:
@@ -763,8 +999,8 @@ def test_star_schema_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
                 sql = make(1) + f" OPTION(multistageFused={opt})"
                 assert on_card.query(sql).rows == on_cpu.query(sql).rows, \
                     (name, opt, csr)
-    counts = (ops_join.launches, segscan.launches,
-              window.segment_agg_launches, fused.launches)
+    counts = (ops_join.launches, segscan.launches, segagg.launches,
+              fused.launches)
     assert all(b > a for a, b in zip(counts0, counts)), (counts0, counts)
 
 
