@@ -125,7 +125,41 @@ Phases, each printed as it runs; any failure exits non-zero:
              beside the torch ops it replaced, on the path's segments and
              on 4,096, 65,536 and 2^20; K16 and K19 are timed alone on
              their inputs.
-11. vector - vector search (K15): the SIFT1M- and GloVe-100-shaped table
+11. statements - the broker's statement surface (views, CTEs, IN /
+             scalar / EXISTS subqueries, set operations, EXPLAIN, hybrid
+             tables, quotas) through Broker(device="cuda"): on the SSB
+             table at 1 and 8 segments a CTE feeding a group-by, a view
+             created, queried and dropped, UNION ALL / UNION / INTERSECT /
+             EXCEPT of two group-bys under an outer ORDER BY / LIMIT, and
+             EXPLAIN of the 13 queries (no K1 launch across it); on the
+             star schema an IN subquery (~12k literals), a scalar and a
+             correlated EXISTS subquery, a CTE feeding a join, bench.py's
+             join_union and EXPLAIN of a join and a set operation; a
+             hybrid lineorder (4 segments offline, 4 realtime, time
+             column d_yearmonthnum) answering Q1.1, Q2.1 and Q3.1, and a
+             hybrid orders whose halves overlap by a segment; a table
+             with quotaQps 5 whose 6th query of a burst raises
+             QuotaExceededError. Rows equal a numpy oracle (set
+             operations: the multiset operation over the branches' oracle
+             rows; hybrids: offline rows at or below the boundary,
+             realtime rows above); tracked == held after every statement;
+             K1 held bitwise on the path's compact inputs
+             (kernel_at_statement_path); the p50 of each statement;
+12. geo    - NYC-taxi-pickup-shaped points (PINOT_SMOKE_GEO_ROWS,
+             default 2^22, in 2 segments; a mixture over the NYC box,
+             geography hex-WKB, a few empty) with a geo index at
+             resolution 16: ST_Distance sums at 500 m and 5 km around
+             Times Square, the 5 km filter grouped by hc_key (K1), a
+             50 km circle past the index's cell cap (the sweep), ST_Within
+             a Manhattan polygon with Central Park as a hole, = 1 and = 0,
+             grouped by pu_zone: each plans the kernel with a docmask
+             param and equals a numpy oracle (haversine, even-odd), p50
+             of 3 runs, the mask upload bytes; a 2^20-row twin's indexed
+             rows equal its host path's and the oracle's, ST_UNION over a
+             small circle the oracle's MULTIPOINT; K1 held bitwise on the
+             path's inputs (kernel_at_geo_path); the index build's seconds
+             and bytes; the device's idle share in the grouped query;
+13. vector - vector search (K15): the SIFT1M- and GloVe-100-shaped table
              of tools/vec.py (PINOT_SMOKE_VEC_ROWS rows, default 2^20, in
              2 segments; emb_l2 128-d l2 and emb_cos 100-d cosine, both
              with the IVF layer at the default 724 lists, seed 7) built
@@ -630,6 +664,29 @@ def profile_query(query, sql: str, top: int = 6, results=None) -> dict:
                         for k, ms, n in ops[:top]]}
 
 
+def k1_timed(mask, cols, cap: int, got) -> dict:
+    """K1 timed on one call's inputs: CUDA events over 20 back-to-back
+    calls of the kernel, its plain version and torch.masked_select per
+    column, the bytes bound, the device split (torch.profiler) and the
+    host's issue time; ``got`` is the kernel's output on them."""
+    import torch
+
+    from pinot_tpu_torch.ops import compact as C
+
+    row = {"ms": cuda_time_ms(lambda: C.compact(mask, cols, cap), 20),
+           "plain_ms": cuda_time_ms(
+               lambda: C.compact_reference(mask, cols, cap), 20),
+           "library_ms": cuda_time_ms(
+               lambda: [torch.masked_select(c, mask) for c in cols], 20),
+           "bound_ms": C.compact_bytes(mask.shape[0], cols, cap,
+                                       int(got[3]))
+           / HBM_BYTES_PER_S * 1e3,
+           **compact_split_ms(lambda: C.compact(mask, cols, cap)),
+           "host_ms": host_time_ms(lambda: C.compact(mask, cols, cap), 20)}
+    row["device_ms"] = row["pass_ms"] + row["fill_ms"] + row["memset_ms"]
+    return row
+
+
 def main_phase(seg_dir: str, tile: int, device: str = "cuda"):
     """The main path on ``device`` ("cuda" for the check; "cpu" rehearses
     the flow on a machine without a card, with the kernels' plain
@@ -712,19 +769,7 @@ def main_phase(seg_dir: str, tile: int, device: str = "cuda"):
         cap = plan.slots_cap
         got = C.compact(mask, cols, cap)
         same_outputs(got, C.compact_reference(mask, cols, cap))
-        row = {"ms": cuda_time_ms(lambda: C.compact(mask, cols, cap), 20),
-               "plain_ms": cuda_time_ms(
-                   lambda: C.compact_reference(mask, cols, cap), 20),
-               "library_ms": cuda_time_ms(
-                   lambda: [torch.masked_select(c, mask) for c in cols],
-                   20),
-               "bound_ms": C.compact_bytes(mask.shape[0], cols, cap,
-                                           int(got[3]))
-               / HBM_BYTES_PER_S * 1e3,
-               **compact_split_ms(lambda: C.compact(mask, cols, cap)),
-               "host_ms": host_time_ms(
-                   lambda: C.compact(mask, cols, cap), 20)}
-        row["device_ms"] = row["pass_ms"] + row["fill_ms"] + row["memset_ms"]
+        row = k1_timed(mask, cols, cap, got)
         for k in totals:
             totals[k] += row[k]
         phase("kernel_at_main_path", qid=qid, n=mask.shape[0],
@@ -865,19 +910,7 @@ def multi_phase(table_dir: str, digests: dict, tile: int,
         mask, cols, cap = _segmented_inputs(ex.plans)
         got = C.compact(mask, cols, cap)
         same_outputs(got, C.compact_reference(mask, cols, cap))
-        row = {"ms": cuda_time_ms(lambda: C.compact(mask, cols, cap), 20),
-               "plain_ms": cuda_time_ms(
-                   lambda: C.compact_reference(mask, cols, cap), 20),
-               "library_ms": cuda_time_ms(
-                   lambda: [torch.masked_select(c, mask) for c in cols],
-                   20),
-               "bound_ms": C.compact_bytes(mask.shape[0], cols, cap,
-                                           int(got[3]))
-               / HBM_BYTES_PER_S * 1e3,
-               **compact_split_ms(lambda: C.compact(mask, cols, cap)),
-               "host_ms": host_time_ms(
-                   lambda: C.compact(mask, cols, cap), 20)}
-        row["device_ms"] = row["pass_ms"] + row["fill_ms"] + row["memset_ms"]
+        row = k1_timed(mask, cols, cap, got)
         for k in totals:
             totals[k] += row[k]
         phase("kernel_at_segmented_path", qid=qid, n=mask.shape[0],
@@ -3382,6 +3415,761 @@ def _vec_kernel_entries(vsearch: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# geo: NYC-taxi-pickup-shaped points through the geo index
+# ---------------------------------------------------------------------------
+
+GEO_ROWS = int(os.environ.get("PINOT_SMOKE_GEO_ROWS", 1 << 22))
+GEO_SEGMENTS = 2
+GEO_TWIN_ROWS = GEO_ROWS // 4        # 2^20 at the default depth
+GEO_RES = 16                         # cells ~0.46 km wide at NYC's latitude
+GEO_TLC_JAN_2015 = 12_748_986        # NYC TLC yellow-cab trips, Jan 2015
+GEO_BOX = (40.49, 40.92, -74.27, -73.68)     # lat lo, lat hi, lng lo, hi
+GEO_EMPTY = 1e-4                     # share of rows with an empty pickup
+TIMES_SQUARE = (40.7580, -73.9855)   # lat, lng
+# pickup density: (lat, lng, sigma in degrees, weight); sigma None is the
+# whole box, uniform. Manhattan below 110th St takes over half the trips,
+# then the airports (JFK, LaGuardia) and north Brooklyn / west Queens.
+GEO_MIXTURE = (
+    (40.7550, -73.9850, 0.012, 0.30),    # midtown
+    (40.7200, -74.0020, 0.010, 0.14),    # downtown
+    (40.7800, -73.9650, 0.012, 0.14),    # upper east and west sides
+    (40.6450, -73.7850, 0.008, 0.05),    # JFK
+    (40.7740, -73.8720, 0.005, 0.05),    # LaGuardia
+    (40.6900, -73.9650, 0.030, 0.12),    # Brooklyn
+    (40.7400, -73.8900, 0.040, 0.10),    # Queens
+    (None, None, None, 0.10),            # anywhere in the box
+)
+# Manhattan's shoreline, coarse, with Central Park as a hole ((lng, lat)
+# rings, closed)
+MANHATTAN = (
+    (-74.0190, 40.7000), (-74.0130, 40.7060), (-74.0160, 40.7180),
+    (-74.0130, 40.7350), (-74.0090, 40.7520), (-73.9990, 40.7650),
+    (-73.9880, 40.7800), (-73.9720, 40.8060), (-73.9580, 40.8230),
+    (-73.9440, 40.8400), (-73.9330, 40.8550), (-73.9200, 40.8720),
+    (-73.9100, 40.8770), (-73.9260, 40.8610), (-73.9290, 40.8450),
+    (-73.9340, 40.8100), (-73.9300, 40.7950), (-73.9430, 40.7780),
+    (-73.9660, 40.7510), (-73.9710, 40.7430), (-73.9740, 40.7280),
+    (-73.9770, 40.7140), (-73.9920, 40.7080), (-74.0040, 40.7030),
+    (-74.0190, 40.7000))
+CENTRAL_PARK = (
+    (-73.9730, 40.7644), (-73.9582, 40.8006), (-73.9493, 40.7968),
+    (-73.9816, 40.7681), (-73.9730, 40.7644))
+
+
+def _ring_wkt(ring) -> str:
+    return "(" + ", ".join(f"{x} {y}" for x, y in ring) + ")"
+
+
+MANHATTAN_WKT = (f"POLYGON ({_ring_wkt(MANHATTAN)}, "
+                 f"{_ring_wkt(CENTRAL_PARK)})")
+
+
+def geo_data(n: int, seed: int = 2015) -> dict:
+    """n pickups from GEO_MIXTURE inside GEO_BOX as geography hex-WKB
+    (made as whole arrays: the 21-byte records, then one hex string),
+    a few empty; with pu_zone (265 taxi zones), hc_key (~100k hack
+    licences), fare (cents) and distance (metres), and the lat/lng the
+    oracle reads (NaN where the pickup is empty)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = np.array([m[3] for m in GEO_MIXTURE])
+    comp = rng.choice(len(w), n, p=w / w.sum())
+    lat = np.empty(n)
+    lng = np.empty(n)
+    for k, (mlat, mlng, sig, _w) in enumerate(GEO_MIXTURE):
+        sel = comp == k
+        m = int(sel.sum())
+        if sig is None:
+            lat[sel] = rng.uniform(GEO_BOX[0], GEO_BOX[1], m)
+            lng[sel] = rng.uniform(GEO_BOX[2], GEO_BOX[3], m)
+        else:
+            lat[sel] = rng.normal(mlat, sig, m)
+            lng[sel] = rng.normal(mlng, sig / math.cos(math.radians(mlat)),
+                                  m)
+    np.clip(lat, GEO_BOX[0], GEO_BOX[1], out=lat)
+    np.clip(lng, GEO_BOX[2], GEO_BOX[3], out=lng)
+    rec = np.zeros((n, 21), dtype=np.uint8)
+    rec[:, 0] = 1                                  # little-endian
+    rec[:, 1:5] = np.frombuffer((0x80000001).to_bytes(4, "little"),
+                                dtype=np.uint8)    # POINT, geography
+    rec[:, 5:13] = lng.view(np.uint8).reshape(n, 8)
+    rec[:, 13:21] = lat.view(np.uint8).reshape(n, 8)
+    hexes = np.frombuffer(rec.tobytes().hex().encode("ascii"),
+                          dtype="S42").astype("U42").astype(object)
+    empty = rng.random(n) < GEO_EMPTY
+    hexes[empty] = ""
+    lat[empty] = lng[empty] = np.nan
+    dist = rng.gamma(2.0, 1600.0, n).astype(np.int64)
+    return {"pickup": hexes,
+            "pu_zone": rng.integers(1, 266, n).astype(np.int32),
+            "hc_key": rng.integers(0, 100_000, n).astype(np.int32),
+            "fare": (250 + dist * 156 // 100
+                     + rng.integers(0, 500, n)).astype(np.int64),
+            "distance": dist, "lat": lat, "lng": lng}
+
+
+GEO_COLUMNS = ("pickup", "pu_zone", "hc_key", "fare", "distance")
+
+
+def _geo_build(data, out_dir: str, rows, segments: int):
+    """The trips table's segment directories over the data's ``rows``,
+    with the geo index on pickup; (dirs, index build seconds, index
+    bytes, table config)."""
+    import numpy as np
+
+    from pinot_tpu_torch.index import registry
+    from pinot_tpu_torch.segment import SegmentBuilder
+    from pinot_tpu_torch.spi import (DataType, FieldSpec, FieldType,
+                                     IndexingConfig, Schema, TableConfig)
+
+    schema = Schema("trips", [
+        FieldSpec("pickup", DataType.BYTES),
+        FieldSpec("pu_zone", DataType.INT),
+        FieldSpec("hc_key", DataType.INT),
+        FieldSpec("fare", DataType.LONG, FieldType.METRIC),
+        FieldSpec("distance", DataType.LONG, FieldType.METRIC)])
+    cfg = TableConfig("trips", indexing=IndexingConfig(
+        geo_index_columns={"pickup": {"resolution": GEO_RES}}))
+    index_s = [0.0]
+    build = registry._BUILDERS["geo"]
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return build(*a, **kw)
+        finally:
+            index_s[0] += time.perf_counter() - t0
+
+    registry._BUILDERS["geo"] = timed
+    try:
+        bounds = np.linspace(0, len(rows), segments + 1).astype(int)
+        dirs = [SegmentBuilder(schema, cfg).build(
+            {c: data[c][rows[bounds[i]:bounds[i + 1]]]
+             for c in GEO_COLUMNS}, out_dir, f"trips_{i}")
+            for i in range(segments)]
+    finally:
+        registry._BUILDERS["geo"] = build
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d in dirs
+                 for f in os.listdir(d) if ".geo." in f)
+    return dirs, index_s[0], nbytes, cfg
+
+
+def _haversine(lat1, lng1, lat2, lng2):
+    """Great-circle metres, as the geo index measures them (the same
+    expression, so the same bits)."""
+    import numpy as np
+
+    p1 = np.radians(np.asarray(lat1, dtype=np.float64))
+    p2 = np.radians(np.asarray(lat2, dtype=np.float64))
+    dphi = p2 - p1
+    dlmb = np.radians(np.asarray(lng2, dtype=np.float64)
+                      - np.asarray(lng1, dtype=np.float64))
+    a = (np.sin(dphi / 2.0) ** 2
+         + np.cos(p1) * np.cos(p2) * np.sin(dlmb / 2.0) ** 2)
+    return 2.0 * 6371008.8 * np.arcsin(np.sqrt(np.clip(a, 0.0, 1.0)))
+
+
+def _even_odd(px, py, ring):
+    """Even-odd ray cast of points against one closed (lng, lat) ring."""
+    import numpy as np
+
+    inside = np.zeros(len(px), dtype=bool)
+    for (x1, y1), (x2, y2) in zip(ring[:-1], ring[1:]):
+        spans = (y1 > py) != (y2 > py)
+        dy = (y2 - y1) if y2 != y1 else 1e-300
+        xint = x1 + (py - y1) / dy * (x2 - x1)
+        inside ^= spans & (px < xint)
+    return inside
+
+
+def geo_oracle(data, rows) -> dict:
+    """{query name: rows} for GEO_QUERIES over the data's ``rows``, numpy
+    alone: haversine for the circles, even-odd for the polygon and its
+    hole (null pickups never match a distance; they are outside the
+    polygon, so "= 0" takes them)."""
+    import numpy as np
+
+    lat, lng = data["lat"][rows], data["lng"][rows]
+    fare = data["fare"][rows]
+    dist = data["distance"][rows]
+    d = _haversine(lat, lng, TIMES_SQUARE[0], TIMES_SQUARE[1])
+    valid = ~np.isnan(lat)
+    inside = np.zeros(len(lat), dtype=bool)
+    inside[valid] = _even_odd(lng[valid], lat[valid], MANHATTAN) & \
+        ~_even_odd(lng[valid], lat[valid], CENTRAL_PARK)
+
+    def sums(m):
+        return [(int(m.sum()), int(fare[m].sum()), int(dist[m].sum()))]
+
+    def grouped(m, key, limit):
+        k = data[key][rows][m]
+        cnt = np.bincount(k)
+        tot = np.bincount(k, weights=fare[m]) if len(k) else cnt
+        return [(int(g), int(cnt[g]), int(tot[g]))
+                for g in np.nonzero(cnt)[0]][:limit]
+
+    with np.errstate(invalid="ignore"):
+        within = {r: d < r for r in (500.0, 5000.0, 50_000.0)}
+    return {"sum_500m": sums(within[500.0]),
+            "sum_5km": sums(within[5000.0]),
+            "hc_key_5km": grouped(within[5000.0], "hc_key", 200_000),
+            "sweep_50km": sums(within[50_000.0]),
+            "zone_within": grouped(inside, "pu_zone", 1000),
+            "zone_outside": grouped(~inside, "pu_zone", 1000)}
+
+
+_GEO_PT = f"ST_POINT({TIMES_SQUARE[1]}, {TIMES_SQUARE[0]}, 1)"
+GEO_SUMS = "SELECT COUNT(*), SUM(fare), SUM(distance) FROM {t} WHERE "
+GEO_QUERIES = [
+    ("sum_500m", GEO_SUMS + f"ST_DISTANCE(pickup, {_GEO_PT}) < 500"),
+    ("sum_5km", GEO_SUMS + f"ST_DISTANCE(pickup, {_GEO_PT}) < 5000"),
+    ("hc_key_5km", "SELECT hc_key, COUNT(*), SUM(fare) FROM {t} WHERE "
+     f"ST_DISTANCE(pickup, {_GEO_PT}) < 5000 GROUP BY hc_key ORDER BY "
+     "hc_key LIMIT 200000"),
+    ("sweep_50km", GEO_SUMS + f"ST_DISTANCE(pickup, {_GEO_PT}) < 50000"),
+    ("zone_within", "SELECT pu_zone, COUNT(*), SUM(fare) FROM {t} WHERE "
+     f"ST_WITHIN(pickup, ST_GEOM_FROM_TEXT('{MANHATTAN_WKT}')) = 1 "
+     "GROUP BY pu_zone ORDER BY pu_zone LIMIT 1000"),
+    ("zone_outside", "SELECT pu_zone, COUNT(*), SUM(fare) FROM {t} WHERE "
+     f"ST_WITHIN(pickup, ST_GEOM_FROM_TEXT('{MANHATTAN_WKT}')) = 0 "
+     "GROUP BY pu_zone ORDER BY pu_zone LIMIT 1000"),
+]
+# the twin's host-path comparisons (each decodes the twin's dictionary)
+GEO_TWIN_QUERIES = ("sum_500m", "hc_key_5km", "zone_within", "zone_outside")
+GEO_UNION_M = 40.0                   # ST_UNION's circle: a few points
+
+
+def _plans(sql: str, segments):
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.planner import SegmentPlanner
+    from pinot_tpu_torch.query.sql import parse_sql
+
+    ctx = build_query_context(parse_sql(sql))
+    return [SegmentPlanner(ctx, s).plan() for s in segments]
+
+
+def _k1_held(plans, label: str, path: str, tile: int,
+             on_card: bool = True) -> int:
+    """K1 on a compact query's own inputs (its segmented group or each
+    segment) held to compact_reference bitwise, and on the card timed
+    (k1_timed); the launches compared."""
+    from pinot_tpu_torch.engine import batch
+    from pinot_tpu_torch.ops import compact as C
+
+    route = _expected_route(plans) if len(plans) > 1 else batch.PER_SEGMENT
+    if route == batch.SEGMENTED:
+        cases = [_segmented_inputs(plans)]
+    else:
+        cases = [(*_compact_inputs(p), p.slots_cap) for p in plans]
+    for mask, cols, cap in cases:
+        got = C.compact(mask, cols, cap)
+        same_outputs(got, C.compact_reference(mask, cols, cap))
+        phase(path, query=label, route=route,
+              n=mask.shape[0], tiles=-(-mask.shape[0] // tile),
+              cols=[str(c.dtype) for c in cols], slots_cap=cap,
+              matched=int(got[3]), equal=True,
+              **(k1_timed(mask, cols, cap, got) if on_card else {}))
+    return len(cases)
+
+
+def geo_phase(tile: int, live_segments=(), device: str = "cuda") -> int:
+    """The geo cell: GEO_ROWS pickups in GEO_SEGMENTS segments with a geo
+    index at GEO_RES through Broker(device) and connect(broker)(sql); each
+    query plans the kernel with a docmask param on every segment and its
+    rows equal geo_oracle's, one warm-up and ITERS timed runs (p50). The
+    50 km circle's cover passes the index's cell cap and takes the sweep;
+    the polygon's "= 0" is the plain complement. On a twin of the first
+    GEO_TWIN_ROWS rows (one segment, indexed), the indexed rows equal the
+    host path's (OPTION(forceHostExecution=true), which evaluates the
+    ST_* function row by row) and the oracle's, and ST_UNION over a small
+    circle equals the oracle's MULTIPOINT. K1 is held bitwise on the geo
+    path's compact inputs. Returns K1's launches on the path."""
+    import numpy as np
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.geo import cells
+    from pinot_tpu_torch.index import geo as geo_index
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.server import TableDataManager
+
+    on_card = device.startswith("cuda")
+    t_start = time.perf_counter()
+    t0 = time.perf_counter()
+    data = geo_data(GEO_ROWS)
+    gen_s = time.perf_counter() - t0
+    out = os.path.join(CACHE, f"geo_{GEO_ROWS}")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    every = np.arange(GEO_ROWS)
+    dirs, index_s, index_bytes, cfg = _geo_build(
+        data, os.path.join(out, "trips"), every, GEO_SEGMENTS)
+    build_s = time.perf_counter() - t0
+    # the twin: the first GEO_TWIN_ROWS pickups that are present (the
+    # host path's ST_* functions run a Python loop per row once a column
+    # holds a null, too slow at this size)
+    twin = np.nonzero(~np.isnan(data["lat"]))[0][:GEO_TWIN_ROWS]
+    twin_dirs, twin_index_s, _b, _c = _geo_build(
+        data, os.path.join(out, "twin"), twin, 1)
+    phase("geo_setup", rows=GEO_ROWS, segments=GEO_SEGMENTS,
+          resolution=GEO_RES, twin_rows=GEO_TWIN_ROWS,
+          empty_rows=int(np.isnan(data["lat"]).sum()),
+          data_seconds=gen_s, build_seconds=build_s,
+          index_build_seconds=index_s, index_bytes=index_bytes,
+          twin_index_build_seconds=twin_index_s,
+          cuts=[f"{GEO_ROWS} pickups in {GEO_SEGMENTS} segments; NYC TLC "
+                f"yellow cabs made {GEO_TLC_JAN_2015} trips in January "
+                "2015 (cut for the check's time)",
+                "points drawn from a mixture over the NYC box, not the "
+                "TLC records; pu_zone, hc_key, fare and distance drawn "
+                "from a seed",
+                f"the twin ({GEO_TWIN_ROWS} rows, 1 segment, no empty "
+                "pickup) carries the index too: its host path is "
+                "forceHostExecution, which evaluates the ST_* functions "
+                "row by row and reads no index"])
+    broker = Broker(device=device)
+    tables = {}
+    for name, ds in (("trips", dirs), ("twin", twin_dirs)):
+        dm = TableDataManager(name, device=device, table_config=cfg)
+        for d in ds:
+            dm.add_segment_dir(d)
+        broker.register_table(dm)
+        tables[name] = dm.acquire_segments()
+    query = connect(broker)
+    live = list(live_segments) + tables["trips"] + tables["twin"]
+    oracle = geo_oracle(data, every)
+    twin_oracle = geo_oracle(data, twin)
+    sweep = cells.cover_circle(TIMES_SQUARE[0], TIMES_SQUARE[1], 50_000.0,
+                               GEO_RES, cap=geo_index.MAX_COVER_CELLS)
+    if sweep is not None:
+        raise AssertionError("the 50 km circle's cover fits the cell cap: "
+                             "the sweep route is not exercised")
+
+    C.launches = 0                       # the geo path starts here
+    compact_queries = []
+    for name, tmpl in GEO_QUERIES:
+        sql = tmpl.format(t="trips")
+        plans = _plans(sql, tables["trips"])
+        for p in plans:
+            masks = [x for x in p.params if isinstance(x, tuple)
+                     and x[0] == "docmask"]
+            if p.kind != "kernel" or len(masks) != 1:
+                raise AssertionError(f"geo {name}: plan {p.kind} with "
+                                     f"{len(masks)} docmask params")
+        before = C.launches
+        query(sql + LONG_TIMEOUT)                     # warm-up
+        times = []
+        for _ in range(ITERS):
+            t0 = time.perf_counter()
+            res = query(sql + LONG_TIMEOUT)
+            times.append((time.perf_counter() - t0) * 1e3)
+        rows = _ms_rows(res.rows)
+        if rows != oracle[name]:
+            raise AssertionError(f"geo {name}: rows differ from the oracle: "
+                                 f"{rows[:3]} vs {oracle[name][:3]}")
+        strategy = plans[0].kernel_plan.strategy
+        if strategy == "compact":
+            compact_queries.append((name, plans))
+        phase("geo_query", query=name, ok=True, rows=len(rows),
+              kind="kernel", strategy=strategy,
+              route=_expected_route(plans),
+              matched=(rows[0][0] if name.startswith(("sum", "sweep"))
+                       else sum(r[1] for r in rows)),
+              docmask_upload_bytes=sum(p.segment.bucket for p in plans),
+              p50_ms=statistics.median(times), times_ms=times,
+              compact_launches=C.launches - before)
+        _reconcile_or_fail(live, f"geo {name}")
+    prof = profile_query(query, GEO_QUERIES[2][1].format(t="trips")
+                         + LONG_TIMEOUT) if on_card else None
+
+    host_times = {}
+    for name, tmpl in GEO_QUERIES:
+        if name not in GEO_TWIN_QUERIES:
+            continue
+        sql = tmpl.format(t="twin")
+        indexed = _ms_rows(query(sql + LONG_TIMEOUT).rows)
+        t0 = time.perf_counter()
+        host = _ms_rows(query(sql + " OPTION(forceHostExecution=true,"
+                              "timeoutMs=600000)").rows)
+        host_times[name] = (time.perf_counter() - t0) * 1e3
+        if not indexed == host == twin_oracle[name]:
+            raise AssertionError(f"geo twin {name}: indexed, host path and "
+                                 "oracle rows differ")
+    geo_launches = C.launches            # ... and ends here
+    if not compact_queries or geo_launches == 0:
+        raise AssertionError("the geo path never launched the compaction")
+
+    union_sql = ("SELECT ST_UNION(ST_ASTEXT(pickup)) FROM twin WHERE "
+                 f"ST_DISTANCE(pickup, {_GEO_PT}) < {GEO_UNION_M}"
+                 + LONG_TIMEOUT)
+    t0 = time.perf_counter()
+    got = query(union_sql).rows
+    union_ms = (time.perf_counter() - t0) * 1e3
+    lat, lng = data["lat"][twin], data["lng"][twin]
+    with np.errstate(invalid="ignore"):
+        near = _haversine(lat, lng, *TIMES_SQUARE) < GEO_UNION_M
+    pts = sorted({(float(f"{x:.10g}"), float(f"{y:.10g}"))
+                  for x, y in zip(lng[near], lat[near])})
+    want = ("MULTIPOINT (" + ", ".join(f"{x:.10g} {y:.10g}"
+                                       for x, y in pts) + ")"
+            if pts else "MULTIPOINT EMPTY")
+    if got != [(want,)] or not pts:
+        raise AssertionError(f"geo ST_UNION: {got[:1]} vs {want[:80]}")
+
+    n_checked = 0
+    for name, plans in compact_queries:
+        n_checked += _k1_held(plans, name, "kernel_at_geo_path", tile,
+                              on_card)
+    _reconcile_or_fail(live, "geo")
+    for s in tables["trips"] + tables["twin"]:
+        s.evict_device()
+    phase("geo_done", seconds=time.perf_counter() - t_start,
+          compact_launches=geo_launches, k1_checked=n_checked,
+          twin_host_ms=host_times, st_union_points=len(pts),
+          st_union_ms=union_ms, profile_hc_key_5km=prof,
+          tracked_equals_held=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return geo_launches
+
+
+# ---------------------------------------------------------------------------
+# statements: the broker's statement surface on the SSB and star tables
+# ---------------------------------------------------------------------------
+
+def _ssb_branch(spec) -> str:
+    """An SSB spec's SQL without its ORDER BY / LIMIT (a set-operation
+    branch or a CTE body)."""
+    from pinot_tpu_torch.tools import ssb
+
+    return ssb.spec_to_sql(*spec).split(" ORDER BY")[0]
+
+
+def _multiset(op: str, all_: bool, left, right) -> list:
+    """The set operation over two row lists, in Python (the oracle of the
+    broker's combine)."""
+    from collections import Counter
+
+    if op == "union":
+        return left + right if all_ else list(dict.fromkeys(left + right))
+    rc = Counter(right)
+    out = []
+    for r in (left if all_ else list(dict.fromkeys(left))):
+        hit = rc[r] > 0
+        if all_ and hit:
+            rc[r] -= 1
+        if hit == (op == "intersect"):
+            out.append(r)
+    return out
+
+
+def _sum_rows(parts) -> list:
+    """Per-segment grouped oracle rows summed into one list by key."""
+    acc: dict = {}
+    for rows in parts:
+        for *key, v in rows:
+            acc[tuple(key)] = acc.get(tuple(key), 0) + v
+    return sorted(k + (v,) for k, v in acc.items())
+
+
+SETOP_LEFT = ([("c_region", "eq", "ASIA"), ("s_region", "eq", "ASIA"),
+               ("d_year", "between", (1992, 1996))], ("lo_revenue",),
+              ["c_nation", "s_nation", "d_year"])
+SETOP_RIGHT = ([("c_region", "eq", "ASIA"), ("s_region", "eq", "ASIA"),
+                ("d_year", "between", (1994, 1998))], ("lo_revenue",),
+               ["c_nation", "s_nation", "d_year"])
+SETOP_LIMIT = 400
+QUOTA_QPS = 5
+
+
+def _star_oracle(tables) -> dict:
+    """{statement: rows} of the star-schema statements, numpy alone."""
+    import numpy as np
+
+    from pinot_tpu_torch.tools import star
+
+    cust, part, orders = (tables[k][0] for k in ("customers", "parts",
+                                                 "orders"))
+    price, ocust, opart = orders["o_price"], orders["o_cust"], \
+        orders["o_part"]
+    nat = cust["c_nation"][ocust]
+    de = nat == "de"
+    grp = np.bincount(opart[de], minlength=star.PART_ROWS)
+    gsum = np.bincount(opart[de], weights=price[de],
+                       minlength=star.PART_ROWS)
+    hi = price >= price.max() - 100
+    jp = nat == "jp"
+    big = price > 4900
+    spend = np.bincount(ocust[big], weights=price[big],
+                        minlength=star.CUST_ROWS)
+    buyers = np.nonzero(np.bincount(ocust[big],
+                                    minlength=star.CUST_ROWS))[0]
+    bnat = cust["c_nation"][buyers]
+    brand = part["p_brand"][opart]
+    lo = price > 2500
+    nations = sorted(set(cust["c_nation"].tolist()))
+    brands = sorted(set(part["p_brand"].tolist()))
+    union = [(n, int(price[lo & (nat == n)].sum())) for n in nations
+             if (lo & (nat == n)).any()] + \
+        [(b, int(price[~lo & (brand == b)].sum())) for b in brands
+         if (~lo & (brand == b)).any()]
+    return {
+        "in_subquery": [(int(de.sum()), int(price[de].sum()))],
+        "in_subquery_gb": [(int(g), int(grp[g]), int(gsum[g]))
+                           for g in np.nonzero(grp)[0]],
+        "scalar_subquery": [(int(hi.sum()),)],
+        "exists": [(int(jp.sum()), int(price[jp].sum()))],
+        "cte_join": [(n, int((bnat == n).sum()),
+                      int(spend[buyers[bnat == n]].sum()))
+                     for n in nations if (bnat == n).any()],
+        "join_union": sorted(union),
+        "hybrid_orders": [(int(lo.sum()), int(price[lo].sum()),
+                           int(orders["o_key"][lo].min()),
+                           int(orders["o_key"][lo].max()))],
+    }
+
+
+STAR_STATEMENTS = [
+    ("in_subquery", "SELECT COUNT(*), SUM(o_price) FROM orders WHERE o_cust "
+     "IN (SELECT c_id FROM customers WHERE c_nation = 'de')"),
+    ("in_subquery_gb", "SELECT o_part, COUNT(*), SUM(o_price) FROM orders "
+     "WHERE o_cust IN (SELECT c_id FROM customers WHERE c_nation = 'de') "
+     "GROUP BY o_part ORDER BY o_part LIMIT 100000"),
+    ("scalar_subquery", "SELECT COUNT(*) FROM orders WHERE o_price >= "
+     "(SELECT MAX(o_price) - 100 FROM orders)"),
+    ("exists", "SELECT COUNT(*), SUM(o_price) FROM orders o WHERE EXISTS "
+     "(SELECT c_id FROM customers c WHERE c.c_id = o.o_cust AND "
+     "c.c_nation = 'jp')"),
+    ("cte_join", "WITH top AS (SELECT o_cust, SUM(o_price) AS spend FROM "
+     "orders WHERE o_price > 4900 GROUP BY o_cust LIMIT 1000000) SELECT "
+     "c.c_nation, COUNT(*), SUM(t.spend) FROM top t JOIN customers c ON "
+     "t.o_cust = c.c_id GROUP BY c.c_nation ORDER BY c.c_nation"),
+    ("join_union", "SELECT c.c_nation, SUM(o.o_price) FROM orders o JOIN "
+     "customers c ON o.o_cust = c.c_id WHERE o.o_price > 2500 GROUP BY "
+     "c.c_nation UNION ALL SELECT p.p_brand, SUM(o.o_price) FROM orders o "
+     "JOIN parts p ON o.o_part = p.p_id WHERE o.o_price <= 2500 GROUP BY "
+     "p.p_brand ORDER BY 1"),
+    ("hybrid_orders", "SELECT COUNT(*), SUM(o_price), MIN(o_key), "
+     "MAX(o_key) FROM orders_h WHERE o_price > 2500"),
+]
+STAR_EXPLAIN = [
+    "EXPLAIN PLAN FOR SELECT c.c_nation, COUNT(*) FROM orders o JOIN "
+    "customers c ON o.o_cust = c.c_id JOIN parts p ON o.o_part = p.p_id "
+    "GROUP BY c.c_nation",
+    "EXPLAIN PLAN FOR SELECT o_part FROM orders UNION ALL SELECT p_id FROM "
+    "parts EXCEPT SELECT p_id FROM parts WHERE p_brand = 'acme'",
+]
+HYBRID_QIDS = ("q1.1", "q2.1", "q3.1")
+
+
+def statements_phase(single, segs, star_dirs, tables, tile: int,
+                     live_segments=(), device: str = "cuda") -> int:
+    """The broker's statement surface through connect(broker)(sql), one
+    warm-up and ITERS timed runs each (p50): on the SSB table at 1 and
+    TABLE_SEGMENTS segments a CTE feeding a group-by, a view created,
+    queried and dropped, UNION ALL / UNION / INTERSECT / EXCEPT of two
+    group-bys under an outer ORDER BY / LIMIT and EXPLAIN of the 13
+    queries; on the star schema IN, scalar and correlated EXISTS
+    subqueries, a CTE feeding a join, bench.py's join_union and EXPLAIN
+    of a join and a set operation; a hybrid lineorder (half the
+    8-segment table offline, half realtime, time column d_yearmonthnum)
+    running Q1.1, Q2.1 and Q3.1, and a hybrid orders whose realtime half
+    overlaps its offline one by a segment; a table with quotaQps 5 that
+    takes a burst of 6. Rows equal a numpy oracle (SSB: tools/ssb's;
+    set operations: the multiset operation over the branches' oracle
+    rows; hybrids: offline rows at or below the boundary, realtime rows
+    above); EXPLAIN launches nothing; tracked == held after every
+    statement (no CTE bytes left); K1 is held bitwise on the path's
+    compact inputs. Returns K1's launches on the path."""
+    from pinot_tpu_torch.broker import Broker, QuotaExceededError, connect
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.planner import SegmentPlanner
+    from pinot_tpu_torch.query.sql import parse_sql
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.spi import TableConfig
+    from pinot_tpu_torch.tools import ssb
+
+    t_start = time.perf_counter()
+
+    def broker_of(parts, configs=None):
+        b = Broker(device=device)
+        for name, seglist in parts.items():
+            dm = TableDataManager(name, device=device, table_config=(
+                configs or {}).get(name))
+            for s in seglist:
+                dm.add_segment(s)
+            b.register_table(dm)
+        return b
+
+    star_segs = {}
+    for name, ds in star_dirs.items():
+        star_segs[name] = [load_segment(d, device) for d in ds]
+    o = star_segs["orders"]
+    brokers = {
+        "ssb1": broker_of({"lineorder": [single]}),
+        f"ssb{len(segs)}": broker_of({"lineorder": segs}),
+        "star": broker_of(
+            {**star_segs, "orders_h_OFFLINE": o[:3],
+             "orders_h_REALTIME": o[2:], "parts_q": star_segs["parts"]},
+            {"orders_h_OFFLINE": TableConfig("orders_h_OFFLINE",
+                                             time_column="o_key"),
+             "parts_q": TableConfig("parts_q", quota_qps=QUOTA_QPS)}),
+        "hybrid": broker_of(
+            {"lineorder_OFFLINE": segs[:len(segs) // 2],
+             "lineorder_REALTIME": segs[len(segs) // 2:]},
+            {"lineorder_OFFLINE": TableConfig(
+                "lineorder_OFFLINE", time_column="d_yearmonthnum")}),
+    }
+    live = list(live_segments) + [single, *segs] + \
+        [s for v in star_segs.values() for s in v]
+    specs = {qid: (p, v, g) for qid, p, v, g in ssb.QUERIES}
+
+    def oracle_of(spec, seg_list=(single,), extra=()):
+        p, v, g = spec
+        return _sum_rows([ssb.oracle_run(s, list(p) + list(extra), v, g)[0]
+                          for s in seg_list])
+
+    left = _ms_rows(oracle_of(SETOP_LEFT))
+    right = _ms_rows(oracle_of(SETOP_RIGHT))
+    q21 = _ms_rows(oracle_of(specs["q2.1"]))
+    years = sorted({r[0] for r in q21})
+    cte_want = [(y, sum(1 for r in q21 if r[0] == y),
+                 sum(r[2] for r in q21 if r[0] == y)) for y in years]
+    asia = _ms_rows(oracle_of(([("c_region", "eq", "ASIA")],
+                               ("lo_revenue",), ["c_nation", "d_year"])))
+    asia_years = sorted({r[1] for r in asia})
+    view_want = [(y, sum(r[2] for r in asia if r[1] == y),
+                  sum(1 for r in asia if r[1] == y)) for y in asia_years]
+    star_want = _star_oracle(tables)
+    lsql, rsql = _ssb_branch(SETOP_LEFT), _ssb_branch(SETOP_RIGHT)
+    ssb_statements = [
+        ("cte_groupby", "WITH t (yr, brand, rev) AS ("
+         + _ssb_branch(specs["q2.1"]) + " LIMIT 1000000) SELECT yr, "
+         "COUNT(*), SUM(rev) FROM t GROUP BY yr ORDER BY yr", cte_want),
+        ("view_query", "SELECT d_year, SUM(rev), COUNT(*) FROM asia "
+         "GROUP BY d_year ORDER BY d_year", view_want),
+    ] + [(f"setop_{op}{'_all' if all_ else ''}",
+          f"{lsql} {op.upper()}{' ALL' if all_ else ''} {rsql} "
+          f"ORDER BY 1, 2, 3 LIMIT {SETOP_LIMIT}",
+          sorted(_multiset(op, all_, left, right))[:SETOP_LIMIT])
+         for op, all_ in (("union", True), ("union", False),
+                          ("intersect", False), ("except", False))]
+
+    # the hybrid lineorder's oracle: offline rows at or below the
+    # boundary, realtime rows above it
+    half = len(segs) // 2
+    boundary = max(s.columns["d_yearmonthnum"].max for s in segs[:half])
+    hybrid_want = {qid: sorted(_ms_rows(_sum_rows([
+        oracle_of(specs[qid], segs[:half],
+                  [("d_yearmonthnum", "between", (0, boundary))]),
+        oracle_of(specs[qid], segs[half:],
+                  [("d_yearmonthnum", "between",
+                    (boundary + 1, 10 ** 9))])]))) for qid in HYBRID_QIDS}
+
+    stats = {}
+
+    def run(bname, name, sql, want, reps=ITERS):
+        query = connect(brokers[bname])
+        res = query(sql + LONG_TIMEOUT)                # warm-up
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = query(sql + LONG_TIMEOUT)
+            times.append((time.perf_counter() - t0) * 1e3)
+        rows = _ms_rows(res.rows)
+        if rows != want:
+            raise AssertionError(f"statement {name} on {bname}: rows "
+                                 f"differ from the oracle: {rows[:3]} vs "
+                                 f"{want[:3]}")
+        _reconcile_or_fail(live, f"statement {name} on {bname}")
+        stats[f"{bname}:{name}"] = statistics.median(times)
+        phase("statement", table=bname, statement=name, ok=True,
+              rows=len(rows), p50_ms=statistics.median(times),
+              times_ms=times)
+
+    C.launches = 0                       # the statements path starts here
+    for bname in ("ssb1", f"ssb{len(segs)}"):
+        q = connect(brokers[bname])
+        created = q("CREATE VIEW asia AS SELECT c_nation, d_year, "
+                    "SUM(lo_revenue) AS rev FROM lineorder WHERE "
+                    "c_region = 'ASIA' GROUP BY c_nation, d_year "
+                    "LIMIT 100000").rows
+        for name, sql, want in ssb_statements:
+            run(bname, name, sql, want)
+        dropped = q("DROP VIEW asia").rows
+        if created != [("asia", "CREATED")] or \
+                dropped != [("asia", "DROPPED")]:
+            raise AssertionError(f"views on {bname}: {created} {dropped}")
+        explained = []
+        for qid, p, v, g in ssb.QUERIES:
+            before = C.launches
+            t0 = time.perf_counter()
+            rows = q("EXPLAIN PLAN FOR " + ssb.spec_to_sql(p, v, g)).rows
+            explained.append((time.perf_counter() - t0) * 1e3)
+            if C.launches != before or not any(
+                    "TPU_KERNEL" in r[0] for r in rows):
+                raise AssertionError(f"EXPLAIN {qid} on {bname}: {rows}")
+        phase("statement", table=bname, statement="explain_13_ssb",
+              ok=True, p50_ms=statistics.median(explained),
+              times_ms=explained)
+        _reconcile_or_fail(live, f"EXPLAIN on {bname}")
+    for name, sql in STAR_STATEMENTS:
+        # the joins are numpy on the host (seconds at this depth): one
+        # timed run after the warm-up
+        run("star", name, sql, star_want[name],
+            reps=1 if name == "join_union" else ITERS)
+    q = connect(brokers["star"])
+    for sql in STAR_EXPLAIN:
+        before = C.launches
+        rows = q(sql).rows
+        if C.launches != before or len(rows) < 4:
+            raise AssertionError(f"{sql}: {rows}")
+        phase("statement", table="star", statement=sql[:40], rows=rows)
+    for qid in HYBRID_QIDS:
+        run("hybrid", f"hybrid_{qid}", ssb.spec_to_sql(*specs[qid]),
+            hybrid_want[qid])
+    statement_launches = C.launches      # ... and ends here
+
+    quota_errors = []
+    for i in range(QUOTA_QPS + 1):
+        try:
+            q("SELECT COUNT(*) FROM parts_q")
+        except QuotaExceededError as e:
+            quota_errors.append((i, str(e)))
+    if [i for i, _e in quota_errors] != [QUOTA_QPS]:
+        raise AssertionError(f"quota burst: {quota_errors}")
+
+    stmt = brokers["star"]._resolve_subqueries(parse_sql(
+        dict(STAR_STATEMENTS)["in_subquery_gb"]))
+    k1_plans = [
+        ("ssb1:setop_left", _plans(lsql, [single])),
+        (f"ssb{len(segs)}:setop_left", _plans(lsql, segs)),
+        ("ssb1:cte_body_q2.1", _plans(_ssb_branch(specs["q2.1"]),
+                                      [single])),
+        ("star:in_subquery_gb", [SegmentPlanner(
+            build_query_context(stmt), s).plan() for s in o])]
+    n_checked = sum(
+        _k1_held(plans, label, "kernel_at_statement_path", tile,
+                 device.startswith("cuda"))
+        for label, plans in k1_plans
+        if plans[0].kind == "kernel"
+        and plans[0].kernel_plan.strategy == "compact")
+    if statement_launches == 0 or n_checked == 0:
+        raise AssertionError("the statements path never launched the "
+                             "compaction")
+    _reconcile_or_fail(live, "statements")
+    for v in star_segs.values():
+        for s in v:
+            s.evict_device()
+    phase("statements_done", seconds=time.perf_counter() - t_start,
+          compact_launches=statement_launches, k1_checked=n_checked,
+          hybrid_boundary=boundary, quota_error=quota_errors[0][1],
+          p50_ms=stats, tracked_equals_held=True)
+    return statement_launches
+
+
 def main() -> int:
     import torch
 
@@ -3421,6 +4209,9 @@ def main() -> int:
     scan = segscan_check(ms_inputs, S.tile_rows())
     agg = segagg_check(ms_inputs)
     traced_check(ms_inputs)
+    statement_launches = statements_phase(surface_seg, segs, star_dirs,
+                                          tables, tile, [single])
+    geo_launches = geo_phase(tile, [single, surface_seg, *segs])
     vsearch = vector_phase([single, surface_seg, *segs])
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
@@ -3429,7 +4220,8 @@ def main() -> int:
         "source": "pinot_tpu_torch/ops/csrc/compact.cu",
         "replaces": "pinot_tpu/ops/compact.py:252",
         "launches": launches + seg_launches + concurrent_launches
-        + tier_launches + drift_launches,
+        + tier_launches + drift_launches + statement_launches
+        + geo_launches,
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -3447,6 +4239,8 @@ def main() -> int:
         "concurrent_launches": concurrent_launches,
         "tier_launches": tier_launches,
         "drift_launches": drift_launches,
+        "statement_launches": statement_launches,
+        "geo_launches": geo_launches,
         **{f"segmented_{k}": v for k, v in seg_totals.items()},
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
@@ -3458,8 +4252,9 @@ def main() -> int:
               f"segmented-route query ({n_segmented}) on the "
               f"{TABLE_SEGMENTS}-segment table; launches = the single-"
               "segment run's, the 8-segment run's, the concurrent "
-              "phase's serial waves', the budgeted (tier) run's and the "
-              "drift run's"}, {
+              "phase's serial waves', the budgeted (tier) run's, the "
+              "drift run's, the statements phase's and the geo "
+              "phase's"}, {
         "name": "segscan",
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/segscan.cu",

@@ -11,7 +11,8 @@ Port of ``pinot_tpu/engine/host_eval.py`` (numpy, no device code), with
 the index predicates (TEXT_MATCH, JSON_MATCH, VECTOR_SIMILARITY through
 index/predicates.py), VECTOR_SIMILARITY as a value (engine/vector_exec's
 exact host scores) and the inverted- and range-index shortcuts of the
-filter scan. Geo index predicates come with the geo index.
+filter scan. A geo filter evaluates its ST_* function row by row here, as
+in the reference; the geo index answers it on the kernel path.
 """
 from __future__ import annotations
 

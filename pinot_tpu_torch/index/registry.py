@@ -1,9 +1,7 @@
 """Index type registry: kind -> (builder fn, reader class).
 
 Port of ``pinot_tpu/index/registry.py``. Registered here: inverted, range,
-bloom, text, json, vector. The ``geo`` kind is known (table configs name
-it) but not ported yet: building or loading it raises
-``NotImplementedError``.
+bloom, text, json, vector, geo.
 """
 from __future__ import annotations
 
@@ -11,12 +9,7 @@ from typing import Any, Dict
 
 import numpy as np
 
-from . import bloom, inverted, json_index, range_index, text, vector
-
-
-def _geo_not_ported(*_args, **_kw):
-    raise NotImplementedError("geo index: next slice (not yet ported to "
-                              "pinot_tpu_torch)")
+from . import bloom, geo, inverted, json_index, range_index, text, vector
 
 
 _BUILDERS = {
@@ -26,7 +19,7 @@ _BUILDERS = {
     "text": text.build,
     "json": json_index.build,
     "vector": vector.build,
-    "geo": _geo_not_ported,
+    "geo": geo.build,
 }
 
 _READERS = {
@@ -36,7 +29,7 @@ _READERS = {
     "text": text.TextIndexReader,
     "json": json_index.JsonIndexReader,
     "vector": vector.VectorIndexReader,
-    "geo": _geo_not_ported,
+    "geo": geo.GeoIndexReader,
 }
 
 INDEX_KINDS = tuple(_BUILDERS)
@@ -45,7 +38,8 @@ INDEX_KINDS = tuple(_BUILDERS)
 # (the module that writes the files is the one source). Removal on reload
 # deletes <col><stem> and <col><stem>.* (csr sub-files).
 _MODULES = {"inverted": inverted, "range": range_index, "bloom": bloom,
-            "text": text, "json": json_index, "vector": vector}
+            "text": text, "json": json_index, "vector": vector,
+            "geo": geo}
 FILE_STEMS: Dict[str, tuple] = {}
 for _kind, _mod in _MODULES.items():
     _sufs = [getattr(_mod, a) for a in dir(_mod)
@@ -63,7 +57,7 @@ def build_indexes_for_column(col: str, kinds, seg_dir: str, *,
                              ) -> Dict[str, Dict[str, Any]]:
     """Build each configured index; returns {kind: extra_metadata} to embed
     in the column's metadata under "indexes". ``configs`` carries per-kind
-    build options from the table config (e.g. the vector metric)."""
+    build options from the table config (e.g. the geo resolution)."""
     out: Dict[str, Dict[str, Any]] = {}
     for kind in kinds:
         if kind not in _BUILDERS:

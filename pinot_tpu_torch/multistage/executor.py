@@ -5,8 +5,9 @@ Port of ``pinot_tpu/multistage/executor.py`` (``MultiStageExecutor``,
 segments' host copies, joins run on the device (``device_join``, K16) or
 numpy, the window stage's scans on the device (``window``, K17), and a
 co-located plan may run whole as one device program (``fused``, K19).
-EXPLAIN (``explain_multistage``) and the span instrumentation are not
-ported.
+EXPLAIN (``explain_multistage``) describes the stage topology without a
+scan, with the reference's operator names. The span instrumentation is
+not ported.
 
 Reference parity: the v2 engine pipeline — QueryEnvironment.planQuery
 (pinot-query-planner/.../QueryEnvironment.java:126, Calcite fragmentation),
@@ -535,3 +536,90 @@ class MultiStageExecutor:
 
 def execute_multistage(broker, stmt: SelectStmt) -> ResultTable:
     return MultiStageExecutor(broker, stmt).execute()
+
+
+def explain_multistage(broker, stmt: SelectStmt) -> ResultTable:
+    """EXPLAIN for join queries: describe the stage topology without
+    executing any scan (QueryEnvironment.explainQuery analog)."""
+    ex = MultiStageExecutor(broker, stmt)
+    needed = ex._collect_needed()
+    pushed, post = ex._split_where()
+    rows: List[tuple] = []
+    rid = 0
+
+    def emit(op: str, parent: int) -> int:
+        nonlocal rid
+        rows.append((op, rid, parent))
+        rid += 1
+        return rid - 1
+
+    from .window import find_windows, rewrite_windows
+    wfs = find_windows(stmt)
+    if wfs:
+        stmt = rewrite_windows(stmt, {w: f"__w{i}"
+                                      for i, w in enumerate(wfs)})
+    ctx = build_query_context(stmt)
+    root = emit("BROKER_REDUCE", -1)
+    if wfs:
+        root = emit(f"WINDOW(funcs:{len(wfs)})", root)
+    if ctx.is_group_by:
+        final = emit(f"AGGREGATE_GROUP_BY(keys:{len(ctx.group_by)},"
+                     f"aggs:{len(ctx.aggregations)})", root)
+    elif ctx.is_aggregation:
+        final = emit(f"AGGREGATE(aggs:{len(ctx.aggregations)})", root)
+    else:
+        final = emit("SELECT", root)
+    if post:
+        final = emit(f"FILTER(post_join_conjuncts:{len(post)})", final)
+    parent = final
+    ordered, trace = ex.plan_join_order(pushed)
+    base_est = ex._table_row_est[ex.tables[0].label]
+    if stmt.joins:
+        # plane prediction mirrors _choose_plane minus the device count
+        # (EXPLAIN never initializes a backend — predict_backend rule)
+        from .costs import choose_multistage_plane
+        opt = stmt.options.get("multistageFused")
+        force = None if opt is None else (
+            "fused" if str(opt).strip().lower() in ("1", "true", "yes")
+            else "mailbox")
+        width = sum(len(cols) for cols in needed.values())
+        plane, _ = choose_multistage_plane(0, base_est, width, None,
+                                           force)
+        if plane == "fused":
+            parent = emit(f"FUSED_MESH_PLAN(stages:{len(ordered)},"
+                          f"est_rows:{round(base_est)})", parent)
+    # probe-side estimate entering join i = output estimate of join i-1
+    probe_ests = [base_est] + [s["estRows"] for s in trace[:-1]]
+    for j, step, probe_est in zip(reversed(ordered), reversed(trace),
+                                  reversed(probe_ests)):
+        label = j.table.label
+        equi, rest = ex._split_on(
+            j.on, {t.label for t in ex.tables if t.label != label}, label)
+        dyn = False
+        if j.join_type == "cross":
+            parent = emit(f"CROSS_JOIN(est_rows:{step['estRows']})",
+                          parent)
+        else:
+            backend = device_join.predict_backend(
+                probe_est, step["rightRows"], j.join_type,
+                BROADCAST_THRESHOLD)
+            # dynamic semi-join filter prediction (the runtime decides
+            # on ACTUAL materialized rows; the estimate mirrors
+            # _dynamic_filter's gates so EXPLAIN shows the plan intent)
+            dyn = (j.join_type in ("inner", "left") and len(equi) == 1
+                   and 0 < probe_est
+                   <= MultiStageExecutor.DYNAMIC_FILTER_MAX_BUILD)
+            parent = emit(
+                f"HASH_JOIN({j.join_type.upper()},keys:{len(equi)},"
+                f"non_equi:{len(rest)},est_rows:{step['estRows']},"
+                f"backend:{backend})", parent)
+        emit(f"LEAF_SCAN({label},cols:{len(needed[label])},"
+             f"pushed_filters:{len(pushed[label])},"
+             + (f"dynamic_filter:{equi[0][1]}," if j.join_type != "cross"
+                and dyn else "")
+             + f"est_rows:{round(ex._table_row_est[label])})", parent)
+    base = ex.tables[0].label
+    emit(f"LEAF_SCAN({base},cols:{len(needed[base])},"
+         f"pushed_filters:{len(pushed[base])},"
+         f"est_rows:{round(ex._table_row_est[base])})", parent)
+    return ResultTable(["Operator", "Operator_Id", "Parent_Id"], rows)

@@ -626,23 +626,44 @@ class TupleSketchAgg(AggImpl):
 
 
 class StUnionAgg(AggImpl):
-    """ST_UNION over POINT geometries. Its WKT/WKB parsing lives in the
-    geospatial module, which this package has not ported yet, so the
-    aggregation raises instead of answering."""
+    """ST_UNION over POINT geometries: the distinct-point union as a
+    MULTIPOINT (StUnionAggregationFunction's behavior for point data —
+    the overwhelmingly common case; polygon union raises a clear
+    not-supported error rather than a wrong answer)."""
 
     numeric_input = False
 
     def empty(self):
         return set()
 
-    def _unported(self, *_a):
-        raise NotImplementedError(
-            "ST_UNION needs the geospatial module, not yet ported")
+    def _pts(self, v: np.ndarray) -> set:
+        from ..geo.geometry import parse_wkb, parse_wkt
+        out = set()
+        for g in v:
+            geom = parse_wkb(g) if isinstance(g, (bytes, bytearray)) \
+                else parse_wkt(str(g))
+            if geom.kind != "point":
+                raise ValueError(
+                    "ST_UNION supports POINT geometries only")
+            out.add((geom.lng, geom.lat))
+        return out
 
-    state = group_states = finalize = _unported
+    def state(self, h: HostSel):
+        return self._pts(h.ev(self.agg.arg))
+
+    def group_states(self, h: HostSel):
+        return _per_group_apply(h.ev(self.agg.arg), h.inv, h.n_groups,
+                                self._pts)
 
     def merge(self, a, b):
         return a | b
+
+    def finalize(self, s):
+        from ..geo.geometry import _fmt
+        if not s:
+            return "MULTIPOINT EMPTY"
+        pts = ", ".join(f"{_fmt(x)} {_fmt(y)}" for x, y in sorted(s))
+        return f"MULTIPOINT ({pts})"
 
 
 class MvWrapAgg(AggImpl):

@@ -662,3 +662,7 @@ def cast_value(v: Any, type_name: str) -> np.ndarray:
 
 
 register("cast", 2)(lambda v, t: cast_value(v, str(np.asarray(t))))
+
+
+# geospatial ST_* family (query/geo_functions.py) registers on import
+from . import geo_functions as _geo_functions  # noqa: E402,F401

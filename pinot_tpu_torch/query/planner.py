@@ -2,11 +2,13 @@
 
 Port of ``pinot_tpu/query/planner.py``, kept line for line where the two
 agree. What differs: the execution platform is the segment's torch device
-type instead of ``jax.default_backend()``; geo index predicates (they come
-with the geo index: a geo filter plans the host path, which evaluates the
-ST_* function row by row), plan verification, spans and the plan-cache
-drift loop are not ported. TEXT_MATCH, JSON_MATCH and VECTOR_SIMILARITY
-filters become a ``docmask`` kernel param, as in the reference.
+type instead of ``jax.default_backend()``; plan verification, spans and
+the plan-cache drift loop are not ported. TEXT_MATCH, JSON_MATCH and
+VECTOR_SIMILARITY filters, and the geo filters over a geo-indexed column
+(ST_Distance(col, point) <op> r, ST_Contains/ST_Within of a literal
+polygon, bare or ``= 0|1``), become a ``docmask`` kernel param, as in the
+reference; a geo filter over a column without the index plans the host
+path, which evaluates the ST_* function row by row.
 
 Reference parity: pinot-core/.../plan/maker/InstancePlanMakerImplV2.java:137
 (makeInstancePlan) / :234 (makeSegmentPlanNode) chooses Aggregation /
@@ -482,6 +484,12 @@ class SegmentPlanner:
             # (SqlError propagates when the index is missing: a user
             # error, not a host fallback)
             return self._mask_pred(index_filter_mask(self.seg, e))
+        from ..index.predicates import try_geo_inclusion_mask
+        gmask = try_geo_inclusion_mask(self.seg, e) \
+            if isinstance(e, FuncCall) else None
+        if gmask is not None:
+            # bare boolean ST_Contains/ST_Within over an indexed column
+            return self._mask_pred(gmask)
         if isinstance(e, FuncCall):
             p = self._dict_transform_bool(e)
             if p is not None:
@@ -523,6 +531,9 @@ class SegmentPlanner:
                 return self._dict_range(name, lo, hi, il, ih)
             # raw column
             return self._raw_cmp(name, m, op, v)
+        geo = self._geo_comparison(lhs, op, rhs)
+        if geo is not None:
+            return geo
         # generic: expr vs expr -> compare difference against zero
         try:
             l, li = self.resolve_value(lhs)
@@ -659,9 +670,28 @@ class SegmentPlanner:
                     f"cannot compare numeric column with {v!r}") from None
         return v
 
+    def _geo_comparison(self, lhs, op: str, rhs) -> Optional[Pred]:
+        """Index-backed geospatial comparisons (H3IndexFilterOperator /
+        H3InclusionIndexFilterOperator analogs): ST_Distance(col, point)
+        <op> r, and ST_Contains/ST_Within(...) = 0|1. None when the shape
+        doesn't match or the column has no geo index (host path then
+        evaluates the ST_* scalar row-wise, like the reference's scan
+        filter fallback)."""
+        from ..index.predicates import (try_geo_distance_mask,
+                                        try_geo_inclusion_mask)
+        mask = try_geo_distance_mask(self.seg, lhs, op, rhs)
+        if mask is None and isinstance(rhs, Literal) and op in ("==", "!=") \
+                and isinstance(rhs.value, (bool, int)) \
+                and rhs.value in (0, 1, True, False):
+            positive = bool(rhs.value) == (op == "==")
+            mask = try_geo_inclusion_mask(self.seg, lhs, positive=positive)
+        if mask is None:
+            return None
+        return self._mask_pred(mask)
+
     def _mask_pred(self, mask) -> Pred:
         """Host-computed doc mask -> constant-folded pred or docmask
-        kernel param."""
+        kernel param (shared by index, geo, and bare-boolean filters)."""
         if not mask.any():
             return FalseP()
         if mask.all():
@@ -813,8 +843,8 @@ class SegmentPlanner:
         from ..ops.kernels import INSET_BITMAP_MIN
         if m.has_dict:
             d = self.seg.dictionary(name)
-            ids = [d.index_of(self._cast_for(m, v)) for v in vals]
-            ids = sorted({i for i in ids if i >= 0})
+            ids = d.indexes_of([self._cast_for(m, v) for v in vals])
+            ids = np.unique(ids[ids >= 0]).tolist()
             if not ids:
                 return self._value_negate(FalseP(), name) if e.negated \
                     else FalseP()

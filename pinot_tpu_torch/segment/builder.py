@@ -384,7 +384,7 @@ class SegmentBuilder:
                                  f"column: {f.name!r}")
             if isinstance(arr, Categorical):  # indexes need materialized rows
                 arr = np.asarray(arr.values, dtype=object)[arr.codes]
-            # the geo kind raises NotImplementedError in the registry
+            # per-kind build options from the table config (geo resolution)
             icfgs = {"geo": self.table_config.indexing
                      .geo_index_columns.get(f.name) or {}}
             cmeta["indexes"] = index_pkg.build_indexes_for_column(

@@ -63,6 +63,19 @@ class Dictionary:
             return i
         return -1
 
+    def indexes_of(self, values: List[Any]) -> np.ndarray:
+        """``index_of`` over many values: one searchsorted for a numeric
+        dictionary of numeric keys (an IN list of thousands of literals),
+        the per-value lookup otherwise."""
+        keys = np.asarray(values)
+        if self._is_string or keys.dtype.kind not in "iuf":
+            return np.asarray([self.index_of(v) for v in values],
+                              dtype=np.int64)
+        i = np.searchsorted(self._values, keys, side="left")
+        hit = i < len(self._values)
+        hit[hit] = self._values[i[hit]] == keys[hit]
+        return np.where(hit, i, -1)
+
     def insertion_index(self, value: Any) -> int:
         """Leftmost index where value would insert (np.searchsorted 'left')."""
         if self._is_string:

@@ -95,8 +95,8 @@ class TableDataManager:
                     for kind in list(m.indexes):
                         try:
                             seg.index_reader(col, kind)
-                        except (OSError, NotImplementedError):
-                            pass    # unreadable or not ported: not in use
+                        except OSError:
+                            pass    # unreadable: not in use
                 delta = reconcile_indexes(seg.dir, cfg)
                 if delta["added"] or delta["removed"]:
                     seg.evict_device()
@@ -108,6 +108,13 @@ class TableDataManager:
 
     def acquire_segments(self) -> List[ImmutableSegment]:
         return list(self._segments.values())
+
+    @property
+    def schema(self):
+        """Table schema, from any loaded segment (None without one)."""
+        for s in self._segments.values():
+            return s.schema
+        return None
 
     @property
     def num_segments(self) -> int:

@@ -8,7 +8,8 @@ multi-stage engine's 50,000-row broadcast bound, so the mailbox plane
 shuffles it) and parts (2,000 rows, the broadcast side) as one segment
 each, orders (``n_orders`` rows) in four segments. ``SHAPES`` are
 bench.py's ``join_gb``, ``join3_gb`` and ``join_window`` (its
-``join_union`` needs set operations, not ported yet) and two window
+``join_union``, a set operation over two joins, runs in chip_smoke.py's
+statements phase) and two window
 shapes over ``orders JOIN customers``: a running sum (the segmented scan)
 and a partition sum (the segment aggregate).
 """

@@ -1428,3 +1428,171 @@ def test_vecsearch_ivf_past_the_probe_shared_memory(cuda):
     _ids_equal_where_apart(got[0].cpu(), got[1].cpu(), want[0].cpu(),
                            want[1].cpu(), _term_scale(m, qn, "l2"))
     r.evict_device()
+
+
+# ---------------------------------------------------------------------------
+# geospatial doc masks and the statement surface on the card
+# ---------------------------------------------------------------------------
+
+GEO_LAT, GEO_LNG = 40.758, -73.9855
+GEO_PT = f"ST_POINT({GEO_LNG}, {GEO_LAT}, 1)"
+GEO_POLY = (f"POLYGON (({GEO_LNG - 0.05} {GEO_LAT - 0.05}, {GEO_LNG + 0.03} "
+            f"{GEO_LAT - 0.05}, {GEO_LNG + 0.03} {GEO_LAT + 0.04}, "
+            f"{GEO_LNG - 0.05} {GEO_LAT + 0.04}, {GEO_LNG - 0.05} "
+            f"{GEO_LAT - 0.05}), ({GEO_LNG - 0.01} {GEO_LAT - 0.01}, "
+            f"{GEO_LNG} {GEO_LAT - 0.01}, {GEO_LNG} {GEO_LAT}, "
+            f"{GEO_LNG - 0.01} {GEO_LAT}, {GEO_LNG - 0.01} {GEO_LAT - 0.01}))")
+GEO_SQL = [
+    f"SELECT COUNT(*), SUM(fare) FROM geo WHERE ST_DISTANCE(pickup, "
+    f"{GEO_PT}) < 3000",
+    f"SELECT zone, COUNT(*), SUM(fare) FROM geo WHERE ST_DISTANCE(pickup, "
+    f"{GEO_PT}) < 5000 GROUP BY zone ORDER BY zone LIMIT 1000",
+    f"SELECT COUNT(*) FROM geo WHERE ST_DISTANCE(pickup, {GEO_PT}) < 300000",
+    f"SELECT zone, COUNT(*) FROM geo WHERE ST_WITHIN(pickup, "
+    f"ST_GEOM_FROM_TEXT('{GEO_POLY}')) = 1 GROUP BY zone ORDER BY zone "
+    "LIMIT 1000",
+    f"SELECT zone, COUNT(*) FROM geo WHERE ST_WITHIN(pickup, "
+    f"ST_GEOM_FROM_TEXT('{GEO_POLY}')) = 0 GROUP BY zone ORDER BY zone "
+    "LIMIT 1000",
+    # at this size the planner prices a dense group-by; the compact one
+    # is the strategy of the geo cell's grouped queries (K1)
+    f"SELECT zone, COUNT(*), SUM(fare) FROM geo WHERE ST_DISTANCE(pickup, "
+    f"{GEO_PT}) < 5000 GROUP BY zone ORDER BY zone LIMIT 1000 "
+    "OPTION(groupByStrategy=compact)",
+]
+
+
+def _geo_tables(out, n=60_000):
+    """{device: broker} over seeded points with a geo index, 2 segments."""
+    import numpy as np
+    from pinot_tpu_torch.broker import Broker
+    from pinot_tpu_torch.geo import Geometry, to_wkb
+    from pinot_tpu_torch.segment import SegmentBuilder
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.spi import (DataType, FieldSpec, FieldType,
+                                     IndexingConfig, Schema, TableConfig)
+
+    rng = np.random.default_rng(3)
+    lat = GEO_LAT + rng.normal(0, 0.03, n)
+    lng = GEO_LNG + rng.normal(0, 0.03, n)
+    pick = [to_wkb(Geometry.point(x, y, True)).hex()
+            for x, y in zip(lng, lat)]
+    pick[7] = ""
+    data = {"pickup": np.asarray(pick, dtype=object),
+            "zone": rng.integers(0, 265, n).astype(np.int32),
+            "fare": rng.integers(250, 9000, n).astype(np.int64)}
+    schema = Schema("geo", [
+        FieldSpec("pickup", DataType.BYTES),
+        FieldSpec("zone", DataType.INT),
+        FieldSpec("fare", DataType.LONG, FieldType.METRIC)])
+    cfg = TableConfig("geo", indexing=IndexingConfig(
+        geo_index_columns={"pickup": {"resolution": 16}}))
+    dirs = [SegmentBuilder(schema, cfg).build(
+        {k: v[sl] for k, v in data.items()}, str(out), f"g{i}")
+        for i, sl in enumerate((slice(0, n // 2), slice(n // 2, n)))]
+    brokers = {}
+    for dev in ("cuda", "cpu"):
+        dm = TableDataManager("geo", device=dev, table_config=cfg)
+        for d in dirs:
+            dm.add_segment_dir(d)
+        brokers[dev] = Broker(device=dev)
+        brokers[dev].register_table(dm)
+    return brokers
+
+
+def test_geo_docmask_on_card_matches_cpu(cuda, tmp_path):
+    """Indexed geo filters (a distance under the cover and past it into
+    the sweep, a polygon with a hole and its complement) on the card give
+    the CPU's rows; they plan the kernel with a docmask param, the mask
+    reaches the card bitwise, and the grouped ones launch the
+    compaction."""
+    import numpy as np
+    from pinot_tpu_torch.broker import connect
+    from pinot_tpu_torch.engine.executor import resolve_params
+    from pinot_tpu_torch.ops import compact
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.planner import SegmentPlanner
+    from pinot_tpu_torch.query.sql import parse_sql
+
+    brokers = _geo_tables(tmp_path)
+    before = compact.launches
+    for sql in GEO_SQL:
+        assert connect(brokers["cuda"])(sql).rows == \
+            connect(brokers["cpu"])(sql).rows, sql
+    assert compact.launches > before
+    seg = brokers["cuda"].table("geo").acquire_segments()[0]
+    for sql in GEO_SQL:
+        plan = SegmentPlanner(build_query_context(parse_sql(sql)),
+                              seg).plan()
+        masks = [p[1] for p in plan.params if isinstance(p, tuple)
+                 and p[0] == "docmask"]
+        assert plan.kind == "kernel" and len(masks) == 1, sql
+        on_card = [t for t in resolve_params(plan) if t.dtype == torch.bool
+                   and t.shape[0] == seg.bucket]
+        assert on_card and on_card[0].is_cuda
+        assert np.array_equal(on_card[0][:seg.n_docs].cpu().numpy(),
+                              masks[0])
+
+
+STATEMENT_SQL = [
+    "SELECT o_part, COUNT(*), SUM(o_price) FROM orders WHERE o_cust IN "
+    "(SELECT c_id FROM customers WHERE c_nation = 'de') GROUP BY o_part "
+    "ORDER BY o_part LIMIT 3000",
+    "SELECT COUNT(*) FROM orders WHERE o_price > (SELECT AVG(o_price) "
+    "FROM orders)",
+    "SELECT o_part, COUNT(*) FROM orders o WHERE NOT EXISTS (SELECT c_id "
+    "FROM customers c WHERE c.c_id = o.o_cust AND c.c_nation = 'us') "
+    "GROUP BY o_part ORDER BY o_part LIMIT 3000",
+    "WITH t AS (SELECT o_part, SUM(o_price) AS rev FROM orders GROUP BY "
+    "o_part LIMIT 10000) SELECT COUNT(*), SUM(rev), MAX(rev) FROM t",
+    "WITH big AS (SELECT c_id, c_nation FROM customers WHERE c_id < 20000 "
+    "LIMIT 100000) SELECT b.c_nation, SUM(o.o_price), COUNT(*) FROM orders "
+    "o JOIN big b ON o.o_cust = b.c_id GROUP BY b.c_nation ORDER BY "
+    "b.c_nation",
+    "SELECT o_part FROM orders WHERE o_price > 4900 UNION SELECT p_id FROM "
+    "parts WHERE p_brand = 'acme' ORDER BY 1 LIMIT 3000",
+    "SELECT o_part FROM orders WHERE o_price > 4900 EXCEPT ALL SELECT p_id "
+    "FROM parts ORDER BY 1 LIMIT 3000",
+    "EXPLAIN PLAN FOR SELECT o_part, SUM(o_price) FROM orders GROUP BY "
+    "o_part",
+]
+
+
+def test_statements_on_card_match_cpu(cuda, tmp_path):
+    """Subqueries, CTEs (their segments on the card), set operations and
+    EXPLAIN on the card give the CPU's rows, and after each statement the
+    tracked device bytes equal the tensors held, no CTE bytes left."""
+    from pinot_tpu_torch.broker import connect
+    from pinot_tpu_torch.broker import broker as bmod
+    from pinot_tpu_torch.engine import batch
+    from pinot_tpu_torch.engine.tier import reconcile_devmem
+    from pinot_tpu_torch.tools import star
+    from pinot_tpu_torch.utils.devmem import global_device_memory
+
+    dirs = star.build_tables(str(tmp_path), star.star_tables(1 << 16))
+    brokers = {dev: star.load_broker(dirs, dev) for dev in ("cuda", "cpu")}
+    cte_devices = []
+    real = bmod._cte_table
+
+    def spy(*a, **kw):
+        dm = real(*a, **kw)
+        cte_devices.extend(s.device.type for s in dm.acquire_segments())
+        return dm
+
+    # the registry is process-wide: start it from what these tables hold
+    live = [s for b in brokers.values() for t in b.table_names
+            for s in b.table(t).acquire_segments()]
+    for s in live:
+        s.evict_device()
+    batch.clear_stack_cache()
+    global_device_memory.clear()
+    bmod._cte_table = spy
+    try:
+        for sql in STATEMENT_SQL:
+            got = connect(brokers["cuda"])(sql).rows
+            assert got == connect(brokers["cpu"])(sql).rows, sql
+            for pool, v in reconcile_devmem(live).items():
+                assert v["tracked"] == v["actual"], (sql, pool, v)
+    finally:
+        bmod._cte_table = real
+    assert "cuda" in cte_devices and "cpu" in cte_devices

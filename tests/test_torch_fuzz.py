@@ -8,10 +8,12 @@ the kernel path and under ``OPTION(forceHostExecution=true)``, and both
 digests (``fuzzer.digest``: a row multiset, floats to a relative 1e-9)
 must equal the fuzzer's independent numpy oracle. The window specs go
 through the multi-stage engine; with the window threshold at 0 its
-device functions run (on the CPU, their plain versions). EXISTS
-subqueries (``with_exists``) are not ported and not drawn. A few seeds
-run in tier-1; the soak of more seeds is slow-marked; the card-only
-suite (tests/test_torch_cuda.py) runs a seed on CUDA.
+device functions run (on the CPU, their plain versions). Seeds drawn
+``with_exists`` add correlated [NOT] EXISTS predicates over the fuzzer's
+``fzd`` side table, which the broker decorrelates into semi-joins; their
+rows must equal the JAX broker's and the oracle's. A few seeds run in
+tier-1; the soak of more seeds is slow-marked; the card-only suite
+(tests/test_torch_cuda.py) runs a seed on CUDA.
 
 The fuzzer module is loaded from its file: it needs only numpy, while
 the JAX package's ``__init__`` imports JAX, which the card's machine
@@ -56,8 +58,13 @@ SCHEMA = Schema("fz", [
 ])
 
 
+DIM_SCHEMA = Schema("fzd", [FieldSpec("dk", DataType.LONG),
+                            FieldSpec("dv", DataType.LONG, FieldType.METRIC)])
+
+
 def fuzz_broker(out: str, device: str = "cpu"):
-    """(broker, data): the fuzzer's rows as two segments of table fz."""
+    """(broker, data): the fuzzer's rows as two segments of table fz, and
+    its EXISTS side table fzd."""
     data = fuzzer.make_data(N_ROWS)
     b = SegmentBuilder(SCHEMA, TableConfig("fz"))
     dm = TableDataManager("fz", device=device)
@@ -67,6 +74,10 @@ def fuzz_broker(out: str, device: str = "cpu"):
                                    out, f"s{i}"))
     broker = Broker(device=device)
     broker.register_table(dm)
+    dmd = TableDataManager("fzd", device=device)
+    dmd.add_segment_dir(SegmentBuilder(DIM_SCHEMA, TableConfig("fzd")).build(
+        fuzzer.make_dim_data(), out, "d0"))
+    broker.register_table(dmd)
     return broker, data
 
 
@@ -84,12 +95,14 @@ def test_schema_matches_the_fuzzers():
          for f in SCHEMA.fields]
 
 
-def run_specs(broker, data, seed: int, n: int, reference=None):
+def run_specs(broker, data, seed: int, n: int, reference=None,
+              with_exists: bool = False):
     """Failures of n specs of ``seed`` on both paths: (sql, why). With a
     ``reference`` broker (the JAX package's), rows equal to its rows pass
     too: the port's contract is the reference, and the reference's own
     disagreements with the oracle are its faults (ROADMAP Queue 3)."""
-    gen = fuzzer.QueryGenerator(seed, with_exists=False)
+    gen = fuzzer.QueryGenerator(seed, with_exists=with_exists)
+    dim = fuzzer.make_dim_data()
     failures = []
     kinds = set()
     for _ in range(n):
@@ -97,7 +110,8 @@ def run_specs(broker, data, seed: int, n: int, reference=None):
         kinds.add(spec.kind)
         sql = fuzzer.render_sql(spec)
         try:
-            want = fuzzer.digest(fuzzer.oracle_rows(spec, data, N_ROWS))
+            want = fuzzer.digest(fuzzer.oracle_rows(spec, data, N_ROWS,
+                                                    dim))
             for path_sql in (sql, sql.replace(
                     "OPTION(", "OPTION(forceHostExecution=true,")):
                 got = fuzzer.digest(broker.query(path_sql).rows)
@@ -120,17 +134,50 @@ def test_fuzz_port_against_oracle(setup, seed, window_rows, monkeypatch):
     assert kinds == {"agg", "select", "window"}
 
 
-@pytest.mark.slow
-def test_fuzz_port_soak(setup, monkeypatch):
+def jax_broker(broker):
+    """The JAX broker over the same segment directories."""
     from pinot_tpu.broker import Broker as JaxBroker
     from pinot_tpu.server import TableDataManager as JaxTable
 
+    jb = JaxBroker()
+    for name in ("fz", "fzd"):
+        jdm = JaxTable(name)
+        for seg in broker.table(name).acquire_segments():
+            jdm.add_segment_dir(seg.dir)
+        jb.register_table(jdm)
+    return jb
+
+
+@pytest.mark.parametrize("seed", [11, 23])
+def test_fuzz_exists_against_jax(setup, seed, monkeypatch):
+    """with_exists seeds: every spec's rows equal the JAX broker's on
+    both paths, and the oracle's unless the JAX broker's differ too."""
     monkeypatch.setenv("PINOT_DEVICE_WINDOW_MIN_ROWS", "0")
     broker, data = setup
-    jb, jdm = JaxBroker(), JaxTable("fz")
-    for seg in broker.table("fz").acquire_segments():
-        jdm.add_segment_dir(seg.dir)
-    jb.register_table(jdm)
+    jb = jax_broker(broker)
+    gen = fuzzer.QueryGenerator(seed, with_exists=True)
+    dim = fuzzer.make_dim_data()
+    n_exists = 0
+    for _ in range(20):
+        spec = gen.generate()
+        n_exists += any(p.op in ("exists", "not_exists")
+                        for p in spec.preds)
+        sql = fuzzer.render_sql(spec)
+        oracle = fuzzer.digest(fuzzer.oracle_rows(spec, data, N_ROWS, dim))
+        for path_sql in (sql, sql.replace(
+                "OPTION(", "OPTION(forceHostExecution=true,")):
+            got = fuzzer.digest(broker.query(path_sql).rows)
+            want = fuzzer.digest(jb.query(path_sql).rows)
+            assert got == want, path_sql
+            assert got == oracle or want != oracle, path_sql
+    assert n_exists >= 3
+
+
+@pytest.mark.slow
+def test_fuzz_port_soak(setup, monkeypatch):
+    monkeypatch.setenv("PINOT_DEVICE_WINDOW_MIN_ROWS", "0")
+    broker, data = setup
+    jb = jax_broker(broker)
     n = int(os.environ.get("PINOT_FUZZ_N", 300))
     for seed in (20260730, 1, 2, 3):
         failures, _ = run_specs(broker, data, seed, n, reference=jb)

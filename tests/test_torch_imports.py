@@ -197,18 +197,42 @@ def test_unported_plan_kinds_raise(tmp_path):
     assert q("SELECT COUNT(*) FROM t").rows == [(3,)]
     assert q("SELECT UPPER(k), SUM(v) FROM t GROUP BY UPPER(k) "
              "ORDER BY UPPER(k)").rows == [("A", 4), ("B", 2)]
-    # joins and window functions run (the multi-stage engine); CTEs,
-    # subqueries, EXPLAIN and set operations are not ported yet
+    # joins and window functions run (the multi-stage engine), and so do
+    # set operations, CTEs, subqueries and EXPLAIN (these raised once)
     assert q("SELECT COUNT(*) FROM t a JOIN t b ON a.k = b.k").rows \
         == [(5,)]
     assert q("SELECT v, ROW_NUMBER() OVER (PARTITION BY k ORDER BY v) "
              "FROM t ORDER BY v").rows == [(1, 1), (2, 1), (3, 2)]
-    for sql in ("SELECT k FROM t UNION SELECT k FROM t",
-                "WITH w AS (SELECT k FROM t) SELECT k FROM w",
-                "SELECT k FROM t WHERE v IN (SELECT v FROM t WHERE v > 1)",
-                "EXPLAIN PLAN FOR SELECT k FROM t"):
-        with pytest.raises(NotImplementedError):
-            q(sql)
+    for sql, rows in (
+            ("SELECT k FROM t UNION SELECT k FROM t", [("a",), ("b",)]),
+            ("WITH w AS (SELECT k FROM t) SELECT k FROM w",
+             [("a",), ("b",), ("a",)]),
+            ("SELECT k FROM t WHERE v IN (SELECT v FROM t WHERE v > 1)",
+             [("b",), ("a",)]),
+            ("EXPLAIN PLAN FOR SELECT k FROM t",
+             [("BROKER_REDUCE(LIMIT:10)", 0, -1),
+              ("COMBINE(vmap_batched)", 1, 0)])):
+        assert q(sql).rows == rows, sql
+
+
+def test_explain_analyze_and_trace_raise(tmp_path):
+    """The span plane is not ported: EXPLAIN ANALYZE and OPTION(trace=
+    true) raise, and nothing of the statement runs first."""
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.segment import SegmentBuilder
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.spi import DataType, FieldSpec, Schema
+
+    seg_dir = SegmentBuilder(Schema("t", [FieldSpec("v", DataType.INT)])
+                             ).build({"v": [1, 2, 3]}, str(tmp_path), "s")
+    dm = TableDataManager("t", device="cpu")
+    dm.add_segment_dir(seg_dir)
+    b = Broker(device="cpu")
+    b.register_table(dm)
+    for sql in ("EXPLAIN ANALYZE SELECT SUM(v) FROM t",
+                "SELECT SUM(v) FROM t OPTION(trace=true)"):
+        with pytest.raises(NotImplementedError, match="spans"):
+            connect(b)(sql)
 
 
 def _run_smoke(cwd):

@@ -7,7 +7,8 @@ file must be byte-equal. Served by ``Broker(device="cpu")`` and the JAX
 broker, TEXT_MATCH, JSON_MATCH, VECTOR_SIMILARITY, inverted, range and
 bloom queries plan the same kind and give equal rows; a reload adds and
 removes the same index files on a copy of the segment through either
-package; the geo kind is not ported and says so.
+package; the geo kind builds the JAX builder's files (tests/test_torch_geo.py
+covers it whole).
 """
 import json
 import os
@@ -240,7 +241,32 @@ def test_data_manager_reload_swaps_segments(built):
 
 
 def test_geo_index_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="geo index"):
-        build_indexes_for_column(
-            "g", ["geo"], str(tmp_path), values=np.asarray(["POINT (1 2)"]),
-            ids=None, cardinality=1)
+    """The geo kind builds now (this test once checked that it raised):
+    the registry's builder writes the JAX builder's four files and
+    metadata, and the loaded reader answers a distance mask."""
+    from pinot_tpu.index.registry import \
+        build_indexes_for_column as j_build
+
+    vals = np.asarray(["POINT (1 2)", "", "POINT (1.5 2.5)", None,
+                       "POINT (40 40)"], dtype=object)
+    meta = {}
+    for pkg, fn in (("jax", j_build), ("torch", build_indexes_for_column)):
+        os.makedirs(tmp_path / pkg)
+        meta[pkg] = fn("g", ["geo"], str(tmp_path / pkg), values=vals,
+                       ids=None, cardinality=5, configs={"geo": {
+                           "resolution": 12}})
+    assert meta["torch"] == meta["jax"] == {"geo": {
+        "resolution": 12, "numCells": 3, "geography": False}}
+    files = sorted(os.listdir(tmp_path / "torch"))
+    assert files == sorted(os.listdir(tmp_path / "jax")) == [
+        "g.geo.cells.bin", "g.geo.docs.bin", "g.geo.offs.bin",
+        "g.geo.pts.bin"]
+    for f in files:
+        assert (tmp_path / "torch" / f).read_bytes() == \
+            (tmp_path / "jax" / f).read_bytes(), f
+    assert FILE_STEMS["geo"] == (".geo",)
+    from pinot_tpu_torch.index import load_index
+    rd = load_index(str(tmp_path / "torch"), "g", "geo", meta["torch"]["geo"])
+    np.testing.assert_array_equal(
+        rd.distance_mask("POINT (1 2)", 1.0, "<", 5),
+        [True, False, True, False, False])
