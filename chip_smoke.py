@@ -94,13 +94,15 @@ Phases, each printed as it runs; any failure exits non-zero:
              host path): sketch states bitwise, percentile centroids
              against a numpy build of the same split to a relative 1e-9;
 10. star, multistage - the multi-stage engine: bench.py's star schema
-             (tools/star.py: orders PINOT_SMOKE_MS_ROWS rows, default 2^24,
+             (tools/star.py: orders PINOT_SMOKE_MS_ROWS rows, default 2^23
+             (2^24 before the format, rollup and trace phases),
              in 4 segments; customers 60,000; parts 2,000; seed 16) built
              under .torch_cache/, then five shapes (join_gb, join3_gb,
              join_window, a running window sum, a partition window sum)
              in literal variants through Broker(device="cuda") on five
-             planes: fused (K19 csr, state cap 2^25), fused at the default
-             cap (join_gb, join3_gb: must fall back to the mailbox plane),
+             planes: fused (K19 csr, state cap 2^25), fused under a state
+             cap of half the orders rows (join_gb, join3_gb: they must
+             fall back to the mailbox plane),
              fused sort (K16 inside K19), mailbox with device joins (K16
              on the parts stage) and mailbox with numpy joins. Every row
              list must equal a numpy oracle written here (gathers,
@@ -192,9 +194,54 @@ Phases, each printed as it runs; any failure exits non-zero:
              duplicate rows; a zero query; signed zeros, one value, -inf
              in the select; k past a probe's reach).
 
+14. native_build (after build) - the port's native codec library (host
+             C++, pinot_tpu_torch/native/src/pinot_native.cpp) built with
+             g++ into build/torch_kernels/: whether g++, zlib.h, zstd.h
+             and libzstd are present, the build's seconds and the
+             compiler's output, native.available(); fails when the
+             library does not build (a library without zstd builds with
+             -DPINOT_NO_ZSTD, and that is printed);
+15. format (after drift) - the SSB segment written twice more by the
+             port's builder: BITPACK (bit_packed_ids) and the five metric
+             columns raw under ZSTD: write seconds, bytes against PLAIN,
+             decode seconds, the 13 digests equal to the PLAIN
+             segment's, p50 per query, K1 held bitwise on each copy's
+             compact inputs (kernel_at_format_path); then LZ4, SNAPPY,
+             ZLIB, PASS_THROUGH (and ZSTD) on lo_revenue and DELTA on a
+             sorted column: ratio, seconds, round trip equal;
+16. rollup - star-tree rollups (ROLLUP_CONFIGS, and HYBRID_ROLLUP with
+             the time column on the table's segments) built on hard-
+             linked copies of the single segment and the 8-segment
+             table, one worker process a segment: seconds and rows;
+             per query rollup_segments (Q2.1-Q3.3 on every segment, the
+             rest none), rows equal to the raw path's, p50 with and
+             without rollups; EXPLAIN's STARTREE_ROLLUP line; the hybrid
+             lineorder over the copies against the raw hybrid; K1 held
+             bitwise wherever a rollup plans compact
+             (kernel_at_rollup_path);
+17. trace  - EXPLAIN ANALYZE and OPTION(trace=true) over the 13 queries
+             on 1 and 8 segments, a rollup query and a concurrent wave
+             through the micro-batcher (and, in the multistage and vector
+             phases, the cheapest star shape and one vector query): the
+             inner rows equal the untraced ones, the root's time that no
+             child covers after the broker's prefix (context build,
+             quota, registration: printed as prefix_ms) at most 10% of
+             its wall time (the median of 3 EXPLAIN ANALYZE runs) and the
+             children not past it, every span name in phases.SPAN_NAMES,
+             on the single segment each device_execute span at least the
+             device time of the work launched inside it (torch.profiler,
+             a record_function range a span; a missed window retried,
+             and a failure if every window missed);
+             OPTION(profilePhases=true) on a compact and a scalar plan
+             (positive, nondecreasing cumulative phase times, CUDA events);
+             traced against untraced p50, the tracer's calls per
+             untraced query times the ns of an inactive call as a share
+             of the p50, the Prometheus rendering's size.
+
 The SSB phases run at 2^25 rows by default (2^26 before the multi-stage
-phase was added), so that the star schema's 2^24 orders rows fit the
-run's time limit.
+phase was added), and the star schema at 2^23 orders rows (2^24 before
+the format, rollup and trace phases were added), so that the whole run
+fits its time limit.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, and without
@@ -214,7 +261,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the SSB paths' depth: 2^25 rows (2^26 before the multi-stage phase),
-# so that the phase's 2^24-row star schema fits the time limit
+# so that the phase's star schema fits the time limit
 DEFAULT_ROWS = 1 << 25
 N_ROWS = int(os.environ.get("PINOT_SMOKE_ROWS", DEFAULT_ROWS))
 ITERS = 3
@@ -525,8 +572,8 @@ def segment_phase() -> str:
             f"{N_ROWS / SSB_SF10_ROWS * 10:.2f})",
             "dimension tables denormalized onto lineorder (as bench.py)",
             f"the default depth {DEFAULT_ROWS} is half the earlier 2^26, "
-            "so that the multi-stage phase's 2^24-row star schema fits the "
-            "run's time limit"]
+            "so that the multi-stage phase's star schema fits the run's "
+            "time limit"]
     if "PINOT_SMOKE_ROWS" in os.environ:
         cuts.append(f"PINOT_SMOKE_ROWS={N_ROWS} overrides the default "
                     f"{DEFAULT_ROWS}")
@@ -601,28 +648,46 @@ def _on_device(events):
     return [e for e in events if str(e.device_type).endswith("CUDA")]
 
 
-def compact_split_ms(fn, reps: int = 10) -> dict:
-    """Device time per call of the compaction's three device operations
-    (scratch memset, pass, fill) from torch.profiler over ``reps``
-    calls."""
+def compact_split_ms(fn, reps: int = 10):
+    """Device ms per call of the compaction's device operations (pass,
+    fill, and any scratch memset) from torch.profiler over ``reps``
+    calls, as {pass_ms, fill_ms, memset_ms}; None when no window of
+    PROFILE_TRIES recorded the pass on every call (not measured: never
+    printed as 0)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {"pass_ms": 0.0, "fill_ms": 0.0, "memset_ms": 0.0}
-    for e in _on_device(prof.key_averages()):
-        key = ("pass_ms" if "compact_pass" in e.key else
-               "fill_ms" if "compact_fill" in e.key else
-               "memset_ms" if "emset" in e.key else None)
-        if key:
-            out[key] += _dev_ms(e) / reps
-    return out
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {"pass_ms": 0.0, "fill_ms": 0.0, "memset_ms": 0.0}
+        passes = 0
+        for e in _on_device(prof.key_averages()):
+            key = ("pass_ms" if "compact_pass" in e.key else
+                   "fill_ms" if "compact_fill" in e.key else
+                   "memset_ms" if "emset" in e.key else None)
+            if key:
+                out[key] += _dev_ms(e) / reps
+                if key == "pass_ms":
+                    passes += e.count
+        if passes >= reps and out["pass_ms"] > 0:
+            return out
+    return None
+
+
+def add_measured(totals: dict, row: dict) -> None:
+    """totals[k] += row[k] for every key of totals; a part that was not
+    measured (None) makes its total None rather than a short sum."""
+    for k in totals:
+        if totals[k] is None or row[k] is None:
+            totals[k] = None
+        else:
+            totals[k] += row[k]
 
 
 def profile_query(query, sql: str, top: int = 6, results=None) -> dict:
@@ -681,9 +746,10 @@ def k1_timed(mask, cols, cap: int, got) -> dict:
            "bound_ms": C.compact_bytes(mask.shape[0], cols, cap,
                                        int(got[3]))
            / HBM_BYTES_PER_S * 1e3,
-           **compact_split_ms(lambda: C.compact(mask, cols, cap)),
            "host_ms": host_time_ms(lambda: C.compact(mask, cols, cap), 20)}
-    row["device_ms"] = row["pass_ms"] + row["fill_ms"] + row["memset_ms"]
+    split = compact_split_ms(lambda: C.compact(mask, cols, cap))
+    row.update(split or dict.fromkeys(("pass_ms", "fill_ms", "memset_ms")))
+    row["device_ms"] = sum(split.values()) if split else None
     return row
 
 
@@ -770,8 +836,7 @@ def main_phase(seg_dir: str, tile: int, device: str = "cuda"):
         got = C.compact(mask, cols, cap)
         same_outputs(got, C.compact_reference(mask, cols, cap))
         row = k1_timed(mask, cols, cap, got)
-        for k in totals:
-            totals[k] += row[k]
+        add_measured(totals, row)
         phase("kernel_at_main_path", qid=qid, n=mask.shape[0],
               tiles=-(-mask.shape[0] // tile),
               cols=[str(c.dtype) for c in cols], slots_cap=cap,
@@ -911,8 +976,7 @@ def multi_phase(table_dir: str, digests: dict, tile: int,
         got = C.compact(mask, cols, cap)
         same_outputs(got, C.compact_reference(mask, cols, cap))
         row = k1_timed(mask, cols, cap, got)
-        for k in totals:
-            totals[k] += row[k]
+        add_measured(totals, row)
         phase("kernel_at_segmented_path", qid=qid, n=mask.shape[0],
               segments=len(segs), tiles=-(-mask.shape[0] // tile),
               cols=[str(c.dtype) for c in cols], slots_cap=cap,
@@ -2015,14 +2079,22 @@ def surface_phase(seg_list, label: str):
 # the multi-stage engine (K16, K17, K19) over the star schema
 # ---------------------------------------------------------------------------
 
-MS_ROWS = int(os.environ.get("PINOT_SMOKE_MS_ROWS", 1 << 24))
+# the star schema's depth: 2^23 orders rows (2^24 through PR 10, cut by
+# half when the format, rollup and trace phases were added, so that the
+# whole check fits its time limit)
+MS_ROWS = int(os.environ.get("PINOT_SMOKE_MS_ROWS", 1 << 23))
 MS_VARIANTS = 3                  # literal variants of each shape
 MS_STATE_CAP = 1 << 25           # PINOT_FUSED_MAX_STATE of the fused plane
+# the capped plane's PINOT_FUSED_MAX_STATE: under the probe rows, so
+# join_gb and join3_gb must fall back to the mailbox plane (at 2^24 orders
+# rows the default cap, 2^23, did that)
+MS_LOW_CAP = max(MS_ROWS // 2, 1)
 # (plane, OPTION(multistageFused=...), env, variants run)
 MS_PLANES = (
     ("fused_csr", "true", {"PINOT_FUSED_MAX_STATE": str(MS_STATE_CAP)},
      MS_VARIANTS),
-    ("fused_default_cap", "true", {}, 1),      # join_gb, join3_gb only
+    ("fused_low_cap", "true", {"PINOT_FUSED_MAX_STATE": str(MS_LOW_CAP)},
+     1),                                       # join_gb, join3_gb only
     ("fused_sort", "true", {"PINOT_FUSED_MAX_STATE": str(MS_STATE_CAP),
                             "PINOT_FUSED_MAX_CSR": "0"}, 1),
     ("mailbox_device", "false", {}, MS_VARIANTS),
@@ -2042,7 +2114,9 @@ def star_phase():
     dirs = star.build_tables(os.path.join(CACHE, f"star_{MS_ROWS}"), tables)
     phase("star", orders=MS_ROWS, customers=star.CUST_ROWS,
           parts=star.PART_ROWS, segments={k: len(v) for k, v in dirs.items()},
-          seconds=time.perf_counter() - t0)
+          seconds=time.perf_counter() - t0,
+          cuts=[f"{MS_ROWS} orders rows; 2^24 through PR 10, halved when "
+                "the format, rollup and trace phases were added"])
     return tables, dirs
 
 
@@ -2272,13 +2346,14 @@ def multistage_phase(dirs, tables, live_segments=(),
     t_start = time.perf_counter()
     _reset_ms_counts()                   # the multistage path starts here
     inputs: dict = {}
+    p50s: dict = {}
     with _ms_events(on_card) as log:
         for plane, fused_opt, env, n_var in MS_PLANES:
             with _plane_env(env):
                 for shape, make in star.SHAPES:
-                    if plane == "fused_default_cap" and shape not in (
+                    if plane == "fused_low_cap" and shape not in (
                             "join_gb", "join3_gb"):
-                        continue     # the window shapes fit the default
+                        continue     # the fallback is the same for windows
                     before = _ms_counts()
                     n_ev = {k: len(log[k]) for k in MS_KINDS}
                     times = []
@@ -2314,6 +2389,7 @@ def multistage_phase(dirs, tables, live_segments=(),
                                      for a, b in log[k][n_ev[k]:]) / n_var
                                  if on_card else None) for k in MS_KINDS}
                     _check_plane(shape, plane, delta, n_var, on_card)
+                    p50s[(shape, plane)] = statistics.median(times)
                     phase("multistage_query", shape=shape, plane=plane,
                           variants=n_var, ok=True,
                           p50_ms=statistics.median(times), times_ms=times,
@@ -2325,6 +2401,14 @@ def multistage_phase(dirs, tables, live_segments=(),
                           device_fn_ms_per_query=ev_ms, profile=prof)
     counts = _ms_counts()                # ... and ends here
     inputs = log["inputs"]
+    # the tracing plane over the cheapest (shape, plane) once
+    shape, plane = min(p50s, key=p50s.get)
+    make = dict(star.SHAPES)[shape]
+    fused_opt, env = next((f, e) for pl, f, e, _n in MS_PLANES
+                          if pl == plane)
+    with _plane_env(env):
+        trace_check(query, make(0) + f" OPTION(multistageFused={fused_opt}"
+                    ",timeoutMs=600000)", f"star:{shape}:{plane}")
     for kind in MS_KINDS:
         if counts[kind] == 0 and on_card:
             raise AssertionError(f"the multistage path never launched "
@@ -2347,9 +2431,9 @@ def multistage_phase(dirs, tables, live_segments=(),
 
 def _check_plane(shape, plane, delta, n_var, on_card) -> None:
     """The backends each plane must take on the star schema: the fused
-    plane serves every query (K19) at the raised state cap; at the default
-    cap the two shapes without a WHERE (2^24 probe rows) fall back to the
-    mailbox plane; the sort kind runs K16 inside the chain; the mailbox
+    plane serves every query (K19) at the raised state cap; under a cap
+    below their probe rows (MS_LOW_CAP) the two shapes without a WHERE
+    fall back to the mailbox plane; the sort kind runs K16 inside the chain; the mailbox
     plane joins parts on the device (K16) and shuffles customers (past
     the broadcast bound) with numpy; the numpy plane never joins on the
     device."""
@@ -2364,12 +2448,8 @@ def _check_plane(shape, plane, delta, n_var, on_card) -> None:
     fails = []
     if plane in ("fused_csr", "fused_sort") and delta["fused_plans"] != n_var:
         fails.append("fused plane did not serve every query")
-    if plane == "fused_default_cap":
-        big = MS_ROWS > (1 << 23)       # 2^24 probe rows: over the cap
-        if big and delta["fused_fallbacks"] != n_var:
-            fails.append("the default state cap did not fall back")
-        if not big and delta["fused_plans"] != n_var:
-            fails.append("fused plane did not serve every query")
+    if plane == "fused_low_cap" and delta["fused_fallbacks"] != n_var:
+        fails.append("the low state cap did not fall back")
     if on_card and plane == "fused_sort" and delta["k16"] < n_var:
         fails.append("the sort kind did not run K16")
     if plane == "mailbox_device" and three and join_on_device and \
@@ -3313,6 +3393,10 @@ def vector_phase(live_segments=(), device: str = "cuda") -> dict:
     phase("vector_path", launches=launches, exact_ranks_checked=checked)
     if not all(launches.values()):
         raise AssertionError(f"a vector kernel never launched: {launches}")
+    col0 = next(iter(vec.COLUMNS))
+    trace_check(query, _vec_sqls(col0, queries[col0][0], VEC_KS[0],
+                                 None)["kernel"], f"vector:{col0}",
+                profile=device.startswith("cuda"))
     _reconcile_or_fail(live, "vector queries")
 
     # one query of each plan under torch.profiler
@@ -4170,6 +4254,917 @@ def statements_phase(single, segs, star_dirs, tables, tile: int,
     return statement_launches
 
 
+# ---------------------------------------------------------------------------
+# the segment format (native codecs; BITPACK and COMPRESSED forward
+# indexes), star-tree rollups and the tracing plane
+# ---------------------------------------------------------------------------
+
+METRIC_COLUMNS = ("lo_revenue", "lo_extendedprice", "lo_supplycost",
+                  "lo_discount", "lo_quantity")
+# Pinot StarTreeIndexConfig form: (dimensionsSplitOrder, functionColumn
+# Pairs), the queries each serves and its most rows; the fourth carries
+# the hybrid table's time column, so both hybrid halves (each filtered on
+# it at the time boundary) can answer from it
+ROLLUP_CONFIGS = (
+    (("d_year", "p_category", "p_brand1", "s_region"),
+     (("sum", "lo_revenue"),), "Q2.1-Q2.3", 35_000),
+    (("d_year", "c_region", "s_region", "c_nation", "s_nation"),
+     (("sum", "lo_revenue"),), "Q3.1", 4_375),
+    (("d_year", "c_nation", "s_nation", "c_city", "s_city"),
+     (("sum", "lo_revenue"),), "Q3.2-Q3.3", 437_500),
+)
+HYBRID_ROLLUP = (("d_yearmonthnum", "d_year", "p_category", "p_brand1",
+                  "s_region"), (("sum", "lo_revenue"),),
+                 "the hybrid halves of Q2.1-Q2.3", 420_000)
+ROLLUP_QIDS = ("q2.1", "q2.2", "q2.3", "q3.1", "q3.2", "q3.3")
+TRACE_WAVE = 4                   # concurrent EXPLAIN ANALYZEs in the wave
+ANALYZE_RUNS = 3                 # EXPLAIN ANALYZE runs a trace check reads
+# the spans that end only when their device work has: a fence
+# (device_execute, fused_execute, cube_build) or a copy to the host
+# (device_transfer, vector_search: K15's results come back inside it)
+FENCED_SPANS = ("device_execute", "device_transfer", "fused_execute",
+                "cube_build", "vector_search")
+INACTIVE_CALLS = 200_000         # inactive span() calls timed
+
+
+# a build job run in a process of its own (the host builds are
+# single-threaded numpy and Python; the card machine has 8 cores): an SSB
+# segment in a forward-index format, or the rollups of one segment
+_BUILD_WORKER = r"""
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+job = json.loads(sys.argv[1])
+t0 = time.perf_counter()
+if job["kind"] == "ssb":
+    from pinot_tpu_torch.spi import IndexingConfig, TableConfig
+    from pinot_tpu_torch.tools import ssb
+    ssb.build_segment_dir(job["rows"], job["out"], TableConfig(
+        "lineorder", indexing=IndexingConfig(**job["indexing"])))
+    out = {"seconds": time.perf_counter() - t0}
+else:
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.startree import RollupConfig, build_rollup
+    seg = load_segment(job["dir"], "cpu")
+    out = []
+    for i, (dims, metrics) in enumerate(job["configs"]):
+        t1 = time.perf_counter()
+        d = build_rollup(seg, RollupConfig(dims, [tuple(m) for m in metrics]),
+                         i)
+        with open(os.path.join(d, "metadata.json")) as fh:
+            rows = json.load(fh)["totalDocs"]
+        out.append([i, time.perf_counter() - t1, rows])
+print(json.dumps(out))
+"""
+_JOBS: list = []
+
+
+def _start_job(job: dict):
+    proc = subprocess.Popen([sys.executable, "-c", _BUILD_WORKER,
+                             json.dumps(job)], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    _JOBS.append(proc)
+    return proc
+
+
+def _finish_job(proc):
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"a build job failed: {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _stop_jobs() -> None:
+    """Stop any build job still running (a phase failed before it
+    waited for them)."""
+    for proc in _JOBS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_builds(seg_dir: str, table_dir: str) -> dict:
+    """Start every host build the format and rollup phases need, all at
+    once, a process each: the BITPACK and COMPRESSED copies of the SSB
+    segment (the COMPRESSED one asked for ZSTD, which the builder writes
+    as ZLIB where the native library lacks zstd) and the rollups of
+    hard-linked copies of the single segment and of the table's segments.
+    Returns the jobs and what the phases need to read them (``codec``:
+    the codec the COMPRESSED copy must name)."""
+    from pinot_tpu_torch import native
+
+    codec = "ZSTD" if native.zstd_available() else "ZLIB"
+    formats = {"bitpack": {"bit_packed_ids": True},
+               "compressed": {"no_dictionary_columns": list(METRIC_COLUMNS),
+                              "compression": "ZSTD"}}
+    copies = {}
+    for name, indexing in formats.items():
+        out = os.path.join(CACHE, f"ssb_{name}_{N_ROWS}")
+        shutil.rmtree(out, ignore_errors=True)
+        copies[name] = (os.path.join(out, "seg_0"), _start_job(
+            {"kind": "ssb", "rows": N_ROWS, "out": out,
+             "indexing": indexing}))
+    base = os.path.join(CACHE, f"rollup_{N_ROWS}")
+    shutil.rmtree(base, ignore_errors=True)
+    one = _linked_copy(seg_dir, os.path.join(base, "one", "seg_0"))
+    table = [_linked_copy(os.path.join(table_dir, d),
+                          os.path.join(base, "table", d))
+             for d in sorted(os.listdir(table_dir))]
+    rollups = []
+    for d, configs in [(one, ROLLUP_CONFIGS)] + \
+            [(t, ROLLUP_CONFIGS + (HYBRID_ROLLUP,)) for t in table]:
+        job = {"kind": "rollups", "dir": d,
+               "configs": [[list(c[0]), [list(m) for m in c[1]]]
+                           for c in configs]}
+        rollups.append((d, configs, _start_job(job)))
+    return {"codec": codec, "copies": copies, "rollups": rollups,
+            "one": one, "table": table, "t0": time.perf_counter()}
+
+
+def native_phase() -> dict:
+    """The native codec library (host C++, g++): whether g++, zlib's and
+    zstd's headers and libzstd are on this machine, the build's seconds
+    and the compiler's output, ``native.available()``. Fails when the
+    library does not build: nothing here may pass on the numpy
+    fallback."""
+    import ctypes.util
+
+    from pinot_tpu_torch import native
+
+    gpp = shutil.which("g++")
+
+    def header(name: str) -> bool:
+        if gpp is None:
+            return False
+        r = subprocess.run([gpp, "-x", "c++", "-E", "-"],
+                           input=f"#include <{name}>\n", text=True,
+                           capture_output=True, timeout=60)
+        return r.returncode == 0
+
+    facts = {"gpp": gpp, "zlib_h": header("zlib.h"),
+             "zstd_h": header("zstd.h"),
+             "libz": ctypes.util.find_library("z"),
+             "libzstd": ctypes.util.find_library("zstd")}
+    ok = native.available()
+    facts.update(available=ok, zstd=native.zstd_available())
+    phase("native_build", seconds=native.build_seconds(),
+          log=native.build_log()[-4000:], **facts)
+    if not ok:
+        raise AssertionError("the native codec library did not build")
+    return facts
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _s, fs in os.walk(path) for f in fs)
+
+
+def format_phase(plain_dir: str, builds: dict, digests: dict, tile: int,
+                 device: str = "cuda") -> int:
+    """The SSB lineorder (N_ROWS rows, seed 1992, one segment) written
+    twice more by the builds start_builds started: (a) with
+    bit_packed_ids (every dictionary column BITPACK) and (b) with the five
+    metric columns raw, asked for ZSTD (written and named ZLIB, printed,
+    where the library lacks zstd). Per copy: write seconds (the build process's own), bytes on disk
+    against PLAIN, load (decode) seconds, the 13 queries' digests (equal
+    to the PLAIN segment's) and p50 through Broker(device), K1 held
+    bitwise on each compact query's inputs (kernel_at_format_path). Then
+    each codec on one N_ROWS column: ratio, compress and decompress
+    seconds, the round trip equal. Returns K1's launches on the path."""
+    import numpy as np
+
+    from pinot_tpu_torch import native
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import ssb
+
+    codec = builds["codec"]
+    plain_bytes = _dir_bytes(plain_dir)
+    sqls = [(qid, ssb.spec_to_sql(p, v, g)) for qid, p, v, g in ssb.QUERIES]
+    t_start = time.perf_counter()
+    launches = 0
+    for name, (seg_dir, proc) in builds["copies"].items():
+        write_s = _finish_job(proc)["seconds"]
+        t0 = time.perf_counter()
+        seg = load_segment(seg_dir, device)
+        for c in seg.columns:
+            seg.fwd(c)                   # BITPACK / COMPRESSED decode
+        load_s = time.perf_counter() - t0
+        formats: dict = {}
+        for m in seg.columns.values():
+            key = m.fwd_format + (f":{m.codec}" if m.codec else "")
+            formats[key] = formats.get(key, 0) + 1
+        if name == "compressed" and formats.get(
+                f"COMPRESSED:{codec}") != len(METRIC_COLUMNS):
+            raise AssertionError(f"the compressed copy's metric columns "
+                                 f"are not all {codec}: {formats}")
+        dm = TableDataManager("lineorder", device=device)
+        dm.add_segment(seg)
+        broker = Broker(device=device)
+        broker.register_table(dm)
+        query = connect(broker)
+        C.launches = 0                   # the format path starts here
+        runs = {}
+        for qid, sql in sqls:
+            res = query(sql)             # warm-up (uploads the columns)
+            times = []
+            for _ in range(ITERS):
+                t0 = time.perf_counter()
+                res = query(sql)
+                times.append((time.perf_counter() - t0) * 1e3)
+            runs[qid] = (res, times)
+        copy_launches = C.launches       # ... and ends here
+        launches += copy_launches
+        for qid, sql in sqls:
+            res, times = runs[qid]
+            ok = ssb._digest(res.rows) == digests[qid]
+            phase("format_query", copy=name, qid=qid, ok=ok,
+                  p50_ms=statistics.median(times), times_ms=times,
+                  rows=len(res.rows))
+            if not ok:
+                raise AssertionError(f"{name} {qid}: digest differs from "
+                                     "the PLAIN segment's")
+        checked = 0
+        for qid, sql in sqls:
+            plans = _plans(sql, [seg])
+            if plans[0].kind == "kernel" and \
+                    plans[0].kernel_plan.strategy == "compact":
+                checked += _k1_held(plans, f"{name}:{qid}",
+                                    "kernel_at_format_path", tile,
+                                    device.startswith("cuda"))
+        if copy_launches == 0 or checked == 0:
+            raise AssertionError(f"the {name} copy never launched K1")
+        nbytes = _dir_bytes(seg_dir)
+        phase("format", copy=name, rows=N_ROWS, write_s=write_s,
+              load_s=load_s, bytes=nbytes, plain_bytes=plain_bytes,
+              bytes_vs_plain=nbytes / plain_bytes, formats=formats,
+              asked="ZSTD" if name == "compressed" else None,
+              codec=codec if name == "compressed" else None,
+              zstd_missing=name == "compressed" and codec != "ZSTD",
+              compact_launches=copy_launches, k1_checked=checked)
+        seg.evict_device()
+        shutil.rmtree(os.path.dirname(seg_dir), ignore_errors=True)
+
+    plain = load_segment(plain_dir, "cpu")       # host arrays only
+    rev = np.ascontiguousarray(plain.fwd("lo_revenue"))
+    sorted_col = next((c for c, m in plain.columns.items()
+                       if m.is_sorted and m.encoding == "RAW"
+                       and np.dtype(m.fwd_dtype).kind in "iu"), None)
+    if sorted_col is not None:
+        srt, srt_name = np.ascontiguousarray(plain.fwd(sorted_col)), \
+            sorted_col
+    else:
+        srt, srt_name = np.sort(rev), "sorted(lo_revenue)"
+    cases = [(c, rev, "lo_revenue") for c in
+             ("LZ4", "SNAPPY", "ZLIB", "PASS_THROUGH")
+             + (("ZSTD",) if native.zstd_available() else ())]
+    cases.append(("DELTA", srt, srt_name))
+    for codec_name, arr, col in cases:
+        t0 = time.perf_counter()
+        comp = native.compress(arr, codec_name)
+        comp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = native.decompress(comp, arr.nbytes, codec_name)
+        dec_s = time.perf_counter() - t0
+        equal = bytes(memoryview(back)) == arr.tobytes()
+        phase("codec", codec=codec_name, column=col, rows=len(arr),
+              raw_bytes=int(arr.nbytes), bytes=int(len(comp)),
+              ratio=arr.nbytes / max(len(comp), 1), compress_s=comp_s,
+              decompress_s=dec_s, equal=equal)
+        if not equal:
+            raise AssertionError(f"{codec_name} round trip differs")
+    phase("format_done", seconds=time.perf_counter() - t_start,
+          compact_launches=launches)
+    return launches
+
+
+def _linked_copy(src: str, dst: str) -> str:
+    """A copy of a segment directory whose column files are hard links; a
+    rollup build rewrites only metadata.json (copied) and adds its own
+    directories, so the source stays as it is."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst, copy_function=os.link)
+    meta = os.path.join(dst, "metadata.json")
+    os.unlink(meta)
+    shutil.copy(os.path.join(src, "metadata.json"), meta)
+    return dst
+
+
+def _rollup_plans(sql: str, segments):
+    """The plans of the rewritten query on each segment's rollup (None
+    where no rollup answers)."""
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.planner import SegmentPlanner
+    from pinot_tpu_torch.query.sql import parse_sql
+    from pinot_tpu_torch.startree.query import match_rollup, rollup_query
+
+    ctx = build_query_context(parse_sql(sql))
+    out = []
+    for s in segments:
+        m = match_rollup(ctx, s)
+        if m is None:
+            out.append(None)
+            continue
+        rctx, rseg, _flat = rollup_query(ctx, s, *m)
+        out.append(SegmentPlanner(rctx, rseg).plan())
+    return out
+
+
+def rollup_phase(builds: dict, digests: dict, single, segs, tile: int,
+                 device: str = "cuda"):
+    """Star-tree rollups (ROLLUP_CONFIGS; HYBRID_ROLLUP on the table's
+    segments too) built by start_builds on hard-linked copies of the
+    single segment and of the TABLE_SEGMENTS-segment table, a process a
+    segment: build seconds and rows of each (build_s: the wall time from
+    the builds' start, format copies included). Per table and query, through
+    Broker(device): rollup_segments (EXPLAIN's count; each segment of
+    Q2.1-Q3.3 answers from a rollup, none of the rest), rows equal to
+    the raw path's digests, and p50 with rollups against the raw
+    segments (alternating runs); EXPLAIN's STARTREE_ROLLUP line; the
+    hybrid lineorder (half the table offline, half realtime, time column
+    d_yearmonthnum) over the copies against the raw hybrid, with its
+    rollup answers counted; K1 held bitwise wherever a rollup plans
+    compact (kernel_at_rollup_path). Returns (K1's launches on the
+    path, the single-segment rollup broker's query function)."""
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.engine import serving
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.sql import parse_sql
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.spi import TableConfig
+    from pinot_tpu_torch.tools import ssb
+
+    t_start = time.perf_counter()
+    one, table = builds["one"], builds["table"]
+    for d, configs, proc in builds["rollups"]:
+        for i, secs, rows in _finish_job(proc):
+            dims, _m, serves, most = configs[i]
+            phase("rollup_build", segment=os.path.relpath(d, ROOT),
+                  rollup=f"startree{i}", dims=list(dims), serves=serves,
+                  seconds=secs, rows=rows, most_rows=most)
+            if rows > most:
+                raise AssertionError(f"startree{i}: {rows} rows > {most}")
+    build_s = time.perf_counter() - builds["t0"]
+
+    def broker_of(parts, configs=None):
+        b = Broker(device=device)
+        for name, seglist in parts.items():
+            dm = TableDataManager(name, device=device, table_config=(
+                configs or {}).get(name))
+            for s in seglist:
+                dm.add_segment(s)
+            b.register_table(dm)
+        return connect(b)
+
+    r_one = [load_segment(one, device)]
+    r_table = [load_segment(d, device) for d in table]
+    tables = {"1": (r_one, [single]), str(len(segs)): (r_table, segs)}
+    sqls = [(qid, ssb.spec_to_sql(p, v, g)) for qid, p, v, g in ssb.QUERIES]
+    calls = []
+    real = serving.execute_on_rollup
+
+    def counting(*a):
+        calls.append(1)
+        return real(*a)
+
+    serving.execute_on_rollup = counting
+    launches = 0
+
+    def rollup_run(q, sql):
+        """q(sql), its K1 launches counted as the rollup path's: the count
+        is set to 0 just before and read just after"""
+        nonlocal launches
+        C.launches = 0
+        out = q(sql)
+        launches += C.launches
+        return out
+
+    try:
+        runs = {}
+        for label, (rsegs, raw) in tables.items():
+            with_q = broker_of({"lineorder": rsegs})
+            raw_q = broker_of({"lineorder": raw})
+            for qid, sql in sqls:
+                res, rres = rollup_run(with_q, sql), raw_q(sql)  # warm-up
+                t_with, t_raw = [], []
+                for _ in range(ITERS):
+                    t0 = time.perf_counter()
+                    res = rollup_run(with_q, sql)
+                    t_with.append((time.perf_counter() - t0) * 1e3)
+                    t0 = time.perf_counter()
+                    rres = raw_q(sql)
+                    t_raw.append((time.perf_counter() - t0) * 1e3)
+                runs[(label, qid)] = (res, rres, t_with, t_raw)
+            explain = with_q("EXPLAIN PLAN FOR " + dict(sqls)["q2.1"]).rows
+            runs[(label, "explain")] = explain
+        off, rt = r_table[:len(r_table) // 2], r_table[len(r_table) // 2:]
+        cfg = {"lineorder_OFFLINE": TableConfig(
+            "lineorder_OFFLINE", time_column="d_yearmonthnum")}
+        hyb = broker_of({"lineorder_OFFLINE": off,
+                         "lineorder_REALTIME": rt}, cfg)
+        hyb_raw = broker_of({"lineorder_OFFLINE": segs[:len(segs) // 2],
+                             "lineorder_REALTIME": segs[len(segs) // 2:]},
+                            cfg)
+        hybrid = {}
+        for qid in HYBRID_QIDS:
+            sql = dict(sqls)[qid]
+            n0 = len(calls)
+            got = rollup_run(hyb, sql)
+            hybrid[qid] = (got, hyb_raw(sql), len(calls) - n0)
+    finally:
+        serving.execute_on_rollup = real
+
+    for label, (rsegs, _raw) in tables.items():
+        n_seg = len(rsegs)
+        for qid, sql in sqls:
+            res, rres, t_with, t_raw = runs[(label, qid)]
+            n_rollup = serving.plan_segments(
+                build_query_context(parse_sql(sql)), rsegs,
+                explain=True).rollup_segments
+            want = n_seg if qid in ROLLUP_QIDS else 0
+            ok = ssb._digest(res.rows) == digests[qid] == \
+                ssb._digest(rres.rows)
+            phase("rollup_query", segments=n_seg, qid=qid, ok=ok,
+                  rollup_segments=n_rollup, expected=want,
+                  p50_ms=statistics.median(t_with),
+                  raw_p50_ms=statistics.median(t_raw), times_ms=t_with,
+                  raw_times_ms=t_raw)
+            if not ok:
+                raise AssertionError(f"{qid} on {n_seg}: rollup rows differ")
+            if n_rollup != want:
+                raise AssertionError(f"{qid} on {n_seg}: {n_rollup} rollup "
+                                     f"segments, expected {want}")
+        line = f"STARTREE_ROLLUP(segments:{n_seg})"
+        explain = runs[(label, "explain")]
+        phase("rollup_explain", segments=n_seg, rows=explain)
+        if not any(r[0] == line for r in explain):
+            raise AssertionError(f"EXPLAIN lacks {line}: {explain}")
+    for qid, (got, want, n_calls) in hybrid.items():
+        ok = ssb._digest(got.rows) == ssb._digest(want.rows)
+        phase("rollup_hybrid", qid=qid, ok=ok, rollup_answers=n_calls,
+              expected=len(r_table) if qid in ROLLUP_QIDS[:3] else 0)
+        if not ok:
+            raise AssertionError(f"hybrid {qid}: rollup rows differ")
+        if (n_calls > 0) != (qid in ROLLUP_QIDS[:3]):
+            raise AssertionError(f"hybrid {qid}: {n_calls} rollup answers")
+    checked = 0
+    for qid in ROLLUP_QIDS:
+        plans = [p for p in _rollup_plans(dict(sqls)[qid], r_one)
+                 if p is not None and p.kind == "kernel"
+                 and p.kernel_plan.strategy == "compact"]
+        if plans:
+            checked += _k1_held(plans, f"rollup1:{qid}",
+                                "kernel_at_rollup_path", tile,
+                                device.startswith("cuda"))
+    if checked == 0:
+        raise AssertionError("no rollup planned the compaction")
+    _reconcile_or_fail(r_one + r_table + [single, *segs], "rollup")
+    phase("rollup_done", seconds=time.perf_counter() - t_start,
+          build_s=build_s, compact_launches=launches, k1_checked=checked,
+          tracked_equals_held=True)
+    return launches, broker_of({"lineorder": r_one}), r_one + r_table
+
+
+def _with_option(sql: str, opt: str) -> str:
+    i = sql.find(" OPTION(")
+    if i < 0:
+        return f"{sql} OPTION({opt})"
+    return f"{sql[:i + 8]}{opt},{sql[i + 8:]}"
+
+
+def _span_walk(sp):
+    yield sp
+    for c in sp["children"]:
+        yield from _span_walk(c)
+
+
+@contextlib.contextmanager
+def _analyzed_roots():
+    """While open, the root Span of every EXPLAIN ANALYZE the broker
+    finalizes (query/explain.finalize_analyze) is appended to the yielded
+    list, from any thread."""
+    from pinot_tpu_torch.broker import broker as bmod
+
+    real = bmod.finalize_analyze
+    roots: list = []
+
+    def capture(root):
+        roots.append(root)
+        return real(root)
+
+    bmod.finalize_analyze = capture
+    try:
+        yield roots
+    finally:
+        bmod.finalize_analyze = real
+
+
+def _coverage(root) -> dict:
+    """An analyzed root Span's time: ``prefix_ms`` before its first child
+    starts (the broker's own step: the query context, quota and
+    registration), ``covered_ms`` in its children other than
+    broker_overhead, ``gap_ms`` after the first child starts that no child
+    covers, and ``overhead_ms`` (broker_overhead: prefix + gap). Start
+    times are the spans' host-clock starts (Span._t0)."""
+    kids = [c for c in root.children if c.name != "broker_overhead"]
+    total = root.duration_ms
+    prefix = (kids[0]._t0 - root._t0) * 1e3 if kids else total
+    covered = sum(k.duration_ms for k in kids)
+    return {"root_ms": total, "prefix_ms": prefix, "covered_ms": covered,
+            "gap_ms": total - prefix - covered,
+            "overhead_ms": max(total - covered, 0.0)}
+
+
+def _coverage_check(roots: list, what: str) -> tuple:
+    """The root's children must cover its time from the first child's
+    start on: the time no span measured after the broker's prefix at most
+    10% of the root (the median over ``roots``, EXPLAIN ANALYZE runs of
+    one query; one run's host stalls land in it), and the children not
+    past the root by more than 10% (overlapping spans). The prefix, the
+    broker's fixed step before planning, is reported, not bounded.
+    Returns (fails, coverages)."""
+    covs = [_coverage(r) for r in roots]
+    fails = []
+    share = statistics.median(c["gap_ms"] / c["root_ms"] for c in covs)
+    if share > 0.1:
+        fails.append(f"{what}: {share:.4f} of the root's wall time after "
+                     f"the broker's prefix is in no span (median of "
+                     f"{len(covs)} runs)")
+    for c in covs:
+        if c["covered_ms"] > 1.1 * c["root_ms"]:
+            fails.append(f"{what}: children {c['covered_ms']} ms past the "
+                         f"root's {c['root_ms']} ms")
+    return fails, covs
+
+
+@contextlib.contextmanager
+def _ranged_spans(name: str):
+    """While open, every ``name`` span of a trace also runs inside a
+    torch.profiler record_function range labelled ``name#i``; yields
+    {label: Span}, filled as the spans open."""
+    import torch
+    from pinot_tpu_torch.utils.spans import span_tracer
+
+    real = span_tracer.span
+    opened: dict = {}
+
+    @contextlib.contextmanager
+    def ranged(cm, label):
+        with torch.profiler.record_function(label):
+            with cm as sp:
+                opened[label] = sp
+                yield sp
+
+    def wrapped(n, **attrs):
+        cm = real(n, **attrs)
+        if n != name or not span_tracer.active():
+            return cm
+        return ranged(cm, f"{name}#{len(opened)}")
+
+    span_tracer.span = wrapped
+    try:
+        yield opened
+    finally:
+        del span_tracer.span
+
+
+def _span_device_ms(prof, opened: dict) -> dict:
+    """{label: (span ms, device ms, by)}: the device time of the work
+    each labelled range launched, by the profiler's correlation of device
+    events with the range (device_time_total, by "correlation"); where
+    that is 0, the device events that start inside the range on the
+    profiler's clock (by "window"). A device ms of 0 means the window
+    missed the range's work."""
+    events = prof.events()
+    device = _on_device(events)
+    out = {}
+    for label, sp in opened.items():
+        rng = [e for e in events if e.name == label
+               and not str(e.device_type).endswith("CUDA")]
+        if not rng:
+            out[label] = (sp.duration_ms, 0.0, None)
+            continue
+        ev = rng[0]
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        ms, by = float(us or 0.0) / 1e3, "correlation"
+        if ms <= 0.0:
+            t0, t1 = ev.time_range.start, ev.time_range.end
+            ms = sum(e.time_range.end - e.time_range.start for e in device
+                     if t0 <= e.time_range.start <= t1) / 1e3
+            by = "window"
+        out[label] = (sp.duration_ms, ms, by)
+    return out
+
+
+def trace_check(query, sql: str, label: str, profile: bool = False,
+                digest=None) -> dict:
+    """EXPLAIN ANALYZE and OPTION(trace=true) of one query against its
+    untraced run: the analyzed inner row count and the traced rows equal
+    the untraced ones (and ``digest`` where given), the children cover
+    the root after the broker's prefix to within 10% of its wall time
+    (_coverage_check, the median of ANALYZE_RUNS runs), every span name
+    is in phases.SPAN_NAMES and every flat phase in TRACED_PHASES. With
+    ``profile``, one EXPLAIN ANALYZE runs under torch.profiler with each
+    device_execute span inside a record_function range: each such span
+    must last at least the device time of the work launched inside it. A
+    window that shows no device time for a range is retried up to
+    PROFILE_TRIES times; the check fails if every window missed."""
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.utils import phases
+
+    plain = query(sql)
+    with _analyzed_roots() as analyzed:
+        res = query("EXPLAIN ANALYZE " + sql)
+        for _ in range(ANALYZE_RUNS - 1):
+            query("EXPLAIN ANALYZE " + sql)
+    root = res.trace["spans"]
+    spans = list(_span_walk(root))
+    kids = sum(c["ms"] for c in root["children"])
+    traced = query(_with_option(sql, "trace=true"))
+    fails, covs = _coverage_check(analyzed, "analyze")
+    row = {"label": label, "root_ms": root["ms"], "children_ms": kids,
+           "prefix_ms": [c["prefix_ms"] for c in covs],
+           "gap_shares": [c["gap_ms"] / c["root_ms"] for c in covs],
+           "overhead_shares": [c["overhead_ms"] / c["root_ms"]
+                               for c in covs],
+           "spans": len(spans),
+           "device_execute_ms": sum(s["ms"] for s in spans
+                                    if s["name"] == "device_execute"),
+           "device_transfer_ms": sum(s["ms"] for s in spans
+                                     if s["name"] == "device_transfer"),
+           "flat_phases": (sorted(traced.trace["phases"])
+                           if traced.trace else None),
+           "names": sorted({s["name"] for s in spans})}
+    unknown = set(row["names"]) - phases.SPAN_NAMES
+    if unknown:
+        fails.append(f"span names outside SPAN_NAMES: {unknown}")
+    if root["attrs"].get("rows") != len(plain.rows):
+        fails.append("the analyzed row count differs")
+    if ssb._digest(traced.rows) != ssb._digest(plain.rows) or (
+            digest is not None and ssb._digest(plain.rows) != digest):
+        fails.append("the traced rows differ")
+    if traced.trace and not set(traced.trace["phases"]) <= \
+            phases.TRACED_PHASES:
+        fails.append(f"flat phases {traced.trace['phases']}")
+    if profile:
+        import torch
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        per_span, tries = None, 0
+        while tries < PROFILE_TRIES:
+            tries += 1
+            with _ranged_spans("device_execute") as opened, prof_ctx(
+                    activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+                query("EXPLAIN ANALYZE " + sql)
+                torch.cuda.synchronize()
+            per_span = _span_device_ms(prof, opened)
+            if per_span and all(v[1] > 0 for v in per_span.values()):
+                break
+        row.update(profile_tries=tries,
+                   profiled_spans=[[round(s, 6), round(d, 6), by]
+                                   for s, d, by in (per_span or {}).values()])
+        if not per_span:
+            fails.append("the profiled run opened no device_execute span")
+        elif not all(v[1] > 0 for v in per_span.values()):
+            fails.append(f"no profiler window of {PROFILE_TRIES} caught "
+                         f"every device_execute span's work: {per_span}")
+        else:
+            short = {k: v for k, v in per_span.items() if v[0] < v[1]}
+            if short:
+                fails.append(f"device_execute spans shorter than their "
+                             f"device work (span ms, device ms): {short}")
+    row["ok"] = not fails
+    phase("trace_check", **row, fails=fails)
+    if fails:
+        raise AssertionError(f"{label}: {fails}")
+    return row
+
+
+def profile_phases_check(query, sql: str, label: str) -> None:
+    """EXPLAIN ANALYZE with OPTION(profilePhases=true) (ops/phase_profile
+    on the card: CUDA events, K1 relaunched for the compact prefix): a
+    phase_profile span whose phase_* children carry positive, nondecreasing
+    cumulative times, the root covered after the broker's prefix, and the
+    inner row count equal to the untraced query's."""
+    plain = query(sql)
+    with _analyzed_roots() as analyzed:
+        res = query("EXPLAIN ANALYZE "
+                    + _with_option(sql, "profilePhases=true"))
+    root = res.trace["spans"]
+    profs = [s for s in _span_walk(root) if s["name"] == "phase_profile"]
+    fails, covs = _coverage_check(analyzed, "profilePhases")
+    if root["attrs"].get("rows") != len(plain.rows):
+        fails.append("the analyzed row count differs")
+    ladders = []
+    for p in profs:
+        kids = [c for c in p["children"] if c["name"].startswith("phase_")]
+        cums = [c["attrs"]["cumulative_ms"] for c in kids
+                if "cumulative_ms" in c["attrs"]]
+        ladders.append({c["name"]: [c["ms"], c["attrs"].get("cumulative_ms")]
+                        for c in kids})
+        if not kids or not cums:
+            fails.append(f"a phase_profile span without phase times: {p}")
+        elif any(c <= 0 for c in cums) or cums != sorted(cums):
+            fails.append(f"cumulative phase ms not positive and "
+                         f"nondecreasing: {cums}")
+    if not profs:
+        fails.append("no phase_profile span")
+    phase("trace_profile_phases", label=label, root_ms=root["ms"],
+          prefix_ms=covs[0]["prefix_ms"] if covs else None,
+          gap_share=covs[0]["gap_ms"] / covs[0]["root_ms"] if covs else None,
+          ladders=ladders, ok=not fails, fails=fails)
+    if fails:
+        raise AssertionError(f"{label}: {fails}")
+
+
+def _count_tracer_calls():
+    """Wrap the span tracer's entry points (span, annotate, active) to
+    count calls; returns (counts, restore)."""
+    from pinot_tpu_torch.utils.spans import span_tracer
+
+    counts = {"span": 0, "annotate": 0, "active": 0}
+    for name in counts:
+        real = getattr(span_tracer, name)
+
+        def counting(*a, _n=name, _r=real, **k):
+            counts[_n] += 1
+            return _r(*a, **k)
+
+        setattr(span_tracer, name, counting)
+
+    def restore():
+        for name in counts:
+            delattr(span_tracer, name)
+
+    return counts, restore
+
+
+def _inactive_ns() -> dict:
+    """ns per call of an inactive span(), annotate() and
+    tracing_active() (no root started on this thread)."""
+    from pinot_tpu_torch.utils import spans
+
+    def timed(fn) -> float:
+        t0 = time.perf_counter()
+        for _ in range(INACTIVE_CALLS):
+            fn()
+        return (time.perf_counter() - t0) / INACTIVE_CALLS * 1e9
+
+    def one_span():
+        with spans.span("segment_kernel", segment="s", bucket=1):
+            pass
+
+    return {"span": timed(one_span),
+            "annotate": timed(lambda: spans.annotate(matched=1)),
+            "active": timed(spans.tracing_active)}
+
+
+def trace_phase(single, segs, rollup_query_fn, digests: dict,
+                device: str = "cuda") -> int:
+    """The tracing plane over the 13 SSB queries on 1 and TABLE_SEGMENTS
+    segments (trace_check; the single segment's also under
+    torch.profiler), one rollup query, OPTION(profilePhases=true) on a
+    compact and a scalar plan (profile_phases_check), and a concurrent wave
+    of TRACE_WAVE EXPLAIN ANALYZEs through the micro-batcher; per SSB query
+    traced (OPTION(trace=true)) against untraced p50 in alternating runs,
+    and the span-tracer calls an untraced query makes times the ns of an
+    inactive call, as a share of its p50; the Prometheus rendering's
+    size. Returns K1's launches on the path."""
+    import threading
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.engine import ragged
+    from pinot_tpu_torch.engine.accounting import global_accountant
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.utils.metrics import global_metrics
+
+    on_card = device.startswith("cuda")
+    t_start = time.perf_counter()
+
+    def broker_of(seglist):
+        dm = TableDataManager("lineorder", device=device)
+        for s in seglist:
+            dm.add_segment(s)
+        b = Broker(device=device)
+        b.register_table(dm)
+        return connect(b)
+
+    sqls = [(qid, ssb.spec_to_sql(p, v, g)) for qid, p, v, g in ssb.QUERIES]
+    inactive = _inactive_ns()
+    if on_card:
+        # the profiler's first session pays its set-up: spend it here
+        import torch
+        profile_query(lambda _sql: torch.ones(1, device=device) + 1, "")
+    C.launches = 0                       # the trace path starts here
+    for seglist in ([single], segs):
+        query = broker_of(seglist)
+        n_seg = len(seglist)
+        for qid, sql in sqls:
+            query(sql)                   # warm-up
+            row = trace_check(query, sql, f"ssb{n_seg}:{qid}",
+                              profile=on_card and n_seg == 1,
+                              digest=digests[qid])
+            t_plain, t_traced = [], []
+            traced_sql = _with_option(sql, "trace=true")
+            for _ in range(ITERS):
+                t0 = time.perf_counter()
+                query(sql)
+                t_plain.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                query(traced_sql)
+                t_traced.append((time.perf_counter() - t0) * 1e3)
+            counts, restore = _count_tracer_calls()
+            try:
+                query(sql)
+            finally:
+                restore()
+            p50 = statistics.median(t_plain)
+            cost_ms = sum(counts[k] * inactive[k] for k in counts) / 1e6
+            phase("trace_query", segments=n_seg, qid=qid, p50_ms=p50,
+                  traced_p50_ms=statistics.median(t_traced),
+                  times_ms=t_plain, traced_times_ms=t_traced,
+                  analyze_root_ms=row["root_ms"],
+                  tracer_calls=counts, inactive_ns=inactive,
+                  inactive_cost_ms=cost_ms, inactive_share=cost_ms / p50)
+    trace_check(rollup_query_fn, dict(sqls)["q2.1"], "rollup1:q2.1",
+                digest=digests["q2.1"])
+    # the kernel's phase ladder on the card (a compact and a scalar plan)
+    query = broker_of([single])
+    for qid, kind in (("q2.1", "compact"), ("q1.1", "scalar")):
+        sql = dict(sqls)[qid]
+        if kind == "compact":
+            sql = _with_option(sql, "groupByStrategy=compact")
+        profile_phases_check(query, sql, f"ssb1:{qid}:{kind}")
+
+    # a concurrent wave through the micro-batcher: an idle registered
+    # peer keeps every member in the admission window
+    query = broker_of([single])
+    wave = [dict(sqls)["q1.1"].replace("1993", str(1993 + i))
+            for i in range(TRACE_WAVE)]
+    for sql in wave:
+        query(sql)
+    window = ragged.global_batcher.window_ms
+    enabled = ragged.global_batcher.enabled
+    ragged.global_batcher.configure(enabled=True, window_ms=50.0)
+    global_accountant.register("trace_idle_peer")
+    trees = [None] * TRACE_WAVE
+    gate = threading.Barrier(TRACE_WAVE)
+
+    def run(i):
+        gate.wait()
+        trees[i] = query("EXPLAIN ANALYZE " + wave[i])
+
+    try:
+        with _analyzed_roots() as analyzed:
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(TRACE_WAVE)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+    finally:
+        global_accountant.unregister("trace_idle_peer")
+        ragged.global_batcher.configure(enabled=enabled, window_ms=window)
+    batched, leaders, names = 0, 0, set()
+    for i, res in enumerate(trees):
+        if res is None:
+            raise AssertionError(f"wave member {i} failed")
+        spans_i = list(_span_walk(res.trace["spans"]))
+        names |= {s["name"] for s in spans_i}
+        rd = [s for s in spans_i if s["name"] == "ragged_dispatch"]
+        batched += any(s["attrs"].get("batched") for s in rd)
+        leaders += any(s["attrs"].get("leader") for s in rd)
+    fails, covs = [], []
+    for i, root in enumerate(analyzed):
+        f, c = _coverage_check([root], f"wave member {i}")
+        fails += f
+        covs += c
+    phase("trace_wave", queries=TRACE_WAVE, batched=batched,
+          leaders=leaders, names=sorted(names),
+          prefix_ms=[c["prefix_ms"] for c in covs],
+          gap_shares=[c["gap_ms"] / c["root_ms"] for c in covs])
+    if len(analyzed) != TRACE_WAVE or fails:
+        raise AssertionError(f"the wave's trees: {fails}")
+    if not batched or "fused_execute" not in names:
+        raise AssertionError("the traced wave never fused")
+    launches = C.launches                # ... and ends here
+    prom = global_metrics.prometheus()
+    phase("trace_done", seconds=time.perf_counter() - t_start,
+          compact_launches=launches, prometheus_bytes=len(prom),
+          prometheus_lines=prom.count("\n"))
+    if launches == 0:
+        raise AssertionError("the trace path never launched K1")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4183,6 +5178,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
+    native_phase()
     from pinot_tpu_torch.ops import compact as C
     from pinot_tpu_torch.ops import segscan as S
     tile = C.tile_rows()
@@ -4197,6 +5193,13 @@ def main() -> int:
     hooks_phase(single, segs)
     tier_launches = tier_phase(segs, single, digests, multi_p50, tile)
     drift_launches = drift_phase(single)
+    builds = start_builds(seg_dir, table_dir)
+    format_launches = format_phase(seg_dir, builds, digests, tile)
+    rollup_launches, rollup_query_fn, rollup_segs = rollup_phase(
+        builds, digests, single, segs, tile)
+    trace_launches = trace_phase(single, segs, rollup_query_fn, digests)
+    for s in rollup_segs:
+        s.evict_device()
     single.evict_device()
     from pinot_tpu_torch.segment import load_segment
     surface_seg = load_segment(seg_dir, "cuda")
@@ -4221,7 +5224,8 @@ def main() -> int:
         "replaces": "pinot_tpu/ops/compact.py:252",
         "launches": launches + seg_launches + concurrent_launches
         + tier_launches + drift_launches + statement_launches
-        + geo_launches,
+        + geo_launches + format_launches + rollup_launches
+        + trace_launches,
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -4241,6 +5245,9 @@ def main() -> int:
         "drift_launches": drift_launches,
         "statement_launches": statement_launches,
         "geo_launches": geo_launches,
+        "format_launches": format_launches,
+        "rollup_launches": rollup_launches,
+        "trace_launches": trace_launches,
         **{f"segmented_{k}": v for k, v in seg_totals.items()},
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
@@ -4253,8 +5260,11 @@ def main() -> int:
               f"{TABLE_SEGMENTS}-segment table; launches = the single-"
               "segment run's, the 8-segment run's, the concurrent "
               "phase's serial waves', the budgeted (tier) run's, the "
-              "drift run's, the statements phase's and the geo "
-              "phase's"}, {
+              "drift run's, the statements phase's, the geo "
+              "phase's, the format phase's (BITPACK and COMPRESSED "
+              "copies), the rollup phase's (queries answered from "
+              "rollups) and the trace phase's (EXPLAIN ANALYZE, "
+              "OPTION(trace=true))"}, {
         "name": "segscan",
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/segscan.cu",
@@ -4331,4 +5341,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        _stop_jobs()

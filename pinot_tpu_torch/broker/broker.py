@@ -25,21 +25,30 @@ cross-query micro-batcher (engine/ragged.py) counts as peers;
 ``micro_batch`` and ``micro_batch_window_ms`` configure that process-wide
 batcher.
 
-What differs from the reference: EXPLAIN ANALYZE and ``OPTION(trace=
-true)`` render spans, which the port does not record, and raise
-``NotImplementedError``; ``traceRatio`` sampling, workload admission and
-mesh-resident tables are not ported; a hybrid table's halves are planned
-per segment, as the port has no star-tree rollups (the rows are the
-same).
+Tracing, as the reference's: ``OPTION(trace=true)`` returns the flat
+phase envelope (``utils/trace.Tracing``) in ``result.trace``; EXPLAIN
+ANALYZE executes the statement under the span tracer (``utils/spans``)
+and renders the tree (``query/explain.finalize_analyze``, with the
+``broker_overhead`` child so the root's children sum to its wall time);
+``traceRatio`` (constructor, ``PINOT_TRACE_RATIO`` or
+``OPTION(traceRatio=...)``) samples queries deterministically by query
+id into a span tree, counted in ``sampled_traces``. A star-tree rollup
+answers a matching aggregation on both halves of a hybrid table too.
+
+What differs from the reference: a trace's persistence to a ledger
+(``OPTION(ledgerTrace=true)``, a trace-ledger path) needs
+``utils/ledger``, which the port does not have yet, and raises
+``NotImplementedError``; workload admission and mesh-resident tables are
+not ported.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import shutil
 import tempfile
 import time
-import uuid
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -54,7 +63,7 @@ from ..engine.setops import combine_setop, order_limit_rows
 from ..multistage import execute_multistage, explain_multistage, \
     is_multistage
 from ..query.context import build_query_context
-from ..query.explain import explain_rows
+from ..query.explain import explain_rows, finalize_analyze
 from ..query.planner import _truthy
 from ..query.sql import (BoolAnd, Comparison, CteDef, DdlStmt, Exists,
                          Identifier, InList, InSubquery, IsNull, Literal,
@@ -64,11 +73,50 @@ from ..query.sql import (BoolAnd, Comparison, CteDef, DdlStmt, Exists,
 from ..segment import SegmentBuilder
 from ..server.data_manager import TableDataManager
 from ..spi import DataType, FieldSpec, FieldType, Schema, TableConfig
+from ..utils import phases as ph
 from ..utils.metrics import global_metrics
+from ..utils.spans import sample_decision, span, span_tracer
+from ..utils.trace import Tracing
 from .quota import QueryQuotaManager
 from .routing import resolve_time_column, split_hybrid, time_boundary
 
 DEFAULT_TIMEOUT_MS = 10_000
+DEFAULT_TRACE_RATIO = 0.0
+_LEDGER_MISSING = ("a trace ledger needs utils/ledger, which "
+                   "pinot_tpu_torch does not have yet")
+
+
+def ratio_value(raw: Any, what: str = "traceRatio") -> float:
+    """A sampling ratio in [0, 1] or a 400-class SqlError (shared by the
+    per-query option and the broker default, so a bad PINOT_TRACE_RATIO
+    fails at broker start, not per query)."""
+    try:
+        v = float(raw)
+    except (TypeError, ValueError):
+        raise SqlError(f"invalid {what} value {raw!r}; "
+                       "expected a fraction in [0, 1]") from None
+    if not 0.0 <= v <= 1.0:
+        raise SqlError(f"invalid {what} value {raw!r}; "
+                       "expected a fraction in [0, 1]")
+    return v
+
+
+def parse_trace_ratio(options: Dict[str, Any], default: float) -> float:
+    """OPTION(traceRatio=...) validated before dispatch; the broker
+    default when absent."""
+    raw = options.get("traceRatio")
+    return default if raw is None else ratio_value(raw)
+
+
+def default_trace_ratio(override: Optional[float] = None) -> float:
+    """The broker's default ratio: the constructor's, then
+    PINOT_TRACE_RATIO, then off."""
+    if override is not None:
+        return ratio_value(override)
+    env_ratio = os.environ.get("PINOT_TRACE_RATIO")
+    if env_ratio is not None:
+        return ratio_value(env_ratio)
+    return DEFAULT_TRACE_RATIO
 
 
 def _cte_table(name: str, columns: List[str], rows: List[tuple],
@@ -114,7 +162,11 @@ class QueryTimeoutError(SqlError):
 class Broker:
     def __init__(self, device: Union[str, torch.device, None] = None,
                  micro_batch: Optional[bool] = None,
-                 micro_batch_window_ms: Optional[float] = None):
+                 micro_batch_window_ms: Optional[float] = None,
+                 trace_ratio: Optional[float] = None,
+                 trace_ledger_path: Optional[str] = None):
+        if trace_ledger_path:
+            raise NotImplementedError(_LEDGER_MISSING)
         self.device = resolve_device(device)
         self._tables: Dict[str, TableDataManager] = {}
         # the batcher is process-global (fusion happens below the broker):
@@ -126,6 +178,9 @@ class Broker:
         # expanded into CTEs at reference time (_expand_views)
         self._views: Dict[str, Any] = {}
         self.quota = QueryQuotaManager()
+        # traceRatio sampling: constructor, then PINOT_TRACE_RATIO, then
+        # off; OPTION(traceRatio=...) overrides it per query
+        self._trace_ratio = default_trace_ratio(trace_ratio)
 
     # -- table registry ----------------------------------------------------
     def register_table(self, dm: TableDataManager) -> None:
@@ -149,11 +204,64 @@ class Broker:
 
     # -- query path --------------------------------------------------------
     def query(self, sql: str) -> ResultTable:
+        global_metrics.count("broker_queries")
+        with global_metrics.timer("broker_query"):
+            try:
+                return self._query(sql)
+            except SqlError:
+                global_metrics.count("broker_query_exceptions")
+                raise
+
+    def _query(self, sql: str) -> ResultTable:
         t0 = time.perf_counter()
         stmt = parse_sql(sql)
         if isinstance(stmt, DdlStmt):
             return self._execute_ddl(stmt, t0)
+        opts = getattr(stmt, "options", {}) or {}
+        # OPTION(queryId=...) lets replicas and retries of one logical
+        # query agree on the sampling decision
+        qid = str(opts.get("queryId") or _new_query_id())[:64]
+        # traceRatio sampling: plan-only EXPLAIN and EXPLAIN ANALYZE never
+        # sample; the decision is deterministic in the query id
+        # (utils/spans.sample_decision) and costs nothing when unsampled
+        if not getattr(stmt, "analyze", False) and \
+                not getattr(stmt, "explain", False):
+            ratio = parse_trace_ratio(opts, self._trace_ratio)
+            if ratio > 0 and sample_decision(qid, ratio):
+                return self._execute_sampled(stmt, sql, t0, qid)
         return self._execute_stmt(stmt, t0)
+
+    def _execute_sampled(self, stmt, sql: str, t0: float,
+                         qid: str) -> ResultTable:
+        """A traceRatio-sampled query: executed under the span tracer (the
+        EXPLAIN ANALYZE machinery, minus the rendered rows). Subqueries,
+        CTEs and set-operation branches recurse through _execute_stmt, so
+        the whole statement lands in ONE tree."""
+        if stmt.options.get("ledgerPath") \
+                or os.environ.get("PINOT_TPU_LEDGER_PATH"):
+            raise NotImplementedError(_LEDGER_MISSING)
+        root = span_tracer.start(ph.QUERY,
+                                 table=getattr(stmt, "table", None),
+                                 query_id=qid, sampled=True)
+        try:
+            try:
+                result = self._execute_stmt(stmt, t0)
+            finally:
+                root = span_tracer.stop() or root
+        except SqlError as e:
+            # a failed sampled query still lands its (partial) tree
+            root.annotate(error=str(e)[:200])
+            self._append_trace(root, stmt, sql, qid)
+            raise
+        root.annotate(rows=len(result.rows))
+        self._append_trace(root, stmt, sql, qid)
+        return result
+
+    def _append_trace(self, root, stmt, sql: str, qid: str) -> None:
+        """Count a sampled trace. Persisting it is the ledger's
+        (``utils/ledger``, not ported): with no ledger path configured
+        the reference counts it and persists nothing, as here."""
+        global_metrics.count("sampled_traces")
 
     # -- views (QueryEnvironment view catalog analog) ----------------------
     def _execute_ddl(self, stmt: DdlStmt, t0: float) -> ResultTable:
@@ -250,9 +358,7 @@ class Broker:
 
     def _execute_stmt(self, stmt, t0: float) -> ResultTable:
         if getattr(stmt, "analyze", False):
-            raise NotImplementedError(
-                "EXPLAIN ANALYZE renders spans, which pinot_tpu_torch does "
-                "not record; use EXPLAIN PLAN FOR")
+            return self._execute_analyze(stmt, t0)
         stmt = self._expand_views(stmt)
         if getattr(stmt, "ctes", None):
             return self._execute_with_ctes(stmt, t0)
@@ -262,7 +368,7 @@ class Broker:
         # OPTION(queryId=...) names the accountant registration; two
         # concurrent queries sharing a name share their accounting
         query_id = str(stmt.options.get("queryId")
-                       or uuid.uuid4().hex[:12])[:64]
+                       or _new_query_id())[:64]
         timeout_ms = int(stmt.options.get("timeoutMs", DEFAULT_TIMEOUT_MS))
         deadline = t0 + timeout_ms / 1e3
         if self._is_hybrid(stmt.table):
@@ -286,15 +392,48 @@ class Broker:
             finally:
                 global_accountant.unregister(query_id)
         ctx = build_query_context(stmt)
-        if _truthy(ctx.options.get("trace")):
-            raise NotImplementedError(
-                "OPTION(trace=true) renders spans, which pinot_tpu_torch "
-                "does not record")
+        trace_on = _truthy(ctx.options.get("trace"))
+        scope = Tracing.register(query_id, trace_on)
         global_accountant.register(query_id, deadline=deadline)
         try:
-            return self._execute_ctx(ctx, stmt, t0, deadline, query_id)
+            result = self._execute_ctx(ctx, stmt, t0, deadline, query_id)
         finally:
             global_accountant.unregister(query_id)
+            Tracing.unregister()
+        if trace_on:
+            result.trace = scope.to_dict()
+        return result
+
+    # -- EXPLAIN ANALYZE ---------------------------------------------------
+    def _execute_analyze(self, stmt, t0: float) -> ResultTable:
+        """Execute the statement for real under the span tracer and
+        return the rendered span tree: per-phase wall ms (planning /
+        device execute / transfer / reduce), the cost-model strategy
+        trace, and estimated vs measured selectivity.
+        The device work inside each span is fenced (spans.device_fence),
+        so its time is the card's, not the launch's."""
+        if _truthy(stmt.options.get("ledgerTrace")):
+            raise NotImplementedError(_LEDGER_MISSING)
+        stmt.analyze = False  # the re-entrant call executes normally
+        root = span_tracer.start(ph.QUERY,
+                                 table=getattr(stmt, "table", None))
+        try:
+            inner = self._execute_stmt(stmt, t0)
+        finally:
+            root = span_tracer.stop() or root
+        root.annotate(
+            rows=len(inner.rows),
+            num_segments=inner.num_segments,
+            num_docs_scanned=inner.num_docs_scanned)
+        # the broker_overhead child (context build, quota, accountant
+        # registration) makes the root's children sum to its wall time
+        cols, rows, trace = finalize_analyze(root)
+        result = ResultTable(cols, rows,
+                             num_segments=inner.num_segments,
+                             num_docs_scanned=inner.num_docs_scanned)
+        result.trace = trace
+        result.time_ms = (time.perf_counter() - t0) * 1e3
+        return result
 
     # -- hybrid offline+realtime tables (TimeBoundaryManager analog) -------
     def _execute_hybrid(self, stmt: SelectStmt, t0: float) -> ResultTable:
@@ -610,6 +749,9 @@ class Broker:
         return InSubquery(Identifier(outer_col), sub2, negated=False)
 
     def _resolve_subqueries(self, stmt: SelectStmt) -> SelectStmt:
+        if not any(_has_subquery(e) for e in (stmt.where, stmt.having)
+                   if e is not None):
+            return stmt     # nothing to rewrite: keep the parsed trees
         if stmt.explain:
             # EXPLAIN must not execute the subquery scan; substitute
             # placeholder shapes so the plan still builds
@@ -681,13 +823,19 @@ class Broker:
     def _execute_ctx(self, ctx, stmt, t0: float, deadline: float,
                      query_id: str) -> ResultTable:
         segments = self.table(ctx.table).acquire_segments()
-        ex = plan_segments(ctx, segments)
         if stmt.explain:
-            cols, rows = explain_rows(ctx, ex.plans)
+            # a rollup that would answer a segment is counted, never run
+            ex = plan_segments(ctx, segments, explain=True)
+            cols, rows = explain_rows(ctx, ex.real_plans,
+                                      ex.rollup_segments)
             return ResultTable(cols, rows, num_segments=len(segments))
+        ex = plan_segments(ctx, segments)
         # the budget covers execution and reduce, not planning
         deadline += time.perf_counter() - t0
         global_accountant.set_deadline(query_id, deadline)
+        Tracing.count("numSegmentsQueried", len(segments))
+        Tracing.count("numSegmentsPruned", ex.pruned)
+        Tracing.count("numDocsScanned", ex.docs_scanned)
         try:
             partials = execute_planned(ex)
         except QueryKilledError as e:
@@ -699,12 +847,29 @@ class Broker:
             global_metrics.count("broker_query_timeouts")
             raise QueryTimeoutError(
                 f"query timed out (>{int((deadline - t0) * 1e3)}ms)")
-        result = reduce_partials(ctx, partials)
+        with Tracing.phase(ph.REDUCE), span(ph.REDUCE,
+                                          partials=len(partials)):
+            result = reduce_partials(ctx, partials)
         result.num_segments = len(segments)
         result.num_segments_pruned = ex.pruned
         result.num_docs_scanned = ex.docs_scanned
         result.time_ms = (time.perf_counter() - t0) * 1e3
         return result
+
+
+def _new_query_id() -> str:
+    """12 random hex digits (the reference's uuid4().hex[:12], the same
+    randomness without building a UUID)."""
+    return os.urandom(6).hex()
+
+
+def _has_subquery(e: Any) -> bool:
+    """Whether an expression holds an IN / scalar / EXISTS subquery (the
+    nodes _resolve_subqueries rewrites; ast_children reaches every node
+    map_expr rebuilds)."""
+    if isinstance(e, (InSubquery, Exists, ScalarSubquery)):
+        return True
+    return any(_has_subquery(c) for c in ast_children(e))
 
 
 class Connection:

@@ -30,7 +30,9 @@ Before a group dispatches, it is offered to the cross-query micro-batcher
 plan structure, they fuse into one cube dispatch and the group takes the
 FUSED route. The accountant's ``sample()`` runs before each plan and each
 group (a killed or timed-out query raises there), and every transferred
-output passes ``track_result``.
+output passes ``track_result``. Under a trace the batched paths record
+the reference's ``vmap_dispatch`` and ``segmented_compact_dispatch``
+spans with their ``device_execute`` (and retry) children.
 
 Memory: the stack cache is a device-memory pool (``utils/devmem``), and a
 stack insert enforces the shared tier budget (engine/tier.py) with the
@@ -49,8 +51,10 @@ from ..ops import compact
 from ..ops.kernels import (COMPACT_GROUP_LIMIT, build_kernel,
                            build_segmented_compact_kernel,
                            segmented_compact_ok)
-from ..query.planner import CompiledPlan
+from ..ops.phase_profile import attach_phase_spans, profile_plan
+from ..query.planner import CompiledPlan, _truthy
 from ..utils.devmem import global_device_memory
+from ..utils.spans import annotate, device_fence, span, tracing_active
 from .accounting import global_accountant
 from .executor import (execute_plan, extract_partial, resolve_params,
                        run_kernel, to_host)
@@ -243,21 +247,43 @@ def _run_batched(plans, idxs, plan_struct, bucket, resolved,
     """K12: every segment's kernel issued back to back with no host sync,
     the outputs stacked on the device and brought over in one transfer."""
     group = [plans[i] for i in idxs]
-    fn = build_kernel(plan_struct, bucket, device=group[0].segment.device)
-    outs = [fn(p.segment.device_cols(p.col_names), p.segment.n_docs,
-               resolved[i]) for i, p in zip(idxs, group)]
-    host = to_host({name: torch.stack([o[name] for o in outs])
-                    for name in outs[0]})
-    global_accountant.track_result(host)
-    for k, i in enumerate(idxs):
-        per_seg = {name: v[k] for name, v in host.items()}
-        if int(per_seg.pop("group_overflow", 0)):
-            # this segment alone has more live groups than the transfer
-            # cap: rerun it solo, straight to dense outputs
-            results[i] = extract_partial(
-                plans[i], run_kernel(plans[i], xfer_compact=False))
-        else:
-            results[i] = extract_partial(plans[i], per_seg)
+    with span("vmap_dispatch", segments=len(idxs), bucket=bucket,
+              strategy=plan_struct.strategy):
+        _maybe_profile_phases(group[0])
+        fn = build_kernel(plan_struct, bucket,
+                          device=group[0].segment.device)
+        with span("device_execute"):
+            outs = [fn(p.segment.device_cols(p.col_names),
+                       p.segment.n_docs, resolved[i])
+                    for i, p in zip(idxs, group)]
+            dev = {name: torch.stack([o[name] for o in outs])
+                   for name in outs[0]}
+            device_fence(dev)
+        with span("device_transfer"):
+            host = to_host(dev)
+        global_accountant.track_result(host)
+        for k, i in enumerate(idxs):
+            per_seg = {name: v[k] for name, v in host.items()}
+            if int(per_seg.pop("group_overflow", 0)):
+                # this segment alone has more live groups than the
+                # transfer cap: rerun it solo, straight to dense outputs
+                results[i] = extract_partial(
+                    plans[i], run_kernel(plans[i], xfer_compact=False))
+            else:
+                results[i] = extract_partial(plans[i], per_seg)
+
+
+def _maybe_profile_phases(plan: CompiledPlan) -> None:
+    """EXPLAIN ANALYZE OPTION(profilePhases=true) on a batched dispatch:
+    attach the phase ladder of ONE representative segment (the group
+    shares plan structure and bucket) as child spans — the batched paths
+    bypass run_kernel's attach point."""
+    if not (tracing_active()
+            and _truthy(plan.ctx.options.get("profilePhases"))):
+        return
+    with span("phase_profile", segment=plan.segment.name,
+              representative=True):
+        attach_phase_spans(profile_plan(plan, iters=2))
 
 
 def _run_segmented_compact(plans, idxs, plan_struct, bucket, resolved,
@@ -280,17 +306,27 @@ def _run_segmented_compact(plans, idxs, plan_struct, bucket, resolved,
     def run(cap, xfer_compact=True):
         fn = build_segmented_compact_kernel(plan_struct, bucket, cap,
                                             xfer_compact=xfer_compact)
-        return to_host(fn(cols, n_docs, params))
+        return fn(cols, n_docs, params)
 
-    out = run(cap)
-    if int(out.pop("overflow", 0)):
-        cap = compact.full_slots_cap(n_seg * bucket)
-        out = run(cap)
-        out.pop("overflow", None)
-    if int(out.pop("group_overflow", 0)):
-        out = run(cap, xfer_compact=False)
-        out.pop("overflow", None)
-    global_accountant.track_result(out)
+    with span("segmented_compact_dispatch", segments=n_seg, bucket=bucket,
+              slots_cap=cap, est_sel=group[0].est_selectivity):
+        _maybe_profile_phases(group[0])
+        with span("device_execute"):
+            dev = run(cap)
+            device_fence(dev)
+        out = to_host(dev)
+        if int(out.pop("overflow", 0)):
+            cap = compact.full_slots_cap(n_seg * bucket)
+            with span("overflow_retry", slots_cap=cap):
+                out = to_host(run(cap))
+            out.pop("overflow", None)
+            annotate(overflow_retry=True, slots_cap=cap)
+        if int(out.pop("group_overflow", 0)):
+            with span("group_overflow_retry"):
+                out = to_host(run(cap, xfer_compact=False))
+            out.pop("overflow", None)
+            annotate(group_overflow_retry=True)
+        global_accountant.track_result(out)
     space = plan_struct.group_space
     matched = out.pop("matched")
     gi = out.pop("group_idx", None)

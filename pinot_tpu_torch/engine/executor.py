@@ -8,7 +8,10 @@ reduce merges them unchanged. ``pruned`` and ``fast`` plans answer
 directly, ``host`` plans run the numpy host path (engine/host_eval.py) and
 ``kselect`` plans the device selection kernel (ops/kernels.py). Every
 transferred output passes the accountant's ``track_result`` fence
-(engine/accounting.py).
+(engine/accounting.py). Under a trace each path records the reference's
+spans (``segment_host``, ``segment_kselect``, ``segment_kernel`` with
+``device_execute`` / ``device_transfer`` children, the retries,
+``extract_partial``).
 """
 from __future__ import annotations
 
@@ -21,12 +24,16 @@ import torch
 from ..ops import aggregations
 from ..ops.compact import full_slots_cap
 from ..ops.kernels import build_kernel, build_select_kernel
+from ..ops.phase_profile import attach_phase_spans, profile_plan
 from ..ops.plan_cache import global_plan_cache
 from ..query.context import QueryContext
-from ..query.planner import AggBinding, CompiledPlan, _truthy
+from ..query.planner import (AggBinding, CompiledPlan, SegmentPlanner,
+                             _truthy)
 from ..query.sql import Star
 from ..segment.immutable import ImmutableSegment
 from ..utils.metrics import global_metrics
+from ..utils.spans import (annotate, device_fence, span,
+                           tracing_active)
 from . import host_eval
 from .accounting import global_accountant
 from .tier import global_tier
@@ -62,6 +69,12 @@ def empty_partial(ctx: QueryContext):
     return SelectionPartial([], [])
 
 
+def execute_segment(ctx: QueryContext, segment: ImmutableSegment):
+    """Plan and execute one query over one segment (a star-tree rollup's
+    path, startree/query.py)."""
+    return execute_plan(SegmentPlanner(ctx, segment).plan())
+
+
 def execute_plan(plan: CompiledPlan):
     ctx, seg = plan.ctx, plan.segment
     if plan.kind == "pruned":
@@ -71,24 +84,29 @@ def execute_plan(plan: CompiledPlan):
     if plan.kind == "fast":
         return AggPartial(list(plan.fast_states))
     if plan.kind == "host":
-        if host_eval.null_aware(ctx):
-            mask, _ = host_eval.eval_filter_3vl(ctx.filter, seg)
-        else:
-            mask = host_eval.eval_filter(ctx.filter, seg)
-        vd = seg.valid_docs
-        if vd is not None and not _truthy(ctx.options.get("skipUpsert")):
-            mask = mask & vd[: seg.n_docs]
-        if ctx.is_group_by:
-            return GroupByPartial(host_eval.host_group_by(ctx, seg, mask))
-        if ctx.is_aggregation:
-            return AggPartial(host_eval.host_aggregate(ctx, seg, mask))
-        labels, rows, okeys = host_eval.host_selection(ctx, seg, mask)
-        return SelectionPartial(labels, rows, okeys)
+        with span("segment_host", segment=seg.name):
+            if host_eval.null_aware(ctx):
+                mask, _ = host_eval.eval_filter_3vl(ctx.filter, seg)
+            else:
+                mask = host_eval.eval_filter(ctx.filter, seg)
+            vd = seg.valid_docs
+            if vd is not None and \
+                    not _truthy(ctx.options.get("skipUpsert")):
+                mask = mask & vd[: seg.n_docs]
+            if ctx.is_group_by:
+                return GroupByPartial(
+                    host_eval.host_group_by(ctx, seg, mask))
+            if ctx.is_aggregation:
+                return AggPartial(host_eval.host_aggregate(ctx, seg, mask))
+            labels, rows, okeys = host_eval.host_selection(ctx, seg, mask)
+            return SelectionPartial(labels, rows, okeys)
     if plan.kind == "kselect":
         return extract_select(plan, run_select_kernel(plan))
     if plan.kind != "kernel":
         raise ValueError(f"unknown plan kind {plan.kind!r}")
-    return extract_partial(plan, run_kernel(plan))
+    out = run_kernel(plan)
+    with span("extract_partial", segment=seg.name):
+        return extract_partial(plan, out)
 
 
 def to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -111,12 +129,26 @@ def to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 def run_select_kernel(plan: CompiledPlan) -> Dict[str, np.ndarray]:
     seg = plan.segment
-    cols = seg.device_cols(plan.col_names)
-    params = resolve_params(plan)
-    fn = build_select_kernel(plan.select_plan, seg.bucket)
-    host = to_host(fn(cols, seg.n_docs, params))
-    global_accountant.track_result(host)
-    return host
+    with span("segment_kselect", segment=seg.name, bucket=seg.bucket):
+        cols = seg.device_cols(plan.col_names)
+        params = resolve_params(plan)
+        fn = build_select_kernel(plan.select_plan, seg.bucket)
+        host = fenced_run(fn, cols, seg.n_docs, params)
+        global_accountant.track_result(host)
+        return host
+
+
+def fenced_run(fn, *args) -> Dict[str, np.ndarray]:
+    """Launch ``fn(*args)`` and bring its outputs to the host, as the
+    ``device_execute`` and ``device_transfer`` spans of a trace: under a
+    trace the stream is synchronized between the two (``device_fence``),
+    so the first covers the device work and the second the copy alone;
+    untraced, the launches stay asynchronous and the copy waits."""
+    with span("device_execute"):
+        dev = fn(*args)
+        device_fence(dev)
+    with span("device_transfer"):
+        return to_host(dev)
 
 
 def extract_select(plan: CompiledPlan, out: Dict[str, np.ndarray]
@@ -179,7 +211,7 @@ def _run(plan: CompiledPlan, cols, params, slots_cap, xfer_compact: bool
     seg = plan.segment
     fn = build_kernel(plan.kernel_plan, seg.bucket, slots_cap,
                       xfer_compact=xfer_compact, device=seg.device)
-    return to_host(fn(cols, seg.n_docs, params))
+    return fenced_run(fn, cols, seg.n_docs, params)
 
 
 def run_kernel(plan: CompiledPlan,
@@ -197,31 +229,50 @@ def run_kernel(plan: CompiledPlan,
     On ``group_overflow`` (more live groups than the transfer cap) it runs
     again with dense (space,) outputs (``xfer_compact=False``)."""
     seg, kp = plan.segment, plan.kernel_plan
-    with global_tier.pinned({seg.uid}):
+    with span("segment_kernel", segment=seg.name, bucket=seg.bucket,
+              strategy=kp.strategy, est_sel=plan.est_selectivity,
+              slots_cap=plan.slots_cap), global_tier.pinned({seg.uid}):
         cols = seg.device_cols(plan.col_names)
         params = resolve_params(plan)
         cap = plan.slots_cap
+        if plan.drift_requantized:
+            annotate(drift_requantized=True)
         if global_plan_cache.overflowed(kp, seg.bucket, cap):
             # this capacity overflowed before for this plan: skip the
             # doomed tight run and its retry
             cap = full_slots_cap(seg.bucket)
+            annotate(slots_cap=cap, known_overflow=True)
         host = _run(plan, cols, params, cap, xfer_compact)
         if "matched" in host:
+            matched = int(np.asarray(host["matched"]).sum())
             global_plan_cache.record_measured(
-                kp, seg.bucket, int(np.asarray(host["matched"]).sum()),
-                seg.n_docs, segment=seg, params=plan.params)
+                kp, seg.bucket, matched, seg.n_docs, segment=seg,
+                params=plan.params)
+            annotate(matched=matched,
+                     meas_sel=matched / max(seg.n_docs, 1))
         if int(host.pop("overflow", 0)):
             global_plan_cache.mark_overflowed(kp, seg.bucket, cap)
             global_metrics.count("compact_overflow_retries")
             cap = full_slots_cap(seg.bucket)
-            host = _run(plan, cols, params, cap, xfer_compact)
+            with span("overflow_retry", slots_cap=cap):
+                host = _run(plan, cols, params, cap, xfer_compact)
             host.pop("overflow", None)
+            annotate(overflow_retry=True, slots_cap=cap)
         if int(host.pop("group_overflow", 0)):
             global_metrics.count("group_xfer_overflow_retries")
-            host = _run(plan, cols, params, cap, False)
+            with span("group_overflow_retry"):
+                host = _run(plan, cols, params, cap, False)
             host.pop("overflow", None)
-    global_accountant.track_result(host)
-    return host
+            annotate(group_overflow_retry=True)
+        if tracing_active() and _truthy(
+                plan.ctx.options.get("profilePhases")):
+            # EXPLAIN ANALYZE deep mode: re-measure the kernel's mask /
+            # fuse / compact / sort / aggregate / transfer ladder and
+            # attach it as child spans (opt-in: it reruns the plan)
+            with span("phase_profile"):
+                attach_phase_spans(profile_plan(plan, iters=2))
+        global_accountant.track_result(host)
+        return host
 
 
 def extract_partial(plan: CompiledPlan, out: Dict[str, np.ndarray]):

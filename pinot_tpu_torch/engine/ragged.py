@@ -41,9 +41,10 @@ What differs from the JAX package:
   ``WHERE b < 5``) share a spec there and the second is answered from
   the first one's cube (ROADMAP Queue 3);
 - no jit, so no kernel registry or retrace detector: the cube and
-  combine closures are built per dispatch (a few Python objects); spans,
-  ``annotate`` and the overload governor's window scaling are not
-  ported.
+  combine closures are built per dispatch (a few Python objects); the
+  overload governor's window scaling is not ported. The spans are the
+  reference's (``ragged_dispatch``, ``cube_build``, ``fused_execute``,
+  with the same annotations).
 """
 from __future__ import annotations
 
@@ -65,7 +66,9 @@ from ..ops.ir import (And, Bin, Case, Cmp, Col, EqId, FalseP, Func, IdRange,
 from ..ops.kernels import (GROUP_XFER_SPACE, _agg_name, _device_of,
                            _eval_pred, _eval_value, _pred_col_indices)
 from ..ops.plan_cache import global_cube_cache
+from ..utils import phases as ph
 from ..utils.metrics import global_metrics
+from ..utils.spans import annotate, device_fence, span
 from .accounting import global_accountant
 from .executor import extract_partial, resolve_params, to_host
 from .scheduler import MicroBatchQueue
@@ -486,6 +489,7 @@ class RaggedBatcher:
     @staticmethod
     def _solo(reason: str) -> None:
         global_metrics.count(f"solo_fallback_{reason}")
+        annotate(batched=False, solo_reason=reason)
         return None
 
     def submit(self, plans: List[Any], resolved: List[Tuple],
@@ -532,15 +536,23 @@ class RaggedBatcher:
         # padded batch still fits ITEM_CELL_BUDGET
         budget_items = max(ITEM_CELL_BUDGET // max(spec.cube_space, 1), 1)
         max_weight = 1 << max(budget_items.bit_length() - 1, 0)
-        global_metrics.gauge("batch_queue_depth", self.queue.depth())
-        batch = self.queue.offer(key, sub, window_ms / 1e3, self.max_batch,
-                                 max_weight=max_weight, weight=sub.n_items)
-        global_metrics.gauge("batch_queue_depth", self.queue.depth())
-        if batch is None:
-            return self._await_follower(sub, usage)
-        if len(batch) == 1:
-            return self._solo("window_expired")
-        return self._lead(key, spec, batch, sub)
+        # one ragged_dispatch span a query, on its own thread, around its
+        # wait and its share of the fused dispatch; the leader's also
+        # parents the cube_build / fused_execute children
+        with span(ph.RAGGED_DISPATCH, bucket=bucket,
+                  strategy=spec.kp.strategy):
+            global_metrics.gauge("batch_queue_depth", self.queue.depth())
+            batch = self.queue.offer(
+                key, sub, window_ms / 1e3, self.max_batch,
+                max_weight=max_weight, weight=sub.n_items)
+            global_metrics.gauge("batch_queue_depth", self.queue.depth())
+            if batch is None:
+                return self._await_follower(sub, usage)
+            if len(batch) == 1:
+                annotate(queue_wait_ms=round(
+                    (time.perf_counter() - sub.t0) * 1e3, 3))
+                return self._solo("window_expired")
+            return self._lead(key, spec, batch, sub)
 
     def _await_follower(self, sub: _Submission, usage) -> Optional[List]:
         timeout = 60.0
@@ -559,9 +571,14 @@ class RaggedBatcher:
             reason = "timeout"
         except Exception:
             result = None
+        wait_ms = (time.perf_counter() - sub.t0) * 1e3
         if result is None:
             return self._solo(reason)
-        partials, _batch_size, _exec_ms = result
+        partials, batch_size, exec_ms = result
+        annotate(batched=True, batch_size=batch_size,
+                 queue_wait_ms=round(wait_ms - exec_ms, 3),
+                 fused_share_ms=round(
+                     exec_ms * sub.n_items / max(batch_size, 1), 3))
         return partials
 
     # -- fused execution (leader thread) -----------------------------------
@@ -590,6 +607,10 @@ class RaggedBatcher:
             if sub is not own:
                 sub.future.set_result((results[id(sub)], n_queries,
                                        exec_ms))
+        annotate(batched=True, batch_size=n_queries, leader=True,
+                 fused_items=sum(s.n_items for s in batch),
+                 queue_wait_ms=round((t_exec - own.t0) * 1e3, 3),
+                 fused_ms=round(exec_ms, 3))
         return results[id(own)]
 
     def _execute_fused(self, spec: CubeSpec,
@@ -627,9 +648,14 @@ class RaggedBatcher:
             torch.stack([items[k][2][j] if k < n_items else params0[j]
                          for k in range(npad)])
             for j in range(len(params0)))
-        out = build_cube_combine_kernel(spec)(
-            stacked, torch.as_tensor(seg_idx, device=dev), stacked_params)
-        host = to_host(out)
+        with span(ph.FUSED_EXECUTE, queries=len(batch), items=n_items,
+                  padded=npad, segments=len(cubes),
+                  cube_space=spec.cube_space):
+            out = build_cube_combine_kernel(spec)(
+                stacked, torch.as_tensor(seg_idx, device=dev),
+                stacked_params)
+            device_fence(out)
+            host = to_host(out)
         # apportioned per participant (outputs are [npad, ...], so every
         # item owns an equal slice): the leader must not carry the batch
         total_bytes = sum(v.nbytes for v in host.values())
@@ -647,10 +673,12 @@ class RaggedBatcher:
     def _build_cube(self, spec: CubeSpec, plan) -> Dict[str, torch.Tensor]:
         seg = plan.segment
         fn = build_cube_kernel(spec)
-        cols = seg.device_cols(plan.col_names)
-        out = fn(cols, seg.n_docs, resolve_params(plan))
-        _fence(out)
-        return out
+        with span(ph.CUBE_BUILD, segment=seg.name, bucket=seg.bucket,
+                  cube_space=spec.cube_space):
+            cols = seg.device_cols(plan.col_names)
+            out = fn(cols, seg.n_docs, resolve_params(plan))
+            _fence(out)
+            return out
 
     def clear(self) -> None:
         """Drop the estimates (the cube cache is cleared through

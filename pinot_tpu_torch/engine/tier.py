@@ -427,8 +427,9 @@ def tier_health(snapshot: Dict[str, Any]) -> Dict[str, Any]:
 def reconcile_devmem(segments) -> Dict[str, Dict[str, int]]:
     """Tracked-vs-actual bytes of the port's five pools: the check that
     no promote/demote/evict path leaks accounting. ``segments`` is the
-    live segment set whose device caches back the segment_cols pool; the
-    actual bytes are read from ``ImmutableSegment._device``, every live
+    live segment set whose device caches (and their loaded rollups') back
+    the segment_cols pool; the actual bytes are read from
+    ``ImmutableSegment._device``, every live
     vector index reader (index/vector.live_readers),
     ``engine/batch._STACK_CACHE`` and the cube cache's per-segment and
     stacked entries (ops/plan_cache.global_cube_cache). Verification
@@ -438,7 +439,8 @@ def reconcile_devmem(segments) -> Dict[str, Dict[str, int]]:
     from . import batch
     actual = {
         "segment_cols": sum(int(t.nbytes) for s in segments
-                            for t in list(s._device.values())),
+                            for r in [s, *s.rollup_segments()]
+                            for t in list(r._device.values())),
         "vector": sum(r.device_bytes() for r in vix.live_readers()),
         "stack_cache": sum(nbytes_of(v)
                            for v in list(batch._STACK_CACHE.values())),

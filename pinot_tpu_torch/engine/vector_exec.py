@@ -28,8 +28,8 @@ ops/vecsearch.py). Everything here is host orchestration.
 
 Structured user errors (``SqlError``, never a host-path demotion): missing
 index, non-numeric or empty ARRAY, dim mismatch, k <= 0, nprobe <= 0,
-malformed arguments. The reference's tracing spans and ``annotate`` calls
-are not ported (the port has no tracing plane).
+malformed arguments. Under a trace each (query, segment) search is one
+``vector_search`` span, annotated batched or solo as the reference's.
 """
 from __future__ import annotations
 
@@ -44,7 +44,9 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 
 from ..query.sql import FuncCall, Identifier, Literal, SqlError
+from ..utils import phases as ph
 from ..utils.metrics import global_metrics
+from ..utils.spans import annotate, span
 
 FUNC_NAME = "vector_similarity"
 DEFAULT_K = 10
@@ -214,6 +216,7 @@ class VectorBatcher:
     @staticmethod
     def _solo(reader, q, k, nprobe, reason: str):
         global_metrics.count(f"vector_solo_{reason}")
+        annotate(batched=False, solo_reason=reason)
         scores, docs = reader.search_batch((q,), k, nprobe)
         return scores[0], docs[0]
 
@@ -231,11 +234,14 @@ class VectorBatcher:
         # not alias another reader's compatibility bucket
         key = (reader.token, int(k), reader.effective_nprobe(nprobe))
         sub = _VSub(q)
+        t0 = time.perf_counter()
         batch = self.queue.offer(key, sub, self.window_ms / 1e3,
                                  self.max_batch)
         if batch is None:
             return self._follow(reader, sub, k, nprobe)
         if len(batch) == 1:
+            annotate(queue_wait_ms=round(
+                (time.perf_counter() - t0) * 1e3, 3))
             return self._solo(reader, q, k, nprobe, "window_expired")
         return self._lead(reader, batch, sub, k, nprobe)
 
@@ -267,7 +273,8 @@ class VectorBatcher:
             reason = "leader_error"
         if result is None:
             return self._solo(reader, sub.q, k, nprobe, reason)
-        row, _batch_size = result
+        row, batch_size = result
+        annotate(batched=True, batch_size=batch_size)
         return row
 
     def _lead(self, reader, batch: List[_VSub], own: _VSub, k, nprobe):
@@ -291,6 +298,7 @@ class VectorBatcher:
                 mine = (scores[i], docs[i])
             else:
                 s.future.set_result(((scores[i], docs[i]), n))
+        annotate(batched=True, batch_size=n, leader=True)
         return mine
 
 
@@ -320,8 +328,11 @@ def segment_search(seg, e: FuncCall) -> Tuple[np.ndarray, np.ndarray]:
         # search below transparently re-uploads, byte-identically)
         from .tier import global_tier
         global_tier.on_access(owner)
-    global_metrics.count("vector_searches")
-    scores, docs = global_vector_batcher.search(reader, qv, k, nprobe)
+    with span(ph.VECTOR_SEARCH, segment=getattr(seg, "name", ""),
+              col=col, k=k):
+        global_metrics.count("vector_searches")
+        scores, docs = global_vector_batcher.search(reader, qv, k,
+                                                    nprobe)
     _memo_put(key, (scores, docs))
     return scores, docs
 

@@ -37,6 +37,8 @@ from ..engine.reduce import ResultTable, reduce_partials
 from ..query.context import build_query_context
 from ..query.sql import (BoolAnd, Comparison, Identifier, InList, Literal,
                          SelectStmt, SqlError, Star, TableRef)
+from ..utils import phases as ph
+from ..utils.spans import span
 from . import device_join
 from .device_join import try_device_join
 from .exchange import HashExchange, MailboxService
@@ -378,14 +380,18 @@ class MultiStageExecutor:
             return rel
         device_join.bump("numpy_joins")
         self.join_backends.append("numpy_shuffle")
-        lex = HashExchange(self.mailboxes, query_id, stage,
-                           SHUFFLE_PARTITIONS, lkeys)
-        rex = HashExchange(self.mailboxes, query_id, stage + 1000,
-                           SHUFFLE_PARTITIONS, rkeys)
-        lex.send(left)
-        lex.close()
-        rex.send(right)
-        rex.close()
+        # the mailbox exchange is span-visible: a sampled or analyzed
+        # multistage query attributes its shuffle time
+        with span(ph.EXCHANGE, partitions=SHUFFLE_PARTITIONS,
+                  rows=left.n_rows + right.n_rows):
+            lex = HashExchange(self.mailboxes, query_id, stage,
+                               SHUFFLE_PARTITIONS, lkeys)
+            rex = HashExchange(self.mailboxes, query_id, stage + 1000,
+                               SHUFFLE_PARTITIONS, rkeys)
+            lex.send(left)
+            lex.close()
+            rex.send(right)
+            rex.close()
         parts: List[Relation] = []
         for w in range(SHUFFLE_PARTITIONS):
             lparts = self.mailboxes.mailbox(query_id, stage, w).drain()
@@ -409,9 +415,13 @@ class MultiStageExecutor:
         label = j.table.label
         equi, rest = self._split_on(j.on, joined_labels, label)
         dyn = self._dynamic_filter(j, equi, current)
-        right = self.leaf_scan(
-            j.table, needed[label],
-            _and(pushed[label] + ([dyn] if dyn is not None else [])))
+        with span(ph.LEAF_SCAN, table=label) as sp:
+            right = self.leaf_scan(
+                j.table, needed[label],
+                _and(pushed[label] + ([dyn] if dyn is not None else [])))
+            if sp is not None:
+                sp.annotate(rows=right.n_rows,
+                            dynamic_filter=dyn is not None or None)
         if j.join_type == "cross" or not equi:
             if j.join_type != "cross":
                 raise SqlError(
@@ -484,13 +494,27 @@ class MultiStageExecutor:
                     self.join_backends = ["fused"] * len(ordered_joins)
 
         if current is None:
-            current = self.leaf_scan(base, needed[base.label],
-                                     _and(pushed[base.label]))
+            # leaf, join, window and final stages are span-visible, as the
+            # single-stage engine's phases are
+            with span(ph.LEAF_SCAN, table=base.label) as sp:
+                current = self.leaf_scan(base, needed[base.label],
+                                         _and(pushed[base.label]))
+                if sp is not None:
+                    sp.annotate(rows=current.n_rows)
             joined_labels = {base.label}
             for si, j in enumerate(ordered_joins):
-                current = self._join_step(j, si, needed, pushed,
-                                          joined_labels, current, query_id)
-                joined_labels.add(j.table.label)
+                label = j.table.label
+                with span(ph.JOIN_STAGE, table=label,
+                          how=j.join_type) as jsp:
+                    current = self._join_step(j, si, needed, pushed,
+                                              joined_labels, current,
+                                              query_id)
+                    if jsp is not None:
+                        jsp.annotate(rows=current.n_rows,
+                                     backend=(self.join_backends[-1]
+                                              if self.join_backends
+                                              else None))
+                joined_labels.add(label)
 
         for conj in post_where:
             if host_eval.null_aware(stmt):
@@ -509,26 +533,30 @@ class MultiStageExecutor:
             if stmt.group_by:
                 raise SqlError("window functions cannot be combined with "
                                "GROUP BY in one stage yet")
-            names = {wf: f"__w{i}" for i, wf in enumerate(wfs)}
-            current = current.with_columns(
-                {names[wf]: compute_window(current, wf, self.broker.device)
-                 for wf in wfs})
-            stmt = rewrite_windows(stmt, names)
+            with span(ph.WINDOW_STAGE, funcs=len(wfs),
+                      rows=current.n_rows):
+                names = {wf: f"__w{i}" for i, wf in enumerate(wfs)}
+                current = current.with_columns(
+                    {names[wf]: compute_window(current, wf,
+                                               self.broker.device)
+                     for wf in wfs})
+                stmt = rewrite_windows(stmt, names)
 
         # final stage: aggregation / selection over the joined relation
         ctx = build_query_context(stmt)
-        mask = np.ones(current.n_rows, dtype=bool)
-        if ctx.is_group_by:
-            partial: Any = GroupByPartial(
-                host_eval.host_group_by(ctx, current, mask))
-        elif ctx.is_aggregation:
-            partial = AggPartial(
-                host_eval.host_aggregate(ctx, current, mask))
-        else:
-            labels, rows, okeys = host_eval.host_selection(
-                ctx, current, mask)
-            partial = SelectionPartial(labels, rows, okeys)
-        result = reduce_partials(ctx, [partial])
+        with span(ph.FINAL_STAGE, rows=current.n_rows):
+            mask = np.ones(current.n_rows, dtype=bool)
+            if ctx.is_group_by:
+                partial: Any = GroupByPartial(
+                    host_eval.host_group_by(ctx, current, mask))
+            elif ctx.is_aggregation:
+                partial = AggPartial(
+                    host_eval.host_aggregate(ctx, current, mask))
+            else:
+                labels, rows, okeys = host_eval.host_selection(
+                    ctx, current, mask)
+                partial = SelectionPartial(labels, rows, okeys)
+            result = reduce_partials(ctx, [partial])
         result.num_docs_scanned = current.n_rows
         result.time_ms = (time.perf_counter() - t0) * 1e3
         return result

@@ -42,6 +42,8 @@ import torch
 from ..analysis.plan_verify import check_fused_plan
 from ..ops import ir
 from ..ops.join import device_equi_join
+from ..utils import phases as ph
+from ..utils.spans import span
 from ..utils.stats import make_bump
 from . import device_join
 from .join import _default_for, _key_nulls
@@ -363,47 +365,69 @@ def execute_fused(ex, ordered_joins: Sequence[Any],
     from ..engine import host_eval
     from .executor import _and
 
-    leafs: List[Relation] = []
-    for tref in [ex.tables[0]] + [j.table for j in ordered_joins]:
-        leafs.append(ex.leaf_scan(tref, needed[tref.label],
-                                  _and(pushed[tref.label])))
-    if leafs[0].n_rows == 0:
-        # an empty probe seed joins to the empty relation on every
-        # plane; materialize it without a device round-trip
-        return _materialize(leafs, [np.empty(0, dtype=np.int64)
-                                    for _ in leafs])
+    with span(ph.FUSED_PLAN, joins=len(ordered_joins)) as fsp:
+        leafs: List[Relation] = []
+        for tref in [ex.tables[0]] + [j.table for j in ordered_joins]:
+            with span(ph.LEAF_SCAN, table=tref.label) as sp:
+                rel = ex.leaf_scan(tref, needed[tref.label],
+                                   _and(pushed[tref.label]))
+                if sp is not None:
+                    sp.annotate(rows=rel.n_rows)
+            leafs.append(rel)
+        if leafs[0].n_rows == 0:
+            # an empty probe seed joins to the empty relation on every
+            # plane; materialize it without a device round-trip
+            return _materialize(leafs, [np.empty(0, dtype=np.int64)
+                                        for _ in leafs])
 
-    plan, stages, _reason = plan_fused(ex, ordered_joins, leafs)
-    if plan is None:
-        bump("fused_fallbacks")
-        return None
-    check_fused_plan(plan)
-
-    device = ex.broker.device
-    out = _run_program(plan, stages, leafs[0].n_rows, device)
-    if out is None:
-        retry = _retry_with_slack(ex, ordered_joins, leafs, device)
-        if retry is None:
+        # stage planning is span-visible per exchange: the host-side
+        # factorization is what each stage boundary moves
+        with span(ph.COLLECTIVE_EXCHANGE, stages=len(ordered_joins)):
+            plan, stages, reason = plan_fused(ex, ordered_joins, leafs)
+        if plan is None:
             bump("fused_fallbacks")
+            if fsp is not None:
+                fsp.annotate(fallback=reason)
             return None
-        plan, stages, out = retry
+        check_fused_plan(plan)
+        if fsp is not None:
+            fsp.annotate(stages=[(s.kind, s.max_dup) for s in stages],
+                         partitions=plan.partitions,
+                         base_rows=plan.base_rows)
 
-    # without a hash exchange nothing permutes the state: the seed is one
-    # contiguous run and every stage's row-major slot expansion is
-    # monotone in pos, so the program output is already in canonical
-    # (hash_join) order
-    order = np.nonzero(out[0] >= 0)[0]
-    final_idx = [np.asarray(ix)[order].astype(np.int64) for ix in out[1:]]
-    rel = _materialize(leafs, final_idx)
-    # deferred non-equi inner conjuncts: filtering the materialized
-    # relation commutes with the downstream joins' pair formation
-    # (inner never preserves, left never drops probe rows)
-    for st in stages:
-        for conj in st.deferred:
-            m = host_eval.eval_filter(conj, rel)
-            rel = rel.take(np.nonzero(m)[0])
-    bump("fused_plans")
-    return rel
+        device = ex.broker.device
+        with span(ph.FUSED_EXECUTE, partitions=plan.partitions) as esp:
+            out = _run_program(plan, stages, leafs[0].n_rows, device)
+            if out is None:
+                retry = _retry_with_slack(ex, ordered_joins, leafs, device)
+                if retry is None:
+                    bump("fused_fallbacks")
+                    if fsp is not None:
+                        fsp.annotate(fallback="bucket_overflow")
+                    return None
+                plan, stages, out = retry
+            if esp is not None:
+                esp.annotate(rows=int(plan.base_rows))
+
+        # without a hash exchange nothing permutes the state: the seed is
+        # one contiguous run and every stage's row-major slot expansion is
+        # monotone in pos, so the program output is already in canonical
+        # (hash_join) order
+        order = np.nonzero(out[0] >= 0)[0]
+        final_idx = [np.asarray(ix)[order].astype(np.int64)
+                     for ix in out[1:]]
+        rel = _materialize(leafs, final_idx)
+        # deferred non-equi inner conjuncts: filtering the materialized
+        # relation commutes with the downstream joins' pair formation
+        # (inner never preserves, left never drops probe rows)
+        for st in stages:
+            for conj in st.deferred:
+                m = host_eval.eval_filter(conj, rel)
+                rel = rel.take(np.nonzero(m)[0])
+        bump("fused_plans")
+        if fsp is not None:
+            fsp.annotate(rows=rel.n_rows)
+        return rel
 
 
 def _retry_with_slack(ex, ordered_joins, leafs, device):

@@ -42,6 +42,8 @@ AGG_FUNCS = {"sum", "min", "max", "count", "avg"}
 
 def find_windows(stmt: SelectStmt) -> List[WindowFunc]:
     """Window calls in SELECT items / ORDER BY (the only legal spots)."""
+    from ..query.sql import ast_children
+
     out: List[WindowFunc] = []
 
     def walk(e: Any) -> None:
@@ -49,7 +51,6 @@ def find_windows(stmt: SelectStmt) -> List[WindowFunc]:
             if e not in out:
                 out.append(e)
             return  # nested windows are illegal; args walked at eval
-        from ..query.sql import ast_children
         for c in ast_children(e):
             walk(c)
 

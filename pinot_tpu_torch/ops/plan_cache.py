@@ -13,8 +13,10 @@ runs:
   of paying the doomed tight run and its retry (engine/executor.py).
 
 It also holds the cube cache of cross-query micro-batching
-(``CubeCache``, engine/ragged.py). The retrace detector and the donated
-accumulators come with a slice that caches compiled plans.
+(``CubeCache``, engine/ragged.py). The reference's cache of compiled
+programs (its hit/miss counters, the ``cache=hit|miss`` span attribute,
+the retrace detector and the donated accumulators) has no counterpart:
+building a torch kernel function compiles nothing.
 """
 from __future__ import annotations
 

@@ -110,6 +110,9 @@ def _extract_gapfill(stmt: SelectStmt
     time expression in its place (planning stays unchanged; the fill
     happens at broker reduce — GapfillProcessor analog)."""
     from .sql import SelectItem
+    if not any(isinstance(item.expr, FuncCall) and item.expr.name == "gapfill"
+               for item in stmt.select):
+        return stmt, None
     spec: Optional[GapfillSpec] = None
     alias_map = {item.alias: _expr_label(item.expr)
                  for item in stmt.select
@@ -213,10 +216,13 @@ def build_query_context(stmt: SelectStmt) -> QueryContext:
 
     group_by = [_resolve_ordinal(g, grouping=True) for g in stmt.group_by]
     group_labels = {_expr_label(g) for g in group_by}
-    import dataclasses as _dc
-    stmt = _dc.replace(stmt, order_by=[
-        OrderItem(_resolve_ordinal(o.expr), o.ascending)
-        for o in stmt.order_by], group_by=group_by)
+    order_exprs = [_resolve_ordinal(o.expr) for o in stmt.order_by]
+    if any(n is not o for n, o in zip(group_by, stmt.group_by)) or any(
+            n is not o.expr for n, o in zip(order_exprs, stmt.order_by)):
+        import dataclasses as _dc
+        stmt = _dc.replace(stmt, order_by=[
+            OrderItem(e, o.ascending)
+            for e, o in zip(order_exprs, stmt.order_by)], group_by=group_by)
 
     for item in stmt.select:
         e = item.expr

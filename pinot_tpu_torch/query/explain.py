@@ -1,20 +1,24 @@
-"""EXPLAIN PLAN rendering.
+"""EXPLAIN PLAN / EXPLAIN ANALYZE rendering.
 
-Port of the plan half of ``pinot_tpu/query/explain.py`` (``explain_rows``,
-``_pred``, ``_ve``), copied line for line: rows of (Operator, Operator_Id,
-Parent_Id) describing the physical tree, as the reference system's
-ExplainPlanQueriesTest pattern shows it. The plan is flatter than Pinot's
-pull-based tree (one fused kernel per segment), so the explain shows the
-broker reduce, the combine, and the per-segment plan kinds with their
-predicate/aggregation structure (and which segments pruned / answered
-from fast paths). The operator names are the reference's, so the rows
-compare equal. EXPLAIN ANALYZE renders a span tree, which the port does
-not record, so its half is not ported.
+Port of ``pinot_tpu/query/explain.py``, copied line for line: rows of
+(Operator, Operator_Id, Parent_Id) describing the physical tree, as the
+reference system's ExplainPlanQueriesTest pattern shows it. The plan is
+flatter than Pinot's pull-based tree (one fused kernel per segment), so
+the explain shows the broker reduce, the combine, and the per-segment
+plan kinds with their predicate/aggregation structure (and which segments
+pruned / answered from rollups / fast paths). The operator names are the
+reference's, so the rows compare equal.
+
+EXPLAIN ANALYZE executes the query under the span tracer (utils/spans.py)
+and renders the resulting tree: per-phase wall ms (plan / device execute
+/ transfer / reduce), the cost model's strategy decision trace, plan-cache
+hit/miss, and estimated vs measured selectivity per segment kernel.
 """
 from __future__ import annotations
 
+import json
 from collections import Counter
-from typing import List, Tuple
+from typing import Any, List, Tuple
 
 from ..ops.ir import (And, Bin, Cmp, Col, EqId, FalseP, IdRange, InBitmap,
                       InSet,
@@ -106,3 +110,70 @@ def explain_rows(ctx, plans: List[CompiledPlan], rollup_count: int = 0
                 desc += f"({_ve(spec.value, p.col_names)})"
             emit(f"AGGREGATE:{desc}", node)
     return ["Operator", "Operator_Id", "Parent_Id"], rows
+
+
+# ---------------------------------------------------------------------------
+# EXPLAIN ANALYZE: span-tree rendering
+# ---------------------------------------------------------------------------
+
+ANALYZE_COLUMNS = ["Node", "Node_Id", "Parent_Id", "Time_Ms", "Detail"]
+
+# attribute rendering order: the decision-relevant fields first (what the
+# cost model estimated vs what the kernel measured), everything else
+# alphabetical after
+_ATTR_ORDER = ["strategy", "cache", "est_sel", "meas_sel", "slots_cap",
+               "matched", "retrace", "compiled",
+               # compile lane (staged build_kernel spans, ISSUE 15):
+               # trigger taxonomy + executable memory/flops as Detail
+               "trigger", "memory_bytes", "flops", "site",
+               # cluster plane (scatter_call / server_query spans)
+               "server", "attempt", "status", "net_ms", "error"]
+
+
+def _fmt_val(v: Any) -> str:
+    if isinstance(v, float):
+        return f"{v:.6g}"
+    if isinstance(v, (dict, list, tuple)):
+        return json.dumps(v, sort_keys=True, default=str)
+    return str(v)
+
+
+def _fmt_attrs(attrs: dict) -> str:
+    keys = [k for k in _ATTR_ORDER if k in attrs and attrs[k] is not None]
+    keys += sorted(k for k in attrs
+                   if k not in _ATTR_ORDER and attrs[k] is not None)
+    return " ".join(f"{k}={_fmt_val(attrs[k])}" for k in keys)
+
+
+def explain_analyze_rows(root) -> Tuple[List[str], List[tuple]]:
+    """utils/spans.Span tree -> (columns, rows) of
+    (Node, Node_Id, Parent_Id, Time_Ms, Detail) in pre-order — the same
+    parent-pointer table shape EXPLAIN PLAN uses, plus timings."""
+    rows: List[tuple] = []
+
+    def walk(s, parent: int) -> None:
+        rid = len(rows)
+        rows.append((s.name, rid, parent, round(s.duration_ms, 3),
+                     _fmt_attrs(s.attrs)))
+        for c in s.children:
+            walk(c, rid)
+
+    walk(root, -1)
+    return list(ANALYZE_COLUMNS), rows
+
+
+def finalize_analyze(root) -> Tuple[List[str], List[tuple], dict]:
+    """The EXPLAIN ANALYZE render tail: attach the explicit
+    ``broker_overhead`` self-time child (so root-child timings sum to
+    the query's wall time — the 10% gate), render the rows, and build
+    the trace envelope."""
+    from ..utils import phases as ph
+    from ..utils.spans import Span
+
+    overhead = root.duration_ms - root.children_ms()
+    if overhead > 0:
+        s = Span(ph.BROKER_OVERHEAD)
+        s.duration_ms = overhead
+        root.children.append(s)
+    cols, rows = explain_analyze_rows(root)
+    return cols, rows, {"spans": root.to_dict()}

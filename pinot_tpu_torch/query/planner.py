@@ -43,6 +43,7 @@ from ..ops.ir import (AggSpec, And, Bin, Case as CaseIR, Cmp, Col, EqId,
                       ValueExpr)
 from ..segment.immutable import ImmutableSegment
 from ..spi.schema import DataType
+from ..utils.spans import span
 from .context import AggExpr, QueryContext, _expr_label as _expr_label_of
 from .sql import (Between, BinaryOp, BoolAnd, BoolNot, BoolOr, CaseWhen,
                   Cast, Comparison, collect_identifiers, FuncCall,
@@ -1227,9 +1228,23 @@ class SegmentPlanner:
 
     # -- top-level ---------------------------------------------------------
     def plan(self) -> CompiledPlan:
-        """Plan this segment. The JAX package's span recording and static
-        plan verification (analysis/plan_verify) are not ported."""
-        return self._plan()
+        """Plan this segment, recording the outcome (plan kind, strategy,
+        cost-model trace) as a child span of the query's planning span
+        when a trace is active (utils/spans.py; no-op otherwise). The JAX
+        package's static plan verification (analysis/plan_verify) is not
+        ported."""
+        with span("plan_segment", segment=self.seg.name) as sp:
+            plan = self._plan()
+            if sp is not None:
+                sp.annotate(kind=plan.kind)
+                if plan.kind == "kernel":
+                    sp.annotate(strategy=plan.kernel_plan.strategy,
+                                est_sel=plan.est_selectivity,
+                                slots_cap=plan.slots_cap,
+                                cost_trace=plan.strategy_trace)
+                    if plan.drift_requantized:
+                        sp.annotate(drift_requantized=True)
+            return plan
 
     def _plan(self) -> CompiledPlan:
         ctx, seg = self.ctx, self.seg

@@ -23,6 +23,7 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 
+from .. import native
 from ..spi.config import TableConfig
 from ..spi.schema import DataType, FieldType, Schema
 from .dictionary import Dictionary, min_id_dtype
@@ -349,11 +350,16 @@ class SegmentBuilder:
             assert dictionary is not None and ids is not None
             cmeta["encoding"] = "DICT"
             if idx_cfg.bit_packed_ids and cardinality > 1:
-                raise NotImplementedError(
-                    "the BITPACK forward index is not yet ported")
-            id_dtype = min_id_dtype(cardinality)
-            ids.astype(id_dtype).tofile(_fwd_path(seg_dir, f.name))
-            cmeta["fwdDtype"] = id_dtype.name
+                bits = native.bits_for(cardinality)
+                buf = native.fixedbit_pack(ids.astype(np.int32), bits)
+                buf.tofile(_fwd_path(seg_dir, f.name))
+                cmeta["fwdFormat"] = "BITPACK"
+                cmeta["bits"] = bits
+                cmeta["fwdDtype"] = "int32"
+            else:
+                id_dtype = min_id_dtype(cardinality)
+                ids.astype(id_dtype).tofile(_fwd_path(seg_dir, f.name))
+                cmeta["fwdDtype"] = id_dtype.name
             if f.data_type == DataType.STRING or not f.data_type.is_numeric:
                 with open(_dict_json_path(seg_dir, f.name), "w") as fh:
                     json.dump(list(dictionary.values), fh)
@@ -369,9 +375,31 @@ class SegmentBuilder:
             cmeta["encoding"] = "RAW"
             cmeta["fwdDtype"] = arr.dtype.name
             if idx_cfg.compression:
-                raise NotImplementedError(
-                    "the COMPRESSED forward index is not yet ported")
-            arr.tofile(_fwd_path(seg_dir, f.name))
+                codec = idx_cfg.compression
+                if (codec in ("LZ4", "SNAPPY") and not native.available()) \
+                        or (codec == "ZSTD" and not native.zstd_available()):
+                    codec = "ZLIB"  # degrade to the pure-python codec (or
+                    # from a library built without zstd); the metadata
+                    # must always name the stream actually written
+                if codec == "DELTA" and (arr.dtype.kind not in "iu"
+                                         or arr.ndim != 1):
+                    codec = "ZLIB"  # DELTA is integer-only
+                if codec == "DELTA":
+                    try:
+                        comp = native.compress(arr, codec)
+                    except RuntimeError:
+                        # data-dependent: deltas wider than 32 bits —
+                        # degrade like every other unsupported case
+                        codec = "ZLIB"
+                        comp = native.compress(arr, codec)
+                else:
+                    comp = native.compress(arr, codec)
+                comp.tofile(_fwd_path(seg_dir, f.name))
+                cmeta["fwdFormat"] = "COMPRESSED"
+                cmeta["codec"] = codec
+                cmeta["rawSize"] = int(arr.nbytes)
+            else:
+                arr.tofile(_fwd_path(seg_dir, f.name))
             if n:
                 cmeta["min"] = _json_scalar(arr.min())
                 cmeta["max"] = _json_scalar(arr.max())

@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
 from ..engine.tier import global_tier
 from ..spi.schema import DataType, Schema
@@ -57,6 +58,9 @@ class ColumnMeta:
         self.encoding = d["encoding"]  # DICT | RAW
         self.fwd_dtype = np.dtype(d["fwdDtype"])
         self.fwd_format = d.get("fwdFormat", "PLAIN")  # |BITPACK|COMPRESSED
+        self.bits = d.get("bits")
+        self.codec = d.get("codec")
+        self.raw_size = d.get("rawSize")
         self.cardinality = d.get("cardinality", 0)
         self.is_sorted = d.get("isSorted", False)
         self.min = d.get("min")
@@ -135,17 +139,29 @@ class ImmutableSegment:
 
     # -- host access -------------------------------------------------------
     def fwd(self, col: str) -> np.ndarray:
-        """Stored forward index (dict ids or raw values), host-side."""
+        """Stored forward index (dict ids or raw values), host-side.
+
+        PLAIN columns memmap zero-copy; BITPACK and COMPRESSED ones decode
+        once through the native runtime (``native``) and stay cached here,
+        so the device uploads see an ordinary int32 or raw column."""
         if col not in self._fwd:
             m = self.columns[col]
-            if m.fwd_format != "PLAIN":
-                raise NotImplementedError(
-                    f"{m.fwd_format} forward index of {col!r} is not yet "
-                    "ported (needs the native codec runtime)")
-            shape = ((self.n_docs,) if m.single_value
-                     else (self.n_docs, m.max_values))
-            self._fwd[col] = segdir.read_array(self.dir, f"{col}.fwd.bin",
-                                               m.fwd_dtype, shape=shape)
+            name = f"{col}.fwd.bin"
+            if m.fwd_format == "BITPACK":
+                buf = np.ascontiguousarray(segdir.read_array(
+                    self.dir, name, np.uint8))
+                arr = native.fixedbit_unpack(buf, self.n_docs, m.bits)
+            elif m.fwd_format == "COMPRESSED":
+                comp = np.ascontiguousarray(segdir.read_array(
+                    self.dir, name, np.uint8))
+                raw = native.decompress(comp, m.raw_size, m.codec)
+                arr = raw.view(m.fwd_dtype)[: self.n_docs]
+            else:
+                shape = ((self.n_docs,) if m.single_value
+                         else (self.n_docs, m.max_values))
+                arr = segdir.read_array(self.dir, name, m.fwd_dtype,
+                                        shape=shape)
+            self._fwd[col] = arr
         return self._fwd[col]
 
     def dictionary(self, col: str) -> Optional[Dictionary]:
@@ -391,9 +407,18 @@ class ImmutableSegment:
     def evict_device(self) -> None:
         """Full unload: device and warm copies gone, every stacked copy
         holding this segment's columns (engine/batch) and every cube of it
-        (ops/plan_cache) dropped, tier state cold."""
+        (ops/plan_cache) dropped, tier state cold; its loaded rollups
+        too."""
         self.demote_device(drop_warm=True)
         global_tier.on_evicted(self)
+        # a loaded star-tree rollup (startree/query._load_rollup) is a
+        # segment of its own on this device and leaves with its parent
+        for rollup in self.rollup_segments():
+            rollup.evict_device()
+
+    def rollup_segments(self) -> List["ImmutableSegment"]:
+        """The star-tree rollups loaded from this segment so far."""
+        return list(getattr(self, "_rollup_cache", {}).values())
 
     def __repr__(self) -> str:
         return (f"ImmutableSegment({self.name!r}, docs={self.n_docs}, "

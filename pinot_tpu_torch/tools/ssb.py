@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -92,16 +93,21 @@ def _ssb_fields(cols):
     return fields
 
 
-def build_segment_dir(n: int, out_dir: str) -> str:
+def build_segment_dir(n: int, out_dir: str,
+                      table_config: Optional[TableConfig] = None) -> str:
     """Build the flat SSB segment at n rows under out_dir; returns its
-    directory (``seg_0``)."""
+    directory (``seg_0``). ``table_config`` (default: plain
+    ``TableConfig("lineorder")``) chooses the forward-index formats, e.g.
+    ``IndexingConfig(bit_packed_ids=True)`` or raw compressed metrics."""
     cols = gen_columns(n)
     schema = Schema("lineorder", _ssb_fields(cols))
-    return SegmentBuilder(schema, TableConfig("lineorder")).build(
+    return SegmentBuilder(schema, table_config
+                          or TableConfig("lineorder")).build(
         cols, out_dir, "seg_0")
 
 
-def build_table_dir(sizes, out_dir: str) -> str:
+def build_table_dir(sizes, out_dir: str,
+                    table_config: Optional[TableConfig] = None) -> str:
     """Build a many-segment lineorder table: the seeded columns of
     ``sum(sizes)`` rows (the rows of ``build_segment_dir`` at that size,
     in order) split into one segment directory per entry of ``sizes``
@@ -110,7 +116,7 @@ def build_table_dir(sizes, out_dir: str) -> str:
     ``out_dir`` (``TableDataManager.add_table_dir`` loads it)."""
     cols = gen_columns(int(sum(sizes)))
     builder = SegmentBuilder(Schema("lineorder", _ssb_fields(cols)),
-                             TableConfig("lineorder"))
+                             table_config or TableConfig("lineorder"))
     width = len(str(len(sizes) - 1))
     lo = 0
     for k, n in enumerate(sizes):

@@ -31,8 +31,15 @@ min/max, to a relative 1e-12 for float64 sums) at sizes on and around
 its tile, with one partition, every row a reset, partition starts on
 tile edges and flags off a word boundary; the star schema's join and
 window shapes on the card must give the CPU's rows on every plane, and a
-fuzzer seed on the card the oracle's.
+fuzzer seed on the card the oracle's. A BITPACK and a COMPRESSED copy of
+the SSB segment must give the PLAIN segment's digests on the card, star-tree
+rollups the CPU's rows with their tensors accounted, EXPLAIN ANALYZE
+on the card a tree of the expected phases whose children do not sum past
+its wall time, and OPTION(profilePhases=true) a phase ladder timed with
+CUDA events.
 """
+import json
+import os
 import time
 
 import pytest
@@ -1596,3 +1603,187 @@ def test_statements_on_card_match_cpu(cuda, tmp_path):
     finally:
         bmod._cte_table = real
     assert "cuda" in cte_devices and "cpu" in cte_devices
+
+
+FORMAT_CONFIGS = {
+    "bitpack": {"bit_packed_ids": True},
+    # ZSTD, written as ZLIB (and named so) where the native library was
+    # built without zstd (chip_smoke.py prints whether zstd.h is there)
+    "compressed": {"no_dictionary_columns": ["lo_revenue",
+                                             "lo_extendedprice",
+                                             "lo_supplycost", "lo_discount",
+                                             "lo_quantity"],
+                   "compression": "ZSTD"},
+}
+
+
+def _ssb_broker(seg_dir, dev):
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.server import TableDataManager
+
+    dm = TableDataManager("lineorder", device=dev)
+    dm.add_segment_dir(seg_dir)
+    b = Broker(device=dev)
+    b.register_table(dm)
+    return connect(b), dm
+
+
+@pytest.mark.parametrize("fmt", list(FORMAT_CONFIGS))
+def test_segment_formats_on_card_match_plain(cuda, tmp_path, fmt):
+    """A BITPACK and a COMPRESSED copy of the SSB segment decode on the
+    host and serve the 13 queries on the card with the PLAIN segment's
+    digests, through the compaction kernel."""
+    from pinot_tpu_torch import native
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.spi import IndexingConfig, TableConfig
+
+    assert native.available()
+    cfg = dict(FORMAT_CONFIGS[fmt])
+    plain = ssb.build_segment_dir(1 << 16, str(tmp_path / "plain"))
+    copy = ssb.build_segment_dir(1 << 16, str(tmp_path / fmt), TableConfig(
+        "lineorder", indexing=IndexingConfig(**cfg)))
+    with open(os.path.join(copy, "metadata.json")) as fh:
+        meta = json.load(fh)["columns"]
+    for col in cfg.get("no_dictionary_columns", ()):
+        assert meta[col]["codec"] == (
+            "ZSTD" if native.zstd_available() else "ZLIB"), col
+    (qp, dmp), (qc, dmc) = _ssb_broker(plain, "cuda"), \
+        _ssb_broker(copy, "cuda")
+    before = C.launches
+    for qid, p, v, g in ssb.QUERIES:
+        sql = ssb.spec_to_sql(p, v, g)
+        assert ssb._digest(qc(sql).rows) == ssb._digest(qp(sql).rows), qid
+    assert C.launches > before
+    for dm in (dmp, dmc):
+        for s in dm.acquire_segments():
+            s.evict_device()
+
+
+def test_rollups_on_card_match_cpu(cuda, tmp_path):
+    """A rollup is a segment on the card: rows equal the CPU's and the
+    raw path's (the same rows without rollups), and the device-memory
+    registry holds the rollup's tensors, which leave with their
+    segment."""
+    import os
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.engine import batch
+    from pinot_tpu_torch.engine.tier import reconcile_devmem
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.startree import RollupConfig, build_rollup
+    from pinot_tpu_torch.utils.devmem import global_device_memory
+
+    sizes = [40_000, 30_000]
+    raw_dir = ssb.build_table_dir(sizes, str(tmp_path / "raw"))
+    table = ssb.build_table_dir(sizes, str(tmp_path / "t"))
+    for d in sorted(os.listdir(table)):
+        build_rollup(load_segment(os.path.join(table, d), "cpu"),
+                     RollupConfig(["d_year", "p_category", "p_brand1",
+                                   "s_region"], [("sum", "lo_revenue")]))
+    out = {}
+    for name, dev, d in (("cuda", "cuda", table), ("cpu", "cpu", table),
+                         ("raw", "cuda", raw_dir)):
+        dm = TableDataManager("lineorder", device=dev)
+        dm.add_table_dir(d)
+        b = Broker(device=dev)
+        b.register_table(dm)
+        out[name] = (connect(b), dm)
+    segs = out["cuda"][1].acquire_segments()
+    # the registry is process-wide: start it from what these tables hold
+    live = [s for _q, dm in out.values() for s in dm.acquire_segments()]
+    batch.clear_stack_cache()
+    global_device_memory.clear()
+    for qid, p, v, g in ssb.QUERIES[3:6]:        # Q2.1-Q2.3
+        sql = ssb.spec_to_sql(p, v, g)
+        rows = out["cuda"][0](sql).rows
+        assert rows == out["cpu"][0](sql).rows, qid
+        assert rows == out["raw"][0](sql).rows, qid
+        assert all(s.rollup_segments() for s in segs)
+        for pool, v in reconcile_devmem(live).items():
+            assert v["tracked"] == v["actual"], (qid, pool, v)
+    for s in live:
+        s.evict_device()
+        assert all(not r._device for r in s.rollup_segments())
+
+
+def test_explain_analyze_on_card(cuda, tmp_path):
+    """EXPLAIN ANALYZE on the card: the root's children are planning,
+    execution and reduce (then broker_overhead, the root's time no span
+    measured), which do not sum past the root; every span name is known,
+    each query has a fenced device_execute span, and the inner rows equal
+    the untraced query's. chip_smoke.py bounds the time no child covers
+    after the broker's prefix, at 2^25 rows; at this test's 2^18 rows the
+    broker's fixed 0.3-0.5 ms is 10-21% of a query."""
+    from pinot_tpu_torch.utils import phases
+
+    seg_dir = ssb.build_segment_dir(1 << 18, str(tmp_path / "s"))
+    q, dm = _ssb_broker(seg_dir, "cuda")
+
+    def names(sp):
+        yield sp["name"]
+        for c in sp["children"]:
+            yield from names(c)
+
+    for qid, p, v, g in ssb.QUERIES:
+        sql = ssb.spec_to_sql(p, v, g)
+        q("EXPLAIN ANALYZE " + sql)
+        res = q("EXPLAIN ANALYZE " + sql)
+        root = res.trace["spans"]
+        kids = [c["name"] for c in root["children"]]
+        assert kids[:3] == ["planning", "execution", "reduce"], (qid, kids)
+        assert kids[3:] in ([], ["broker_overhead"]), (qid, kids)
+        covered = sum(c["ms"] for c in root["children"][:3])
+        assert covered <= 1.1 * root["ms"], (qid, root)
+        assert set(names(root)) <= phases.SPAN_NAMES
+        assert root["attrs"]["rows"] == len(q(sql).rows)
+        assert "device_execute" in set(names(root)), qid
+    for s in dm.acquire_segments():
+        s.evict_device()
+
+
+@pytest.mark.parametrize("strategy", ["compact", "dense"])
+def test_profile_phases_on_card(cuda, tmp_path, strategy):
+    """EXPLAIN ANALYZE OPTION(profilePhases=true) on the card: the phase
+    ladder is timed with CUDA events (the compact prefix relaunches K1),
+    its phase_* children carry positive, nondecreasing cumulative times,
+    and the inner rows equal the untraced query's."""
+    from pinot_tpu_torch.ops import compact as C
+
+    seg_dir = ssb.build_segment_dir(1 << 20, str(tmp_path / "s"))
+    q, dm = _ssb_broker(seg_dir, "cuda")
+    qid, p, v, g = ssb.QUERIES[3 if strategy == "compact" else 10]
+    sql = ssb.spec_to_sql(p, v, g) + \
+        f" OPTION(groupByStrategy={strategy})"
+    plain = q(sql)
+    q("EXPLAIN ANALYZE " + sql)
+    before = C.launches
+    res = q("EXPLAIN ANALYZE " + sql.replace(
+        " OPTION(", " OPTION(profilePhases=true,"))
+    root = res.trace["spans"]
+    assert root["attrs"]["rows"] == len(plain.rows)
+    profs = []
+
+    def walk(sp):
+        if sp["name"] == "phase_profile":
+            profs.append(sp)
+        for c in sp["children"]:
+            walk(c)
+
+    walk(root)
+    assert profs
+    for sp in profs:
+        kids = [c for c in sp["children"] if c["name"].startswith("phase_")]
+        cums = [c["attrs"]["cumulative_ms"] for c in kids
+                if "cumulative_ms" in c["attrs"]]
+        assert cums and all(c > 0 for c in cums), kids
+        assert cums == sorted(cums), kids
+        if strategy == "compact":
+            assert {"phase_mask", "phase_fuse", "phase_compact",
+                    "phase_aggregate", "phase_transfer"} <= \
+                {c["name"] for c in kids}
+    if strategy == "compact":
+        # the query's own launch plus the profile's compact prefix
+        assert C.launches - before >= 2
+    for s in dm.acquire_segments():
+        s.evict_device()

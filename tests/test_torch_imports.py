@@ -154,6 +154,34 @@ def test_walk_covers_the_vector_plane():
     assert cuda_build.SOURCES["vecsearch"] == ["vecsearch.cu"]
 
 
+FORMAT_AND_TRACING = tuple(f"pinot_tpu_torch.{m}" for m in (
+    "native", "startree", "startree.builder", "startree.query",
+    "utils.spans", "utils.phases", "utils.trace", "utils.metrics",
+    "ops.phase_profile"))
+
+
+def test_walk_covers_the_segment_format_and_the_tracing_plane():
+    """The import checks above reach the native codec runtime, the
+    star-tree rollups and the tracing modules; the native library's
+    C++ source is the port's own copy and builds outside the package."""
+    import pkgutil
+
+    import pinot_tpu_torch
+    from pinot_tpu_torch import native
+
+    walked = {m.name for m in pkgutil.walk_packages(
+        pinot_tpu_torch.__path__, "pinot_tpu_torch.")}
+    assert set(FORMAT_AND_TRACING) <= walked
+    srcs = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {m.replace(".", "/") + ".py" for m in FORMAT_AND_TRACING
+            if m.split(".")[-1] not in ("native", "startree")} <= srcs
+    assert {"pinot_tpu_torch/native/__init__.py",
+            "pinot_tpu_torch/startree/__init__.py"} <= srcs
+    assert os.path.exists(os.path.join(PKG, "native", "src",
+                                       "pinot_native.cpp"))
+    assert not os.path.commonpath([native.BUILD_DIR, PKG]) == PKG
+
+
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch,
                                                           tmp_path):
     from pinot_tpu_torch.broker import Broker
@@ -216,8 +244,10 @@ def test_unported_plan_kinds_raise(tmp_path):
 
 
 def test_explain_analyze_and_trace_raise(tmp_path):
-    """The span plane is not ported: EXPLAIN ANALYZE and OPTION(trace=
-    true) raise, and nothing of the statement runs first."""
+    """The span plane is ported: EXPLAIN ANALYZE and OPTION(trace=true)
+    run. What still raises is a trace's persistence to a ledger
+    (OPTION(ledgerTrace=true), a trace-ledger path), which needs
+    utils/ledger; nothing of the statement runs first."""
     from pinot_tpu_torch.broker import Broker, connect
     from pinot_tpu_torch.segment import SegmentBuilder
     from pinot_tpu_torch.server import TableDataManager
@@ -229,10 +259,13 @@ def test_explain_analyze_and_trace_raise(tmp_path):
     dm.add_segment_dir(seg_dir)
     b = Broker(device="cpu")
     b.register_table(dm)
-    for sql in ("EXPLAIN ANALYZE SELECT SUM(v) FROM t",
-                "SELECT SUM(v) FROM t OPTION(trace=true)"):
-        with pytest.raises(NotImplementedError, match="spans"):
-            connect(b)(sql)
+    q = connect(b)
+    assert q("EXPLAIN ANALYZE SELECT SUM(v) FROM t").rows[0][0] == "query"
+    assert "phases" in q("SELECT SUM(v) FROM t OPTION(trace=true)").trace
+    with pytest.raises(NotImplementedError, match="utils/ledger"):
+        q("EXPLAIN ANALYZE SELECT SUM(v) FROM t OPTION(ledgerTrace=true)")
+    with pytest.raises(NotImplementedError, match="utils/ledger"):
+        Broker(device="cpu", trace_ledger_path=str(tmp_path / "l.jsonl"))
 
 
 def _run_smoke(cwd):
