@@ -238,6 +238,33 @@ Phases, each printed as it runs; any failure exits non-zero:
              untraced query times the ns of an inactive call as a share
              of the p50, the Prometheus rendering's size.
 
+18. realtime - realtime ingestion and upsert (RT_ROWS = 2^21 by
+             default, PINOT_SMOKE_RT_ROWS): the flat lineorder with the
+             SSB lineorder key (tools/ssb.gen_lineorder_keys) streamed in
+             d_yearmonthnum order through InMemoryStream(4) (lo_orderkey
+             % 4) into RealtimeTableDataManager("lineorder_REALTIME",
+             device="cuda") at a flush threshold of 200,000 rows: 8
+             sealed segments on the card and 4 consuming snapshots on
+             the host; the 13 SSB queries equal one offline segment of
+             the rows (itself equal to the numpy oracle), and the hybrid
+             lineorder (offline d_yearmonthnum <= 199506, realtime table)
+             equals them too; a full-upsert table (2^20 rows, 1 in 16
+             re-sending an earlier key) equals a numpy oracle of the
+             latest row per key before and after 2^18 updates that
+             invalidate documents of sealed segments whose valid masks
+             are already on the card; a dedup table (2^18 rows, 25%
+             repeated keys) counts the distinct keys; the consume loop
+             takes 2^19 more rows while 4 threads run the 13 queries,
+             each thread's COUNT(*) never falling and ending at the rows
+             produced; tracked device bytes equal held; K1 held bitwise
+             on every compact input of the realtime, hybrid and upsert
+             paths (kernel_at_realtime_path, kernel_at_upsert_path).
+             Printed: rows indexed per second (total, per partition),
+             seal ms, freshness p50/p99 under consumption (the manager's
+             gauge), valid-mask bytes before and after the updates, p50
+             per query on the realtime, offline and hybrid tables, the
+             phase's seconds.
+
 The SSB phases run at 2^25 rows by default (2^26 before the multi-stage
 phase was added), and the star schema at 2^23 orders rows (2^24 before
 the format, rollup and trace phases were added), so that the whole run
@@ -250,6 +277,7 @@ the pinot_tpu_torch package beside it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -5165,6 +5193,580 @@ def trace_phase(single, segs, rollup_query_fn, digests: dict,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# realtime: consuming segments, seals onto the card, hybrid, upsert, dedup
+# ---------------------------------------------------------------------------
+
+RT_ROWS = int(os.environ.get("PINOT_SMOKE_RT_ROWS", 1 << 21))
+RT_PARTITIONS = 4
+RT_THREADS = 4                   # query threads under consumption
+RT_BOUNDARY = 199506             # the hybrid's offline half: d_yearmonthnum <=
+RT_SEED = 1992
+RT_INNER_DUPS = 16               # 1 upsert row in 16 re-sends an earlier key
+RT_DEDUP_DUP_SHARE = 0.25
+RT_LIVE_CHUNKS = 64              # the stream under consumption, in chunks
+RT_LIVE_DEADLINE_S = 300.0
+
+
+def rt_sizes() -> dict:
+    """The realtime phase's sizes from RT_ROWS (2^21 by default): the
+    append table, its flush threshold (200,000 rows at 2^21, scaled with
+    the depth), the upsert table and its updates, the dedup table and
+    the rows streamed under consumption."""
+    return {"rows": RT_ROWS, "flush": round(200_000 * RT_ROWS / (1 << 21)),
+            "upsert": RT_ROWS // 2, "updates": RT_ROWS // 8,
+            "dedup": RT_ROWS // 8, "live": RT_ROWS // 4}
+
+
+def _rt_concat(parts) -> dict:
+    """The columns of several take_rows() results, one after the other."""
+    import numpy as np
+
+    from pinot_tpu_torch.segment.builder import Categorical
+
+    out = {}
+    for c, v in parts[0].items():
+        if isinstance(v, Categorical):
+            out[c] = Categorical(np.concatenate([p[c].codes for p in parts]),
+                                 v.values)
+        else:
+            out[c] = np.concatenate([p[c] for p in parts])
+    return out
+
+
+def _rt_segment(cols: dict, out_dir: str, name: str, device: str):
+    """One offline segment of the columns, built by the port's builder."""
+    from pinot_tpu_torch.segment import SegmentBuilder, load_segment
+    from pinot_tpu_torch.spi import TableConfig
+    from pinot_tpu_torch.tools import ssb
+
+    d = SegmentBuilder(ssb.keyed_schema(cols), TableConfig(
+        "lineorder")).build(cols, out_dir, name)
+    return load_segment(d, device)
+
+
+def _rt_oracle(cols: dict, out_dir: str) -> dict:
+    """The 13 SSB answers over the columns by tools/ssb's numpy oracle
+    (over a segment of them read on the host), as digests."""
+    from pinot_tpu_torch.tools import ssb
+
+    seg = _rt_segment(cols, out_dir, "oracle", "cpu")
+    return {qid: ssb._digest(ssb.oracle_run(seg, p, v, g)[0])
+            for qid, p, v, g in ssb.QUERIES}
+
+
+def _rt_sql(spec, table: str) -> str:
+    from pinot_tpu_torch.tools import ssb
+
+    return ssb.spec_to_sql(*spec).replace("FROM lineorder", f"FROM {table}")
+
+
+def _rt_serve(broker, table: str, dm, want: dict, label: str,
+              plans_out: dict) -> dict:
+    """The 13 SSB queries on ``table`` through connect(broker): a warm-up
+    (through serving.execute_segments over ``dm``'s segments when one is
+    given, for the route each segment took and the compact plans), then
+    ITERS timed runs; every digest must equal ``want``'s. Returns the
+    p50 per query."""
+    from collections import Counter
+
+    from pinot_tpu_torch.broker import connect
+    from pinot_tpu_torch.engine import serving
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.sql import parse_sql
+    from pinot_tpu_torch.tools import ssb
+
+    query = connect(broker)
+    p50 = {}
+    for qid, p, v, g in ssb.QUERIES:
+        sql = _rt_sql((p, v, g), table) + LONG_TIMEOUT
+        routes = None
+        if dm is not None:
+            ex = serving.execute_segments(
+                build_query_context(parse_sql(sql)), dm.acquire_segments())
+            routes = dict(Counter(ex.routes))
+            plans_out[f"{label}:{qid}"] = ex.real_plans
+        else:
+            query(sql)
+        times = []
+        for _ in range(ITERS):
+            t0 = time.perf_counter()
+            res = query(sql)
+            times.append((time.perf_counter() - t0) * 1e3)
+        got = ssb._digest(res.rows)
+        if got != want[qid]:
+            raise AssertionError(f"realtime {label} {qid}: rows differ: "
+                                 f"{got[:3]} vs {want[qid][:3]}")
+        p50[qid] = statistics.median(times)
+        phase("realtime_query", table=label, query=qid, ok=True,
+              rows=len(got), routes=routes, p50_ms=p50[qid],
+              times_ms=times)
+    return p50
+
+
+def _rt_hybrid_plans(broker, plans_out: dict) -> None:
+    """The compact plans of both halves of each SSB query on the hybrid
+    lineorder (split at its time boundary as the broker splits it)."""
+    from pinot_tpu_torch.broker.routing import split_hybrid
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.planner import SegmentPlanner
+    from pinot_tpu_torch.query.sql import parse_sql
+    from pinot_tpu_torch.tools import ssb
+
+    boundary = max(s.columns["d_yearmonthnum"].max for s in broker.table(
+        "lineorder_OFFLINE").acquire_segments())
+    for qid, p, v, g in ssb.QUERIES:
+        plans = []
+        for half in split_hybrid(parse_sql(ssb.spec_to_sql(p, v, g)),
+                                 "d_yearmonthnum", boundary):
+            ctx = build_query_context(half)
+            plans += [SegmentPlanner(ctx, s).plan()
+                      for s in broker.table(ctx.table).acquire_segments()]
+        plans_out[f"hybrid:{qid}"] = plans
+
+
+def _rt_plans(broker, table: str, label: str, plans_out: dict) -> None:
+    """The plans of each SSB query on ``table``'s segments as they stand
+    (the consuming snapshots plan the host path)."""
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.planner import SegmentPlanner
+    from pinot_tpu_torch.query.sql import parse_sql
+    from pinot_tpu_torch.tools import ssb
+
+    for qid, p, v, g in ssb.QUERIES:
+        ctx = build_query_context(parse_sql(_rt_sql((p, v, g), table)))
+        plans_out[f"{label}:{qid}"] = [
+            SegmentPlanner(ctx, s).plan()
+            for s in broker.table(table).acquire_segments()]
+
+
+def _k1_groups(plans) -> list:
+    """A query's compact kernel plans grouped as the batched dispatch
+    groups them (plan structure, bucket, parameter shapes)."""
+    from pinot_tpu_torch.engine import batch
+    from pinot_tpu_torch.engine.executor import resolve_params
+
+    groups: dict = {}
+    for p in plans:
+        if p.kind != "kernel" or p.kernel_plan.strategy != "compact":
+            continue
+        shape_sig = tuple(p.segment.columns[c].max_values or 0
+                          for c in p.col_names)
+        key = (p.kernel_plan, p.segment.bucket,
+               batch._param_sig(resolve_params(p)) + shape_sig)
+        groups.setdefault(key, []).append(p)
+    return list(groups.values())
+
+
+def _rt_k1(plans_by_query: dict, path: str, tile: int, on_card: bool
+           ) -> int:
+    """K1 held bitwise on every compact input of the path's queries; the
+    largest one timed on the card. Returns the inputs checked."""
+    groups = [(label, g) for label, plans in plans_by_query.items()
+              for g in _k1_groups(plans)]
+    if not groups:
+        return 0
+    widest = max(range(len(groups)), key=lambda i: sum(
+        p.segment.bucket for p in groups[i][1]))
+    return sum(_k1_held(g, label, path, tile, on_card and i == widest)
+               for i, (label, g) in enumerate(groups))
+
+
+def _valid_mask_bytes(segments) -> int:
+    """Device bytes of the upsert valid masks resident on the segments."""
+    return sum(int(t.nbytes) for s in segments
+               for k, t in list(s._device.items())
+               if k[0].startswith("__valid__"))
+
+
+def _rt_manager(name: str, schema, stream, data_dir: str, flush: int,
+                device: str, **kw):
+    from pinot_tpu_torch.realtime import (RealtimeTableDataManager,
+                                          StreamConfig)
+
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return RealtimeTableDataManager(
+        name, schema, StreamConfig(
+            name, num_partitions=RT_PARTITIONS, flush_threshold_rows=flush,
+            consumer_factory=stream), data_dir, device=device, **kw)
+
+
+def _rt_consume(dm) -> dict:
+    """Drain every partition once (consume_once), timed: rows and seconds
+    per partition (seals included) and the ms of the seals made."""
+    parts = []
+    n_seals = len(dm.commit_latencies())
+    for p in range(RT_PARTITIONS):
+        before = dm.consuming_docs + dm.total_docs
+        t0 = time.perf_counter()
+        n = dm.consume_once(p)
+        parts.append({"partition": p, "rows": n,
+                      "seconds": time.perf_counter() - t0})
+        if dm.consuming_docs + dm.total_docs != before + n:
+            raise AssertionError(f"partition {p}: rows lost in a seal")
+    seal_ms = dm.commit_latencies()[n_seals:]
+    rows = sum(x["rows"] for x in parts)
+    secs = sum(x["seconds"] for x in parts)
+    return {"rows": rows, "seconds": secs, "rows_per_s": rows / secs,
+            "per_partition": [dict(x, rows_per_s=x["rows"] / x["seconds"])
+                              for x in parts],
+            "seals": len(seal_ms),
+            "seal_ms_p50": statistics.median(seal_ms) if seal_ms else None,
+            "seal_ms_max": max(seal_ms) if seal_ms else None,
+            "sealed_segments": dm.num_segments,
+            "consuming_docs": dm.consuming_docs}
+
+
+def _rt_live(dm, broker, rows: list, start_count: int) -> dict:
+    """start() the consume loop, stream ``rows`` in RT_LIVE_CHUNKS chunks
+    while RT_THREADS threads run the 13 SSB queries and a COUNT(*) after
+    each, and a sampler reads the table's freshness gauge; stop() when
+    every row is in. Each thread's counts must never fall."""
+    import threading
+
+    from pinot_tpu_torch.broker import connect
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.utils.metrics import global_metrics
+
+    target = start_count + len(rows)
+    table = dm.table_name
+    count_sql = f"SELECT COUNT(*) FROM {table}" + LONG_TIMEOUT
+    sqls = [_rt_sql((p, v, g), table) + LONG_TIMEOUT
+            for _qid, p, v, g in ssb.QUERIES]
+    done = threading.Event()
+    seen = {k: [] for k in range(RT_THREADS)}
+    waves = {k: 0 for k in range(RT_THREADS)}
+    errors = []
+    fresh = []
+    gauge = "ingest_freshness_ms_" + table
+
+    def client(k):
+        query = connect(broker)
+        try:
+            while True:
+                for sql in sqls:
+                    query(sql)
+                    seen[k].append(query(count_sql).rows[0][0])
+                waves[k] += 1
+                if done.is_set():
+                    return
+        except Exception as e:     # reported below: the check fails
+            errors.append(f"thread {k}: {type(e).__name__}: {e}")
+
+    def sampler():
+        while not done.is_set():
+            v = global_metrics.snapshot()["gauges"].get(gauge)
+            if v is not None:
+                fresh.append(v)
+            done.wait(0.005)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(RT_THREADS)]
+    threads.append(threading.Thread(target=sampler))
+    t0 = time.perf_counter()
+    dm.start()
+    for t in threads:
+        t.start()
+    chunk = -(-len(rows) // RT_LIVE_CHUNKS)
+    stream = dm.stream_config.consumer_factory
+    try:
+        for lo in range(0, len(rows), chunk):
+            stream.produce_many(rows[lo:lo + chunk])
+            time.sleep(0.02)
+        deadline = time.monotonic() + RT_LIVE_DEADLINE_S
+        while dm.consuming_docs + dm.total_docs < target:
+            if time.monotonic() > deadline:
+                raise AssertionError("consumption did not finish")
+            time.sleep(0.01)
+        consumed_s = time.perf_counter() - t0
+    finally:
+        done.set()
+        for t in threads:
+            t.join(RT_LIVE_DEADLINE_S)
+        dm.stop()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"realtime under consumption: {errors}")
+    for k, counts in seen.items():
+        if not counts or any(a > b for a, b in zip(counts, counts[1:])):
+            raise AssertionError(f"thread {k}: COUNT(*) fell: {counts}")
+    final = connect(broker)(count_sql).rows[0][0]
+    if final != target:
+        raise AssertionError(f"after stop(): COUNT(*) {final} != {target}")
+    return {"rows": len(rows), "consumed_s": consumed_s,
+            "waves": waves, "counts_seen": sum(map(len, seen.values())),
+            "freshness_samples": len(fresh),
+            "freshness_ms_p50": _p(fresh, 50) if fresh else None,
+            "freshness_ms_p99": _p(fresh, 99) if fresh else None,
+            "ingest_stats": dm.ingest_stats(), "final_count": final}
+
+
+def realtime_phase(tile: int, live_segments=(), device: str = "cuda") -> int:
+    """Realtime ingestion and upsert through the port's entry points on
+    ``device``: (a) the flat SSB lineorder with its lineorder key,
+    RT_ROWS rows streamed in d_yearmonthnum order through
+    InMemoryStream(4) (partitioned by lo_orderkey % 4) into
+    RealtimeTableDataManager("lineorder_REALTIME", device=device) at a
+    flush threshold of 200,000 rows (at 2^21): the 13 SSB queries equal
+    the same queries on one offline segment of the rows, which equal
+    tools/ssb's numpy oracle; (b) the hybrid lineorder (offline rows
+    with d_yearmonthnum <= RT_BOUNDARY, realtime table (a)) equal to the
+    offline table; (c) a full-upsert table (pk lo_orderkey,
+    lo_linenumber; stream order wins) of RT_ROWS / 2 rows, 1 in 16
+    re-sending an earlier key, queried (which uploads the sealed
+    segments' valid masks), then RT_ROWS / 8 updates of existing keys
+    with new lo_revenue, lo_quantity and lo_discount, queried again:
+    both equal a numpy oracle over the latest row per key; a dedup
+    table of RT_ROWS / 8 rows, 25% of them repeated keys, counts the
+    distinct keys; (d) the consume loop on RT_ROWS / 4 more rows for
+    table (a) while RT_THREADS threads run the 13 queries, COUNT(*)
+    never falling and ending at the rows produced; tracked device bytes
+    equal held after each part; (e) K1 held bitwise on every compact
+    input of the offline, realtime, hybrid and upsert queries: the
+    upsert table's first run right after it, while its masks stand, and
+    (d)'s on the realtime table's segments as they stand after stop().
+    Returns K1's launches on the path."""
+    import numpy as np
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.realtime import InMemoryStream
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.spi import TableConfig
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.upsert import DedupConfig, UpsertConfig
+
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+    z = rt_sizes()
+    out = os.path.join(CACHE, f"realtime_{RT_ROWS}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    n_all = z["rows"] + z["live"]
+    cols = ssb.gen_columns(n_all)
+    cols.update(ssb.gen_lineorder_keys(n_all))
+    schema = ssb.keyed_schema(cols)
+    first = np.arange(z["rows"])
+    order = first[np.argsort(cols["d_yearmonthnum"][:z["rows"]],
+                             kind="stable")]
+    rows = ssb.row_dicts(ssb.take_rows(cols, order))
+    live_rows = ssb.row_dicts(ssb.take_rows(cols,
+                                            np.arange(z["rows"], n_all)))
+    # the producer's rows stay resident here, as a stream's would not in
+    # a server: keep them out of the cyclic collector's scans
+    gc.freeze()
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    offline = _rt_segment(ssb.take_rows(cols, first), out, "offline_all",
+                          device)
+    early = first[cols["d_yearmonthnum"][:z["rows"]] <= RT_BOUNDARY]
+    offline_half = _rt_segment(ssb.take_rows(cols, early), out,
+                               "offline_half", device)
+    want = _rt_oracle(ssb.take_rows(cols, first),
+                      os.path.join(out, "oracle"))
+    offline_s = time.perf_counter() - t0
+    phase("realtime_setup", rows=z["rows"], partitions=RT_PARTITIONS,
+          flush_threshold_rows=z["flush"], upsert_rows=z["upsert"],
+          updates=z["updates"], dedup_rows=z["dedup"], live_rows=z["live"],
+          hybrid_offline_rows=len(early), data_seconds=data_s,
+          offline_build_seconds=offline_s,
+          cuts=[f"{z['rows']} lineorder rows streamed (SSB SF10 has "
+                f"{SSB_SF10_ROWS}); the lineorder key from "
+                "tools/ssb.gen_lineorder_keys",
+                f"flush threshold {z['flush']} rows, so that each of the "
+                f"{RT_PARTITIONS} partitions seals twice and keeps a "
+                "consuming tail"])
+
+    stream = InMemoryStream(RT_PARTITIONS, name="lineorder",
+                            partitioner=lambda r: r["lo_orderkey"])
+    stream.produce_many(rows)
+    dm = _rt_manager("lineorder_REALTIME", schema, stream,
+                     os.path.join(out, "rt"), z["flush"], device)
+    plans: dict = {}
+    upsert_plans: dict = {}
+
+    C.launches = 0                       # the realtime path starts here
+    consumed = _rt_consume(dm)
+    phase("realtime_ingest", table="lineorder_REALTIME", **consumed)
+    brokers = {"all": Broker(device=device), "hybrid": Broker(device=device)}
+    off_all = TableDataManager("lineorder", device=device)
+    off_all.add_segment(offline)
+    brokers["all"].register_table(off_all)
+    off_half = TableDataManager("lineorder_OFFLINE", device=device,
+                                table_config=TableConfig(
+                                    "lineorder_OFFLINE",
+                                    time_column="d_yearmonthnum"))
+    off_half.add_segment(offline_half)
+    brokers["hybrid"].register_table(off_half)
+    brokers["hybrid"].register_table(dm)
+
+    def live():
+        return list(live_segments) + [offline, offline_half] \
+            + [s for s in dm.acquire_segments()
+               if not getattr(s, "is_mutable", False)]
+
+    p50 = {"offline": _rt_serve(brokers["all"], "lineorder", off_all, want,
+                                "offline", plans),
+           "realtime": _rt_serve(brokers["hybrid"], "lineorder_REALTIME",
+                                 dm, want, "realtime", plans),
+           "hybrid": _rt_serve(brokers["hybrid"], "lineorder", None, want,
+                               "hybrid", {})}
+    _rt_hybrid_plans(brokers["hybrid"], plans)
+    q21 = [(p, v, g) for qid, p, v, g in ssb.QUERIES if qid == "q2.1"][0]
+    profiles = {}
+    if on_card:
+        profiles["realtime"] = profile_query(
+            connect(brokers["hybrid"]),
+            _rt_sql(q21, "lineorder_REALTIME") + LONG_TIMEOUT)
+    _reconcile_or_fail(live(), "realtime and hybrid")
+
+    # (c) upsert: the first RT_ROWS / 2 rows in row order, 1 in 16 of
+    # them re-sending an earlier row's key, then the updates
+    rng = np.random.default_rng(RT_SEED)
+    n_up = z["upsert"]
+    ups = ssb.take_rows(cols, np.arange(n_up))
+    again = np.nonzero(rng.random(n_up) < 1.0 / RT_INNER_DUPS)[0]
+    again = again[again > 0]
+    src = (rng.random(len(again)) * again).astype(np.int64)
+    for k in ("lo_orderkey", "lo_linenumber"):
+        ups[k] = ups[k].copy()
+        ups[k][again] = ups[k][src]
+    upd_src = rng.integers(0, n_up, z["updates"])
+    upd = ssb.take_rows(ups, upd_src)
+    upd["lo_revenue"] = rng.integers(10000, 6000000,
+                                     z["updates"]).astype(np.int32)
+    upd["lo_quantity"] = rng.integers(1, 51, z["updates"]).astype(np.int32)
+    upd["lo_discount"] = rng.integers(0, 11, z["updates"]).astype(np.int32)
+
+    def latest(parts):
+        """The latest row of each key, in stream order."""
+        allc = _rt_concat(parts)
+        key = (allc["lo_orderkey"].astype(np.int64) << 8) \
+            + allc["lo_linenumber"]
+        _u, last_rev = np.unique(key[::-1], return_index=True)
+        return ssb.take_rows(allc, np.sort(len(key) - 1 - last_rev))
+
+    t0 = time.perf_counter()
+    live_before, live_after = latest([ups]), latest([ups, upd])
+    want_before = _rt_oracle(live_before, os.path.join(out, "oracle_u0"))
+    want_after = _rt_oracle(live_after, os.path.join(out, "oracle_u1"))
+    n_keys = len(live_after["lo_orderkey"])
+    ups_rows, upd_rows = ssb.row_dicts(ups), ssb.row_dicts(upd)
+    gc.freeze()
+    oracle_s = time.perf_counter() - t0
+    ustream = InMemoryStream(RT_PARTITIONS, name="lineorder_upsert",
+                             partitioner=lambda r: r["lo_orderkey"])
+    ustream.produce_many(ups_rows)
+    udm = _rt_manager("lineorder_upsert", schema, ustream,
+                      os.path.join(out, "upsert"), z["flush"], device,
+                      upsert_config=UpsertConfig(
+                          pk_columns=["lo_orderkey", "lo_linenumber"]))
+    brokers["upsert"] = Broker(device=device)
+    brokers["upsert"].register_table(udm)
+    u_ingest = _rt_consume(udm)
+    sealed_u = [s for s in udm.acquire_segments()
+                if not getattr(s, "is_mutable", False)]
+    if not any(s.valid_docs is not None for s in sealed_u):
+        raise AssertionError("upsert: no sealed segment has a valid mask")
+    before_plans: dict = {}
+    p50["upsert_before"] = _rt_serve(brokers["upsert"], "lineorder_upsert",
+                                     udm, want_before, "upsert_before",
+                                     before_plans)
+    # held now, while the masks are the ones these queries read; the
+    # launches that hold them are no launches of the path
+    path_launches = C.launches
+    n_upsert = _rt_k1(before_plans, "kernel_at_upsert_path", tile, False)
+    C.launches = path_launches
+    bytes_before = _valid_mask_bytes(sealed_u)
+    versions = {s.name: s.valid_docs_version for s in sealed_u}
+    if on_card and bytes_before == 0:
+        raise AssertionError("upsert: no valid mask was uploaded")
+    ustream.produce_many(upd_rows)
+    u_updates = _rt_consume(udm)
+    bumped = [s.name for s in sealed_u
+              if s.valid_docs_version > versions[s.name]]
+    if not bumped:
+        raise AssertionError("upsert: the updates invalidated no document "
+                             "of a sealed segment")
+    p50["upsert_after"] = _rt_serve(brokers["upsert"], "lineorder_upsert",
+                                    udm, want_after, "upsert_after",
+                                    upsert_plans)
+    if on_card:
+        profiles["upsert_after"] = profile_query(
+            connect(brokers["upsert"]),
+            _rt_sql(q21, "lineorder_upsert") + LONG_TIMEOUT)
+    sealed_u = [s for s in udm.acquire_segments()
+                if not getattr(s, "is_mutable", False)]
+    bytes_after = _valid_mask_bytes(sealed_u)
+    live_docs = connect(brokers["upsert"])(
+        "SELECT COUNT(*) FROM lineorder_upsert" + LONG_TIMEOUT).rows[0][0]
+    if live_docs != n_keys:
+        raise AssertionError(f"upsert: COUNT(*) {live_docs} != {n_keys} "
+                             "keys")
+    phase("realtime_upsert", rows=n_up, inner_repeats=len(again),
+          updates=z["updates"], ingest=u_ingest, updates_ingest=u_updates,
+          oracle_seconds=oracle_s, sealed_segments=len(sealed_u),
+          invalidated_after_upload=bumped,
+          valid_mask_bytes_before=bytes_before,
+          valid_mask_bytes_after=bytes_after, keys=n_keys,
+          count=live_docs)
+    _reconcile_or_fail(live() + sealed_u, "upsert")
+
+    n_dd = z["dedup"]
+    n_uniq = n_dd - int(n_dd * RT_DEDUP_DUP_SHARE)
+    dd = ssb.take_rows(cols, np.arange(n_dd))
+    repeat = rng.integers(0, n_uniq, n_dd - n_uniq)
+    for k in ("lo_orderkey", "lo_linenumber"):
+        dd[k][n_uniq:] = dd[k][repeat]
+    dstream = InMemoryStream(RT_PARTITIONS, name="lineorder_dedup",
+                             partitioner=lambda r: r["lo_orderkey"])
+    dstream.produce_many(ssb.row_dicts(dd))
+    gc.freeze()
+    ddm = _rt_manager("lineorder_dedup", schema, dstream,
+                      os.path.join(out, "dedup"), z["flush"], device,
+                      dedup_config=DedupConfig(
+                          pk_columns=["lo_orderkey", "lo_linenumber"]))
+    d_ingest = _rt_consume(ddm)
+    brokers["upsert"].register_table(ddm)
+    distinct = connect(brokers["upsert"])(
+        "SELECT COUNT(*) FROM lineorder_dedup" + LONG_TIMEOUT).rows[0][0]
+    if distinct != n_uniq:
+        raise AssertionError(f"dedup: COUNT(*) {distinct} != {n_uniq} "
+                             "distinct keys")
+    phase("realtime_dedup", rows=n_dd, distinct_keys=n_uniq,
+          count=distinct, ingest=d_ingest)
+
+    # (d) under consumption, on table (a)
+    under = _rt_live(dm, brokers["hybrid"], live_rows, z["rows"])
+    global_cube_cache.clear()
+    _reconcile_or_fail(live() + sealed_u, "realtime under consumption")
+    phase("realtime_live", **under, tracked_equals_held=True)
+    realtime_launches = C.launches       # ... and ends here
+    if realtime_launches == 0:
+        raise AssertionError("the realtime path never launched the "
+                             "compaction")
+
+    _rt_plans(brokers["hybrid"], "lineorder_REALTIME", "live", plans)
+    n_checked = _rt_k1(plans, "kernel_at_realtime_path", tile, on_card)
+    n_upsert += _rt_k1(upsert_plans, "kernel_at_upsert_path", tile, on_card)
+    if n_checked == 0 or n_upsert == 0:
+        raise AssertionError("no compact input on the realtime or the "
+                             "upsert path")
+    _reconcile_or_fail(live() + sealed_u, "realtime")
+    for s in [offline, offline_half] + [
+            s for m in (dm, udm, ddm) for s in m.acquire_segments()
+            if not getattr(s, "is_mutable", False)]:
+        s.evict_device()
+    phase("realtime_done", seconds=time.perf_counter() - t_phase,
+          compact_launches=realtime_launches, k1_checked=n_checked,
+          k1_checked_upsert=n_upsert, p50_ms=p50,
+          profile_q2_1=profiles, tracked_equals_held=True)
+    shutil.rmtree(out, ignore_errors=True)
+    gc.unfreeze()
+    return realtime_launches
+
+
 def main() -> int:
     import torch
 
@@ -5216,6 +5818,7 @@ def main() -> int:
                                           tables, tile, [single])
     geo_launches = geo_phase(tile, [single, surface_seg, *segs])
     vsearch = vector_phase([single, surface_seg, *segs])
+    realtime_launches = realtime_phase(tile, [single, surface_seg, *segs])
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "compact",
@@ -5225,7 +5828,7 @@ def main() -> int:
         "launches": launches + seg_launches + concurrent_launches
         + tier_launches + drift_launches + statement_launches
         + geo_launches + format_launches + rollup_launches
-        + trace_launches,
+        + trace_launches + realtime_launches,
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -5248,6 +5851,7 @@ def main() -> int:
         "format_launches": format_launches,
         "rollup_launches": rollup_launches,
         "trace_launches": trace_launches,
+        "realtime_launches": realtime_launches,
         **{f"segmented_{k}": v for k, v in seg_totals.items()},
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
@@ -5263,8 +5867,9 @@ def main() -> int:
               "drift run's, the statements phase's, the geo "
               "phase's, the format phase's (BITPACK and COMPRESSED "
               "copies), the rollup phase's (queries answered from "
-              "rollups) and the trace phase's (EXPLAIN ANALYZE, "
-              "OPTION(trace=true))"}, {
+              "rollups), the trace phase's (EXPLAIN ANALYZE, "
+              "OPTION(trace=true)) and the realtime phase's (sealed, "
+              "hybrid, upserted and consuming tables)"}, {
         "name": "segscan",
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/segscan.cu",

@@ -21,7 +21,7 @@ import itertools
 import json
 import os
 import threading
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -124,6 +124,10 @@ class ImmutableSegment:
         # racy miss only uploads again.
         self._res_lock = threading.Lock()
         self.valid_docs: Optional[np.ndarray] = None
+        # bumped by every set_valid_docs: the device mask is cached under
+        # its version, so a mask uploaded before an upsert invalidation is
+        # never served after it
+        self.valid_docs_version = 0
         if segdir.exists(seg_dir, "valid.bin"):
             # upsert validDocIds: the planner folds them into a
             # "validdocs" kernel param (device_valid_mask)
@@ -231,13 +235,20 @@ class ImmutableSegment:
         return bucket_for(self.n_docs)
 
     def _cache_device(self, key: Tuple[str, int], t: torch.Tensor,
-                      host: np.ndarray) -> torch.Tensor:
+                      host: np.ndarray,
+                      current: Optional[Callable[[], bool]] = None
+                      ) -> torch.Tensor:
         """Every _device insert goes through here, so the device-memory
         registry reconciles with the cache and the tier sees every
         admission: the insert promotes this segment hot and enforces the
         shared budget. ``host`` is the uploaded host array; while a budget
-        is armed it is stashed warm for a cheap re-promotion."""
+        is armed it is stashed warm for a cheap re-promotion. When
+        ``current()``, asked under the lock, says the key went stale while
+        ``t`` was made, ``t`` is returned uncached: nothing would ask for
+        that key again to release it."""
         with self._res_lock:
+            if current is not None and not current():
+                return t
             self._device[key] = t
             global_device_memory.add("segment_cols", (self.uid, key),
                                      int(t.nbytes))
@@ -252,16 +263,20 @@ class ImmutableSegment:
         global_tier.admitted(self)
         return t
 
-    def _cached(self, key: Tuple[str, int], make) -> torch.Tensor:
+    def _cached(self, key: Tuple[str, int], make,
+                current: Optional[Callable[[], bool]] = None
+                ) -> torch.Tensor:
         """The cached device tensor under ``key``; on a miss, uploads the
-        warm copy when one is stashed, else ``make()``. Returns the local
+        warm copy when one is stashed, else ``make()`` (cached unless
+        ``current`` says the key went stale meanwhile). Returns the local
         reference: a racy demotion may drop the key right after."""
         hit = self._device.get(key)
         if hit is None:
             host = self._warm.get(key)
             if host is None:
                 host = make()
-            hit = self._cache_device(key, _upload(host, self.device), host)
+            hit = self._cache_device(key, _upload(host, self.device), host,
+                                     current)
         return hit
 
     def padded_dtype(self, col: str) -> np.dtype:
@@ -334,11 +349,41 @@ class ImmutableSegment:
             lambda: _hash64(np.asarray(self.dictionary(col).values)
                             ).view(np.int64))
 
+    def set_valid_docs(self, mask: Optional[np.ndarray]) -> None:
+        """Publish a new upsert validDocIds mask (None: every doc valid)
+        under a new version, and drop every stale copy of the old one: the
+        device tensors (and their device-memory accounting) and the warm
+        host arrays, which must never re-promote a superseded mask."""
+        self.valid_docs = mask
+        with self._res_lock:
+            self.valid_docs_version += 1
+            for key in [k for k in self._device
+                        if k[0].startswith("__valid__")]:
+                del self._device[key]
+                global_device_memory.remove("segment_cols", (self.uid, key))
+            for key in [k for k in self._warm
+                        if k[0].startswith("__valid__")]:
+                old = self._warm.pop(key)
+                global_tier.note_warm(self.uid, -int(old.nbytes))
+
+    def persist_valid_docs(self) -> None:
+        """Snapshot validDocIds next to the segment as ``valid.bin`` (the
+        reference's upsert snapshot); no mask removes the file."""
+        path = os.path.join(self.dir, "valid.bin")
+        if self.valid_docs is None:
+            if os.path.exists(path):
+                os.remove(path)
+            return
+        np.packbits(self.valid_docs).tofile(path)
+
     def device_valid_mask(self, bucket: Optional[int] = None
                           ) -> torch.Tensor:
         """Upsert validDocIds padded to the bucket (all live docs valid
-        when the segment has none)."""
+        when the segment has none), cached under the mask's version. A
+        mask made while ``set_valid_docs`` published a newer version is
+        used once and not cached."""
         bucket = bucket or self.bucket
+        version = self.valid_docs_version
 
         def make() -> np.ndarray:
             padded = np.zeros(bucket, dtype=bool)
@@ -346,7 +391,9 @@ class ImmutableSegment:
                                      else self.valid_docs)
             return padded
 
-        return self._cached(("__valid__", bucket), make)
+        return self._cached(
+            (f"__valid__v{version}", bucket), make,
+            lambda: self.valid_docs_version == version)
 
     def device_null_mask(self, col: str, bucket: Optional[int] = None
                          ) -> torch.Tensor:

@@ -3,8 +3,10 @@
 Port of the segment registry of ``pinot_tpu/server/data_manager.py``
 (add, remove, replace, acquire, a table directory, counts, and ``reload``,
 which reconciles every segment's secondary indexes with the table config).
-Every segment of a table lives on the table's ``device``. The
-mesh-resident table is not ported.
+Every segment of a table lives on the table's ``device``. A realtime
+table (``realtime/manager.py``) adds its consuming snapshots to
+``acquire_segments``; ``reload`` skips them, as they have no files yet.
+The mesh-resident table is not ported.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ class TableDataManager:
         self._segments: Dict[str, ImmutableSegment] = {}
         self._lock = threading.Lock()
         self._reload_lock = threading.Lock()
+        self._schema = None
 
     def add_segment(self, segment: ImmutableSegment) -> None:
         if segment.device != self.device:
@@ -88,6 +91,8 @@ class TableDataManager:
         changes: Dict[str, List[str]] = {"added": [], "removed": []}
         with self._reload_lock:  # one reconcile per table at a time
             for seg in self.acquire_segments():
+                if getattr(seg, "is_mutable", False):
+                    continue  # a consuming snapshot: no files, no indexes
                 # in-flight queries may hold the OLD segment and open
                 # index files lazily; opening its readers now means it
                 # never touches a file this reload is about to delete
@@ -111,10 +116,18 @@ class TableDataManager:
 
     @property
     def schema(self):
-        """Table schema, from any loaded segment (None without one)."""
+        """Table schema: the declared one if set (a realtime table sets it
+        at construction), else any loaded segment's (None without
+        one)."""
+        if self._schema is not None:
+            return self._schema
         for s in self._segments.values():
             return s.schema
         return None
+
+    @schema.setter
+    def schema(self, value) -> None:
+        self._schema = value
 
     @property
     def num_segments(self) -> int:

@@ -79,6 +79,47 @@ def gen_columns(n: int):
     }
 
 
+def gen_lineorder_keys(n: int):
+    """The SSB lineorder key that the flat columns leave out, for n rows
+    in order (seeded): ``lo_orderkey`` numbers the orders from 1, each of
+    1 to 7 lines as in the SSB spec's lineorder, and ``lo_linenumber``
+    counts an order's lines from 1. (orderkey, linenumber) is unique."""
+    rng = np.random.default_rng(1993)
+    lines = rng.integers(1, 8, n // 3 + 8)      # 4 lines an order on average
+    ends = np.cumsum(lines)
+    orderkey = np.repeat(np.arange(1, len(lines) + 1, dtype=np.int32),
+                         lines)[:n]
+    first = np.repeat(ends - lines, lines)[:n]
+    return {"lo_orderkey": orderkey,
+            "lo_linenumber": (np.arange(n) - first + 1).astype(np.int32)}
+
+
+def keyed_schema(cols) -> Schema:
+    """The lineorder schema of the flat columns plus the lineorder key
+    (``gen_lineorder_keys``) as integer dimensions."""
+    keys = [c for c in ("lo_orderkey", "lo_linenumber") if c in cols]
+    return Schema("lineorder", _ssb_fields(
+        {c: v for c, v in cols.items() if c not in keys})
+        + [FieldSpec(c, DataType.INT, FieldType.DIMENSION) for c in keys])
+
+
+def take_rows(cols, idx):
+    """The columns at row indexes ``idx`` (Categoricals stay encoded)."""
+    return {c: (Categorical(v.codes[idx], v.values)
+                if isinstance(v, Categorical) else v[idx])
+            for c, v in cols.items()}
+
+
+def row_dicts(cols):
+    """The columns as row dicts, as a stream delivers them (strings for
+    the dictionary-encoded columns, Python ints for the rest)."""
+    names = list(cols)
+    lists = [np.asarray(v.values, dtype=object)[v.codes].tolist()
+             if isinstance(v, Categorical) else v.tolist()
+             for v in cols.values()]
+    return [dict(zip(names, vals)) for vals in zip(*lists)]
+
+
 def _ssb_fields(cols):
     fields = []
     for name in cols:

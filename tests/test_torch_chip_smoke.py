@@ -267,3 +267,46 @@ def test_profile_phases_check_on_cpu(tmp_path, strategy, monkeypatch):
         monkeypatch.setattr(phase_profile, "timeit", shrinking)
         with pytest.raises(AssertionError, match="nondecreasing"):
             chip_smoke.profile_phases_check(connect(b), sql, qid)
+
+
+def test_realtime_phase_on_cpu(tmp_path, monkeypatch):
+    """The realtime phase end to end on the CPU at 2^13 rows (the plain
+    versions of the kernels; a wrapper counts the compaction's calls as
+    launches): every check of the phase holds, K1 was called on the
+    realtime path and held on the inputs of each of its tables."""
+    from pinot_tpu_torch.ops import compact
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from test_torch_tier import reset_port_memory
+
+    reset_port_memory()
+    real = compact.compact
+
+    def counted(*a, **k):
+        compact.launches += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(compact, "compact", counted)
+    monkeypatch.setattr(chip_smoke, "RT_ROWS", 1 << 13)
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda label, **f: printed.append((label, f)))
+    try:
+        launches = chip_smoke.realtime_phase(4096, device="cpu")
+    finally:
+        global_cube_cache.clear()
+    assert launches > 0
+    seen = {label for label, _f in printed}
+    assert {"realtime_setup", "realtime_ingest", "realtime_query",
+            "realtime_upsert", "realtime_dedup", "realtime_live",
+            "kernel_at_realtime_path", "kernel_at_upsert_path",
+            "realtime_done"} <= seen
+    ingest = dict(printed)["realtime_ingest"]
+    assert ingest["sealed_segments"] == 8 and ingest["consuming_docs"] > 0
+    upsert = dict(printed)["realtime_upsert"]
+    assert upsert["invalidated_after_upload"]
+    held = {f["query"].split(":")[0] for label, f in printed
+            if label in ("kernel_at_realtime_path", "kernel_at_upsert_path")}
+    assert held == {"offline", "realtime", "hybrid", "live",
+                    "upsert_before", "upsert_after"}
+    assert upsert["count"] == upsert["keys"]

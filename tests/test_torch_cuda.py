@@ -1787,3 +1787,138 @@ def test_profile_phases_on_card(cuda, tmp_path, strategy):
         assert C.launches - before >= 2
     for s in dm.acquire_segments():
         s.evict_device()
+
+
+def _rt_cols(n):
+    cols = ssb.gen_columns(n)
+    cols.update(ssb.gen_lineorder_keys(n))
+    return cols
+
+
+def _rt_table(dev, data_dir, rows, schema, flush, **kw):
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.realtime import (InMemoryStream,
+                                          RealtimeTableDataManager,
+                                          StreamConfig)
+
+    stream = InMemoryStream(2, partitioner=lambda r: r["lo_orderkey"])
+    stream.produce_many(rows)
+    dm = RealtimeTableDataManager(
+        "lineorder", schema, StreamConfig(
+            "lineorder", num_partitions=2, flush_threshold_rows=flush,
+            consumer_factory=stream), str(data_dir), device=dev, **kw)
+    for p in range(2):
+        dm.consume_once(p)
+    b = Broker(device=dev)
+    b.register_table(dm)
+    return dm, connect(b), stream
+
+
+def _ssb_rows(query):
+    return {qid: ssb._digest(query(ssb.spec_to_sql(p, v, g)).rows)
+            for qid, p, v, g in ssb.QUERIES}
+
+
+def _held_k1(dm):
+    """K1 on each compact plan's inputs of the sealed segments held to
+    its plain version bitwise; returns the inputs checked."""
+    import chip_smoke
+    from pinot_tpu_torch.ops import compact as C
+
+    sealed = [s for s in dm.acquire_segments()
+              if not getattr(s, "is_mutable", False)]
+    checked = 0
+    for _qid, p, v, g in ssb.QUERIES:
+        for plan in chip_smoke._plans(ssb.spec_to_sql(p, v, g), sealed):
+            if plan.kind != "kernel" or \
+                    plan.kernel_plan.strategy != "compact":
+                continue
+            mask, cols = chip_smoke._compact_inputs(plan)
+            chip_smoke.same_outputs(
+                C.compact(mask, cols, plan.slots_cap),
+                C.compact_reference(mask, cols, plan.slots_cap))
+            checked += 1
+    return checked
+
+
+def test_realtime_sealed_on_card_matches_cpu(cuda, tmp_path):
+    """A realtime table whose sealed segments are on the card answers the
+    SSB queries as the same table on the CPU (the plain versions), K1
+    launches on the sealed segments, each compact input of theirs gives
+    K1's plain version's outputs bitwise, and the tracked device bytes
+    equal the tensors held."""
+    from pinot_tpu_torch.engine.tier import reconcile_devmem
+    from pinot_tpu_torch.ops import compact as C
+
+    cols = _rt_cols(40_000)
+    rows = ssb.row_dicts(cols)
+    schema = ssb.keyed_schema(cols)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        before = C.launches
+        dm, query, _s = _rt_table(dev, tmp_path / dev, rows, schema, 8_000)
+        assert dm.num_segments == 4 and dm.consuming_docs == 8_000
+        got[dev] = _ssb_rows(query)
+        if dev == "cuda":
+            assert C.launches > before
+            assert _held_k1(dm) > 0
+            sealed = [s for s in dm.acquire_segments()
+                      if not getattr(s, "is_mutable", False)]
+            assert {d for s in sealed
+                    for d in s.resident_devices().values()} == {"cuda:0"}
+            rec = reconcile_devmem(sealed)["segment_cols"]
+            assert rec["tracked"] >= rec["actual"] > 0
+            for s in sealed:
+                s.evict_device()
+    assert got["cuda"] == got["cpu"]
+
+
+def test_upsert_invalidation_after_upload_on_card(cuda, tmp_path):
+    """A full-upsert table on the card: the first queries upload the
+    sealed segments' valid masks, updates then invalidate documents of
+    those segments, and the queries again equal the CPU table's; no
+    superseded mask stays on the card, and K1 holds bitwise on the
+    masked inputs."""
+    import numpy as np
+
+    from pinot_tpu_torch.upsert import UpsertConfig
+
+    n = 24_000
+    cols = _rt_cols(n)
+    rng = np.random.default_rng(7)
+    again = np.nonzero(rng.random(n) < 1 / 16)[0][1:]
+    src = (rng.random(len(again)) * again).astype(np.int64)
+    for k in ("lo_orderkey", "lo_linenumber"):
+        cols[k][again] = cols[k][src]
+    upd = ssb.take_rows(cols, rng.integers(0, n, 6_000))
+    upd["lo_revenue"] = rng.integers(10_000, 6_000_000, 6_000).astype(
+        np.int32)
+    schema = ssb.keyed_schema(cols)
+    cfg = UpsertConfig(pk_columns=["lo_orderkey", "lo_linenumber"])
+    got = {}
+    for dev in ("cuda", "cpu"):
+        dm, query, stream = _rt_table(dev, tmp_path / dev,
+                                      ssb.row_dicts(cols), schema, 8_000,
+                                      upsert_config=cfg)
+        before = _ssb_rows(query)
+        sealed = [s for s in dm.acquire_segments()
+                  if not getattr(s, "is_mutable", False)]
+        versions = {s.name: s.valid_docs_version for s in sealed}
+        if dev == "cuda":
+            assert any(k[0].startswith("__valid__") for s in sealed
+                       for k in s._device)
+        stream.produce_many(ssb.row_dicts(upd))
+        for p in range(2):
+            dm.consume_once(p)
+        assert any(s.valid_docs_version > versions[s.name] for s in sealed)
+        got[dev] = (before, _ssb_rows(query))
+        if dev == "cuda":
+            for s in sealed:
+                keys = [k[0] for k in s._device
+                        if k[0].startswith("__valid__")]
+                assert keys in ([], [f"__valid__v{s.valid_docs_version}"])
+            assert _held_k1(dm) > 0
+            for s in sealed:
+                s.evict_device()
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][0] != got["cuda"][1]
