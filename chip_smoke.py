@@ -238,23 +238,26 @@ Phases, each printed as it runs; any failure exits non-zero:
              untraced query times the ns of an inactive call as a share
              of the p50, the Prometheus rendering's size.
 
-18. realtime - realtime ingestion and upsert (RT_ROWS = 2^21 by
-             default, PINOT_SMOKE_RT_ROWS): the flat lineorder with the
+18. realtime - realtime ingestion and upsert (RT_ROWS = 2^20 by
+             default, PINOT_SMOKE_RT_ROWS; 2^21 until the wire and
+             overload phases were added, cut to make room for them in
+             the time limit): the flat lineorder with the
              SSB lineorder key (tools/ssb.gen_lineorder_keys) streamed in
              d_yearmonthnum order through InMemoryStream(4) (lo_orderkey
              % 4) into RealtimeTableDataManager("lineorder_REALTIME",
-             device="cuda") at a flush threshold of 200,000 rows: 8
-             sealed segments on the card and 4 consuming snapshots on
-             the host; the 13 SSB queries equal one offline segment of
-             the rows (itself equal to the numpy oracle), and the hybrid
-             lineorder (offline d_yearmonthnum <= 199506, realtime table)
-             equals them too; a full-upsert table (2^20 rows, 1 in 16
-             re-sending an earlier key) equals a numpy oracle of the
-             latest row per key before and after 2^18 updates that
-             invalidate documents of sealed segments whose valid masks
-             are already on the card; a dedup table (2^18 rows, 25%
-             repeated keys) counts the distinct keys; the consume loop
-             takes 2^19 more rows while 4 threads run the 13 queries,
+             device="cuda") at a flush threshold of 100,000 rows (200,000
+             at 2^21): 8 sealed segments on the card and 4 consuming
+             snapshots on the host; the 13 SSB queries equal one offline
+             segment of the rows (itself equal to the numpy oracle), and
+             the hybrid lineorder (offline d_yearmonthnum <= 199506,
+             realtime table) equals them too; a full-upsert table
+             (RT_ROWS / 2 rows, 1 in 16 re-sending an earlier key) equals
+             a numpy oracle of the latest row per key before and after
+             RT_ROWS / 8 updates that invalidate documents of sealed
+             segments whose valid masks are already on the card; a dedup
+             table (RT_ROWS / 8 rows, 25% repeated keys) counts the
+             distinct keys; the consume loop takes RT_ROWS / 4 more rows
+             while 4 threads run the 13 queries,
              each thread's COUNT(*) never falling and ending at the rows
              produced; tracked device bytes equal held; K1 held bitwise
              on every compact input of the realtime, hybrid and upsert
@@ -264,11 +267,67 @@ Phases, each printed as it runs; any failure exits non-zero:
              gauge), valid-mask bytes before and after the updates, p50
              per query on the realtime, offline and hybrid tables, the
              phase's seconds.
+19. overload (after drift) - the broker's overload plane
+             (broker/workload.py) and the device fault points
+             (utils/faults) on the loaded SSB tables: three tenants
+             (protected, standard, besteffort), each a table of its own
+             over the same single segment (no column uploaded twice); 32
+             clients send literal variants of q1.1, q3.1 and q4.1
+             (tools/ssb.CONCURRENT) in barrier waves, first serially for
+             the oracle, then pinned (governor.pin_rungs) at rungs 0, 1,
+             2 and 3, twice: every shed is an OverloadShedError whose
+             tenant, rung and retryAfterMs equal shed_decision /
+             retry_after_ms for its qid, both runs give the same shed
+             stream, protected is never shed and every admitted digest
+             equals the oracle's, rung >= 1 samples no trace (traceRatio
+             1) and widens the micro-batch window, rung 3 clamps every
+             admitted query's timeoutMs; then arm_default_signals
+             (inflight capacity 8, the port's device budget) under 4
+             waves: the rung rises, besteffort is shed, protected is
+             neither shed nor killed, and the rung is back at 0 within
+             2 s of the last wave (p50/p99 per tenant, sheds per rung).
+             Device faults, armed through FaultPlan: device.overflow at
+             p = 1 on the single segment (each compact query reruns at
+             full capacity once, compact_overflow_retries by as many,
+             digests unchanged, K1 bitwise on the full-capacity inputs,
+             kernel_at_overflow_path); tier.evict at p = 0.25 under the
+             tier budget on the 8 segments (digests, demotions with
+             reason "fault", tracked == held after each query);
+             accounting.oom_kill on one named query of 8 concurrent ones
+             (it raises QueryKilledError, the others' digests hold);
+             kill_most_expensive picks a besteffort query while a
+             protected one runs (host-path queries). In the star phase,
+             device.overflow at the site "multistage.fused" sends join_gb
+             to the mailbox plane with the oracle's rows, and no mailbox
+             outlives the phase (utils/leak). Printed: the accountant's
+             us per sample (the per-thread CPU clock read at each), the
+             phase's seconds, device bytes left;
+20. wire (last) - streaming from the wire: the flat lineorder with its
+             lineorder key in d_yearmonthnum order as JSON values;
+             WIRE_KAFKA_ROWS (2^19, PINOT_SMOKE_WIRE_ROWS) through
+             FakeKafkaBroker({"lineorder": 4}) (lo_orderkey % 4) and
+             KafkaProducer (batches of 4,096) into
+             RealtimeTableDataManager("lineorder_REALTIME") built from
+             consumer_factory_class="pinot_tpu_torch.realtime.kafka.
+             KafkaStream" at a flush threshold of 100,000, the manager
+             stopped after 13/16 of the rows and a new one resuming from
+             its checkpoints (no row lost or doubled): 4 sealed segments
+             on the card, 4 consuming snapshots, COUNT(*) the rows
+             produced, the 13 SSB digests the numpy oracle's over the
+             same rows; Pulsar, Kinesis (SigV4, 2 injected 500s) and the
+             wire stream (log_dir, its broker restarted on the same port
+             halfway) each 2^16 rows into 2 partitions at 25,000: COUNT(*),
+             SUM(lo_revenue), Q1.1 and Q2.1 equal an offline segment of
+             the rows; K1 bitwise on every compact input
+             (kernel_at_wire_path); tracked == held. Printed: rows/s
+             produced and consumed per plugin, seal ms, CRC32C MB/s from
+             the native library against the plain loop (which one ran).
 
 The SSB phases run at 2^25 rows by default (2^26 before the multi-stage
-phase was added), and the star schema at 2^23 orders rows (2^24 before
-the format, rollup and trace phases were added), so that the whole run
-fits its time limit.
+phase was added), the star schema at 2^23 orders rows (2^24 before
+the format, rollup and trace phases were added), and the realtime
+phase at 2^20 rows (2^21 before the wire and overload phases were
+added), so that the whole run fits its time limit.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, and without
@@ -1620,9 +1679,9 @@ def hooks_phase(single, segs, device: str = "cuda") -> None:
         for _ in range(HOOK_CALLS):
             fn()
         us[name] = (time.perf_counter() - t0) / HOOK_CALLS * 1e6
-    # one read of the per-thread CPU clock right after a query (the JAX
-    # package's accountant reads it at every sample point; the port's
-    # does not)
+    # one read of the per-thread CPU clock right after a query (the
+    # accountant reads it at every sample point, as the JAX package's
+    # does)
     after = []
     for _ in range(30):
         list(queries.values())[-1](sqls[0][1])
@@ -2356,6 +2415,7 @@ def multistage_phase(dirs, tables, live_segments=(),
 
     from pinot_tpu_torch.broker import connect
     from pinot_tpu_torch.tools import star
+    from pinot_tpu_torch.utils import leak
     from pinot_tpu_torch.utils.devmem import global_device_memory
 
     on_card = device.startswith("cuda")
@@ -2429,6 +2489,7 @@ def multistage_phase(dirs, tables, live_segments=(),
                           device_fn_ms_per_query=ev_ms, profile=prof)
     counts = _ms_counts()                # ... and ends here
     inputs = log["inputs"]
+    fused_fault = _fused_fault_check(query, oracle)
     # the tracing plane over the cheapest (shape, plane) once
     shape, plane = min(p50s, key=p50s.get)
     make = dict(star.SHAPES)[shape]
@@ -2447,14 +2508,51 @@ def multistage_phase(dirs, tables, live_segments=(),
                              "device bytes")
     _reconcile_or_fail(list(live_segments) + segments, "multistage")
     left = _left_on_card(on_card, base_mem, log)
+    mailboxes = leak.live("mailbox")
     phase("multistage_done", seconds=time.perf_counter() - t_start,
           launches={k: counts[k] for k in MS_KINDS},
           device_bytes_left=left, kept_inputs_bytes=_kept_bytes(log),
-          tracked_equals_held=True)
+          tracked_equals_held=True, fused_overflow_fault=fused_fault,
+          live_mailboxes=len(mailboxes))
+    if mailboxes:
+        raise AssertionError(f"mailboxes outlived the multistage phase: "
+                             f"{mailboxes[:4]}")
     if left > MEM_SLACK:
         raise AssertionError(f"{left} bytes left on the card after the "
                              "multistage phase")
     return {"launches": counts, "inputs": inputs}
+
+
+def _fused_fault_check(query, oracle) -> dict:
+    """``device.overflow`` at the site "multistage.fused" on join_gb on
+    the fused plane (its state cap would fit): the plan falls back to the
+    mailbox plane, once, with the oracle's rows."""
+    from pinot_tpu_torch.multistage import fused
+    from pinot_tpu_torch.tools import star
+    from pinot_tpu_torch.utils import faults
+
+    _name, _f, env, _n = MS_PLANES[0]
+    sql = dict(star.SHAPES)["join_gb"](0) + \
+        " OPTION(multistageFused=true,timeoutMs=600000)"
+    f0 = dict(fused.STATS)
+    plan = faults.install("seed=23; device.overflow: match=multistage.fused")
+    t0 = time.perf_counter()
+    try:
+        with _plane_env(env):
+            rows = _ms_rows(query(sql).rows)
+    finally:
+        faults.clear()
+    out = {"fired": [f["key"] for f in plan.fired],
+           "fused_fallbacks": fused.STATS["fused_fallbacks"]
+           - f0["fused_fallbacks"],
+           "fused_plans": fused.STATS["fused_plans"] - f0["fused_plans"],
+           "ms": (time.perf_counter() - t0) * 1e3,
+           "rows_equal": rows == oracle["join_gb"](0)}
+    phase("multistage_fused_fault", **out)
+    if not out["rows_equal"] or out["fired"] != ["multistage.fused"] or \
+            out["fused_fallbacks"] != 1:
+        raise AssertionError(f"device.overflow on the fused plane: {out}")
+    return out
 
 
 def _check_plane(shape, plane, delta, n_var, on_card) -> None:
@@ -5197,7 +5295,7 @@ def trace_phase(single, segs, rollup_query_fn, digests: dict,
 # realtime: consuming segments, seals onto the card, hybrid, upsert, dedup
 # ---------------------------------------------------------------------------
 
-RT_ROWS = int(os.environ.get("PINOT_SMOKE_RT_ROWS", 1 << 21))
+RT_ROWS = int(os.environ.get("PINOT_SMOKE_RT_ROWS", 1 << 20))
 RT_PARTITIONS = 4
 RT_THREADS = 4                   # query threads under consumption
 RT_BOUNDARY = 199506             # the hybrid's offline half: d_yearmonthnum <=
@@ -5209,10 +5307,10 @@ RT_LIVE_DEADLINE_S = 300.0
 
 
 def rt_sizes() -> dict:
-    """The realtime phase's sizes from RT_ROWS (2^21 by default): the
+    """The realtime phase's sizes from RT_ROWS (2^20 by default): the
     append table, its flush threshold (200,000 rows at 2^21, scaled with
-    the depth), the upsert table and its updates, the dedup table and
-    the rows streamed under consumption."""
+    the depth: 100,000 at 2^20), the upsert table and its updates, the
+    dedup table and the rows streamed under consumption."""
     return {"rows": RT_ROWS, "flush": round(200_000 * RT_ROWS / (1 << 21)),
             "upsert": RT_ROWS // 2, "updates": RT_ROWS // 8,
             "dedup": RT_ROWS // 8, "live": RT_ROWS // 4}
@@ -5767,6 +5865,898 @@ def realtime_phase(tile: int, live_segments=(), device: str = "cuda") -> int:
     return realtime_launches
 
 
+OVL_CLIENTS = 32                 # overload phase: clients per wave
+OVL_SHAPES = ("q1.1", "q3.1", "q4.1")
+OVL_TIERS = ("protected", "standard", "besteffort")
+OVL_RUNGS = (0, 1, 2, 3)         # the pinned waves' rungs, in order
+OVL_LIVE_WAVES = 4
+OVL_INFLIGHT = 8                 # arm_default_signals(inflight_capacity)
+OVL_SETTLE_S = 2.0               # the rung back at 0 within this
+OVL_KILL_QUERIES = 8             # concurrent queries, one oom-killed
+OVL_SAMPLE_CALLS = 2000
+
+
+def _full_capacity_k1(sql: str, label: str, seg) -> int:
+    """K1 at the capacity the forced overflow reruns at (one slot group a
+    row) on a compact query's own inputs, held to compact_reference
+    bitwise. Returns the inputs checked."""
+    from pinot_tpu_torch.ops import compact as C
+
+    cap = C.full_slots_cap(seg.bucket)
+    n = 0
+    for p in _plans(sql, [seg]):
+        if p.kind == "kernel" and p.kernel_plan.strategy == "compact":
+            mask, cols = _compact_inputs(p)
+            got = C.compact(mask, cols, cap)
+            same_outputs(got, C.compact_reference(mask, cols, cap))
+            phase("kernel_at_overflow_path", query=label, n=mask.shape[0],
+                  slots_cap=cap, matched=int(got[3]), equal=True)
+            n += 1
+    return n
+
+
+def _ovl_sql(w: int, k: int) -> tuple:
+    """Client k of wave w: (tier, shape, sql without options); the
+    literals vary with w * OVL_CLIENTS + k (tools/ssb.CONCURRENT)."""
+    from pinot_tpu_torch.tools import ssb
+
+    tier = OVL_TIERS[k % len(OVL_TIERS)]
+    shape = OVL_SHAPES[(k // len(OVL_TIERS)) % len(OVL_SHAPES)]
+    make = dict(ssb.CONCURRENT)[shape]
+    sql = make(w * OVL_CLIENTS + k).replace("FROM lineorder ",
+                                            f"FROM lineorder_{tier} ")
+    return tier, shape, sql
+
+
+def _ovl_opt(qid: str, extra: str = "") -> str:
+    return f" OPTION(timeoutMs=600000, queryId={qid}{extra})"
+
+
+def _ovl_wave(query, sqls: list) -> list:
+    """One barrier wave: each sql on its own thread; [(result or the
+    exception, ms)] in order."""
+    import threading
+
+    barrier = threading.Barrier(len(sqls))
+    out = [None] * len(sqls)
+
+    def worker(k):
+        barrier.wait(60)
+        t0 = time.perf_counter()
+        try:
+            res = query(sqls[k])
+        except Exception as e:  # noqa: BLE001 - checked by the caller
+            res = e
+        out[k] = (res, (time.perf_counter() - t0) * 1e3)
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(len(sqls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def _ovl_closed_loop(query, sqls: list) -> list:
+    """Closed-loop clients released together: client k sends
+    sqls[k][0], then each next one as soon as the last answers (arrivals
+    spread as production clients' do; a barrier wave's simultaneous
+    admissions all read the pressure from before any of them). Returns,
+    per client, [(result or the exception, ms)]."""
+    import threading
+
+    barrier = threading.Barrier(len(sqls))
+    out = [[] for _ in sqls]
+
+    def client(k):
+        barrier.wait(60)
+        for sql in sqls[k]:
+            t0 = time.perf_counter()
+            try:
+                res = query(sql)
+            except Exception as e:  # noqa: BLE001 - checked by the caller
+                res = e
+            out[k].append((res, (time.perf_counter() - t0) * 1e3))
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(len(sqls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def _ovl_pinned(query, broker, oracle: dict) -> list:
+    """The OVL_RUNGS waves under governor.pin_rungs: each shed is an
+    OverloadShedError equal to shed_decision / retry_after_ms for its
+    qid, each admitted query's digest equals the oracle's, rung >= 1
+    samples no trace and widens the batch window, rung 3 clamps every
+    admitted query's timeoutMs. Returns the shed stream."""
+    from pinot_tpu_torch.broker import workload as W
+    from pinot_tpu_torch.engine.ragged import global_batcher
+    from pinot_tpu_torch.tools import ssb
+
+    gw = W.global_workload
+    pins = {f"pin_{w}_{k}": rung for w, rung in enumerate(OVL_RUNGS)
+            for k in range(OVL_CLIENTS)}
+    gw.clear_shed_log()
+    gw.governor.pin_rungs(pins)
+    broker._trace_ratio = 1.0
+    try:
+        for w, rung in enumerate(OVL_RUNGS):
+            if global_batcher.window_scale != W.WINDOW_SCALE:
+                raise AssertionError("the pinned ladder did not widen the "
+                                     "micro-batch window")
+            c0 = _counters()
+            got = _ovl_wave(query, [
+                _ovl_sql(w, k)[2] + _ovl_opt(f"pin_{w}_{k}")
+                for k in range(OVL_CLIENTS)])
+            c1 = _counters()
+            admitted = 0
+            sheds = {}
+            for k, (res, _ms) in enumerate(got):
+                tier, shape, _sql = _ovl_sql(w, k)
+                qid, tenant = f"pin_{w}_{k}", f"ten_{tier}"
+                reason = W.shed_decision(qid, tenant, tier, rung)
+                if reason is not None:
+                    if not isinstance(res, W.OverloadShedError) or (
+                            res.tenant, res.rung, res.reason,
+                            res.retry_after_ms) != (
+                            tenant, rung, reason,
+                            W.retry_after_ms(qid, tenant, rung)):
+                        raise AssertionError(f"{qid} ({tier}, rung {rung}):"
+                                             f" expected shed {reason}, "
+                                             f"got {res!r}")
+                    sheds[tier] = sheds.get(tier, 0) + 1
+                    continue
+                if isinstance(res, Exception):
+                    raise AssertionError(f"{qid} ({tier}, rung {rung}): "
+                                         f"{type(res).__name__}: {res}")
+                if ssb._digest(res.rows) != oracle[(w % len(OVL_RUNGS),
+                                                    k)]:
+                    raise AssertionError(f"{qid} ({tier} {shape}): rows "
+                                         "differ from the oracle's")
+                admitted += 1
+            sampled = _delta(c1, c0, "sampled_traces")
+            clamped = _delta(c1, c0, "overload_brownout_clamped")
+            if sampled != (admitted if rung == 0 else 0):
+                raise AssertionError(f"rung {rung}: {sampled} traces "
+                                     f"sampled of {admitted} admitted")
+            if clamped != (admitted if rung == 3 else 0):
+                raise AssertionError(f"rung {rung}: {clamped} deadlines "
+                                     f"clamped of {admitted} admitted")
+            if sheds.get("protected"):
+                raise AssertionError(f"rung {rung}: protected shed")
+            phase("overload_pinned", rung=rung, admitted=admitted,
+                  shed=sheds, traces_sampled=sampled,
+                  deadlines_clamped=clamped,
+                  window_scale=global_batcher.window_scale,
+                  p50_ms=statistics.median(ms for _r, ms in got))
+    finally:
+        broker._trace_ratio = 0.0
+        gw.governor.unpin()
+    return gw.shed_stream()
+
+
+def _ovl_live(query, oracle: dict, devmem_budget: int) -> dict:
+    """arm_default_signals under the same 32 clients, closed loop, each
+    sending its OVL_LIVE_WAVES queries in turn: the rung rises above 0,
+    besteffort is shed, protected is neither shed nor killed (and its
+    digests are the oracle's), and the rung is back at 0 within
+    OVL_SETTLE_S of the last answer."""
+    import threading
+
+    from pinot_tpu_torch.broker import workload as W
+    from pinot_tpu_torch.engine.accounting import process_rss_bytes
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.utils.devmem import global_device_memory
+
+    gw = W.global_workload
+    gov = gw.governor
+    gov.POLL_S = 0.0                 # every admission reads the signals
+    W.arm_default_signals(gw, inflight_capacity=OVL_INFLIGHT,
+                          devmem_budget_bytes=devmem_budget)
+    idle = {"pressure": gov.pressure(), "rss_bytes": process_rss_bytes(),
+            "devmem_bytes": global_device_memory.snapshot()["total"][
+                "bytes"]}
+    c0 = _counters()
+    lat = {t: [] for t in OVL_TIERS}
+    shed_by_rung: dict = {}
+    shed_by_tier: dict = {}
+    peak = [0]
+    done = threading.Event()
+
+    def watch():                     # the most queries admitted at once
+        while not done.wait(0.001):
+            peak[0] = max(peak[0], gw.inflight())
+
+    watcher = threading.Thread(target=watch)
+    watcher.start()
+    try:
+        got = _ovl_closed_loop(query, [
+            [_ovl_sql(w, k)[2] + _ovl_opt(f"live_{w}_{k}")
+             for w in range(OVL_LIVE_WAVES)] for k in range(OVL_CLIENTS)])
+        t_end = time.perf_counter()
+        settle = None
+        while time.perf_counter() - t_end < OVL_SETTLE_S:
+            if gov.rung() == 0:
+                settle = time.perf_counter() - t_end
+                break
+            time.sleep(0.005)
+    finally:
+        done.set()
+        watcher.join()
+        for name in list(gov.snapshot()["signals"]):
+            gov.remove_signal(name)
+        del gov.POLL_S               # the class's poll interval again
+    for k, runs in enumerate(got):
+        for w, (res, ms) in enumerate(runs):
+            tier, shape, _sql = _ovl_sql(w, k)
+            if isinstance(res, W.OverloadShedError):
+                shed_by_rung[res.rung] = shed_by_rung.get(res.rung, 0) + 1
+                shed_by_tier[tier] = shed_by_tier.get(tier, 0) + 1
+                continue
+            if isinstance(res, Exception):       # a kill included
+                raise AssertionError(f"live {tier} {shape}: "
+                                     f"{type(res).__name__}: {res}")
+            if ssb._digest(res.rows) != oracle[(w, k)]:
+                raise AssertionError(f"live {tier} {shape}: rows differ "
+                                     "from the oracle's")
+            lat[tier].append(ms)
+    c1 = _counters()
+    entered = {r: _delta(c1, c0, f"overload_rung_enter_{r}")
+               for r in (1, 2, 3)}
+    out = {"idle": idle, "rung_entries": entered,
+           "peak_inflight": peak[0],
+           "shed_by_rung": shed_by_rung, "shed_by_tier": shed_by_tier,
+           "settle_s": settle,
+           "p50_ms": {t: _p(v, 50) if v else None for t, v in lat.items()},
+           "p99_ms": {t: _p(v, 99) if v else None for t, v in lat.items()},
+           "admitted": {t: len(v) for t, v in lat.items()}}
+    if not shed_by_tier.get("besteffort"):
+        raise AssertionError(f"live: besteffort was never shed: {out}")
+    if shed_by_tier.get("protected"):
+        raise AssertionError(f"live: protected was shed: {out}")
+    if not any(entered.values()):
+        raise AssertionError(f"live: the rung never rose above 0: {out}")
+    if settle is None:
+        raise AssertionError(f"live: the rung was not back at 0 within "
+                             f"{OVL_SETTLE_S} s: {out}")
+    return out
+
+
+def overload_phase(single, segs, digests: dict, tile: int,
+                   device: str = "cuda") -> int:
+    """The broker's overload plane and the device fault points on the SSB
+    tables already loaded: three tenants (protected, standard,
+    besteffort), each on a table of its own over the same loaded
+    segment (no column uploaded twice), 32 clients sending literal
+    variants of q1.1, q3.1 and q4.1 in barrier waves, pinned at rungs 0
+    to 3 twice (the same shed stream both times), then the live ladder
+    (arm_default_signals); device.overflow on the single segment's
+    compact queries, tier.evict under the tier budget on the 8 segments,
+    accounting.oom_kill on one of 8 concurrent queries, and the kill
+    order between tiers. Returns K1's launches on the path."""
+    import threading
+
+    import torch
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.broker import workload as W
+    from pinot_tpu_torch.engine import batch, pipeline
+    from pinot_tpu_torch.engine.accounting import (QueryKilledError,
+                                                   global_accountant)
+    from pinot_tpu_torch.engine.ragged import global_batcher
+    from pinot_tpu_torch.engine.tier import global_tier
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.spi import TableConfig
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.utils import faults
+    from pinot_tpu_torch.utils.devmem import global_device_memory
+
+    on_card = device.startswith("cuda")
+    t_start = time.perf_counter()
+    gw = W.global_workload
+    gw.reset()
+    global_batcher.configure(enabled=True, window_ms=WINDOW_MS,
+                             max_batch=OVL_CLIENTS)
+    live = [single] + list(segs)
+    for s in live:                       # a clean state
+        s.evict_device()
+    batch.clear_stack_cache()
+    global_cube_cache.clear()
+    _sync(device)
+    baseline = torch.cuda.memory_allocated() if on_card else 0
+    broker = Broker(device=device)
+    for tier in OVL_TIERS:
+        name = f"lineorder_{tier}"
+        dm = TableDataManager(name, device=device, table_config=TableConfig(
+            name, tenant=f"ten_{tier}"))
+        dm.add_segment(single)
+        broker.register_table(dm)
+        gw.set_tenant(f"ten_{tier}", tier=tier)
+    query = connect(broker)
+
+    # the oracle: every client's query once, serially, nothing armed
+    oracle = {}
+    for w in range(len(OVL_RUNGS)):
+        for k in range(OVL_CLIENTS):
+            oracle[(w, k)] = ssb._digest(query(
+                _ovl_sql(w, k)[2] + LONG_TIMEOUT).rows)
+    cols0 = sorted(single._device)
+    pool0 = global_device_memory.pool_bytes("segment_cols")
+    phase("overload_setup", tenants={f"ten_{t}": t for t in OVL_TIERS},
+          clients=OVL_CLIENTS, shapes=OVL_SHAPES,
+          oracle_queries=len(oracle),
+          resident_columns=[k[0] for k in cols0],
+          segment_cols_bytes=pool0)
+
+    C.launches = 0                       # the overload path starts here
+    stream = _ovl_pinned(query, broker, oracle)
+    again = _ovl_pinned(query, broker, oracle)
+    if again != stream or not stream:
+        raise AssertionError("a second pinned run gave another shed "
+                             "stream")
+    if sorted(single._device) != cols0 or \
+            global_device_memory.pool_bytes("segment_cols") != pool0:
+        raise AssertionError("the waves uploaded columns again")
+    phase("overload_shed_stream", sheds=len(stream),
+          same_on_second_run=True, first=stream[:4])
+    budget = pipeline.hbm_budget_bytes(single.device)
+    live_out = _ovl_live(query, oracle, budget)
+    phase("overload_live", devmem_budget_bytes=budget, **live_out)
+
+    # device.overflow on the single segment's compact queries
+    one = TableDataManager("lineorder", device=device)
+    one.add_segment(single)
+    b1 = Broker(device=device)
+    b1.register_table(one)
+    q1 = connect(b1)
+    specs = {qid: ssb.spec_to_sql(p, v, g) for qid, p, v, g in ssb.QUERIES}
+    compact = [qid for qid, sql in specs.items()
+               if any(p.kind == "kernel"
+                      and p.kernel_plan.strategy == "compact"
+                      for p in _plans(sql, [single]))]
+    r0 = _counters().get("compact_overflow_retries", 0)
+    plan = faults.install("seed=13; device.overflow: p=1")
+    try:
+        for qid, sql in specs.items():
+            res = q1(sql + _ovl_opt(f"ovf_{qid}"))
+            if ssb._digest(res.rows) != digests[qid]:
+                raise AssertionError(f"{qid}: a forced overflow changed "
+                                     "the rows")
+    finally:
+        faults.clear()
+    retries = _counters().get("compact_overflow_retries", 0) - r0
+    if retries != len(compact) or len(plan.fired) != len(compact):
+        raise AssertionError(f"device.overflow: {retries} reruns, "
+                             f"{len(plan.fired)} fired, for "
+                             f"{len(compact)} compact queries")
+    n_full = sum(_full_capacity_k1(specs[qid], qid, single)
+                 for qid in compact)
+    phase("overload_overflow", compact_queries=compact, reruns=retries,
+          fired=len(plan.fired), k1_full_capacity_checked=n_full)
+
+    # tier.evict under the tier budget on the 8 segments
+    for s in live:
+        s.evict_device()
+    batch.clear_stack_cache()
+    os.environ["PINOT_HBM_BUDGET_BYTES"] = str(TIER_BUDGET)
+    global_tier.configure(budget_bytes=TIER_BUDGET)
+    dm8 = TableDataManager("lineorder", device=device)
+    for s in segs:
+        dm8.add_segment(s)
+    b8 = Broker(device=device)
+    b8.register_table(dm8)
+    q8 = connect(b8)
+    d0, p0 = global_tier.demotions, global_tier.promotions
+    plan = faults.install("seed=17; tier.evict: p=0.25")
+    try:
+        for qid, sql in specs.items():
+            res = q8(sql + _ovl_opt(f"evict_{qid}"))
+            if ssb._digest(res.rows) != digests[qid]:
+                raise AssertionError(f"{qid}: tier.evict changed the rows")
+            _reconcile_or_fail(live, f"tier.evict {qid}")
+    finally:
+        faults.clear()
+        global_tier.configure(budget_bytes=None)
+        del os.environ["PINOT_HBM_BUDGET_BYTES"]
+    # no earlier phase demotes for a "fault": the log's (capped) tail
+    fault_demotions = sum(1 for d in global_tier.decisions
+                          if d[0] == "demote" and d[4] == "fault")
+    phase("overload_tier_evict", budget_bytes=TIER_BUDGET,
+          fired=len(plan.fired), fault_demotions=fault_demotions,
+          demotions=global_tier.demotions - d0,
+          promotions=global_tier.promotions - p0,
+          tracked_equals_held=True)
+    if fault_demotions == 0:
+        raise AssertionError("tier.evict demoted no segment")
+    for s in segs:
+        s.evict_device()
+    batch.clear_stack_cache()
+
+    # accounting.oom_kill on one of 8 concurrent queries
+    names = list(specs)[:OVL_KILL_QUERIES]
+    victim = f"kill_{names[3]}"
+    faults.install(f"seed=19; accounting.oom_kill: match={victim}")
+    try:
+        got = _ovl_wave(q1, [specs[q] + _ovl_opt(f"kill_{q}")
+                             for q in names])
+    finally:
+        faults.clear()
+    for qid, (res, _ms) in zip(names, got):
+        if f"kill_{qid}" == victim:
+            if not isinstance(res, QueryKilledError):
+                raise AssertionError(f"{victim} was not killed: {res!r}")
+        elif isinstance(res, Exception) or \
+                ssb._digest(res.rows) != digests[qid]:
+            raise AssertionError(f"{qid} beside the killed query: {res!r}")
+
+    # the kill order: besteffort before protected, while both run
+    host = " OPTION(timeoutMs=600000, forceHostExecution=true, " \
+        "queryId={q})"
+    q11 = specs["q1.1"]
+    order = None
+    for attempt in range(3):
+        outs = {}
+        ids = {t: f"order_{t}_{attempt}" for t in ("protected",
+                                                  "besteffort")}
+
+        def run(tier):
+            sql = q11.replace("FROM lineorder ", f"FROM lineorder_{tier} ")
+            try:
+                outs[tier] = query(sql + host.format(q=ids[tier]))
+            except Exception as e:  # noqa: BLE001 - checked below
+                outs[tier] = e
+
+        threads = [threading.Thread(target=run, args=(t,)) for t in ids]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            running = {u.query_id for u in global_accountant.running()}
+            if set(ids.values()) <= running:
+                order = global_accountant.kill_most_expensive(
+                    "overload phase: kill order")
+                break
+            if not any(t.is_alive() for t in threads):
+                break
+            time.sleep(0.0005)
+        for t in threads:
+            t.join()
+        if order is not None:
+            break
+    if order != ids["besteffort"]:
+        raise AssertionError(f"kill_most_expensive picked {order}, not "
+                             "the besteffort query")
+    prot = outs["protected"]
+    if isinstance(prot, Exception) or \
+            ssb._digest(prot.rows) != digests["q1.1"]:
+        raise AssertionError(f"the protected query beside the kill: "
+                             f"{prot!r}")
+    phase("overload_kills", oom_victim=victim, others_equal=True,
+          kill_order_victim=order,
+          besteffort_raised=type(outs["besteffort"]).__name__
+          if isinstance(outs["besteffort"], Exception) else None)
+    overload_launches = C.launches       # ... and ends here
+
+    # the accountant's cost per sample, the CPU clock read at each
+    global_accountant.register("overload_sample_timing")
+    try:
+        global_accountant.sample()
+        t0 = time.perf_counter()
+        for _ in range(OVL_SAMPLE_CALLS):
+            global_accountant.sample()
+        sample_us = (time.perf_counter() - t0) / OVL_SAMPLE_CALLS * 1e6
+    finally:
+        global_accountant.unregister("overload_sample_timing")
+    gw.reset()
+    _reconcile_or_fail(live, "overload")
+    for s in live:
+        s.evict_device()
+    global_cube_cache.clear()
+    batch.clear_stack_cache()
+    _sync(device)
+    left = (torch.cuda.memory_allocated() - baseline) if on_card else 0
+    phase("overload_done", seconds=time.perf_counter() - t_start,
+          compact_launches=overload_launches, device_bytes_left=left,
+          accountant_sample_us=sample_us, tracked_equals_held=True)
+    if left > MEM_SLACK:
+        raise AssertionError(f"{left} bytes left on the card after the "
+                             "overload phase")
+    return overload_launches
+
+
+WIRE_KAFKA_ROWS = int(os.environ.get("PINOT_SMOKE_WIRE_ROWS", 1 << 19))
+WIRE_KAFKA_PARTS = 4
+WIRE_PARTS = 2
+WIRE_BATCH = 4096                      # rows a Produce request
+WIRE_RESTART_SHARE = 13 / 16           # Kafka rows consumed before restart
+WIRE_CRC_BYTES = 64 << 20              # CRC32C timed over this many bytes
+WIRE_CRC_PLAIN_BYTES = 1 << 20         # ... and the plain loop over these
+
+
+def wire_sizes() -> dict:
+    """The wire phase's sizes from WIRE_KAFKA_ROWS (2^19 by default):
+    Kafka's rows and flush threshold (100,000 at 2^19), and the rows and
+    flush threshold of each other plugin's table (2^16 and 25,000),
+    scaled with the depth."""
+    scale = WIRE_KAFKA_ROWS / (1 << 19)
+    return {"kafka_rows": WIRE_KAFKA_ROWS,
+            "kafka_flush": round(100_000 * scale),
+            "rows": WIRE_KAFKA_ROWS // 8, "flush": round(25_000 * scale)}
+
+
+def _wire_crc() -> dict:
+    """CRC32C's rate: the native library against the reference's loop."""
+    import numpy as np
+
+    from pinot_tpu_torch import native
+
+    buf = np.random.default_rng(5).integers(
+        0, 256, WIRE_CRC_BYTES, dtype=np.uint8).tobytes()
+    route = native.crc32c_route()
+    t0 = time.perf_counter()
+    got = native.crc32c(buf)
+    native_s = time.perf_counter() - t0
+    head = buf[:WIRE_CRC_PLAIN_BYTES]
+    t0 = time.perf_counter()
+    plain = native.crc32c_plain(head)
+    plain_s = time.perf_counter() - t0
+    if native.crc32c(head) != plain:
+        raise AssertionError("native CRC32C differs from the plain loop")
+    if native.crc32c(buf, route="tables") != got:
+        raise AssertionError("CRC32C's two native routes differ")
+    return {"route": route, "native_mb_s": len(buf) / native_s / 1e6,
+            "plain_mb_s": len(head) / plain_s / 1e6,
+            "native_bytes": len(buf), "plain_bytes": len(head)}
+
+
+def _wire_parts(rows: list, parts: int) -> list:
+    """Rows split by lo_orderkey % parts, each part in stream order."""
+    out = [[] for _ in range(parts)]
+    for r in rows:
+        out[r["lo_orderkey"] % parts].append(r)
+    return out
+
+
+def _wire_manager(name: str, schema, data_dir: str, device: str,
+                  fresh: bool = True, **stream):
+    """A realtime table over the "lineorder" topic; ``stream`` are the
+    StreamConfig's fields (partitions, flush threshold, consumer)."""
+    from pinot_tpu_torch.realtime import (RealtimeTableDataManager,
+                                          StreamConfig)
+
+    if fresh:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    return RealtimeTableDataManager(
+        name, schema, StreamConfig("lineorder", **stream), data_dir,
+        device=device)
+
+
+def _seal_stats(seal_ms: list) -> dict:
+    return {"seals": len(seal_ms),
+            "seal_ms_p50": statistics.median(seal_ms) if seal_ms else None,
+            "seal_ms_max": max(seal_ms) if seal_ms else None}
+
+
+def _wire_consume(dm, parts: int) -> dict:
+    """consume_once on every partition, timed (seals included)."""
+    n_seals = len(dm.commit_latencies())
+    t0 = time.perf_counter()
+    rows = sum(dm.consume_once(p) for p in range(parts))
+    secs = time.perf_counter() - t0
+    return {"rows": rows, "seconds": secs,
+            "rows_per_s": rows / secs if secs else None,
+            **_seal_stats(dm.commit_latencies()[n_seals:])}
+
+
+def _wire_sealed(dm) -> list:
+    return [s for s in dm.acquire_segments()
+            if not getattr(s, "is_mutable", False)]
+
+
+WIRE_CHECKS = {
+    "count": "SELECT COUNT(*) FROM {t}",
+    "sum_revenue": "SELECT SUM(lo_revenue) FROM {t}",
+}
+
+
+def _wire_small_sqls(table: str) -> dict:
+    from pinot_tpu_torch.tools import ssb
+
+    out = {k: v.format(t=table) for k, v in WIRE_CHECKS.items()}
+    for qid, p, v, g in ssb.QUERIES:
+        if qid in ("q1.1", "q2.1"):
+            out[qid] = _rt_sql((p, v, g), table)
+    return {k: v + LONG_TIMEOUT for k, v in out.items()}
+
+
+def wire_phase(tile: int, live_segments=(), device: str = "cuda") -> int:
+    """Streaming from the wire: the flat SSB lineorder with its lineorder
+    key, in d_yearmonthnum order, as JSON values (sizes: wire_sizes()).
+    (a) Kafka: 2^19 rows into FakeKafkaBroker({"lineorder": 4}) by
+    lo_orderkey % 4, produced by KafkaProducer in batches of 4,096 and
+    consumed by RealtimeTableDataManager("lineorder_REALTIME",
+    device=device) through consumer_factory_class=
+    "pinot_tpu_torch.realtime.kafka.KafkaStream" at a flush threshold of
+    100,000 rows: the first manager stops after 13/16 of the rows (past
+    each partition's first seal) and a second one on the same data
+    directory resumes from the checkpoints and takes the rest; 4 sealed
+    segments on the card and 4 consuming snapshots; COUNT(*) equals the
+    rows produced and the 13 SSB digests equal tools/ssb's oracle over
+    the same rows (one offline segment). (b) Pulsar, Kinesis (SigV4
+    credentials, 2 injected 500s) and the wire stream (a log_dir; its
+    broker restarted on the same port halfway through) each take 2^16
+    rows into a 2-partition table at a flush threshold of 25,000: COUNT(*), SUM(lo_revenue), Q1.1 and Q2.1 equal an offline
+    segment of the same rows. K1 held bitwise on every compact input of
+    these tables (kernel_at_wire_path); tracked device bytes equal held.
+    Returns K1's launches on the path."""
+    import gc as _gc
+
+    import numpy as np
+
+    from pinot_tpu_torch import native
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.realtime import kafka, kinesis, pulsar, wirestream
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import ssb
+
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+    crc = _wire_crc()
+    phase("wire_crc32c", **crc)
+    if on_card and crc["route"] == "plain":
+        raise AssertionError("the native CRC32C did not load on the card "
+                             "machine")
+    z = wire_sizes()
+    out = os.path.join(CACHE, f"wire_{WIRE_KAFKA_ROWS}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    cols = ssb.gen_columns(z["kafka_rows"])
+    cols.update(ssb.gen_lineorder_keys(z["kafka_rows"]))
+    schema = ssb.keyed_schema(cols)
+    order = np.argsort(cols["d_yearmonthnum"], kind="stable")
+    cols = ssb.take_rows(cols, order)
+    rows = ssb.row_dicts(cols)
+    _gc.freeze()
+    small_cols = ssb.take_rows(cols, np.arange(z["rows"]))
+    want = _rt_oracle(cols, os.path.join(out, "oracle"))
+    off_dm = TableDataManager("lineorder_offline", device=device)
+    offline_small = _rt_segment(small_cols, out, "offline_small", device)
+    off_dm.add_segment(offline_small)
+    off_broker = Broker(device=device)
+    off_broker.register_table(off_dm)
+    want_small = {k: ssb._digest(connect(off_broker)(sql).rows)
+                  for k, sql in _wire_small_sqls(
+                      "lineorder_offline").items()}
+    phase("wire_setup", **z,
+          seconds=time.perf_counter() - t0,
+          cuts=[f"{z['kafka_rows']} lineorder rows through Kafka and "
+                f"{z['rows']} through each other plugin (SSB SF10 has "
+                f"{SSB_SF10_ROWS}), for the check's time: the fake brokers "
+                "and the clients share one interpreter"])
+
+    sealed_all: list = []
+    plans: dict = {}
+    rates: dict = {}
+    C.launches = 0                       # the wire path starts here
+
+    # (a) Kafka, with a restart
+    broker = kafka.FakeKafkaBroker({"lineorder": WIRE_KAFKA_PARTS})
+    try:
+        parts = _wire_parts(rows, WIRE_KAFKA_PARTS)
+        cut = [int(len(p) * WIRE_RESTART_SHARE) for p in parts]
+        prod = kafka.KafkaProducer("127.0.0.1", broker.port)
+        produce_s = 0.0
+
+        def produce(lo_hi):
+            nonlocal produce_s
+            t0 = time.perf_counter()
+            for p, part in enumerate(parts):
+                lo, hi = lo_hi(p)
+                for a in range(lo, hi, WIRE_BATCH):
+                    prod.produce_many("lineorder", p,
+                                      part[a:min(a + WIRE_BATCH, hi)])
+            produce_s += time.perf_counter() - t0
+
+        def manager(fresh):
+            return _wire_manager(
+                "lineorder_REALTIME", schema, os.path.join(out, "kafka"),
+                device, fresh, num_partitions=WIRE_KAFKA_PARTS,
+                flush_threshold_rows=z["kafka_flush"],
+                consumer_factory_class=(
+                    "pinot_tpu_torch.realtime.kafka.KafkaStream"),
+                consumer_factory_args={"topic": "lineorder",
+                                       "port": broker.port})
+
+        produce(lambda p: (0, cut[p]))
+        dm = manager(True)
+        first = _wire_consume(dm, WIRE_KAFKA_PARTS)
+        kafka_seals = list(dm.commit_latencies())
+        state = {p: dict(dm._partition_state(p))
+                 for p in range(WIRE_KAFKA_PARTS)}
+        for s in _wire_sealed(dm):
+            s.evict_device()
+        del dm                           # stopped: its consuming rows
+        _gc.collect()                    # were never sealed
+        produce(lambda p: (cut[p], len(parts[p])))
+        dm = manager(False)
+        restarted = {"sealed_segments": dm.num_segments,
+                     "checkpoints": {p: dm._partition_state(p)[
+                         "next_offset"] for p in range(WIRE_KAFKA_PARTS)}}
+        if restarted["sealed_segments"] != first["seals"] or any(
+                restarted["checkpoints"][p] != state[p]["next_offset"]
+                for p in state):
+            raise AssertionError(f"kafka restart did not resume from the "
+                                 f"checkpoints: {restarted} vs {state}")
+        second = _wire_consume(dm, WIRE_KAFKA_PARTS)
+        kafka_seals += dm.commit_latencies()
+        prod.close()
+    finally:
+        broker.stop()
+    n_kafka = len(rows)
+    if dm.total_docs + dm.consuming_docs != n_kafka:
+        raise AssertionError(f"kafka: {dm.total_docs} + "
+                             f"{dm.consuming_docs} docs != {n_kafka} rows")
+    consumed = first["rows"] + second["rows"]
+    secs = first["seconds"] + second["seconds"]
+    rates["kafka"] = {"produced_rows_per_s": n_kafka / produce_s,
+                      "consumed_rows_per_s": consumed / secs,
+                      "rows_consumed": consumed,
+                      "re_consumed_after_restart": consumed - n_kafka,
+                      **_seal_stats(kafka_seals)}
+    phase("wire_ingest", plugin="kafka", rows=n_kafka, produce_s=produce_s,
+          before_restart=first, after_restart=second, restart=restarted,
+          sealed_segments=dm.num_segments,
+          consuming_docs=dm.consuming_docs, **rates["kafka"])
+    b = Broker(device=device)
+    b.register_table(dm)
+    count = connect(b)("SELECT COUNT(*) FROM lineorder_REALTIME"
+                       + LONG_TIMEOUT).rows[0][0]
+    if count != n_kafka:
+        raise AssertionError(f"kafka: COUNT(*) {count} != {n_kafka}")
+    p50 = {"kafka": _rt_serve(b, "lineorder_REALTIME", dm, want,
+                              "wire_kafka", plans)}
+    sealed_all += _wire_sealed(dm)
+
+    # (b) Pulsar, Kinesis, the wire stream
+    small = ssb.row_dicts(small_cols)
+    parts = _wire_parts(small, WIRE_PARTS)
+    for plugin in ("pulsar", "kinesis", "wire"):
+        table = f"lineorder_{plugin}"
+        data_dir = os.path.join(out, plugin)
+        extra = {}
+        t0 = time.perf_counter()
+        if plugin == "pulsar":
+            topics = [f"lineorder-partition-{p}" for p in range(WIRE_PARTS)]
+            broker = pulsar.FakePulsarBroker(topics)
+            prod = pulsar.PulsarProducer("127.0.0.1", broker.port)
+            for p, part in enumerate(parts):
+                prod.send_many(topics[p], part)
+            prod.close()
+            factory = pulsar.PulsarStream("lineorder", port=broker.port,
+                                          partitions=WIRE_PARTS)
+        elif plugin == "kinesis":
+            broker = kinesis.FakeKinesisServer(
+                {"lineorder": WIRE_PARTS}, access_key="AKWIRE",
+                secret_key="wire-secret")
+            for p, part in enumerate(parts):
+                broker.put("lineorder", p, part)
+            factory = kinesis.KinesisStream(
+                "lineorder", broker.endpoint_url, access_key="AKWIRE",
+                secret_key="wire-secret")
+        else:
+            log_dir = os.path.join(out, "wire_log")
+            broker = wirestream.WireBroker(num_partitions=WIRE_PARTS,
+                                           log_dir=log_dir)
+            port = broker.port
+            prod = wirestream.WireProducer("127.0.0.1", port)
+            for p, part in enumerate(parts):
+                half = part[:len(part) // 2]
+                for a in range(0, len(half), WIRE_BATCH):
+                    prod.produce_many(half[a:a + WIRE_BATCH], partition=p)
+            prod.close()
+            factory = wirestream.WireStream("127.0.0.1", port)
+        produce_s = time.perf_counter() - t0
+        try:
+            dm = _wire_manager(table, schema, data_dir, device,
+                               num_partitions=WIRE_PARTS,
+                               flush_threshold_rows=z["flush"],
+                               consumer_factory=factory)
+            if plugin == "kinesis":
+                broker.inject_failures(2)
+            got = _wire_consume(dm, WIRE_PARTS)
+            if plugin == "kinesis" and broker.fail_next != 0:
+                raise AssertionError("kinesis: the injected 500s were not "
+                                     "met")
+            if plugin == "wire":
+                broker.stop()            # restarted on the same port
+                broker = wirestream.WireBroker(num_partitions=WIRE_PARTS,
+                                               port=port, log_dir=log_dir)
+                latest = []
+                for p in range(WIRE_PARTS):
+                    c = wirestream.WireStreamConsumer("127.0.0.1", port, p,
+                                                      10.0)
+                    latest.append(c.latest_offset())
+                    c.close()
+                extra["restarted_latest"] = latest
+                if extra["restarted_latest"] != [
+                        len(part) // 2 for part in parts]:
+                    raise AssertionError("wire: the restarted broker lost "
+                                         "its log")
+                t0 = time.perf_counter()
+                prod = wirestream.WireProducer("127.0.0.1", port)
+                for p, part in enumerate(parts):
+                    rest = part[len(part) // 2:]
+                    for a in range(0, len(rest), WIRE_BATCH):
+                        prod.produce_many(rest[a:a + WIRE_BATCH],
+                                          partition=p)
+                prod.close()
+                produce_s += time.perf_counter() - t0
+                more = _wire_consume(dm, WIRE_PARTS)
+                got = {"rows": got["rows"] + more["rows"],
+                       "seconds": got["seconds"] + more["seconds"],
+                       **_seal_stats(dm.commit_latencies())}
+        finally:
+            broker.stop()
+        if got["rows"] != z["rows"]:
+            raise AssertionError(f"{plugin}: consumed {got['rows']} rows "
+                                 f"of {z['rows']}")
+        rates[plugin] = {"produced_rows_per_s": z["rows"] / produce_s,
+                         "consumed_rows_per_s": got["rows"]
+                         / got["seconds"],
+                         **_seal_stats(dm.commit_latencies())}
+        phase("wire_ingest", plugin=plugin, rows=got["rows"],
+              produce_s=produce_s, consume_s=got["seconds"],
+              sealed_segments=dm.num_segments,
+              consuming_docs=dm.consuming_docs, **rates[plugin], **extra,
+              produced_by=("the fixture's direct append (one PutRecord "
+                           "request a row is not the path under test)"
+                           if plugin == "kinesis" else "the protocol's "
+                           "producer client"))
+        b = Broker(device=device)
+        b.register_table(dm)
+        query = connect(b)
+        times = {}
+        for k, sql in _wire_small_sqls(table).items():
+            t0 = time.perf_counter()
+            res = query(sql)
+            times[k] = (time.perf_counter() - t0) * 1e3
+            if ssb._digest(res.rows) != want_small[k]:
+                raise AssertionError(f"{plugin} {k}: rows differ from the "
+                                     "offline segment's")
+        _rt_plans(b, table, f"wire_{plugin}", plans)
+        p50[plugin] = times
+        sealed_all += _wire_sealed(dm)
+        phase("wire_query", plugin=plugin, ok=True, ms=times)
+    wire_launches = C.launches           # ... and ends here
+    if wire_launches == 0:
+        raise AssertionError("the wire path never launched the "
+                             "compaction")
+
+    n_checked = _rt_k1(plans, "kernel_at_wire_path", tile, on_card)
+    if n_checked == 0:
+        raise AssertionError("no compact input on the wire path")
+    _reconcile_or_fail(list(live_segments) + sealed_all + [offline_small],
+                       "wire")
+    for s in sealed_all + [offline_small]:
+        s.evict_device()
+    phase("wire_done", seconds=time.perf_counter() - t_phase,
+          compact_launches=wire_launches, k1_checked=n_checked,
+          rates=rates, crc32c=crc, p50_ms=p50, tracked_equals_held=True,
+          native_built=native.available())
+    shutil.rmtree(out, ignore_errors=True)
+    _gc.unfreeze()
+    return wire_launches
+
+
 def main() -> int:
     import torch
 
@@ -5795,6 +6785,7 @@ def main() -> int:
     hooks_phase(single, segs)
     tier_launches = tier_phase(segs, single, digests, multi_p50, tile)
     drift_launches = drift_phase(single)
+    overload_launches = overload_phase(single, segs, digests, tile)
     builds = start_builds(seg_dir, table_dir)
     format_launches = format_phase(seg_dir, builds, digests, tile)
     rollup_launches, rollup_query_fn, rollup_segs = rollup_phase(
@@ -5819,6 +6810,7 @@ def main() -> int:
     geo_launches = geo_phase(tile, [single, surface_seg, *segs])
     vsearch = vector_phase([single, surface_seg, *segs])
     realtime_launches = realtime_phase(tile, [single, surface_seg, *segs])
+    wire_launches = wire_phase(tile, [single, surface_seg, *segs])
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "compact",
@@ -5828,7 +6820,8 @@ def main() -> int:
         "launches": launches + seg_launches + concurrent_launches
         + tier_launches + drift_launches + statement_launches
         + geo_launches + format_launches + rollup_launches
-        + trace_launches + realtime_launches,
+        + trace_launches + realtime_launches + overload_launches
+        + wire_launches,
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -5852,6 +6845,8 @@ def main() -> int:
         "rollup_launches": rollup_launches,
         "trace_launches": trace_launches,
         "realtime_launches": realtime_launches,
+        "overload_launches": overload_launches,
+        "wire_launches": wire_launches,
         **{f"segmented_{k}": v for k, v in seg_totals.items()},
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
@@ -5868,8 +6863,11 @@ def main() -> int:
               "phase's, the format phase's (BITPACK and COMPRESSED "
               "copies), the rollup phase's (queries answered from "
               "rollups), the trace phase's (EXPLAIN ANALYZE, "
-              "OPTION(trace=true)) and the realtime phase's (sealed, "
-              "hybrid, upserted and consuming tables)"}, {
+              "OPTION(trace=true)), the realtime phase's (sealed, "
+              "hybrid, upserted and consuming tables), the overload "
+              "phase's (tenant waves, forced overflow reruns, tier.evict, "
+              "the kills) and the wire phase's (tables fed by Kafka, "
+              "Pulsar, Kinesis and the wire stream)"}, {
         "name": "segscan",
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/segscan.cu",

@@ -35,11 +35,19 @@ and renders the tree (``query/explain.finalize_analyze``, with the
 id into a span tree, counted in ``sampled_traces``. A star-tree rollup
 answers a matching aggregation on both halves of a hybrid table too.
 
+Overload admission, as the reference's (``broker/workload.py``): each
+user query is admitted once (``OPTION(queryId=...)`` names it) before
+any planning, under the tenant of its left-most table (``TableConfig.
+tenant``); a plan-only EXPLAIN is never admitted. A shed raises
+``OverloadShedError`` (a ``SqlError`` carrying ``retryAfterMs``); rung 3
+clamps the query's ``timeoutMs`` (``clamp_brownout``), and rung 1 and up
+skip ``traceRatio`` sampling. The accountant's registration carries the
+tenant, tier and SQL text.
+
 What differs from the reference: a trace's persistence to a ledger
 (``OPTION(ledgerTrace=true)``, a trace-ledger path) needs
 ``utils/ledger``, which the port does not have yet, and raises
-``NotImplementedError``; workload admission and mesh-resident tables are
-not ported.
+``NotImplementedError``; mesh-resident tables are not ported.
 """
 from __future__ import annotations
 
@@ -79,6 +87,8 @@ from ..utils.spans import sample_decision, span, span_tracer
 from ..utils.trace import Tracing
 from .quota import QueryQuotaManager
 from .routing import resolve_time_column, split_hybrid, time_boundary
+from .workload import (clamp_brownout, global_workload, leaf_table,
+                       parse_retry_attempt)
 
 DEFAULT_TIMEOUT_MS = 10_000
 DEFAULT_TRACE_RATIO = 0.0
@@ -178,6 +188,9 @@ class Broker:
         # expanded into CTEs at reference time (_expand_views)
         self._views: Dict[str, Any] = {}
         self.quota = QueryQuotaManager()
+        # overload protection (broker/workload.py): per-tenant budgets
+        # and the degradation ladder, process-global like the accountant
+        self.workload = global_workload
         # traceRatio sampling: constructor, then PINOT_TRACE_RATIO, then
         # off; OPTION(traceRatio=...) overrides it per query
         self._trace_ratio = default_trace_ratio(trace_ratio)
@@ -191,6 +204,11 @@ class Broker:
         cfg = dm.table_config
         if cfg is not None and getattr(cfg, "quota_qps", None):
             self.quota.set_quota(dm.table_name, cfg.quota_qps)
+        if cfg is not None:
+            # the workload tenant from the TableConfig; tables without
+            # one charge the default tenant
+            self.workload.set_table_tenant(dm.table_name,
+                                           getattr(cfg, "tenant", None))
 
     def table(self, name: str) -> TableDataManager:
         if name not in self._tables:
@@ -217,19 +235,38 @@ class Broker:
         stmt = parse_sql(sql)
         if isinstance(stmt, DdlStmt):
             return self._execute_ddl(stmt, t0)
+        stmt._raw_sql = sql
         opts = getattr(stmt, "options", {}) or {}
         # OPTION(queryId=...) lets replicas and retries of one logical
-        # query agree on the sampling decision
+        # query agree on the sampling and shed decisions
         qid = str(opts.get("queryId") or _new_query_id())[:64]
-        # traceRatio sampling: plan-only EXPLAIN and EXPLAIN ANALYZE never
-        # sample; the decision is deterministic in the query id
-        # (utils/spans.sample_decision) and costs nothing when unsampled
-        if not getattr(stmt, "analyze", False) and \
-                not getattr(stmt, "explain", False):
-            ratio = parse_trace_ratio(opts, self._trace_ratio)
-            if ratio > 0 and sample_decision(qid, ratio):
-                return self._execute_sampled(stmt, sql, t0, qid)
-        return self._execute_stmt(stmt, t0)
+        # overload admission, once per user query (nested CTE, subquery
+        # and set-operation statements run under this ticket); a
+        # plan-only EXPLAIN is never admitted, EXPLAIN ANALYZE is. A shed
+        # raises OverloadShedError here, before any planning
+        ticket = None
+        if not getattr(stmt, "explain", False) or \
+                getattr(stmt, "analyze", False):
+            ticket = self.workload.admit(
+                qid, leaf_table(stmt),
+                retry_attempt=parse_retry_attempt(opts))
+            if ticket.brownout:
+                # rung 3: clamp to the floor deadline, partial results
+                clamp_brownout(stmt.options, DEFAULT_TIMEOUT_MS)
+        try:
+            # traceRatio sampling: plan-only EXPLAIN and EXPLAIN ANALYZE
+            # never sample, nor does a query admitted at rung 1 or up;
+            # the decision is deterministic in the query id
+            # (utils/spans.sample_decision) and costs nothing unsampled
+            if not getattr(stmt, "analyze", False) and \
+                    not getattr(stmt, "explain", False) and \
+                    not (ticket is not None and ticket.degraded):
+                ratio = parse_trace_ratio(opts, self._trace_ratio)
+                if ratio > 0 and sample_decision(qid, ratio):
+                    return self._execute_sampled(stmt, sql, t0, qid)
+            return self._execute_stmt(stmt, t0)
+        finally:
+            self.workload.release(ticket)
 
     def _execute_sampled(self, stmt, sql: str, t0: float,
                          qid: str) -> ResultTable:
@@ -371,12 +408,19 @@ class Broker:
                        or _new_query_id())[:64]
         timeout_ms = int(stmt.options.get("timeoutMs", DEFAULT_TIMEOUT_MS))
         deadline = t0 + timeout_ms / 1e3
+        # the tenant rides the accountant's registration: the tier-aware
+        # kill order and the post-paid budgets (observe at unregister)
+        # read it there
+        tenant, tier = self.workload.resolve(stmt.table)
+        raw_sql = getattr(stmt, "_raw_sql", None)
         if self._is_hybrid(stmt.table):
             if is_multistage(stmt):
                 raise SqlError("joins/window functions over hybrid "
                                "tables are not supported yet; query the "
                                "_OFFLINE/_REALTIME tables directly")
-            global_accountant.register(query_id, deadline=deadline)
+            global_accountant.register(query_id, deadline=deadline,
+                                       tenant=tenant, tier=tier,
+                                       sql=raw_sql)
             try:
                 return self._execute_hybrid(stmt, t0)
             finally:
@@ -386,7 +430,9 @@ class Broker:
             # the v2 engine, registered with the accountant like any query
             if stmt.explain:
                 return explain_multistage(self, stmt)
-            global_accountant.register(query_id, deadline=deadline)
+            global_accountant.register(query_id, deadline=deadline,
+                                       tenant=tenant, tier=tier,
+                                       sql=raw_sql)
             try:
                 return execute_multistage(self, stmt)
             finally:
@@ -394,7 +440,9 @@ class Broker:
         ctx = build_query_context(stmt)
         trace_on = _truthy(ctx.options.get("trace"))
         scope = Tracing.register(query_id, trace_on)
-        global_accountant.register(query_id, deadline=deadline)
+        global_accountant.register(query_id, deadline=deadline,
+                                   tenant=tenant, tier=tier,
+                                   sql=raw_sql)
         try:
             result = self._execute_ctx(ctx, stmt, t0, deadline, query_id)
         finally:

@@ -11,16 +11,16 @@ turns a deadline kill into ``QueryTimeoutError``; the cross-query
 micro-batcher (engine/ragged.py) reads ``running()`` to decide whether
 any peer exists to fuse with.
 
-Left out (ROADMAP Queue 3): the fault plane's ``accounting.oom_kill``
-point inside ``sample`` and the tenant budgets fed from ``unregister``
-(``broker/workload.py``), neither of which the port has; without a
-workload manager a query has no tenant or tier, and
-``kill_most_expensive`` ranks every running query alike. The SQL text
-the JAX package keeps for its compile forensics is not kept either, nor
-the per-thread CPU time it adds up at every sample point: the port has
-no consumer for it, and on the H100's host a per-thread CPU clock read
-costs tens of microseconds in the middle of a query (chip_smoke.py's
-``hooks`` phase prints it), ten reads a query on 8 segments.
+As the reference: a query carries its tenant, tier and SQL text; every
+sample point adds the thread's CPU time (``time.thread_time``) to the
+query, which the tenant's CPU-ms bucket reads at ``unregister``
+(``broker/workload.global_workload.observe``, with the tracked result
+bytes); ``kill_most_expensive`` takes its victim from the least protected
+tier that has a running query; and ``sample`` is the
+``accounting.oom_kill`` fault point (``utils/faults``), which kills the
+sampling query as the heap watcher would. One read of the per-thread CPU
+clock costs tens of microseconds on the H100's host (chip_smoke.py's
+``hooks`` phase prints the accountant's cost per sample).
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..query.sql import SqlError
+from ..utils import faults
 from ..utils.metrics import global_metrics
 
 
@@ -56,17 +57,37 @@ def process_rss_bytes() -> int:
         return 0
 
 
+def system_memory_bytes() -> int:
+    try:
+        with open("/proc/meminfo") as fh:
+            for line in fh:
+                if line.startswith("MemTotal:"):
+                    return int(line.split()[1]) * 1024
+    except (OSError, IndexError, ValueError):
+        pass
+    return 0
+
+
 @dataclass
 class QueryUsage:
     query_id: str
     start: float = field(default_factory=time.perf_counter)
     deadline: Optional[float] = None
+    cpu_s: float = 0.0
     mem_bytes: int = 0
     killed_reason: Optional[str] = None
+    # the query's SQL text where the registration point has it
+    sql: Optional[str] = None
+    # workload isolation (broker/workload.py): the owning tenant and its
+    # tier; the kill order sheds besteffort before standard before
+    # protected, and unregister debits the tenant's post-paid buckets
+    tenant: Optional[str] = None
+    tier: Optional[str] = None
     # fused dispatches this query rode (engine/ragged.py) and the largest
     # batch it shared
     batched_dispatches: int = 0
     max_batch_size: int = 0
+    _thread_cpu0: Dict[int, float] = field(default_factory=dict)
 
     @property
     def wall_s(self) -> float:
@@ -87,20 +108,29 @@ class ResourceAccountant:
         self._by_thread: Dict[int, str] = {}
 
     # -- registration ------------------------------------------------------
-    def register(self, query_id: str,
-                 deadline: Optional[float] = None) -> QueryUsage:
-        u = QueryUsage(query_id, deadline=deadline)
+    def register(self, query_id: str, deadline: Optional[float] = None,
+                 tenant: Optional[str] = None,
+                 tier: Optional[str] = None,
+                 sql: Optional[str] = None) -> QueryUsage:
+        u = QueryUsage(query_id, deadline=deadline, tenant=tenant,
+                       tier=tier, sql=sql)
+        tid = threading.get_ident()
         with self._lock:
             self._by_query[query_id] = u
-            self._by_thread[threading.get_ident()] = query_id
+            self._by_thread[tid] = query_id
+        u._thread_cpu0[tid] = time.thread_time()
         return u
 
     def attach_thread(self, query_id: str) -> None:
         """A worker thread executing on behalf of a query calls this so
-        its sample points check that query."""
+        its sample points check (and its CPU time counts to) that
+        query."""
+        tid = threading.get_ident()
         with self._lock:
             if query_id in self._by_query:
-                self._by_thread[threading.get_ident()] = query_id
+                self._by_thread[tid] = query_id
+                self._by_query[query_id]._thread_cpu0[tid] = \
+                    time.thread_time()
 
     def unregister(self, query_id: str) -> Optional[QueryUsage]:
         with self._lock:
@@ -108,6 +138,12 @@ class ResourceAccountant:
             for tid in [t for t, q in self._by_thread.items()
                         if q == query_id]:
                 del self._by_thread[tid]
+        if u is not None and u.tenant:
+            # post-paid tenant budgets: the CPU time and result bytes
+            # tracked here debit the tenant's buckets, outside our lock
+            # (the workload manager takes its own)
+            from ..broker.workload import global_workload
+            global_workload.observe(u)
         return u
 
     def usage(self, query_id: str) -> Optional[QueryUsage]:
@@ -125,13 +161,28 @@ class ResourceAccountant:
 
     # -- hot-loop hooks ----------------------------------------------------
     def sample(self) -> None:
-        """Call between per-segment launches: raises if the query this
-        thread runs was killed or is past its deadline."""
+        """Call between per-segment launches: adds this thread's CPU time
+        to the query it runs, and raises if that query was killed or is
+        past its deadline. The ``accounting.oom_kill`` fault point kills
+        it here as the heap watcher would (site key "": a stream per
+        owning query, so ``match=<queryId>`` names one query)."""
+        tid = threading.get_ident()
+        t = time.thread_time()
         with self._lock:
-            qid = self._by_thread.get(threading.get_ident())
+            qid = self._by_thread.get(tid)
             u = self._by_query.get(qid) if qid else None
+            if u is not None:
+                t0 = u._thread_cpu0.get(tid, t)
+                u.cpu_s += max(t - t0, 0.0)
+                u._thread_cpu0[tid] = t
         if u is None:
             return
+        if u.killed_reason is None and faults.fault_fires(
+                "accounting.oom_kill", detail=u.query_id):
+            u.killed_reason = ("injected heap pressure "
+                               "(fault accounting.oom_kill)")
+            global_metrics.count("queries_killed")
+            global_metrics.count("queries_killed_oom")
         if u.killed_reason is not None:
             raise QueryKilledError(
                 f"query {u.query_id} killed: {u.killed_reason}")
@@ -190,11 +241,16 @@ class ResourceAccountant:
         return True
 
     def kill_most_expensive(self, reason: str) -> Optional[str]:
-        """Flag the running query with the highest ``cost`` (none of the
-        reference's tenant tiers: every query is untiered here)."""
+        """Flag the running query with the highest ``cost`` among the
+        least protected tier that has a running query: a ``protected``
+        tenant's query dies only when nothing less protected runs."""
+        from ..broker.workload import tier_shed_rank
         candidates = [u for u in self.running() if u.killed_reason is None]
         if not candidates:
             return None
+        lowest = min(tier_shed_rank(u.tier) for u in candidates)
+        candidates = [u for u in candidates
+                      if tier_shed_rank(u.tier) == lowest]
         victim = max(candidates, key=QueryUsage.cost)
         victim.killed_reason = reason
         global_metrics.count("queries_killed")

@@ -31,6 +31,7 @@ from ..query.planner import (AggBinding, CompiledPlan, SegmentPlanner,
                              _truthy)
 from ..query.sql import Star
 from ..segment.immutable import ImmutableSegment
+from ..utils import faults
 from ..utils.metrics import global_metrics
 from ..utils.spans import (annotate, device_fence, span,
                            tracing_active)
@@ -250,7 +251,12 @@ def run_kernel(plan: CompiledPlan,
                 params=plan.params)
             annotate(matched=matched,
                      meas_sel=matched / max(seg.n_docs, 1))
-        if int(host.pop("overflow", 0)):
+        # the device.overflow fault point forces the overflow rerun on a
+        # kernel that reports overflow (the full-capacity rerun gives the
+        # same rows)
+        forced_overflow = "overflow" in host and \
+            faults.fault_fires("device.overflow", key=seg.name)
+        if int(host.pop("overflow", 0)) or forced_overflow:
             global_plan_cache.mark_overflowed(kp, seg.bucket, cap)
             global_metrics.count("compact_overflow_retries")
             cap = full_slots_cap(seg.bucket)

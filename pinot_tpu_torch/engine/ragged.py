@@ -41,10 +41,10 @@ What differs from the JAX package:
   ``WHERE b < 5``) share a spec there and the second is answered from
   the first one's cube (ROADMAP Queue 3);
 - no jit, so no kernel registry or retrace detector: the cube and
-  combine closures are built per dispatch (a few Python objects); the
-  overload governor's window scaling is not ported. The spans are the
-  reference's (``ragged_dispatch``, ``cube_build``, ``fused_execute``,
-  with the same annotations).
+  combine closures are built per dispatch (a few Python objects). The
+  overload governor's ``window_scale`` widens the window as the
+  reference's does. The spans are the reference's (``ragged_dispatch``,
+  ``cube_build``, ``fused_execute``, with the same annotations).
 """
 from __future__ import annotations
 
@@ -457,6 +457,10 @@ class RaggedBatcher:
         self.max_batch = max_batch
         self.enabled = (default_enabled()
                         if enabled is None else bool(enabled))
+        # the overload governor's rung >= 1 widens the admission window
+        # (broker/workload.OverloadGovernor._apply): fewer, fuller fused
+        # dispatches while speculative work is shed
+        self.window_scale = 1.0
         self.queue = MicroBatchQueue()
         self._lock = threading.Lock()
         self._est_ms: Dict[Any, float] = {}
@@ -524,7 +528,7 @@ class RaggedBatcher:
                 return self._solo("incompatible")
         qid = global_accountant.current_query_id()
         key = (spec, bucket, group_sig)
-        window_ms = self.window_ms
+        window_ms = self.window_ms * self.window_scale
         usage = global_accountant.usage(qid) if qid else None
         if usage is not None and usage.deadline is not None:
             rem_ms = (usage.deadline - time.perf_counter()) * 1e3

@@ -32,10 +32,11 @@ group IS the whole hot set can overshoot until the next admission. The
 default budget is unbounded (env var absent), and warm host copies are
 only kept while a budget is armed.
 
-``on_access`` is a hook on every column read and group dispatch. The JAX
-package fires its fault plane's ``tier.evict`` point there; the fault
-plane is not ported, so the hook does nothing unless a test replaces it
-to force a demotion mid-query.
+``on_access`` is a hook on every column read and group dispatch: the
+fault plane's ``tier.evict`` point (``utils/faults``, site key the
+segment's name) fires there and demotes the segment mid-query with
+reason ``"fault"``; the query re-promotes it through ``device_col`` and
+gives the same rows. One ``is None`` check when no plan is installed.
 
 Counters and gauges: ``tier_promotions`` / ``tier_demotions`` and the
 occupancy gauges (``tier_hot_bytes`` etc.) in ``utils/metrics``.
@@ -48,6 +49,7 @@ import weakref
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Set, Tuple
 
+from ..utils import faults
 from ..utils.devmem import POOLS, global_device_memory, nbytes_of
 from ..utils.heat import global_segment_heat
 from ..utils.metrics import global_metrics
@@ -209,10 +211,11 @@ class TierManager:
 
     def on_access(self, segment) -> None:
         """Hook on every column read (segment/immutable.device_col) and
-        group dispatch (engine/batch). Does nothing here; the JAX package
-        fires its fault plane's ``tier.evict`` point in this place, and a
-        test replaces it to force a demotion mid-query (the query must
-        re-promote and give the same rows)."""
+        group dispatch (engine/batch): under a fault plan the
+        ``tier.evict`` point forces a demotion mid-query (the query then
+        re-promotes and must give the same rows)."""
+        if faults.fault_fires("tier.evict", key=segment.name):
+            self.demote(segment, TIER_WARM, reason="fault")
 
     def demote(self, segment, to: str = TIER_WARM,
                reason: str = "") -> bool:

@@ -2,7 +2,8 @@
 
 Port of ``pinot_tpu/multistage/exchange.py``: the in-process mailboxes
 only (the networked transport, ``multistage/dispatch.py``, stays with the
-cluster package), and without the leak tracker's registration.
+cluster package); a mailbox registers with the leak tracker
+(``utils/leak``, kind "mailbox") as the reference's does.
 
 Reference parity: pinot-query-runtime/.../mailbox/MailboxService.java:38
 (GrpcSendingMailbox / InMemorySendingMailbox / ReceivingMailbox; gRPC bidi
@@ -20,6 +21,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import leak
 from .relation import Relation
 
 EOS = object()  # end-of-stream marker (MetadataBlock EOS analog)
@@ -27,6 +29,7 @@ EOS = object()  # end-of-stream marker (MetadataBlock EOS analog)
 
 class ReceivingMailbox:
     def __init__(self, mailbox_id: str):
+        leak.track(self, "mailbox", mailbox_id)
         self.mailbox_id = mailbox_id
         self._q: "queue.Queue[Any]" = queue.Queue()
 

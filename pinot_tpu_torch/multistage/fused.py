@@ -24,7 +24,9 @@ the host into a run table, so the join body is pure gathers) when the
 joint key domain is at most ``PINOT_FUSED_MAX_CSR``, else ``sort`` (the
 K16 sort + bounded-run probe inside the chain). The reference's ``hash``
 kind (a bucket exchange across devices) needs more than one device and
-is not ported, nor is its ``device.overflow`` fault point.
+is not ported. The ``device.overflow`` fault point (site
+``"multistage.fused"``) forces the fallback below, as a bucket overflow
+would.
 
 Fallback: any ineligibility (non-equi outer joins, key-cardinality or
 state-size overflow) returns None and the executor re-runs the plan
@@ -42,6 +44,7 @@ import torch
 from ..analysis.plan_verify import check_fused_plan
 from ..ops import ir
 from ..ops.join import device_equi_join
+from ..utils import faults
 from ..utils import phases as ph
 from ..utils.spans import span
 from ..utils.stats import make_bump
@@ -394,6 +397,14 @@ def execute_fused(ex, ordered_joins: Sequence[Any],
             fsp.annotate(stages=[(s.kind, s.max_dup) for s in stages],
                          partitions=plan.partitions,
                          base_rows=plan.base_rows)
+
+        if faults.fault_fires("device.overflow", "multistage.fused"):
+            # a forced bucket overflow takes the real fallback edge: the
+            # mailbox plane serves the query
+            bump("fused_fallbacks")
+            if fsp is not None:
+                fsp.annotate(fallback="device.overflow")
+            return None
 
         device = ex.broker.device
         with span(ph.FUSED_EXECUTE, partitions=plan.partitions) as esp:

@@ -18,6 +18,13 @@ builder then writes ZLIB and names it). The failed full build is
 remembered beside its target, so only the first process pays for it.
 ``build_log()`` returns what the compiler printed. This is host code; it
 does not go through ``nvcc``.
+
+The port's library adds ``crc32c`` (Castagnoli), the checksum of Kafka's
+RecordBatch v2 and Pulsar's payload frames, on the SSE4.2 instruction
+where the host has it, else on slicing-by-8 tables; ``crc32c`` here calls
+it and falls back to the reference's table loop (``crc32c_plain``) when
+the library cannot load, like the codecs' numpy fallbacks.
+``crc32c_route()`` says which one runs.
 """
 from __future__ import annotations
 
@@ -129,6 +136,10 @@ def load() -> Optional[ctypes.CDLL]:
             fn.argtypes = [p_u8, c_i64, p_u8, c_i64]
         lib.compress_bound.restype = c_i64
         lib.compress_bound.argtypes = [c_i64]
+        lib.crc32c.restype = ctypes.c_uint32
+        lib.crc32c.argtypes = [ctypes.c_char_p, c_i64, ctypes.c_int]
+        lib.crc32c_route.restype = ctypes.c_int
+        lib.crc32c_route.argtypes = []
         _lib, _zstd = lib, zstd
         return _lib
 
@@ -164,6 +175,52 @@ def _codec_fn(lib: ctypes.CDLL, codec: str, op: str):
                            "header or library is missing); codec 'ZSTD' "
                            "is unavailable")
     return getattr(lib, f"{name}_{op}_chunk")
+
+
+# ---------------------------------------------------------------------------
+# CRC32C (Castagnoli): the record-batch and payload-frame checksum
+# ---------------------------------------------------------------------------
+
+def _make_crc32c_table() -> List[int]:
+    poly = 0x82F63B78
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ poly if c & 1 else c >> 1
+        table.append(c)
+    return table
+
+
+_CRC32C_TABLE = _make_crc32c_table()
+
+
+def crc32c_plain(data: bytes) -> int:
+    """The reference's byte loop (``pinot_tpu/realtime/kafka.crc32c``)."""
+    c = 0xFFFFFFFF
+    for b in data:
+        c = _CRC32C_TABLE[(c ^ b) & 0xFF] ^ (c >> 8)
+    return c ^ 0xFFFFFFFF
+
+
+def crc32c(data: bytes, route: Optional[str] = None) -> int:
+    """CRC32C of ``data`` (bytes-like). ``route`` None takes the library's
+    best ("sse42" or "tables") and the plain loop without a library;
+    "tables" forces the library's slicing-by-8 path (tests compare it)."""
+    lib = load()
+    if lib is None:
+        return crc32c_plain(data)
+    if not isinstance(data, bytes):
+        data = bytes(data)
+    return int(lib.crc32c(data, len(data), 0 if route == "tables" else -1))
+
+
+def crc32c_route() -> str:
+    """Which CRC32C runs: "sse42", "tables" (both native) or "plain"."""
+    lib = load()
+    if lib is None:
+        return "plain"
+    return "sse42" if lib.crc32c_route() else "tables"
 
 
 # ---------------------------------------------------------------------------

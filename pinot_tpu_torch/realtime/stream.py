@@ -2,7 +2,9 @@
 
 Port of ``pinot_tpu/realtime/stream.py``. ``InMemoryStream.produce_many``
 appends each partition's rows under one hold of its lock instead of one
-hold a row; the offsets each row gets are the same.
+hold a row; the offsets each row gets are the same. ``decode_json_values``
+is the port's own: the wire consumers decode a fetched batch's JSON
+values in one call.
 
 Reference parity: pinot-spi/.../spi/stream/{StreamConsumerFactory.java,
 PartitionGroupConsumer.java, MessageBatch.java, StreamPartitionMsgOffset
@@ -19,6 +21,7 @@ classes against their client libraries.
 """
 from __future__ import annotations
 
+import json
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
@@ -42,6 +45,16 @@ def consume_faults(key: str) -> None:
     from ..utils import faults
     if faults.active():
         faults.fault_point("stream.error", key)
+
+
+def decode_json_values(values: List[bytes]) -> List[Any]:
+    """JSON message values -> rows, in one ``json.loads`` over a JSON
+    array of them: the rows each ``json.loads(value)`` gives, at a
+    fraction of the per-call cost. The wire consumers' default decoder
+    (the reference decodes value by value)."""
+    if not values:
+        return []
+    return json.loads(b"[" + b",".join(values) + b"]")
 
 
 @dataclass

@@ -30,6 +30,7 @@ from .. import native
 from ..device import resolve_device
 from ..engine.tier import global_tier
 from ..spi.schema import DataType, Schema
+from ..utils import leak
 from ..utils.devmem import global_device_memory
 from ..utils.heat import global_segment_heat
 from . import segdir
@@ -134,6 +135,7 @@ class ImmutableSegment:
             bits = np.asarray(segdir.read_array(seg_dir, "valid.bin",
                                                 np.uint8, mmap=False))
             self.valid_docs = np.unpackbits(bits)[: self.n_docs].astype(bool)
+        leak.track(self, "segment", self.name)
 
     @classmethod
     def load(cls, seg_dir: str,

@@ -25,6 +25,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import leak
+
 V3_FILE = "columns.psf"
 V3_MAP = "index_map.json"
 METADATA_FILE = "metadata.json"
@@ -63,6 +65,7 @@ def _load_map(seg_dir: str) -> Tuple[np.memmap, Dict[str, List[int]]]:
         index_map = json.load(fh)
     packed = np.memmap(os.path.join(seg_dir, V3_FILE), dtype=np.uint8,
                        mode="r")
+    leak.track(packed, "segdir_mmap", seg_dir)
     with _CACHE_LOCK:
         _CACHE[seg_dir] = (packed, index_map, mtime)
         _CACHE.move_to_end(seg_dir)

@@ -5,6 +5,13 @@ two stream consumers of the port (``inmemory``, ``filelog``); the
 reference's ``localfs`` names ``spi/filesystem``, which comes with the
 cluster plane.
 
+A dotted name under the JAX package (``pinot_tpu.``) resolves to the
+port's module of the same path under ``pinot_tpu_torch.``, so table
+configs written for the reference (``consumer_factory_class=
+"pinot_tpu.realtime.kafka.KafkaStream"``) run unchanged and the port
+never imports the JAX package; a path the port lacks raises
+``KeyError`` naming the port's path.
+
 Reference parity: pinot-spi/.../spi/plugin/PluginManager.java —
 `createInstance(className)` is the substitution point that makes every
 SPI pluggable (stream consumers, filesystems, metrics backends, query
@@ -44,12 +51,37 @@ def resolve_class(name: str) -> Type:
         raise KeyError(f"unknown plugin {name!r}; registered: "
                        f"{sorted(_REGISTRY)}")
     module_name, _, cls_name = name.rpartition(".")
-    module = importlib.import_module(module_name)
+    port_name = port_module_name(module_name)
+    if port_name != module_name:
+        try:
+            module = importlib.import_module(port_name)
+        except ModuleNotFoundError as e:
+            if e.name is None or not (port_name + ".").startswith(
+                    e.name + "."):
+                raise          # the module exists; an import inside failed
+            raise KeyError(f"the port has no module {port_name!r} (for "
+                           f"{name!r})") from None
+        module_name = port_name
+    else:
+        module = importlib.import_module(module_name)
     try:
         return getattr(module, cls_name)
     except AttributeError:
         raise KeyError(f"module {module_name!r} has no class "
                        f"{cls_name!r}") from None
+
+
+_REFERENCE = "pinot_tpu"
+_PORT = __name__.split(".")[0]
+
+
+def port_module_name(module_name: str) -> str:
+    """The port's module for a module path under the JAX package (same
+    path under ``pinot_tpu_torch``); any other path unchanged."""
+    head, dot, rest = module_name.partition(".")
+    if head == _REFERENCE:
+        return _PORT + dot + rest
+    return module_name
 
 
 def create_instance(name: str, *args: Any, **kwargs: Any) -> Any:

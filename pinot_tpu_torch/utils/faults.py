@@ -3,11 +3,13 @@
 Port of ``pinot_tpu/utils/faults.py``, whole: the registry, the plan
 grammar, the per-stream decisions (``_unit`` hashes with ``hashlib``, so
 one seed fires at the same sites in both packages) and the inline
-effects. In the port only the ingest family has call sites so far
+effects. In the port the ingest family has its call sites
 (``realtime/stream.consume_faults``, ``realtime/manager.py``,
-``upsert/metadata.py``); ``tier.evict``, ``device.overflow`` and
-``accounting.oom_kill`` wait for their sites in the engine, and the RPC,
-wire, commit-protocol, handoff and rebalance points for the cluster
+``upsert/metadata.py``) and so do the device points: ``tier.evict``
+(``engine/tier.on_access``), ``device.overflow`` (``engine/executor``'s
+compact rerun and ``multistage/fused``'s fallback) and
+``accounting.oom_kill`` (``engine/accounting.sample``); the RPC, wire,
+commit-protocol, handoff and rebalance points wait for the cluster
 plane.
 
 Reference parity: the reference exercises its ConnectionFailureDetector,

@@ -3,8 +3,13 @@
 Port of ``pinot_tpu/utils/metrics.py``: counters, gauges with their ages,
 timers, ``snapshot``, the Prometheus rendering (``prometheus``,
 ``render_prometheus``) and the ``ingest_health`` / ``overload_health``
-blocks, which read whichever of their counters the port increments (the
-realtime and overload planes are not ported yet, so theirs read 0).
+blocks under the reference's names (the overload plane counts
+``overload_shed``, ``overload_shed_rung_<r>``, ``overload_shed_<reason>``,
+``tenant_shed_<tenant>``, ``tenant_admitted_<tenant>``,
+``overload_brownout_clamped``, ``overload_retries_suppressed``,
+``overload_rung_enter_<r>`` and gauges ``overload_rung``,
+``overload_pressure``, ``tenant_inflight_<tenant>``; the scheduler's
+``scheduler_rejected`` comes with the cluster plane and reads 0).
 ``clear`` is the port's own (its tests reset the process-global
 registry).
 Reference parity: pinot-common/.../metrics/AbstractMetrics.java +

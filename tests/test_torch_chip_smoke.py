@@ -310,3 +310,103 @@ def test_realtime_phase_on_cpu(tmp_path, monkeypatch):
     assert held == {"offline", "realtime", "hybrid", "live",
                     "upsert_before", "upsert_after"}
     assert upsert["count"] == upsert["keys"]
+
+
+def _counting_compact(monkeypatch):
+    """The compaction's plain version, counted as launches."""
+    from pinot_tpu_torch.ops import compact
+
+    real = compact.compact
+
+    def counted(*a, **k):
+        compact.launches += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(compact, "compact", counted)
+
+
+def test_wire_phase_on_cpu(tmp_path, monkeypatch):
+    """The wire phase end to end on the CPU at 2^13 Kafka rows: the
+    Kafka table resumes from the checkpoints of its first manager (past
+    each partition's first seal) with no row lost or doubled, every
+    plugin's table answers as the offline rows, K1 launched on the path
+    and held on every compact input of it."""
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from test_torch_tier import reset_port_memory
+
+    reset_port_memory()
+    _counting_compact(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "WIRE_KAFKA_ROWS", 1 << 13)
+    monkeypatch.setattr(chip_smoke, "WIRE_CRC_BYTES", 1 << 16)
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda label, **f: printed.append((label, f)))
+    try:
+        launches = chip_smoke.wire_phase(4096, device="cpu")
+    finally:
+        global_cube_cache.clear()
+    assert launches > 0
+    ingest = {f["plugin"]: f for label, f in printed
+              if label == "wire_ingest"}
+    assert sorted(ingest) == ["kafka", "kinesis", "pulsar", "wire"]
+    kafka = ingest["kafka"]
+    assert kafka["restart"]["sealed_segments"] == 4
+    assert kafka["sealed_segments"] == 4 and kafka["consuming_docs"] > 0
+    assert kafka["rows_consumed"] - kafka["rows"] == \
+        kafka["re_consumed_after_restart"] > 0
+    assert ingest["wire"]["restarted_latest"]
+    assert {f["plugin"] for label, f in printed
+            if label == "wire_query"} == {"pulsar", "kinesis", "wire"}
+    held = {f["query"].split(":")[0] for label, f in printed
+            if label == "kernel_at_wire_path"}
+    assert held == {"wire_kafka", "wire_pulsar", "wire_kinesis",
+                    "wire_wire"}
+    crc = dict(printed)["wire_crc32c"]
+    assert crc["route"] in ("sse42", "tables", "plain")
+
+
+def test_overload_phase_on_cpu(tmp_path, monkeypatch):
+    """The overload phase end to end on the CPU over a 2^14-row SSB
+    segment and the same rows in 8 segments: pinned sheds equal to the
+    pure ladder's twice over, the live ladder sheds besteffort and
+    settles, each device fault keeps the rows, the kill order prefers
+    besteffort."""
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.tools import ssb
+    from test_torch_tier import reset_port_memory
+
+    n = 1 << 14
+    single = load_segment(ssb.build_segment_dir(n, str(tmp_path / "one")),
+                          "cpu")
+    table = ssb.build_table_dir([n // 8] * 8, str(tmp_path / "eight"))
+    segs = [load_segment(os.path.join(table, d), "cpu")
+            for d in sorted(os.listdir(table))]
+    digests = {qid: ssb._digest(ssb.oracle_run(single, p, v, g)[0])
+               for qid, p, v, g in ssb.QUERIES}
+    reset_port_memory([single] + segs)
+    _counting_compact(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "TIER_BUDGET", sum(
+        s.bucket * 4 * len(s.columns) for s in segs) // 9)
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda label, **f: printed.append((label, f)))
+    try:
+        launches = chip_smoke.overload_phase(single, segs, digests, 4096,
+                                             device="cpu")
+    finally:
+        global_cube_cache.clear()
+        reset_port_memory([single] + segs)
+    assert launches > 0
+    got = dict(printed)
+    pinned = [f for label, f in printed if label == "overload_pinned"]
+    assert [f["rung"] for f in pinned] == [0, 1, 2, 3] * 2
+    assert pinned[3]["deadlines_clamped"] == pinned[3]["admitted"] > 0
+    assert got["overload_shed_stream"]["same_on_second_run"]
+    assert got["overload_live"]["shed_by_tier"].get("besteffort")
+    assert got["overload_overflow"]["reruns"] == \
+        len(got["overload_overflow"]["compact_queries"]) > 0
+    assert got["overload_tier_evict"]["fault_demotions"] > 0
+    assert got["overload_kills"]["kill_order_victim"].startswith(
+        "order_besteffort")

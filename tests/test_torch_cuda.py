@@ -1922,3 +1922,139 @@ def test_upsert_invalidation_after_upload_on_card(cuda, tmp_path):
                 s.evict_device()
     assert got["cuda"] == got["cpu"]
     assert got["cuda"][0] != got["cuda"][1]
+
+
+def test_kafka_fed_table_on_card_holds_k1(cuda, tmp_path):
+    """A realtime table fed through the Kafka protocol (the port's fake
+    broker and consumer) seals segments on the card that answer the SSB
+    queries as the same table on the CPU, and every compact input of
+    theirs gives K1's plain version's outputs bitwise."""
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.realtime import (RealtimeTableDataManager,
+                                          StreamConfig)
+    from pinot_tpu_torch.realtime.kafka import (FakeKafkaBroker,
+                                                KafkaProducer, KafkaStream)
+
+    cols = _rt_cols(30_000)
+    rows = ssb.row_dicts(cols)
+    schema = ssb.keyed_schema(cols)
+    kafka = FakeKafkaBroker({"lineorder": 2})
+    try:
+        prod = KafkaProducer("127.0.0.1", kafka.port)
+        for p in range(2):
+            part = [r for r in rows if r["lo_orderkey"] % 2 == p]
+            for lo in range(0, len(part), 4096):
+                prod.produce_many("lineorder", p, part[lo:lo + 4096])
+        prod.close()
+        got = {}
+        for dev in ("cuda", "cpu"):
+            before = C.launches
+            dm = RealtimeTableDataManager(
+                "lineorder", schema, StreamConfig(
+                    "lineorder", num_partitions=2, flush_threshold_rows=6_000,
+                    consumer_factory=KafkaStream("lineorder",
+                                                 port=kafka.port)),
+                str(tmp_path / dev), device=dev)
+            for p in range(2):
+                dm.consume_once(p)
+            assert dm.num_segments >= 4
+            b = Broker(device=dev)
+            b.register_table(dm)
+            got[dev] = _ssb_rows(connect(b))
+            if dev == "cuda":
+                assert C.launches > before
+                assert _held_k1(dm) > 0
+                for s in dm.acquire_segments():
+                    if not getattr(s, "is_mutable", False):
+                        s.evict_device()
+        assert got["cuda"] == got["cpu"]
+    finally:
+        kafka.stop()
+
+
+def _fault_table(tmp_path, dev, n_segs):
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.server import TableDataManager
+
+    d = ssb.build_table_dir([1 << 16] * n_segs, str(tmp_path / f"t{n_segs}"))
+    dm = TableDataManager("lineorder", device=dev)
+    dm.add_table_dir(d)
+    b = Broker(device=dev)
+    b.register_table(dm)
+    return dm, connect(b)
+
+
+def test_forced_overflow_on_card(cuda, tmp_path):
+    """``device.overflow`` at p = 1 on one segment on the card: each
+    compact query reruns at full capacity once, with the rows it gives
+    unarmed, and K1 holds bitwise on the full-capacity inputs."""
+    import chip_smoke
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.utils import faults
+    from pinot_tpu_torch.utils.metrics import global_metrics
+
+    dm, query = _fault_table(tmp_path, "cuda", 1)
+    opt = " OPTION(timeoutMs=600000, groupByStrategy=compact)"
+    sqls = {qid: ssb.spec_to_sql(p, v, g) + opt
+            for qid, p, v, g in ssb.QUERIES if g}
+    want = {qid: query(sql).rows for qid, sql in sqls.items()}
+    r0 = global_metrics.snapshot()["counters"].get(
+        "compact_overflow_retries", 0)
+    plan = faults.install("seed=1; device.overflow: p=1")
+    try:
+        for qid, sql in sqls.items():
+            assert query(sql).rows == want[qid], qid
+    finally:
+        faults.clear()
+    assert len(plan.fired) == len(sqls)
+    assert global_metrics.snapshot()["counters"][
+        "compact_overflow_retries"] == r0 + len(sqls)
+    seg = dm.acquire_segments()[0]
+    for sql in sqls.values():
+        for p in chip_smoke._plans(sql, [seg]):
+            if p.kind == "kernel" and p.kernel_plan.strategy == "compact":
+                mask, cols = chip_smoke._compact_inputs(p)
+                cap = C.full_slots_cap(seg.bucket)
+                chip_smoke.same_outputs(C.compact(mask, cols, cap),
+                                        C.compact_reference(mask, cols, cap))
+    seg.evict_device()
+
+
+def test_tier_evict_mid_query_on_card(cuda, tmp_path):
+    """``tier.evict`` at p = 0.25 under a budget on a four-segment table
+    on the card: the rows equal the unarmed rows, segments are demoted
+    with reason ``fault`` mid-query and come back, and the tracked device
+    bytes equal the tensors held after every query."""
+    from pinot_tpu_torch.engine import batch
+    from pinot_tpu_torch.engine.tier import global_tier, reconcile_devmem
+    from pinot_tpu_torch.utils import faults
+    from pinot_tpu_torch.utils.devmem import global_device_memory
+
+    # earlier tests' segments (dropped without remove_segment) keep their
+    # tracked bytes: start the accounting afresh for this table
+    batch.clear_stack_cache()
+    global_device_memory.clear()
+    global_tier.clear()
+    dm, query = _fault_table(tmp_path, "cuda", 4)
+    segs = dm.acquire_segments()
+    sqls = {qid: ssb.spec_to_sql(p, v, g) + " OPTION(timeoutMs=600000)"
+            for qid, p, v, g in ssb.QUERIES}
+    want = {qid: query(sql).rows for qid, sql in sqls.items()}
+    global_tier.configure(budget_bytes=1 << 40)
+    d0 = len(global_tier.decisions)
+    faults.install("seed=5; tier.evict: p=0.25")
+    try:
+        for qid, sql in sqls.items():
+            assert query(sql).rows == want[qid], qid
+            rec = reconcile_devmem(segs)
+            assert all(r["tracked"] == r["actual"]
+                       for r in rec.values()), (qid, rec)
+    finally:
+        faults.clear()
+        global_tier.configure(budget_bytes=None)
+    log = global_tier.decisions[d0:]
+    assert any(d[0] == "demote" and d[4] == "fault" for d in log)
+    assert any(d[0] == "promote" for d in log)
+    for s in segs:
+        s.evict_device()
