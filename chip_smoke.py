@@ -302,32 +302,66 @@ Phases, each printed as it runs; any failure exits non-zero:
              outlives the phase (utils/leak). Printed: the accountant's
              us per sample (the per-thread CPU clock read at each), the
              phase's seconds, device bytes left;
-20. wire (last) - streaming from the wire: the flat lineorder with its
+20. wire   - streaming from the wire: the flat lineorder with its
              lineorder key in d_yearmonthnum order as JSON values;
-             WIRE_KAFKA_ROWS (2^19, PINOT_SMOKE_WIRE_ROWS) through
+             WIRE_KAFKA_ROWS (2^18, PINOT_SMOKE_WIRE_ROWS; 2^19 before the
+             cluster phase was added) through
              FakeKafkaBroker({"lineorder": 4}) (lo_orderkey % 4) and
              KafkaProducer (batches of 4,096) into
              RealtimeTableDataManager("lineorder_REALTIME") built from
              consumer_factory_class="pinot_tpu_torch.realtime.kafka.
-             KafkaStream" at a flush threshold of 100,000, the manager
+             KafkaStream" at a flush threshold of 50,000 (scaled with
+             the rows; 100,000 at 2^19), the manager
              stopped after 13/16 of the rows and a new one resuming from
              its checkpoints (no row lost or doubled): 4 sealed segments
              on the card, 4 consuming snapshots, COUNT(*) the rows
              produced, the 13 SSB digests the numpy oracle's over the
              same rows; Pulsar, Kinesis (SigV4, 2 injected 500s) and the
              wire stream (log_dir, its broker restarted on the same port
-             halfway) each 2^16 rows into 2 partitions at 25,000: COUNT(*),
+             halfway) each an eighth of the Kafka rows into 2 partitions
+             at a quarter of Kafka's threshold: COUNT(*),
              SUM(lo_revenue), Q1.1 and Q2.1 equal an offline segment of
              the rows; K1 bitwise on every compact input
              (kernel_at_wire_path); tracked == held. Printed: rows/s
              produced and consumed per plugin, seal ms, CRC32C MB/s from
              the native library against the plain loop (which one ran).
+21. cluster (last) - the cluster's data plane in this process over
+             loopback HTTP: a Controller (state directory and a local
+             deep store under .torch_cache/cluster/), two
+             ServerNode(device="cuda") and a BrokerNode; the 8-segment
+             lineorder table registered by location at replication 2.
+             The 13 SSB queries through clients.HttpConnection (one
+             warm-up and ITERS timed runs each) equal the multi phase's
+             digests with numSegmentsQueried 8 and both servers
+             answering part of the segments; K1 launches on the servers
+             and each compact query's inputs on each server are held
+             bitwise and timed (kernel_at_cluster_path); every resident
+             column of both servers is on the card (/debug/memory), no
+             torch tensor reaches encode_partial, tracked == held after
+             every query; one traced run a query splits the broker's
+             time into scatter, server execute, serde and network; a
+             wave of 32 HTTP clients (q1.1 and q3.1 variants) equals its
+             serial digests; a 2^20-row segment pushed as tar.gz through
+             the deep store, downloaded and loaded by both servers,
+             equals Broker(device="cuda") over it; distributed_join of
+             the star schema's orders (a seventh of the order keys, the
+             leaf on both servers) with customers on two join workers
+             equals a numpy join; server_0 stops before the 7th query
+             and the digests hold, both down a query answers error code
+             427 and no rows under allowPartialResults=true and is
+             refused without it; once the nodes stop, memory is back at the
+             phase's baseline and no mailbox is left. Printed: p50 per
+             query over HTTP beside the multi phase's in-process p50,
+             segments per server, the split, the wave's q/s and
+             p50/p99, the dispatch's rows and ms per stage, the phase's
+             seconds.
 
 The SSB phases run at 2^25 rows by default (2^26 before the multi-stage
 phase was added), the star schema at 2^23 orders rows (2^24 before
-the format, rollup and trace phases were added), and the realtime
-phase at 2^20 rows (2^21 before the wire and overload phases were
-added), so that the whole run fits its time limit.
+the format, rollup and trace phases were added), the realtime phase
+at 2^20 rows (2^21 before the wire and overload phases were added) and
+the wire phase's Kafka table at 2^18 rows (2^19 before the cluster
+phase was added), so that the whole run fits its time limit.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, and without
@@ -1160,7 +1194,8 @@ def _k14_alone(segs, make, device: str) -> dict:
     over 5 builds), and one combine of the variants sharing variant 0's
     plan structure on every segment, as many as the batcher's weight cap
     lets one dispatch take (CUDA events over 20 combines, and the host's
-    time to issue one)."""
+    time to issue one); beside the build, torch.bincount over its cube
+    key, the library call of the build's count half."""
     import torch
 
     from pinot_tpu_torch.engine import ragged, serving
@@ -1205,7 +1240,19 @@ def _k14_alone(segs, make, device: str) -> dict:
            / HBM_BYTES_PER_S * 1e3}
     del cube, res
     if on_card:
+        # the library yardstick of the build's count half: one
+        # torch.bincount over the cube key the build scatters by (no
+        # single PyTorch call computes the value sums with it)
+        key, ok = ragged._dim_digits(spec, cols)
+        keep = torch.arange(spec.bucket, dtype=torch.int32,
+                            device=device) < p0.segment.n_docs
+        if ok is not None:
+            keys_s = torch.where(keep & ok, key, spec.cube_space)
+        else:
+            keys_s = torch.where(keep, 0, spec.cube_space).to(torch.int32)
         out.update(
+            build_library_ms=cuda_time_ms(lambda: torch.bincount(
+                keys_s, minlength=spec.cube_space + 1), 5),
             build_ms=cuda_time_ms(lambda: build(cols, p0.segment.n_docs,
                                                 params0), 5),
             combine_ms=cuda_time_ms(lambda: combine(stacked, seg_idx,
@@ -6371,7 +6418,7 @@ def overload_phase(single, segs, digests: dict, tile: int,
     return overload_launches
 
 
-WIRE_KAFKA_ROWS = int(os.environ.get("PINOT_SMOKE_WIRE_ROWS", 1 << 19))
+WIRE_KAFKA_ROWS = int(os.environ.get("PINOT_SMOKE_WIRE_ROWS", 1 << 18))
 WIRE_KAFKA_PARTS = 4
 WIRE_PARTS = 2
 WIRE_BATCH = 4096                      # rows a Produce request
@@ -6381,8 +6428,9 @@ WIRE_CRC_PLAIN_BYTES = 1 << 20         # ... and the plain loop over these
 
 
 def wire_sizes() -> dict:
-    """The wire phase's sizes from WIRE_KAFKA_ROWS (2^19 by default):
-    Kafka's rows and flush threshold (100,000 at 2^19), and the rows and
+    """The wire phase's sizes from WIRE_KAFKA_ROWS (2^18 by default, 2^19
+    before the cluster phase was added): Kafka's rows and flush threshold
+    (100,000 at 2^19), and the rows and
     flush threshold of each other plugin's table (2^16 and 25,000),
     scaled with the depth."""
     scale = WIRE_KAFKA_ROWS / (1 << 19)
@@ -6479,7 +6527,7 @@ def _wire_small_sqls(table: str) -> dict:
 def wire_phase(tile: int, live_segments=(), device: str = "cuda") -> int:
     """Streaming from the wire: the flat SSB lineorder with its lineorder
     key, in d_yearmonthnum order, as JSON values (sizes: wire_sizes()).
-    (a) Kafka: 2^19 rows into FakeKafkaBroker({"lineorder": 4}) by
+    (a) Kafka: WIRE_KAFKA_ROWS rows into FakeKafkaBroker({"lineorder": 4}) by
     lo_orderkey % 4, produced by KafkaProducer in batches of 4,096 and
     consumed by RealtimeTableDataManager("lineorder_REALTIME",
     device=device) through consumer_factory_class=
@@ -6757,6 +6805,491 @@ def wire_phase(tile: int, live_segments=(), device: str = "cuda") -> int:
     return wire_launches
 
 
+CLUSTER_SERVERS = 2
+CLUSTER_REPLICATION = 2
+CLUSTER_DS_ROWS = 1 << 20        # the deep-store table: one segment
+CLUSTER_CLIENTS = 32             # the concurrent wave's HTTP clients
+CLUSTER_FAIL_AT = 6              # failover: server_0 stops before this query
+CLUSTER_WAIT_S = 120.0           # every wait on the fleet has this limit
+
+
+def _cluster_wait(pred, what: str, timeout: float = CLUSTER_WAIT_S) -> None:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"cluster: {what} not within {timeout} s")
+
+
+def _cluster_sync(ctrl, servers, broker) -> int:
+    """Every live node on the controller's current assignment version."""
+    v = ctrl.routing_snapshot()["version"]
+    for s in servers:
+        if not s.wait_for_version(v, CLUSTER_WAIT_S):
+            raise AssertionError(f"cluster: {s.instance_id} never reached "
+                                 f"assignment version {v}")
+    if not broker.wait_for_version(v, CLUSTER_WAIT_S):
+        raise AssertionError(f"cluster: the broker never reached routing "
+                             f"version {v}")
+    return v
+
+
+def _seg_schema(seg_dir: str) -> dict:
+    with open(os.path.join(seg_dir, "metadata.json")) as fh:
+        return json.load(fh)["schema"]
+
+
+def _server_segments(servers) -> list:
+    return [seg for s in servers for dm in list(s._tables.values())
+            for seg in dm.acquire_segments()]
+
+
+def _record_executions(node, log: list) -> None:
+    """Log (server, sql, segment names, segments queried) of every
+    execution on ``node``: which segments each server answered."""
+    inner = node._execute
+
+    def logged(sql, segment_names=None, *a, **k):
+        out = inner(sql, segment_names, *a, **k)
+        log.append((node.instance_id, sql, tuple(segment_names or ()),
+                    out.get("segmentsQueried", 0)))
+        return out
+
+    node._execute = logged
+
+
+def _host_values(value, where: str) -> int:
+    """Fail when a torch tensor hides anywhere in a partial's states;
+    returns the leaves walked."""
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        raise AssertionError(f"cluster: a torch.Tensor ({value.device}) "
+                             f"reached the wire in {where}")
+    if isinstance(value, dict):
+        return sum(_host_values(k, where) + _host_values(v, where)
+                   for k, v in value.items())
+    if isinstance(value, (list, tuple, set, frozenset)):
+        return sum(_host_values(v, where) for v in value)
+    if hasattr(value, "__dataclass_fields__"):
+        return sum(_host_values(getattr(value, f), where)
+                   for f in value.__dataclass_fields__)
+    return 1
+
+
+def _scatter_split(entry: dict) -> dict:
+    """A traced query's split from its forensics record: the scatter
+    span, the servers' execute spans, the serde (server encode + broker
+    decode) and network ms of the ScatterResult."""
+    scatter = server = reduce_ms = 0.0
+    for sp in _span_walk(entry["trace"]):
+        if sp["name"] == "scatter":
+            scatter += sp["ms"]
+        elif sp["name"] == "server_query":
+            server += sp["ms"]
+        elif sp["name"] == "reduce":
+            reduce_ms += sp["ms"]
+    return {"wall_ms": entry["wall_ms"], "scatter_ms": scatter,
+            "server_execute_ms": server, "reduce_ms": reduce_ms,
+            "serde_ms": entry.get("serde_ms", 0.0),
+            "net_ms": entry.get("net_ms", 0.0)}
+
+
+def _dispatch_stages(tree: dict) -> list:
+    """(kind, worker, ms, rows) of every stage submission of a traced
+    distributed_join."""
+    out = []
+    for sp in _span_walk(tree):
+        if sp["name"] != "stage_call":
+            continue
+        rows = None
+        for sub in _span_walk(sp):
+            if sub["name"] == "leaf_scan":
+                rows = sub["attrs"].get("rows")
+            elif sub["name"] == "mailbox_drain":
+                rows = [sub["attrs"].get("left_rows"),
+                        sub["attrs"].get("right_rows")]
+        out.append({"kind": sp["attrs"].get("kind"),
+                    "worker": sp["attrs"].get("worker"),
+                    "url": sp["attrs"].get("url"), "ms": sp["ms"],
+                    "rows": rows})
+    return out
+
+
+def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
+                  digests: dict, multi_p50: dict, tile: int,
+                  live_segments=(), device: str = "cuda") -> int:
+    """The cluster's data plane: one Controller (state directory and a
+    local deep store under .torch_cache/cluster/), two
+    ServerNode(device=device) and one BrokerNode in this process over
+    loopback HTTP, the 8-segment lineorder table registered at
+    replication 2 by location. Gates: (1) the 13 SSB queries through
+    clients.HttpConnection, one warm-up and ITERS timed runs each, equal
+    the multi phase's digests, numSegmentsQueried 8, both servers answer
+    part of the segments; (2) K1 launches on the servers' path and each
+    compact query's inputs on each server are held bitwise and timed
+    (kernel_at_cluster_path); (3) every resident column of both servers
+    on the card (/debug/memory, the devmem registry), tracked == held
+    after every query, no torch tensor reaches encode_partial; (4) a
+    CLUSTER_DS_ROWS-row table pushed as tar.gz through the deep store,
+    downloaded and loaded by both servers, equals Broker(device) over the
+    same segment; (5) server_0 stops before the CLUSTER_FAIL_AT-th query
+    and the digests hold; both down, a query answers error code 427 and
+    no rows under allowPartialResults=true (without it the query is
+    refused); (6) one wave of CLUSTER_CLIENTS HTTP clients (q1.1 and q3.1
+    variants) equals its serial digests; (7) distributed_join of the star
+    schema's orders (one seventh of the order keys, the leaf on both
+    servers) with customers, two join workers, equals a numpy join; (8)
+    once the nodes stop, memory is back at the phase's baseline and no
+    mailbox is left. Returns K1's launches on the 13 queries' path."""
+    import gc as _gc
+
+    import numpy as np
+    import torch
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.clients import HttpConnection
+    from pinot_tpu_torch.cluster import BrokerNode, Controller, ServerNode
+    from pinot_tpu_torch.cluster import deepstore
+    from pinot_tpu_torch.cluster.http_util import http_json
+    from pinot_tpu_torch.engine import datablock
+    from pinot_tpu_torch.multistage.dispatch import distributed_join
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.query.sql import SqlError
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.utils import leak
+    from pinot_tpu_torch.utils import phases as ph
+    from pinot_tpu_torch.utils.spans import span_tracer
+
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+    _gc.collect()
+    baseline = torch.cuda.memory_allocated() if on_card else 0
+    work = os.path.join(CACHE, "cluster")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    seg_dirs = sorted(os.path.join(table_dir, d)
+                      for d in os.listdir(table_dir))
+    ctrl = Controller(os.path.join(work, "ctrl"), heartbeat_timeout=60.0,
+                      reconcile_interval=0.2)
+    servers = [ServerNode(f"server_{i}", ctrl.url, poll_interval=0.1,
+                          device=device)
+               for i in range(CLUSTER_SERVERS)]
+    broker = BrokerNode(ctrl.url, routing_refresh=0.1, slow_query_ms=1e9)
+    log: list = []
+    for s in servers:
+        _record_executions(s, log)
+    real_encode = datablock.encode_partial
+    walked = [0, 0]
+
+    def checked_encode(p):
+        walked[0] += 1
+        walked[1] += _host_values(p, "encode_partial")
+        return real_encode(p)
+
+    datablock.encode_partial = checked_encode
+    stopped: list = []
+    try:
+        t0 = time.perf_counter()
+        ctrl.add_table("lineorder", _seg_schema(seg_dirs[0]),
+                       replication=CLUSTER_REPLICATION)
+        for d in seg_dirs:
+            ctrl.add_segment("lineorder", os.path.basename(d), d)
+        _cluster_sync(ctrl, servers, broker)
+        hosted = {s.instance_id: len(s._tables["lineorder"]
+                                     .acquire_segments()) for s in servers}
+        phase("cluster_setup", servers=len(servers),
+              replication=CLUSTER_REPLICATION, segments=len(seg_dirs),
+              hosted=hosted, seconds=time.perf_counter() - t0,
+              controller=ctrl.url, broker=broker.url,
+              grpc=[s.grpc_server for s in servers])
+        conn = HttpConnection(broker.url, timeout=600.0)
+        every = list(live_segments)
+
+        def reconcile(where: str) -> None:
+            _reconcile_or_fail(every + _server_segments(servers), where)
+
+        # (1)-(3) the 13 queries over HTTP
+        sqls = [(qid, ssb.spec_to_sql(p, v, g))
+                for qid, p, v, g in ssb.QUERIES]
+        C.launches = 0                   # the cluster path's run starts here
+        runs = {}
+        for qid, sql in sqls:
+            before, mark = C.launches, len(log)
+            res = conn(sql)              # warm-up (uploads on each server)
+            times = []
+            for _ in range(ITERS):
+                t0 = time.perf_counter()
+                res = conn(sql)
+                times.append((time.perf_counter() - t0) * 1e3)
+            runs[qid] = (res, times, C.launches - before, log[mark:])
+            reconcile(f"cluster {qid}")
+        cluster_launches = C.launches    # ... and ends here
+        if cluster_launches == 0:
+            raise AssertionError("the cluster path never launched the "
+                                 "compaction")
+        per_server: dict = {}
+        plans_by_query: dict = {}
+        for qid, sql in sqls:
+            res, times, launched, calls = runs[qid]
+            if ssb._digest(res.rows) != digests[qid]:
+                raise AssertionError(f"cluster {qid}: digest differs from "
+                                     "the multi phase's")
+            if res.num_segments != len(seg_dirs):
+                raise AssertionError(f"cluster {qid}: numSegmentsQueried "
+                                     f"{res.num_segments}")
+            last = calls[-(len(calls) // (ITERS + 1)):]
+            split = {sid: sum(n for s2, _q, _n, n in last if s2 == sid)
+                     for sid in hosted}
+            for sid, n in split.items():
+                per_server.setdefault(sid, 0)
+                per_server[sid] += n
+            for s in servers:
+                names = {n for sid, _q, segs, _c in last
+                         if sid == s.instance_id for n in segs}
+                segs = [x for x in s._tables["lineorder"].acquire_segments()
+                        if x.name in names]
+                if segs:
+                    plans_by_query[f"{qid}@{s.instance_id}"] = _plans(
+                        sql, segs)
+            phase("cluster_query", qid=qid, ok=True,
+                  p50_ms=statistics.median(times), times_ms=times,
+                  in_process_p50_ms=multi_p50.get(qid),
+                  segments_queried=res.num_segments,
+                  segments_per_server=split, compact_launches=launched)
+        if any(n == 0 for n in per_server.values()):
+            raise AssertionError(f"cluster: a server answered no segment: "
+                                 f"{per_server}")
+        if walked[0] == 0:
+            raise AssertionError("cluster: no partial went through "
+                                 "encode_partial")
+        for s in servers:
+            mem = http_json("GET", f"{s.url}/debug/memory")
+            off = {f"{t}/{seg}/{c}": d
+                   for t, by_seg in mem["columns"].items()
+                   for seg, cols in by_seg.items()
+                   for c, d in cols.items() if not d.startswith(device)}
+            if not mem["device"].startswith(device) or off or not any(
+                    cols for by_seg in mem["columns"].values()
+                    for cols in by_seg.values()):
+                raise AssertionError(f"cluster: {s.instance_id} /debug/"
+                                     f"memory: device {mem['device']}, "
+                                     f"off the card {off}")
+        # the broker's split, one traced run a query
+        splits = {}
+        for qid, sql in sqls:
+            traced = _with_option(sql, "traceRatio=1")
+            res = conn(traced)
+            if ssb._digest(res.rows) != digests[qid]:
+                raise AssertionError(f"cluster {qid}: traced digest")
+            entry = next(e for e in broker.forensics.snapshot()["queries"]
+                         if e.get("trace") and e["sql"] == traced)
+            splits[qid] = _scatter_split(entry)
+        phase("cluster_split", per_query=splits)
+        n_held = 0
+        for label, plans in plans_by_query.items():
+            for g in _k1_groups(plans):
+                n_held += _k1_held(g, label, "kernel_at_cluster_path",
+                                   tile, on_card)
+        if n_held == 0:
+            raise AssertionError("cluster: no compact input on the servers")
+
+        # (6) one concurrent wave
+        wave = [make(i) for _shape, make in ssb.CONCURRENT
+                if _shape in ("q1.1", "q3.1")
+                for i in range(CLUSTER_CLIENTS // 2)]
+        serial = [ssb._digest(conn(q).rows) for q in wave]
+        rows, lat, errors = [None] * len(wave), [], []
+        wall_s = _drive_wave(conn, wave, rows, lat, errors)
+        if errors:
+            raise AssertionError(f"cluster wave: {errors[:3]}")
+        bad = [k for k in range(len(wave))
+               if ssb._digest(rows[k]) != serial[k]]
+        if bad:
+            raise AssertionError(f"cluster wave: {len(bad)} digests differ "
+                                 "from the serial ones")
+        reconcile("cluster wave")
+        phase("cluster_wave", clients=len(wave), ok=True,
+              queries_per_s=len(wave) / wall_s, p50_ms=_p(lat, 50),
+              p99_ms=_p(lat, 99), wall_ms=wall_s * 1e3)
+
+        # (4) the deep store
+        t0 = time.perf_counter()
+        ds_dir = ssb.build_segment_dir(CLUSTER_DS_ROWS,
+                                       os.path.join(work, "ds_src"))
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        uri = deepstore.upload_segment(
+            ds_dir, f"file://{work}/deepstore/lineorder_ds")
+        push_s = time.perf_counter() - t0
+        ctrl.add_table("lineorder_ds", _seg_schema(ds_dir),
+                       replication=CLUSTER_REPLICATION)
+        ctrl.add_segment("lineorder_ds", "seg_0", uri,
+                         deepstore.pruning_metadata(ds_dir))
+        t0 = time.perf_counter()
+        _cluster_sync(ctrl, servers, broker)
+        load_s = time.perf_counter() - t0
+        for s in servers:
+            local = os.path.join(s.data_dir, "lineorder_ds", "seg_0")
+            got = s._tables["lineorder_ds"].acquire_segments()
+            if not os.path.isdir(local) or len(got) != 1 or \
+                    got[0].device.type != torch.device(device).type:
+                raise AssertionError(f"cluster deep store: {s.instance_id} "
+                                     "did not download and load seg_0")
+        dm = TableDataManager("lineorder_ds", device=device)
+        ref_seg = dm.add_segment_dir(ds_dir)
+        b = Broker(device=device)
+        b.register_table(dm)
+        ref = connect(b)
+        ds_p50 = {}
+        for qid, p, v, g in ssb.QUERIES:
+            sql = _rt_sql((p, v, g), "lineorder_ds")
+            want = ssb._digest(ref(sql).rows)
+            t0 = time.perf_counter()
+            got = conn(sql)
+            ds_p50[qid] = (time.perf_counter() - t0) * 1e3
+            if ssb._digest(got.rows) != want:
+                raise AssertionError(f"cluster deep store {qid}: rows "
+                                     "differ from Broker(device)")
+        _reconcile_or_fail(every + _server_segments(servers) + [ref_seg],
+                           "cluster deep store")
+        ref_seg.evict_device()
+        phase("cluster_deepstore", ok=True, rows=CLUSTER_DS_ROWS, uri=uri,
+              archive_bytes=os.path.getsize(uri[len("file://"):]),
+              build_s=build_s, push_s=push_s, download_and_load_s=load_s,
+              ms=ds_p50)
+
+        # (7) the multi-stage dispatch over the star schema
+        orders, _f, _n = tables["orders"]
+        cust, _f, _n = tables["customers"]
+        n_orders = len(orders["o_key"])
+        lo, hi = 0, n_orders // 7 - 1      # one seventh of the order keys
+        for name in ("orders", "customers"):
+            ctrl.add_table(name, _seg_schema(star_dirs[name][0]),
+                           replication=1)
+            for d in star_dirs[name]:
+                ctrl.add_segment(name, os.path.basename(d), d)
+        _cluster_sync(ctrl, servers, broker)
+        owners = {name: [s for s in servers if name in s._tables
+                         and s._tables[name].acquire_segments()]
+                  for name in ("orders", "customers")}
+        leaf_sql = (f"SELECT o_cust, o_price FROM orders WHERE o_key "
+                    f"BETWEEN {lo} AND {hi} LIMIT {n_orders}")
+        root = span_tracer.start(ph.QUERY, table="orders")
+        t0 = time.perf_counter()
+        try:
+            rel = distributed_join(
+                [{"url": s.url, "sql": leaf_sql, "alias": "o"}
+                 for s in owners["orders"]],
+                [{"url": s.url, "sql": "SELECT c_id, c_nation FROM "
+                  f"customers LIMIT {len(cust['c_id'])}", "alias": "c"}
+                 for s in owners["customers"]],
+                [s.url for s in servers], ["o.o_cust"], ["c.c_id"],
+                timeout=CLUSTER_WAIT_S)
+        finally:
+            root = span_tracer.stop() or root
+        join_ms = (time.perf_counter() - t0) * 1e3
+        keep = (orders["o_key"] >= lo) & (orders["o_key"] <= hi)
+        want_cust = orders["o_cust"][keep]
+        want_price = orders["o_price"][keep]
+        got_cust = np.asarray(rel.data["o.o_cust"]).astype(np.int64)
+        got_price = np.asarray(rel.data["o.o_price"]).astype(np.int64)
+        w = np.lexsort((want_price, want_cust))
+        g = np.lexsort((got_price, got_cust))
+        nation = np.asarray(cust["c_nation"], dtype=object)
+        if rel.n_rows != int(keep.sum()) or not (
+                np.array_equal(got_cust[g], want_cust[w])
+                and np.array_equal(got_price[g], want_price[w])
+                and np.array_equal(np.asarray(rel.data["c.c_id"])[g],
+                                   want_cust[w])
+                and np.array_equal(np.asarray(rel.data["c.c_nation"],
+                                              dtype=object)[g],
+                                   nation[want_cust[w]])):
+            raise AssertionError("cluster dispatch: the joined rows differ "
+                                 "from the numpy join")
+        if leak.live("mailbox"):
+            raise AssertionError(f"cluster dispatch: mailboxes outlive the "
+                                 f"join: {leak.live('mailbox')}")
+        phase("cluster_dispatch", ok=True, rows=rel.n_rows,
+              orders_rows=n_orders, key_range=[lo, hi],
+              leaves={k: [s.instance_id for s in v]
+                      for k, v in owners.items()},
+              join_workers=len(servers), ms=join_ms,
+              stages=_dispatch_stages(root.to_dict()))
+
+        # (5) failover: server_0 stops mid-run, then server_1
+        fail_ms = {}
+        for k, (qid, sql) in enumerate(sqls):
+            if k == CLUSTER_FAIL_AT:
+                servers[0].stop()
+                stopped.append(servers[0])
+            t0 = time.perf_counter()
+            res = conn(sql)
+            fail_ms[qid] = (time.perf_counter() - t0) * 1e3
+            if ssb._digest(res.rows) != digests[qid]:
+                raise AssertionError(f"cluster failover {qid}: digest "
+                                     "differs with a server down")
+        servers[1].stop()
+        stopped.append(servers[1])
+        down_sql = dict(sqls)["q2.1"]
+        resp = http_json("POST", f"{broker.url}/query/sql",
+                         {"sql": _with_option(down_sql,
+                                              "allowPartialResults=true")},
+                         timeout=CLUSTER_WAIT_S)
+        codes = sorted({e.get("errorCode")
+                        for e in resp.get("exceptions", [])})
+        if 427 not in codes or resp["resultTable"]["rows"]:
+            raise AssertionError(f"cluster failover: both servers down "
+                                 f"answered codes {codes}, rows "
+                                 f"{resp['resultTable']['rows'][:3]}")
+        try:
+            conn(down_sql)
+        except SqlError as e:
+            refused = str(e)[:200]
+        else:
+            raise AssertionError("cluster failover: a query with both "
+                                 "servers down answered without "
+                                 "allowPartialResults")
+        phase("cluster_failover", ok=True, stopped_before=sqls[
+            CLUSTER_FAIL_AT][0], ms=fail_ms, both_down_codes=codes,
+              both_down_refusal=refused,
+              scatter=broker.scatter_health()["counters"])
+    finally:
+        datablock.encode_partial = real_encode
+        broker.stop()
+        for s in servers:
+            if s not in stopped:
+                s.stop()
+        ctrl.stop()
+    # (8) clean-up: the nodes' segments leave the card with the nodes
+    held = _server_segments(servers)
+    for seg in held:
+        seg.evict_device()
+    for s in servers:
+        s._tables.clear()
+        shutil.rmtree(s.data_dir, ignore_errors=True)
+    del held, servers, broker, ctrl
+    global_cube_cache.clear()
+    _gc.collect()
+    _reconcile_or_fail(list(live_segments), "cluster done")
+    left = (torch.cuda.memory_allocated() - baseline) if on_card else 0
+    if left > MEM_SLACK:
+        raise AssertionError(f"cluster: {left} bytes left on the card after "
+                             "the nodes stopped")
+    if leak.live("mailbox"):
+        raise AssertionError("cluster: a mailbox outlives the phase")
+    shutil.rmtree(work, ignore_errors=True)
+    phase("cluster_done", seconds=time.perf_counter() - t_phase,
+          compact_launches=cluster_launches, k1_checked=n_held,
+          partials_encoded=walked[0], partial_leaves_on_host=walked[1],
+          segments_per_server=per_server, bytes_left=left,
+          tracked_equals_held=True)
+    return cluster_launches
+
+
 def main() -> int:
     import torch
 
@@ -6811,6 +7344,9 @@ def main() -> int:
     vsearch = vector_phase([single, surface_seg, *segs])
     realtime_launches = realtime_phase(tile, [single, surface_seg, *segs])
     wire_launches = wire_phase(tile, [single, surface_seg, *segs])
+    cluster_launches = cluster_phase(table_dir, star_dirs, tables, digests,
+                                     multi_p50, tile,
+                                     [single, surface_seg, *segs])
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "compact",
@@ -6821,7 +7357,7 @@ def main() -> int:
         + tier_launches + drift_launches + statement_launches
         + geo_launches + format_launches + rollup_launches
         + trace_launches + realtime_launches + overload_launches
-        + wire_launches,
+        + wire_launches + cluster_launches,
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -6847,6 +7383,7 @@ def main() -> int:
         "realtime_launches": realtime_launches,
         "overload_launches": overload_launches,
         "wire_launches": wire_launches,
+        "cluster_launches": cluster_launches,
         **{f"segmented_{k}": v for k, v in seg_totals.items()},
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
@@ -6866,8 +7403,9 @@ def main() -> int:
               "OPTION(trace=true)), the realtime phase's (sealed, "
               "hybrid, upserted and consuming tables), the overload "
               "phase's (tenant waves, forced overflow reruns, tier.evict, "
-              "the kills) and the wire phase's (tables fed by Kafka, "
-              "Pulsar, Kinesis and the wire stream)"}, {
+              "the kills), the wire phase's (tables fed by Kafka, "
+              "Pulsar, Kinesis and the wire stream) and the cluster "
+              "phase's (the 13 queries over HTTP on two server nodes)"}, {
         "name": "segscan",
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/segscan.cu",

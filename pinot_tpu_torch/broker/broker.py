@@ -44,10 +44,14 @@ clamps the query's ``timeoutMs`` (``clamp_brownout``), and rung 1 and up
 skip ``traceRatio`` sampling. The accountant's registration carries the
 tenant, tier and SQL text.
 
-What differs from the reference: a trace's persistence to a ledger
-(``OPTION(ledgerTrace=true)``, a trace-ledger path) needs
-``utils/ledger``, which the port does not have yet, and raises
-``NotImplementedError``; mesh-resident tables are not ported.
+Traces persist as validated ``query_trace`` records of ``utils/ledger``
+at ``OPTION(ledgerPath=...)``, ``Broker(trace_ledger_path=...)`` or
+``PINOT_TPU_LEDGER_PATH``. What differs from the reference: the port
+writes a ledger only at a path its caller gives, so
+``OPTION(ledgerTrace=true)`` with none of the three raises ``SqlError``
+where the reference writes ``PERF_LEDGER.jsonl`` in the working
+directory; the trace names the torch device type as its backend;
+mesh-resident tables are not ported.
 """
 from __future__ import annotations
 
@@ -81,6 +85,7 @@ from ..query.sql import (BoolAnd, Comparison, CteDef, DdlStmt, Exists,
 from ..segment import SegmentBuilder
 from ..server.data_manager import TableDataManager
 from ..spi import DataType, FieldSpec, FieldType, Schema, TableConfig
+from ..utils import ledger as uledger
 from ..utils import phases as ph
 from ..utils.metrics import global_metrics
 from ..utils.spans import sample_decision, span, span_tracer
@@ -92,8 +97,9 @@ from .workload import (clamp_brownout, global_workload, leaf_table,
 
 DEFAULT_TIMEOUT_MS = 10_000
 DEFAULT_TRACE_RATIO = 0.0
-_LEDGER_MISSING = ("a trace ledger needs utils/ledger, which "
-                   "pinot_tpu_torch does not have yet")
+_LEDGER_PATH_MISSING = (
+    "OPTION(ledgerTrace=true) needs a ledger path: OPTION(ledgerPath=...), "
+    "Broker(trace_ledger_path=...) or PINOT_TPU_LEDGER_PATH")
 
 
 def ratio_value(raw: Any, what: str = "traceRatio") -> float:
@@ -175,9 +181,8 @@ class Broker:
                  micro_batch_window_ms: Optional[float] = None,
                  trace_ratio: Optional[float] = None,
                  trace_ledger_path: Optional[str] = None):
-        if trace_ledger_path:
-            raise NotImplementedError(_LEDGER_MISSING)
         self.device = resolve_device(device)
+        self._trace_ledger_path = trace_ledger_path
         self._tables: Dict[str, TableDataManager] = {}
         # the batcher is process-global (fusion happens below the broker):
         # the flags configure it; None leaves the PINOT_MICROBATCH default
@@ -274,9 +279,6 @@ class Broker:
         EXPLAIN ANALYZE machinery, minus the rendered rows). Subqueries,
         CTEs and set-operation branches recurse through _execute_stmt, so
         the whole statement lands in ONE tree."""
-        if stmt.options.get("ledgerPath") \
-                or os.environ.get("PINOT_TPU_LEDGER_PATH"):
-            raise NotImplementedError(_LEDGER_MISSING)
         root = span_tracer.start(ph.QUERY,
                                  table=getattr(stmt, "table", None),
                                  query_id=qid, sampled=True)
@@ -294,11 +296,28 @@ class Broker:
         self._append_trace(root, stmt, sql, qid)
         return result
 
+    def _ledger_path(self, stmt) -> Optional[str]:
+        """The caller's ledger path: the query's ``ledgerPath``, then the
+        broker's ``trace_ledger_path``, then ``PINOT_TPU_LEDGER_PATH``."""
+        return (getattr(stmt, "options", {}).get("ledgerPath")
+                or self._trace_ledger_path
+                or os.environ.get("PINOT_TPU_LEDGER_PATH"))
+
     def _append_trace(self, root, stmt, sql: str, qid: str) -> None:
-        """Count a sampled trace. Persisting it is the ledger's
-        (``utils/ledger``, not ported): with no ledger path configured
-        the reference counts it and persists nothing, as here."""
+        """Count a sampled trace and, when a ledger path is configured,
+        append it as a validated ``query_trace`` record; no path means
+        counted, not persisted, as in the reference."""
         global_metrics.count("sampled_traces")
+        path = self._ledger_path(stmt)
+        if not path:
+            return
+        try:
+            uledger.append_record(uledger.trace_record(
+                root, sql, backend=self.device.type, qid=qid,
+                sampled=True), path)
+        except OSError:
+            # observability must never fail the data path
+            global_metrics.count("query_trace_write_errors")
 
     # -- views (QueryEnvironment view catalog analog) ----------------------
     def _execute_ddl(self, stmt: DdlStmt, t0: float) -> ResultTable:
@@ -460,8 +479,11 @@ class Broker:
         trace, and estimated vs measured selectivity.
         The device work inside each span is fenced (spans.device_fence),
         so its time is the card's, not the launch's."""
+        ledger_path = None
         if _truthy(stmt.options.get("ledgerTrace")):
-            raise NotImplementedError(_LEDGER_MISSING)
+            ledger_path = self._ledger_path(stmt)
+            if not ledger_path:
+                raise SqlError(_LEDGER_PATH_MISSING)
         stmt.analyze = False  # the re-entrant call executes normally
         root = span_tracer.start(ph.QUERY,
                                  table=getattr(stmt, "table", None))
@@ -480,6 +502,10 @@ class Broker:
                              num_segments=inner.num_segments,
                              num_docs_scanned=inner.num_docs_scanned)
         result.trace = trace
+        if ledger_path:
+            uledger.append_record(uledger.trace_record(
+                root, getattr(stmt, "_raw_sql", str(stmt.table)),
+                backend=self.device.type), ledger_path)
         result.time_ms = (time.perf_counter() - t0) * 1e3
         return result
 

@@ -2,10 +2,9 @@
 -> push.
 
 Port of ``pinot_tpu/ingestion/batch.py``: the standalone and the
-parallel runner, byte-equal segments. The push to a controller and the
-deep-store upload (``push.controllerUrl``) need ``cluster/deepstore`` and
-``cluster/http_util``, which come with the cluster plane: such a job
-raises ``NotImplementedError`` before it builds anything.
+parallel runner, byte-equal segments, and the push to a controller
+(``push.controllerUrl``, with a deep-store tar upload when
+``push.deepstoreURI`` is set) through ``cluster/deepstore``.
 
 Reference parity: pinot-spi/.../ingestion/batch/spec/
 SegmentGenerationJobSpec + pinot-plugins/pinot-batch-ingestion/
@@ -16,7 +15,7 @@ local segment output. The reference's Spark/Hadoop runners
 input file to one segment-generation task across executors; the
 "parallel" execution framework here does the same over a local process
 pool (executionFrameworkSpec: {"name": "parallel", "numWorkers": N}) —
-per-file tasks, worker-disjoint segment names, results gathered in the
+per-file tasks, worker-disjoint segment names, pushes serialized in the
 launching process in file order, like the reference's runner.
 
 Job spec (dict; JSON/YAML-friendly, SegmentGenerationJobSpec analog):
@@ -52,9 +51,6 @@ from ..spi.config import TableConfig
 from ..spi.schema import Schema
 from .transformers import CompositeTransformer
 
-_PUSH_MISSING = ("a segment push needs cluster/deepstore and "
-                 "cluster/http_util, which pinot_tpu_torch does not have yet")
-
 
 class BatchIngestionJob:
     def __init__(self, spec: Dict[str, Any]):
@@ -83,8 +79,6 @@ class BatchIngestionJob:
 
     # -- run ---------------------------------------------------------------
     def run(self) -> List[str]:
-        if (self.spec.get("push") or {}).get("controllerUrl"):
-            raise NotImplementedError(_PUSH_MISSING)
         fw = (self.spec.get("executionFrameworkSpec") or {})
         if fw.get("name") in ("parallel", "spark", "hadoop"):
             return self._run_parallel(int(fw.get("numWorkers") or 0))
@@ -98,8 +92,8 @@ class BatchIngestionJob:
         not a multiprocessing pool: fork would deadlock a parent holding
         torch's runtime threads, and spawn/forkserver re-import the
         parent's __main__ (broken for a REPL or stdin script). Segment
-        names carry the file index so tasks never collide; the results
-        come back in file order."""
+        names carry the file index so tasks never collide; pushes happen
+        in this process, in file order."""
         import json as _json
         import shutil
         import subprocess
@@ -109,6 +103,7 @@ class BatchIngestionJob:
 
         files = self.input_files()
         workers = workers or min(len(files), os.cpu_count() or 1)
+        push = self.spec.get("push") or {}
         work_dir = tempfile.mkdtemp(prefix="pinot_ingest_")
         spec_path = os.path.join(work_dir, "spec.json")
         with open(spec_path, "w") as fh:
@@ -170,7 +165,9 @@ class BatchIngestionJob:
                 entry[1].wait()
                 entry[4].close()
             shutil.rmtree(work_dir, ignore_errors=True)
-        return seg_dirs
+        if not push.get("controllerUrl"):
+            return seg_dirs
+        return [self._push(d, push) for d in seg_dirs]
 
     def job_params(self):
         """(fmt, pipeline, out_dir, prefix, per_seg, builder) — the ONE
@@ -184,7 +181,8 @@ class BatchIngestionJob:
                 SegmentBuilder(self.schema, self.table_config))
 
     def _run_standalone(self) -> List[str]:
-        """Execute the job; returns the built segment directories.
+        """Execute the job; returns the registered segment locations
+        (deep-store URIs in tar-push mode, local dirs otherwise).
 
         Streaming: each input file is read + transformed on its own and
         segments flush as the buffer reaches rowsPerSegment, so peak
@@ -193,13 +191,16 @@ class BatchIngestionJob:
         preserves semantics)."""
         fmt, pipeline, out_dir, prefix, per_seg, builder = \
             self.job_params()
+        push = self.spec.get("push") or {}
 
         locations: List[str] = []
         buf: List[Dict[str, Any]] = []
 
         def flush(chunk: List[Dict[str, Any]]) -> None:
             name = f"{prefix}_{len(locations)}"
-            locations.append(builder.build(chunk, out_dir, name))
+            seg_dir = builder.build(chunk, out_dir, name)
+            locations.append(self._push(seg_dir, push)
+                             if push.get("controllerUrl") else seg_dir)
 
         for path in self.input_files():
             buf.extend(pipeline.transform(read_records(
@@ -210,6 +211,24 @@ class BatchIngestionJob:
         if buf:
             flush(buf)
         return locations
+
+    def _push(self, seg_dir: str, push: Dict[str, Any]) -> str:
+        """Metadata push: optional deep-store upload, then register the
+        segment + pruning metadata with the controller."""
+        from ..cluster.deepstore import pruning_metadata, upload_segment
+        from ..cluster.http_util import http_json
+        location = seg_dir
+        if push.get("deepstoreURI"):
+            location = upload_segment(
+                seg_dir, push["deepstoreURI"].rstrip("/") + "/"
+                + self.table)
+        http_json("POST", f"{push['controllerUrl']}/segments", {
+            "table": self.table,
+            "segment": os.path.basename(seg_dir.rstrip("/")),
+            "location": location,
+            "metadata": pruning_metadata(seg_dir),
+        })
+        return location
 
 
 def _build_file_segments(spec: Dict[str, Any], path: str,

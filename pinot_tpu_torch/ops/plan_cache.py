@@ -205,6 +205,12 @@ class CubeCache:
         global_tier.enforce(protect={s.uid for s in segments})
         return stacked
 
+    def resident_uids(self) -> set:
+        """Segment uids with a resident per-segment cube: the placement
+        signal a server node's residency heartbeat reports."""
+        with self._lock:
+            return {k[1] for k in self._entries}
+
     def evict_containing(self, segment_name: str) -> None:
         with self._lock:
             for key in [k for k in self._entries if k[2] == segment_name]:

@@ -16,11 +16,11 @@ sees more than one superseded row beside its successor.
 The seal's swap is atomic for readers: ``acquire_segments`` never sees a
 sealed segment beside the consuming snapshot it came from, nor
 misses both.
-What waits for other modules raises ``NotImplementedError`` naming it:
-the controller-arbitrated commit (``completion_client``, with the
-segment completion protocol and deep-store adoption of
-``cluster/completion`` and ``cluster/deepstore``) and
-``write_ingest_stats`` (``utils/ledger``). The ``commit.http_error`` and
+``write_ingest_stats`` appends a validated ``ingest_stats`` record of
+``utils/ledger`` at the caller's path. What waits for other modules
+raises ``NotImplementedError`` naming it: the controller-arbitrated
+commit (``completion_client``, with the segment completion protocol of
+``cluster/completion``). The ``commit.http_error`` and
 ``handoff.stall`` fault points belong to that protocol and have no site
 here.
 
@@ -83,10 +83,8 @@ from .stream import MessageBatch, OffsetOutOfRange, StreamConfig
 STATE_FILE = "state.json"
 FETCH_BATCH = 10_000
 _PROTOCOL_MISSING = ("the controller-arbitrated commit (completion_client) "
-                     "needs cluster/completion and cluster/deepstore, which "
-                     "pinot_tpu_torch does not have yet")
-_LEDGER_MISSING = ("write_ingest_stats needs utils/ledger, which "
-                   "pinot_tpu_torch does not have yet")
+                     "needs cluster/completion, which pinot_tpu_torch "
+                     "does not have yet")
 
 # gauge name -> id(manager) of the last writer: several managers of the
 # SAME table in one process (replicas) last-writer-wins the shared
@@ -718,5 +716,10 @@ class RealtimeTableDataManager(TableDataManager):
 
     def write_ingest_stats(self, path: str, **extra: Any
                            ) -> Dict[str, Any]:
-        """Append one ``ingest_stats`` record to the freshness ledger."""
-        raise NotImplementedError(_LEDGER_MISSING)
+        """Append one validated ``ingest_stats`` v2 record (the
+        freshness ledger, ``utils/ledger``'s field contract) at ``path``."""
+        from ..utils import ledger as uledger
+        rec = uledger.make_record("ingest_stats",
+                                  **{**self.ingest_stats(), **extra})
+        uledger.append_record(rec, path)
+        return rec

@@ -1,9 +1,8 @@
 """Plugin loader: config-named implementations resolve at runtime.
 
 Port of ``pinot_tpu/spi/plugin.py``. The built-in short names are the
-two stream consumers of the port (``inmemory``, ``filelog``); the
-reference's ``localfs`` names ``spi/filesystem``, which comes with the
-cluster plane.
+reference's: the two stream consumers (``inmemory``, ``filelog``) and
+the local deep-store filesystem (``localfs``, ``spi/filesystem``).
 
 A dotted name under the JAX package (``pinot_tpu.``) resolves to the
 port's module of the same path under ``pinot_tpu_torch.``, so table
@@ -94,9 +93,11 @@ def _register_builtins() -> None:
     ships these as bundled plugin modules)."""
     from ..realtime.filestream import FileLogStream
     from ..realtime.stream import InMemoryStream
+    from .filesystem import LocalPinotFS
 
     register_plugin("inmemory", InMemoryStream)
     register_plugin("filelog", FileLogStream)
+    register_plugin("localfs", LocalPinotFS)
 
 
 _register_builtins()

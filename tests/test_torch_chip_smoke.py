@@ -410,3 +410,53 @@ def test_overload_phase_on_cpu(tmp_path, monkeypatch):
     assert got["overload_tier_evict"]["fault_demotions"] > 0
     assert got["overload_kills"]["kill_order_victim"].startswith(
         "order_besteffort")
+
+
+def test_cluster_phase_on_cpu(tmp_path, monkeypatch):
+    """The cluster phase end to end on the CPU: two server nodes and a
+    broker node over loopback HTTP answer the 13 SSB queries over 8
+    segments of 2^14 rows with the in-process digests, both servers
+    answer part of the segments, K1 is held on every server's compact
+    inputs, the wave, the deep store, the dispatch and the failover
+    hold, and memory and mailboxes come back."""
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.tools import ssb, star
+    from test_torch_tier import reset_port_memory
+
+    n = 1 << 14
+    table = ssb.build_table_dir([n // 8] * 8, str(tmp_path / "eight"))
+    segs = [load_segment(os.path.join(table, d), "cpu")
+            for d in sorted(os.listdir(table))]
+    single = load_segment(ssb.build_segment_dir(n, str(tmp_path / "one")),
+                          "cpu")
+    digests = {qid: ssb._digest(ssb.oracle_run(single, p, v, g)[0])
+               for qid, p, v, g in ssb.QUERIES}
+    tables = star.star_tables(1 << 13)
+    dirs = star.build_tables(str(tmp_path / "star"), tables)
+    reset_port_memory(segs)
+    _counting_compact(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "ITERS", 1)
+    monkeypatch.setattr(chip_smoke, "CLUSTER_DS_ROWS", 1 << 13)
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda label, **f: printed.append((label, f)))
+    try:
+        launches = chip_smoke.cluster_phase(table, dirs, tables, digests,
+                                            {}, 4096, segs, device="cpu")
+    finally:
+        global_cube_cache.clear()
+        reset_port_memory(segs)
+    assert launches > 0
+    got = dict(printed)
+    queries = [f for label, f in printed if label == "cluster_query"]
+    assert [f["qid"] for f in queries] == [q for q, *_ in ssb.QUERIES]
+    assert all(f["segments_queried"] == 8 for f in queries)
+    held = {f["query"].split("@")[1] for label, f in printed
+            if label == "kernel_at_cluster_path"}
+    assert held == {"server_0", "server_1"}
+    assert got["cluster_dispatch"]["rows"] == (1 << 13) // 7
+    assert got["cluster_failover"]["both_down_codes"] == [427]
+    assert got["cluster_done"]["partials_encoded"] > 0
+    assert got["cluster_done"]["bytes_left"] == 0

@@ -36,7 +36,10 @@ the SSB segment must give the PLAIN segment's digests on the card, star-tree
 rollups the CPU's rows with their tensors accounted, EXPLAIN ANALYZE
 on the card a tree of the expected phases whose children do not sum past
 its wall time, and OPTION(profilePhases=true) a phase ladder timed with
-CUDA events.
+CUDA events. A two-server cluster fleet on the card (server nodes, a
+broker node over loopback HTTP) must give the CPU fleet's rows through
+K1 on its servers, with host values only on the wire and every resident
+column on the card by the servers' /debug/memory.
 """
 import json
 import os
@@ -2058,3 +2061,93 @@ def test_tier_evict_mid_query_on_card(cuda, tmp_path):
     assert any(d[0] == "promote" for d in log)
     for s in segs:
         s.evict_device()
+
+
+def _cluster_fleet(tmp_path, dev, table_dir):
+    """A port fleet on ``dev``: a controller, two server nodes and a
+    broker node over loopback HTTP, the table at replication 2."""
+    from pinot_tpu_torch.cluster import BrokerNode, Controller, ServerNode
+
+    ctrl = Controller(str(tmp_path / f"ctrl_{dev}"), heartbeat_timeout=60.0,
+                      reconcile_interval=0.2)
+    servers = [ServerNode(f"server_{i}", ctrl.url, poll_interval=0.1,
+                          device=dev) for i in range(2)]
+    broker = BrokerNode(ctrl.url, routing_refresh=0.1)
+    dirs = sorted(os.path.join(table_dir, d) for d in os.listdir(table_dir))
+    with open(os.path.join(dirs[0], "metadata.json")) as fh:
+        schema = json.load(fh)["schema"]
+    ctrl.add_table("lineorder", schema, replication=2)
+    for d in dirs:
+        ctrl.add_segment("lineorder", os.path.basename(d), d)
+    v = ctrl.routing_snapshot()["version"]
+    assert all(s.wait_for_version(v, 60.0) for s in servers)
+    assert broker.wait_for_version(v, 60.0)
+    return ctrl, servers, broker
+
+
+def _stop_fleet(ctrl, servers, broker):
+    broker.stop()
+    for s in servers:
+        s.stop()
+        for dm in list(s._tables.values()):
+            for seg in dm.acquire_segments():
+                seg.evict_device()
+        s._tables.clear()
+    ctrl.stop()
+
+
+def test_cluster_fleet_on_card_matches_cpu(cuda, tmp_path):
+    """A two-server fleet on the card answers the 13 SSB queries over
+    HTTP with the CPU fleet's rows, through K1 on the servers; no torch
+    tensor reaches encode_partial; each server's /debug/memory reports
+    the card for itself and every resident column."""
+    from pinot_tpu_torch.clients import HttpConnection
+    from pinot_tpu_torch.cluster.http_util import http_json
+    from pinot_tpu_torch.engine import datablock
+    from pinot_tpu_torch.ops import compact as C
+
+    table_dir = ssb.build_table_dir([1 << 16] * 4, str(tmp_path / "t"))
+    sqls = [ssb.spec_to_sql(p, v, g) for _q, p, v, g in ssb.QUERIES]
+    real = datablock.encode_partial
+    seen = []
+
+    def checked(p):
+        stack = [p]
+        while stack:
+            x = stack.pop()
+            assert not isinstance(x, torch.Tensor), type(x)
+            if isinstance(x, dict):
+                stack += list(x.keys()) + list(x.values())
+            elif isinstance(x, (list, tuple, set)):
+                stack += list(x)
+            elif hasattr(x, "__dataclass_fields__"):
+                stack += [getattr(x, f) for f in x.__dataclass_fields__]
+        seen.append(type(p).__name__)
+        return real(p)
+
+    got = {}
+    datablock.encode_partial = checked
+    try:
+        for dev in ("cuda", "cpu"):
+            fleet = _cluster_fleet(tmp_path, dev, table_dir)
+            try:
+                conn = HttpConnection(fleet[2].url)
+                before = C.launches
+                got[dev] = [sorted(map(tuple, conn(q).rows), key=repr)
+                            for q in sqls]
+                if dev == "cuda":
+                    assert C.launches > before
+                    for s in fleet[1]:
+                        mem = http_json("GET", f"{s.url}/debug/memory")
+                        assert mem["device"].startswith("cuda")
+                        devs = {d for by_seg in mem["columns"].values()
+                                for cols in by_seg.values()
+                                for d in cols.values()}
+                        assert devs and all(d.startswith("cuda")
+                                            for d in devs)
+            finally:
+                _stop_fleet(*fleet)
+    finally:
+        datablock.encode_partial = real
+    assert seen
+    assert got["cuda"] == got["cpu"]

@@ -245,9 +245,12 @@ def test_unported_plan_kinds_raise(tmp_path):
 
 def test_explain_analyze_and_trace_raise(tmp_path):
     """The span plane is ported: EXPLAIN ANALYZE and OPTION(trace=true)
-    run. What still raises is a trace's persistence to a ledger
-    (OPTION(ledgerTrace=true), a trace-ledger path), which needs
-    utils/ledger; nothing of the statement runs first."""
+    run, and a trace persists to the ledger at the caller's path as a
+    record the JAX package's validator accepts. What still raises is
+    OPTION(ledgerTrace=true) with no path at all: the port never writes
+    a ledger the caller did not name."""
+    from pinot_tpu.utils.ledger import validate_file
+    from pinot_tpu_torch.query.sql import SqlError
     from pinot_tpu_torch.broker import Broker, connect
     from pinot_tpu_torch.segment import SegmentBuilder
     from pinot_tpu_torch.server import TableDataManager
@@ -262,10 +265,16 @@ def test_explain_analyze_and_trace_raise(tmp_path):
     q = connect(b)
     assert q("EXPLAIN ANALYZE SELECT SUM(v) FROM t").rows[0][0] == "query"
     assert "phases" in q("SELECT SUM(v) FROM t OPTION(trace=true)").trace
-    with pytest.raises(NotImplementedError, match="utils/ledger"):
+    with pytest.raises(SqlError, match="ledger path"):
         q("EXPLAIN ANALYZE SELECT SUM(v) FROM t OPTION(ledgerTrace=true)")
-    with pytest.raises(NotImplementedError, match="utils/ledger"):
-        Broker(device="cpu", trace_ledger_path=str(tmp_path / "l.jsonl"))
+    path = tmp_path / "l.jsonl"
+    q(f"EXPLAIN ANALYZE SELECT SUM(v) FROM t OPTION(ledgerTrace=true, "
+      f"ledgerPath='{path}')")
+    b2 = Broker(device="cpu", trace_ledger_path=str(path))
+    b2.register_table(dm)
+    connect(b2)("SELECT SUM(v) FROM t OPTION(traceRatio=1)")
+    report = validate_file(str(path))
+    assert report["errors"] == [] and report["kinds"] == {"query_trace": 2}
 
 
 def _run_smoke(cwd):

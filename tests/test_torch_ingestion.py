@@ -5,9 +5,9 @@ sanitization, the composite order) give the reference's rows on the same
 input; a batch job over CSV and JSON inputs builds byte-equal segments in
 both packages (standalone, and the parallel runner's worker processes)
 that answer equal rows through both brokers; an ingestion filter and a
-derived column apply to a stream as in the reference. What waits for the
-cluster plane (a push to a controller, Avro and Parquet input) raises
-``NotImplementedError`` naming it.
+derived column apply to a stream as in the reference; a job's push
+registers its segments with a controller. What waits for a later slice
+(Avro and Parquet input) raises ``NotImplementedError`` naming it.
 """
 import csv
 import filecmp
@@ -186,11 +186,24 @@ def test_batch_job_edges(tmp_path):
     spec["includeFileNamePattern"] = "*.nope"
     with pytest.raises(FileNotFoundError):
         ting.run_batch_ingestion(spec)
-    spec = _spec(ns, tmp_path)
-    spec["push"] = {"controllerUrl": "http://localhost:1"}
-    with pytest.raises(NotImplementedError, match="cluster/deepstore"):
-        ting.run_batch_ingestion(spec)
-    assert not os.path.exists(spec["outputDirURI"])
+    from pinot_tpu.cluster.deepstore import pruning_metadata
+    from pinot_tpu_torch.cluster import Controller
+    ctrl = Controller(str(tmp_path / "ctrl"))
+    try:
+        spec = _spec(ns, tmp_path)
+        ctrl.add_table("orders", spec["schema"])
+        spec["push"] = {"controllerUrl": ctrl.url,
+                        "deepstoreURI": f"file://{tmp_path}/deep"}
+        locs = ting.run_batch_ingestion(spec)
+        segs = ctrl.routing_snapshot()["segments"]["orders"]
+        assert sorted(segs) == sorted(
+            os.path.basename(u)[:-len(".tar.gz")] for u in locs)
+        for name, entry in segs.items():
+            assert entry["location"].startswith(f"file://{tmp_path}/deep/")
+            assert entry["meta"] == pruning_metadata(
+                os.path.join(spec["outputDirURI"], name))
+    finally:
+        ctrl.stop()
 
 
 @pytest.mark.parametrize("fmt", ["avro", "parquet", "orc"])

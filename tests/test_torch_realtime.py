@@ -429,8 +429,9 @@ def test_freshness_owner_registry_guards_replicas():
 def test_manager_defaults_to_cuda_and_refuses_the_protocol(tmp_path):
     """No device means CUDA, which this machine lacks: the manager
     raises rather than run on the CPU. The controller-arbitrated commit
-    and the ledger raise NotImplementedError naming what they wait
-    for."""
+    raises NotImplementedError naming what it waits for; the ingest
+    ledger writes a record the JAX package's validator accepts."""
+    from pinot_tpu.utils.ledger import validate_record
     ns = _pkg("torch")
     cfg = trt.StreamConfig("events", consumer_factory=trt.InMemoryStream(1))
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -441,8 +442,10 @@ def test_manager_defaults_to_cuda_and_refuses_the_protocol(tmp_path):
                                      str(tmp_path / "b"), device="cpu",
                                      completion_client=object())
     dm = _manager(ns, tmp_path / "c", trt.InMemoryStream(1))
-    with pytest.raises(NotImplementedError, match="utils/ledger"):
-        dm.write_ingest_stats(str(tmp_path / "ledger.jsonl"))
+    rec = dm.write_ingest_stats(str(tmp_path / "ledger.jsonl"))
+    assert validate_record(rec) == [] and rec["table"] == "events"
+    with open(tmp_path / "ledger.jsonl") as fh:
+        assert [json.loads(line) for line in fh] == [rec]
 
 
 def test_reload_skips_consuming_snapshots(tmp_path):

@@ -394,10 +394,12 @@ a = resolve_class("pinot_tpu.realtime.kafka.KafkaStream")
 b = resolve_class("pinot_tpu.realtime.filestream.FileLogStream")
 assert a.__module__ == "pinot_tpu_torch.realtime.kafka", a.__module__
 assert b.__module__ == "pinot_tpu_torch.realtime.filestream"
+c = resolve_class("pinot_tpu.cluster.broker_node.BrokerNode")
+assert c.__module__ == "pinot_tpu_torch.cluster.broker_node"
 try:
-    resolve_class("pinot_tpu.cluster.broker_node.BrokerNode")
+    resolve_class("pinot_tpu.cluster.rebalancer.ClosedLoopRebalanceTask")
 except KeyError as e:
-    assert "pinot_tpu_torch.cluster.broker_node" in str(e), e
+    assert "pinot_tpu_torch.cluster.rebalancer" in str(e), e
 else:
     raise AssertionError("resolved a module the port lacks")
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
