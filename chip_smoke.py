@@ -94,8 +94,9 @@ Phases, each printed as it runs; any failure exits non-zero:
              host path): sketch states bitwise, percentile centroids
              against a numpy build of the same split to a relative 1e-9;
 10. star, multistage - the multi-stage engine: bench.py's star schema
-             (tools/star.py: orders PINOT_SMOKE_MS_ROWS rows, default 2^23
-             (2^24 before the format, rollup and trace phases),
+             (tools/star.py: orders PINOT_SMOKE_MS_ROWS rows, default 2^22
+             (2^24 before the format, rollup and trace phases, 2^23
+             before the control phase),
              in 4 segments; customers 60,000; parts 2,000; seed 16) built
              under .torch_cache/, then five shapes (join_gb, join3_gb,
              join_window, a running window sum, a partition window sum)
@@ -325,7 +326,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              (kernel_at_wire_path); tracked == held. Printed: rows/s
              produced and consumed per plugin, seal ms, CRC32C MB/s from
              the native library against the plain loop (which one ran).
-21. cluster (last) - the cluster's data plane in this process over
+21. cluster - the cluster's data plane in this process over
              loopback HTTP: a Controller (state directory and a local
              deep store under .torch_cache/cluster/), two
              ServerNode(device="cuda") and a BrokerNode; the 8-segment
@@ -355,10 +356,55 @@ Phases, each printed as it runs; any failure exits non-zero:
              segments per server, the split, the wave's q/s and
              p50/p99, the dispatch's rows and ms per stage, the phase's
              seconds.
+22. control (last) - the cluster's control plane in this process over
+             loopback HTTP: a Controller (state directory and a local
+             deep store under .torch_cache/control/). (a) The flat
+             lineorder with its lineorder key, CONTROL_ROWS rows (2^19,
+             PINOT_SMOKE_CONTROL_ROWS) in InMemoryStream(4)
+             (lo_orderkey % 4), the first 2 x 2^16 rows of each partition
+             of a seeded pool: two RealtimeTableDataManager(device=
+             "cuda") replicas with CompletionClients commit 8 segments
+             through the segment completion protocol at a flush
+             threshold of 2^16, one COMMIT_SUCCESS each, the other
+             replica adopting the deep-store artifact, with one
+             commit.http_error armed on a segmentCommitEnd leg and one
+             handoff.stall on an adopt; each replica holds every row
+             once (COUNT(*), checkpoints) and answers the 13 SSB digests
+             of the numpy oracle over the same rows; two
+             ServerNode(device="cuda") download the registered segments
+             and a BrokerNode answers the same digests. (b) The 8-segment
+             table at replication 1 on the two servers; a latency
+             objective under its measured p99 burns, its incident freezes
+             one rebalancer pass, then one rollup pass and one rebalancer
+             pass move segments within the churn budget while waves of 8
+             HTTP clients run: the digests hold before, during and after,
+             the receiver's /debug/memory shows the segment on the card,
+             the donor's copy holds no device byte, tracked == held.
+             (c) /debug/autopsy on the controller names the rebalance's
+             churn or the armed faults; OPTION(whydown=true) answers the
+             overlapping events; /ui and /ui/data carry the fleet and
+             rebalance blocks. (d) RealtimeToOfflineSegments over (a)'s
+             committed segments builds lineorder_OFFLINE segments on the
+             card whose hybrid digests are (a)'s; MergeRollup of two
+             keeps them. (e) python -m pinot_tpu_torch.tools.admin
+             QuickStart in a subprocess (90 s limit), run beside (a)'s
+             commit and over before K1 is timed, answers its queries
+             from the card. (f) K1 held bitwise and timed (CUDA events)
+             on every compact input of the path: both replicas' and,
+             from a log of the segments each server execution ran on,
+             every distinct per-server group of (a), (b) (before, during
+             and after the move) and (c), and the hybrid's halves in (d)
+             before and after the merge (kernel_at_control_path). Printed:
+             election, commit and adopt ms per segment, rows/s, the
+             rollup pass ms, ms per cutover step (prewarm, flip, drain)
+             and bytes moved, p50 before and after the move, the verdict
+             and its ms, the minion tasks' seconds and rows, the
+             quickstart's seconds, the phase's seconds.
 
 The SSB phases run at 2^25 rows by default (2^26 before the multi-stage
-phase was added), the star schema at 2^23 orders rows (2^24 before
-the format, rollup and trace phases were added), the realtime phase
+phase was added), the star schema at 2^22 orders rows (2^24 before
+the format, rollup and trace phases were added, 2^23 before the control
+phase was), the realtime phase
 at 2^20 rows (2^21 before the wire and overload phases were added) and
 the wire phase's Kafka table at 2^18 rows (2^19 before the cluster
 phase was added), so that the whole run fits its time limit.
@@ -850,24 +896,32 @@ def profile_query(query, sql: str, top: int = 6, results=None) -> dict:
                         for k, ms, n in ops[:top]]}
 
 
-def k1_timed(mask, cols, cap: int, got) -> dict:
-    """K1 timed on one call's inputs: CUDA events over 20 back-to-back
+def k1_event_times(mask, cols, cap: int, got) -> dict:
+    """K1 timed on one call's inputs with CUDA events over 20 back-to-back
     calls of the kernel, its plain version and torch.masked_select per
-    column, the bytes bound, the device split (torch.profiler) and the
-    host's issue time; ``got`` is the kernel's output on them."""
+    column, the bytes bound and the host's issue time; ``got`` is the
+    kernel's output on them."""
     import torch
 
     from pinot_tpu_torch.ops import compact as C
 
-    row = {"ms": cuda_time_ms(lambda: C.compact(mask, cols, cap), 20),
-           "plain_ms": cuda_time_ms(
-               lambda: C.compact_reference(mask, cols, cap), 20),
-           "library_ms": cuda_time_ms(
-               lambda: [torch.masked_select(c, mask) for c in cols], 20),
-           "bound_ms": C.compact_bytes(mask.shape[0], cols, cap,
-                                       int(got[3]))
-           / HBM_BYTES_PER_S * 1e3,
-           "host_ms": host_time_ms(lambda: C.compact(mask, cols, cap), 20)}
+    return {"ms": cuda_time_ms(lambda: C.compact(mask, cols, cap), 20),
+            "plain_ms": cuda_time_ms(
+                lambda: C.compact_reference(mask, cols, cap), 20),
+            "library_ms": cuda_time_ms(
+                lambda: [torch.masked_select(c, mask) for c in cols], 20),
+            "bound_ms": C.compact_bytes(mask.shape[0], cols, cap,
+                                        int(got[3]))
+            / HBM_BYTES_PER_S * 1e3,
+            "host_ms": host_time_ms(lambda: C.compact(mask, cols, cap), 20)}
+
+
+def k1_timed(mask, cols, cap: int, got) -> dict:
+    """k1_event_times and the device split (torch.profiler) of one call
+    on the same inputs."""
+    from pinot_tpu_torch.ops import compact as C
+
+    row = k1_event_times(mask, cols, cap, got)
     split = compact_split_ms(lambda: C.compact(mask, cols, cap))
     row.update(split or dict.fromkeys(("pass_ms", "fill_ms", "memset_ms")))
     row["device_ms"] = sum(split.values()) if split else None
@@ -2213,10 +2267,10 @@ def surface_phase(seg_list, label: str):
 # the multi-stage engine (K16, K17, K19) over the star schema
 # ---------------------------------------------------------------------------
 
-# the star schema's depth: 2^23 orders rows (2^24 through PR 10, cut by
-# half when the format, rollup and trace phases were added, so that the
-# whole check fits its time limit)
-MS_ROWS = int(os.environ.get("PINOT_SMOKE_MS_ROWS", 1 << 23))
+# the star schema's depth: 2^22 orders rows (2^24 at first, halved when
+# the format, rollup and trace phases were added and again when the
+# control phase was, so that the whole check fits its time limit)
+MS_ROWS = int(os.environ.get("PINOT_SMOKE_MS_ROWS", 1 << 22))
 MS_VARIANTS = 3                  # literal variants of each shape
 MS_STATE_CAP = 1 << 25           # PINOT_FUSED_MAX_STATE of the fused plane
 # the capped plane's PINOT_FUSED_MAX_STATE: under the probe rows, so
@@ -2249,8 +2303,9 @@ def star_phase():
     phase("star", orders=MS_ROWS, customers=star.CUST_ROWS,
           parts=star.PART_ROWS, segments={k: len(v) for k, v in dirs.items()},
           seconds=time.perf_counter() - t0,
-          cuts=[f"{MS_ROWS} orders rows; 2^24 through PR 10, halved when "
-                "the format, rollup and trace phases were added"])
+          cuts=[f"{MS_ROWS} orders rows; 2^24 at first, halved when the "
+                "format, rollup and trace phases were added and again "
+                "when the control phase was"])
     return tables, dirs
 
 
@@ -3907,26 +3962,38 @@ def _plans(sql: str, segments):
     return [SegmentPlanner(ctx, s).plan() for s in segments]
 
 
+def _k1_cases(plans):
+    """The route the batched dispatch gives a group of compact plans and
+    K1's inputs there: [(mask, cols, cap)], one for a segmented group,
+    else one a segment."""
+    from pinot_tpu_torch.engine import batch
+
+    route = _expected_route(plans) if len(plans) > 1 else batch.PER_SEGMENT
+    if route == batch.SEGMENTED:
+        return route, [_segmented_inputs(plans)]
+    return route, [(*_compact_inputs(p), p.slots_cap) for p in plans]
+
+
+def _k1_case_row(mask, cols, cap: int, got, route: str, tile: int) -> dict:
+    return {"route": route, "n": mask.shape[0],
+            "tiles": -(-mask.shape[0] // tile),
+            "cols": [str(c.dtype) for c in cols], "slots_cap": cap,
+            "matched": int(got[3]), "equal": True}
+
+
 def _k1_held(plans, label: str, path: str, tile: int,
              on_card: bool = True) -> int:
     """K1 on a compact query's own inputs (its segmented group or each
     segment) held to compact_reference bitwise, and on the card timed
     (k1_timed); the launches compared."""
-    from pinot_tpu_torch.engine import batch
     from pinot_tpu_torch.ops import compact as C
 
-    route = _expected_route(plans) if len(plans) > 1 else batch.PER_SEGMENT
-    if route == batch.SEGMENTED:
-        cases = [_segmented_inputs(plans)]
-    else:
-        cases = [(*_compact_inputs(p), p.slots_cap) for p in plans]
+    route, cases = _k1_cases(plans)
     for mask, cols, cap in cases:
         got = C.compact(mask, cols, cap)
         same_outputs(got, C.compact_reference(mask, cols, cap))
-        phase(path, query=label, route=route,
-              n=mask.shape[0], tiles=-(-mask.shape[0] // tile),
-              cols=[str(c.dtype) for c in cols], slots_cap=cap,
-              matched=int(got[3]), equal=True,
+        phase(path, query=label, **_k1_case_row(mask, cols, cap, got,
+                                                 route, tile),
               **(k1_timed(mask, cols, cap, got) if on_card else {}))
     return len(cases)
 
@@ -6343,27 +6410,38 @@ def overload_phase(single, segs, digests: dict, tile: int,
                 ssb._digest(res.rows) != digests[qid]:
             raise AssertionError(f"{qid} beside the killed query: {res!r}")
 
-    # the kill order: besteffort before protected, while both run
+    # the kill order: besteffort before protected, while both run. Each
+    # of the two queries is held just after the accountant registers it
+    # until the victim is picked, so both are running when it is, on any
+    # load (a free-running pair can finish apart on a busy host)
     host = " OPTION(timeoutMs=600000, forceHostExecution=true, " \
         "queryId={q})"
     q11 = specs["q1.1"]
+    outs = {}
+    ids = {t: f"order_{t}" for t in ("protected", "besteffort")}
+    picked = threading.Event()
+    register = global_accountant.register
+
+    def held_register(query_id, *a, **kw):
+        u = register(query_id, *a, **kw)
+        if query_id in ids.values():
+            picked.wait(60.0)
+        return u
+
+    def run(tier):
+        sql = q11.replace("FROM lineorder ", f"FROM lineorder_{tier} ")
+        try:
+            outs[tier] = query(sql + host.format(q=ids[tier]))
+        except Exception as e:  # noqa: BLE001 - checked below
+            outs[tier] = e
+
     order = None
-    for attempt in range(3):
-        outs = {}
-        ids = {t: f"order_{t}_{attempt}" for t in ("protected",
-                                                  "besteffort")}
-
-        def run(tier):
-            sql = q11.replace("FROM lineorder ", f"FROM lineorder_{tier} ")
-            try:
-                outs[tier] = query(sql + host.format(q=ids[tier]))
-            except Exception as e:  # noqa: BLE001 - checked below
-                outs[tier] = e
-
-        threads = [threading.Thread(target=run, args=(t,)) for t in ids]
+    threads = [threading.Thread(target=run, args=(t,)) for t in ids]
+    global_accountant.register = held_register
+    try:
         for t in threads:
             t.start()
-        deadline = time.monotonic() + 30.0
+        deadline = time.monotonic() + 60.0
         while time.monotonic() < deadline:
             running = {u.query_id for u in global_accountant.running()}
             if set(ids.values()) <= running:
@@ -6373,10 +6451,11 @@ def overload_phase(single, segs, digests: dict, tile: int,
             if not any(t.is_alive() for t in threads):
                 break
             time.sleep(0.0005)
+    finally:
+        picked.set()
+        del global_accountant.register
         for t in threads:
             t.join()
-        if order is not None:
-            break
     if order != ids["besteffort"]:
         raise AssertionError(f"kill_most_expensive picked {order}, not "
                              "the besteffort query")
@@ -6846,13 +6925,16 @@ def _server_segments(servers) -> list:
 
 
 def _record_executions(node, log: list) -> None:
-    """Log (server, sql, segment names, segments queried) of every
-    execution on ``node``: which segments each server answered."""
+    """Log (server, sql, names of the segments it runs on in the order it
+    runs them, segments queried) of every execution on ``node``."""
     inner = node._execute
 
     def logged(sql, segment_names=None, *a, **k):
+        wanted = set(segment_names or ())
+        names = tuple(x.name for dm in list(node._tables.values())
+                      for x in dm.acquire_segments() if x.name in wanted)
         out = inner(sql, segment_names, *a, **k)
-        log.append((node.instance_id, sql, tuple(segment_names or ()),
+        log.append((node.instance_id, sql, names,
                     out.get("segmentsQueried", 0)))
         return out
 
@@ -7290,6 +7372,771 @@ def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
     return cluster_launches
 
 
+CONTROL_ROWS = int(os.environ.get("PINOT_SMOKE_CONTROL_ROWS", 1 << 19))
+CONTROL_PARTS = 4
+CONTROL_ROUNDS = 2               # segments committed per partition
+CONTROL_WAVE = 8                 # HTTP clients of the wave during the move
+CONTROL_QS_ROWS = 5000           # the quickstart's example rows
+CONTROL_QS_TIMEOUT_S = 90.0
+CONTROL_TABLE = "lineorder_REALTIME"
+
+
+def control_sizes() -> dict:
+    """The control phase's sizes from CONTROL_ROWS (2^19 by default): the
+    flush threshold (2^16 at 2^19) gives each of the CONTROL_PARTS
+    partitions CONTROL_ROUNDS committed segments and no consuming tail."""
+    flush = CONTROL_ROWS // (CONTROL_PARTS * CONTROL_ROUNDS)
+    return {"rows": flush * CONTROL_PARTS * CONTROL_ROUNDS, "flush": flush,
+            "segments": CONTROL_PARTS * CONTROL_ROUNDS}
+
+
+def _control_rows(z: dict):
+    """The rows of the replicated commit: the first 2 x flush rows of each
+    partition (lo_orderkey % 4) of a seeded lineorder pool a sixteenth
+    larger than the rows, so every partition fills both its segments.
+    Returns (columns of the chosen rows, per-partition row dicts in stream
+    order)."""
+    import numpy as np
+
+    from pinot_tpu_torch.tools import ssb
+
+    n_pool = z["rows"] + z["rows"] // 16
+    cols = ssb.gen_columns(n_pool)
+    cols.update(ssb.gen_lineorder_keys(n_pool))
+    part = cols["lo_orderkey"] % CONTROL_PARTS
+    take = CONTROL_ROUNDS * z["flush"]
+    idx = []
+    for p in range(CONTROL_PARTS):
+        mine = np.nonzero(part == p)[0][:take]
+        if len(mine) < take:
+            raise AssertionError(f"control: partition {p} of the pool has "
+                                 f"{len(mine)} rows, under {take}")
+        idx.append(mine)
+    chosen = ssb.take_rows(cols, np.sort(np.concatenate(idx)))
+    return chosen, [ssb.row_dicts(ssb.take_rows(cols, i)) for i in idx]
+
+
+def _control_client(base, log: list):
+    """A CompletionClient that logs (server, op, segment, answer, start,
+    end) of every protocol call."""
+
+    class Timed(base):
+        def segment_consumed(self, table, segment, offset):
+            t0 = time.perf_counter()
+            out = super().segment_consumed(table, segment, offset)
+            log.append((self.server_id, "consumed", segment,
+                        out.get("status"), t0, time.perf_counter()))
+            return out
+
+        def split_commit(self, table, segment, seg_dir, metadata=None):
+            t0, ok = time.perf_counter(), None
+            try:
+                ok = super().split_commit(table, segment, seg_dir,
+                                          metadata)
+                return ok
+            finally:
+                log.append((self.server_id, "commit", segment, ok, t0,
+                            time.perf_counter()))
+
+    return Timed
+
+
+def _control_commit(ctrl, work: str, z: dict, device: str) -> dict:
+    """(a) Two replicas of CONTROL_TABLE commit CONTROL_ROUNDS segments a
+    partition through the controller, one commit.http_error armed on a
+    segmentCommitEnd leg and one handoff.stall on an adopt."""
+    from pinot_tpu_torch.cluster.completion import CompletionClient
+    from pinot_tpu_torch.realtime import (InMemoryStream,
+                                          RealtimeTableDataManager,
+                                          StreamConfig)
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.utils import faults
+
+    t0 = time.perf_counter()
+    chosen, parts = _control_rows(z)
+    schema = ssb.keyed_schema(chosen)
+    data_s = time.perf_counter() - t0
+    ctrl.add_table(CONTROL_TABLE, schema.to_dict(), replication=2)
+    stream = InMemoryStream(CONTROL_PARTS, name="control")
+    log: list = []
+    client = _control_client(CompletionClient, log)
+    deep = f"file://{work}/deepstore"
+    reps = []
+    for rid in ("replica_0", "replica_1"):
+        m = RealtimeTableDataManager(
+            CONTROL_TABLE, schema, StreamConfig(
+                "control", num_partitions=CONTROL_PARTS,
+                flush_threshold_rows=z["flush"],
+                flush_threshold_seconds=1e9, consumer_factory=stream),
+            os.path.join(work, rid), device=device,
+            completion_client=client(ctrl.url, rid, deep))
+        m.report_interval_s = 0.0
+        reps.append(m)
+    names = {(p, r): f"{CONTROL_TABLE}__{p}__{r}"
+             for p in range(CONTROL_PARTS) for r in range(CONTROL_ROUNDS)}
+    http_seg, stall_seg = names[(1, 0)], names[(2, CONTROL_ROUNDS - 1)]
+    plan = faults.install(
+        f"seed=23; commit.http_error: match=segmentCommitEnd/{http_seg}, "
+        f"times=1; handoff.stall: match={stall_seg}, times=1")
+    adopt_ms, consume_s = {}, 0.0
+    t_commit = time.perf_counter()
+    try:
+        for r in range(CONTROL_ROUNDS):
+            for p in range(CONTROL_PARTS):
+                lo = r * z["flush"]
+                stream.produce_many(parts[p][lo:lo + z["flush"]],
+                                    partition=p)
+            for p in range(CONTROL_PARTS):
+                name = names[(p, r)]
+                order = reps if p % 2 == 0 else reps[::-1]
+                t0 = time.perf_counter()
+                for m in order:
+                    m.consume_once(p)
+                consume_s += time.perf_counter() - t0
+                deadline = time.monotonic() + CLUSTER_WAIT_S
+                while True:
+                    done = 0
+                    for m in order:
+                        if name in m._partition_state(p)["segments"]:
+                            done += 1
+                            continue
+                        t0 = time.perf_counter()
+                        m._maybe_seal(p)
+                        if name in m._partition_state(p)["segments"] and \
+                                not any(e[0] == m.completion_client.server_id
+                                        and e[1] == "commit" and e[2] == name
+                                        and e[3] for e in log):
+                            adopt_ms[name] = (time.perf_counter() - t0) * 1e3
+                    if done == len(order):
+                        break
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"control: {name} not committed "
+                                             f"and adopted in {CLUSTER_WAIT_S} s")
+    finally:
+        faults.clear()
+    commit_s = time.perf_counter() - t_commit
+    fired = sorted((f["point"], f["key"]) for f in plan.fired)
+    if [p for p, _k in fired] != ["commit.http_error", "handoff.stall"]:
+        raise AssertionError(f"control: armed faults fired {fired}")
+    per_seg = {}
+    for (p, r), name in names.items():
+        calls = [e for e in log if e[2] == name]
+        wins = [e for e in calls if e[1] == "commit" and e[3]]
+        if len(wins) != 1:
+            raise AssertionError(f"control: {name} has {len(wins)} "
+                                 "COMMIT_SUCCESS")
+        status = ctrl.completion.status(CONTROL_TABLE, name)
+        if status is None or status["state"] != "COMMITTED":
+            raise AssertionError(f"control: {name} is {status}")
+        if name not in adopt_ms:
+            raise AssertionError(f"control: no replica adopted {name}")
+        first = min(e[4] for e in calls if e[1] == "consumed")
+        elected = min(e[5] for e in calls if e[1] == "consumed"
+                      and e[3] == "COMMIT")
+        per_seg[name] = {
+            "committer": wins[0][0],
+            "election_ms": (elected - first) * 1e3,
+            "commit_ms": sum((e[5] - e[4]) * 1e3 for e in calls
+                             if e[1] == "commit"),
+            "commit_calls": sum(e[1] == "commit" for e in calls),
+            "adopt_ms": adopt_ms[name]}
+    want_segments = {p: [names[(p, r)] for r in range(CONTROL_ROUNDS)]
+                     for p in range(CONTROL_PARTS)}
+    for m in reps:
+        for p in range(CONTROL_PARTS):
+            st = m._partition_state(p)
+            if st["segments"] != want_segments[p] or \
+                    st["next_offset"] != CONTROL_ROUNDS * z["flush"]:
+                rid = m.completion_client.server_id
+                raise AssertionError(f"control: {rid} partition {p}: {st}")
+        if m.total_docs != z["rows"] or m.consuming_docs != 0:
+            raise AssertionError(f"control: a replica holds {m.total_docs} "
+                                 f"committed rows, {m.consuming_docs} "
+                                 f"consuming, of {z['rows']}")
+        on = {s.device.type for s in m.acquire_segments()}
+        if on != {_device_type(device)}:
+            raise AssertionError(f"control: replica segments on {on}")
+    stats = [m.ingest_stats() for m in reps]
+    return {"reps": reps, "chosen": chosen, "per_segment": per_seg,
+            "fired": fired, "data_s": data_s, "commit_s": commit_s,
+            "consume_s": consume_s, "stats": stats}
+
+
+def _device_type(device: str) -> str:
+    import torch
+
+    return torch.device(device).type
+
+
+def _control_digests(query, table: str, want: dict, label: str) -> dict:
+    """The 13 SSB queries on ``table``: each digest must equal ``want``'s;
+    returns the ms of each."""
+    from pinot_tpu_torch.tools import ssb
+
+    ms = {}
+    for qid, p, v, g in ssb.QUERIES:
+        t0 = time.perf_counter()
+        res = query(_rt_sql((p, v, g), table))
+        ms[qid] = (time.perf_counter() - t0) * 1e3
+        if ssb._digest(res.rows) != want[qid]:
+            raise AssertionError(f"control {label} {qid}: digest differs")
+    return ms
+
+
+def _control_k1(labelled_plans, tile: int, on_card: bool) -> int:
+    """K1 held bitwise on every compact input of ``labelled_plans`` ((label,
+    one execution's plans over the segments it ran on) pairs), each timed
+    on the card with CUDA events (k1_event_times; the profiler's device
+    split, seconds an input where its windows miss, is left to the main
+    path's inputs). The launches these comparisons make are not the
+    path's: K1's counter is put back as it was."""
+    from pinot_tpu_torch.ops import compact as C
+
+    n, launches = 0, C.launches
+    for label, plans in labelled_plans:
+        for group in _k1_groups(plans):
+            route, cases = _k1_cases(group)
+            for mask, cols, cap in cases:
+                got = C.compact(mask, cols, cap)
+                same_outputs(got, C.compact_reference(mask, cols, cap))
+                phase("kernel_at_control_path", query=label,
+                      **_k1_case_row(mask, cols, cap, got, route, tile),
+                      **(k1_event_times(mask, cols, cap, got) if on_card
+                         else {}))
+                n += 1
+    C.launches = launches
+    return n
+
+
+def _control_plans(segs, label: str) -> list:
+    """(label:qid, plans) of the 13 SSB queries over ``segs``, as an
+    in-process broker runs them."""
+    from pinot_tpu_torch.tools import ssb
+
+    return [(f"{label}:{qid}", _plans(_rt_sql((p, v, g), "lineorder"), segs))
+            for qid, p, v, g in ssb.QUERIES]
+
+
+def _executed_plans(log: list, servers, qids: dict, label: str) -> list:
+    """(label:qid@server, plans) for each distinct execution of ``log``
+    over the copies of its segments that stand now: the executing
+    server's, else the holder of a segment moved since (the copies of one
+    segment hold the same columns, and a donor's copy is retired)."""
+    held = {}
+    for s in servers:
+        for dm in list(s._tables.values()):
+            for x in dm.acquire_segments():
+                held[(s.instance_id, x.name)] = x
+                held.setdefault(x.name, x)
+    out = []
+    for sid, sql, names, _n in dict.fromkeys(log):
+        if names:
+            segs = [held.get((sid, n)) or held[n] for n in names]
+            out.append((f"{label}:{qids.get(sql, sql[:48])}@{sid}"
+                        f"/{len(names)}", _plans(sql, segs)))
+    return out
+
+
+def _hybrid_plans(broker, label: str) -> list:
+    """(label:qid, plans) of both halves of each SSB query on the hybrid
+    lineorder, split at its time boundary as the broker splits it."""
+    by_query: dict = {}
+    _rt_hybrid_plans(broker, by_query)
+    return [(f"{label}:{k.split(':', 1)[1]}", v) for k, v in by_query.items()]
+
+
+def _quickstart_run(qs_dir: str, device: str, out: dict) -> None:
+    """``python -m pinot_tpu_torch.tools.admin QuickStart`` on ``device``
+    in a subprocess (CONTROL_QS_TIMEOUT_S limit): its output or None, and
+    its seconds, into ``out``."""
+    t0 = time.perf_counter()
+    try:
+        out["run"] = subprocess.run(
+            [sys.executable, "-m", "pinot_tpu_torch.tools.admin",
+             "QuickStart", "--exit-after", "--rows", str(CONTROL_QS_ROWS),
+             "--device", device, "--work-dir", qs_dir],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=CONTROL_QS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        out["run"] = None
+    out["seconds"] = time.perf_counter() - t0
+
+
+def _quickstart_check(qs: dict, device: str) -> None:
+    """The quickstart exited 0, printed its example rows' count and
+    answered from ``device``."""
+    out = qs.get("run")
+    if out is None:
+        raise AssertionError(f"control: the quickstart took over "
+                             f"{CONTROL_QS_TIMEOUT_S} s")
+    lines = out.stdout.splitlines()
+    served = next((ln for ln in lines if ln.startswith("served from:")), "")
+    if out.returncode != 0 or f"  {CONTROL_QS_ROWS}" not in lines or \
+            _device_type(device) not in served or \
+            (device.startswith("cuda") and "cpu" in served):
+        raise AssertionError(f"control: the quickstart exited "
+                             f"{out.returncode}: {out.stdout[-800:]} "
+                             f"{out.stderr[-800:]}")
+    phase("control_quickstart", ok=True, seconds=qs["seconds"],
+          served=served, queries=sum(ln.startswith("> ") for ln in lines))
+
+
+def _seg_device_bytes(seg) -> int:
+    return sum(int(t.nbytes) for t in list(seg._device.values()))
+
+
+def control_phase(table_dir: str, digests: dict, tile: int,
+                  live_segments=(), device: str = "cuda") -> dict:
+    """The cluster's control plane in this process over loopback HTTP: a
+    Controller (state directory and a local deep store under
+    .torch_cache/control/), then (a) two RealtimeTableDataManager(device)
+    replicas of CONTROL_TABLE with CompletionClients commit
+    CONTROL_ROUNDS segments in each of CONTROL_PARTS partitions
+    (control_sizes) through the controller's segment completion protocol,
+    one commit.http_error armed on a segmentCommitEnd leg and one
+    handoff.stall on an adopt: one COMMIT_SUCCESS a segment, the other
+    replica adopts the artifact, both replicas hold every row once and
+    answer the 13 SSB queries with the numpy oracle's digests; two
+    ServerNode(device) download the registered segments and a
+    BrokerNode answers the same digests; (b) the 8-segment table at
+    replication 1 on the two servers with a latency objective under its
+    measured p50: the burn alert's incident freezes a rebalance pass,
+    then one rollup pass and one rebalancer pass move a segment within
+    the churn budget while a wave of CONTROL_WAVE HTTP clients runs; the
+    receiver serves it from the card, the donor holds no device byte of
+    it, the digests hold before, during and after, tracked == held; (c)
+    /debug/autopsy on the controller names the rebalance's churn or the
+    armed faults, OPTION(whydown=true) returns the overlapping events,
+    /ui and /ui/data carry the fleet and rebalance blocks; (d)
+    RealtimeToOfflineSegments over replica_0's committed segments builds
+    lineorder_OFFLINE segments on ``device`` whose hybrid digests are
+    (a)'s, and MergeRollup of two of them keeps the digests; (e)
+    ``python -m pinot_tpu_torch.tools.admin QuickStart`` in a subprocess
+    beside (a)'s commit answers its queries from the card; (f) K1 held
+    bitwise on every compact input of the path (kernel_at_control_path):
+    both replicas', each distinct (server, query, segments) execution of
+    (a)-(c) as logged, the hybrid's before and after the merge. Returns
+    {"launches": K1's launches on the path, "seconds": the phase's}."""
+    import gc as _gc
+    import threading
+
+    import torch
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.clients import HttpConnection
+    from pinot_tpu_torch.cluster import BrokerNode, Controller, ServerNode
+    from pinot_tpu_torch.cluster.autopsy import CAUSES, MIN_SCORE
+    from pinot_tpu_torch.cluster.http_util import http_json, http_raw
+    from pinot_tpu_torch.minion import (MinionContext, MinionWorker,
+                                        TaskSpec, TaskState)
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.spi import TableConfig
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.utils.slo import global_incidents, global_slo
+
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+    _gc.collect()
+    baseline = torch.cuda.memory_allocated() if on_card else 0
+    work = os.path.join(CACHE, "control")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    z = control_sizes()
+    every = list(live_segments)
+    # (e) the quickstart, a process of its own, runs beside (a)'s commit
+    qs: dict = {}
+    qs_thread = threading.Thread(target=_quickstart_run,
+                                 args=(os.path.join(work, "quickstart"),
+                                       device, qs))
+    qs_thread.start()
+    ctrl = Controller(os.path.join(work, "ctrl"), heartbeat_timeout=60.0,
+                      reconcile_interval=0.2)
+    # every pass of the rollup and the rebalancer here is a deliberate one
+    for name in (ctrl.rollup.NAME, ctrl.rebalancer.NAME):
+        ctrl.scheduler._next_run[name] = time.monotonic() + 1e9
+    servers, broker, reps, n_held = [], None, [], 0
+    global_slo.clear()
+    global_incidents.reset()
+    try:
+        # (a) the replicated commit
+        C.launches = 0                   # the control path starts here
+        a = _control_commit(ctrl, work, z, device)
+        reps = a["reps"]
+        want = _rt_oracle(a["chosen"], os.path.join(work, "oracle"))
+        rep_ms = {}
+        for m in reps:
+            b = Broker(device=device)
+            b.register_table(m)
+            q = connect(b)
+            count = q(f"SELECT COUNT(*) FROM {CONTROL_TABLE}").rows
+            if count != [(z["rows"],)]:
+                raise AssertionError(f"control: COUNT(*) {count} on a "
+                                     f"replica, {z['rows']} produced")
+            rep_ms[m.completion_client.server_id] = _control_digests(
+                q, CONTROL_TABLE, want, "replica")
+            _reconcile_or_fail(every + reps[0].acquire_segments()
+                               + reps[1].acquire_segments(), "replicas")
+        # the quickstart is over before K1 is timed on this card
+        qs_thread.join()
+        _quickstart_check(qs, device)
+        n_held += _control_k1(
+            [lp for i, m in enumerate(reps) for lp in _control_plans(
+                m.acquire_segments(), f"replica_{i}")], tile, on_card)
+        t0 = time.perf_counter()
+        servers = [ServerNode(f"server_{i}", ctrl.url, poll_interval=0.1,
+                              device=device,
+                              ledger_path=os.path.join(work, f"s{i}.jsonl"))
+                   for i in range(CLUSTER_SERVERS)]
+        broker = BrokerNode(ctrl.url, routing_refresh=0.1,
+                            slow_query_ms=1e9,
+                            query_stats_path=os.path.join(work,
+                                                          "broker.jsonl"))
+        ran: list = []
+        for s in servers:
+            _record_executions(s, ran)
+        _cluster_sync(ctrl, servers, broker)
+        for s in servers:
+            got = sorted(x.name for x in
+                         s._tables[CONTROL_TABLE].acquire_segments())
+            if got != sorted(a["per_segment"]):
+                raise AssertionError(f"control: {s.instance_id} holds "
+                                     f"{got}")
+        download_s = time.perf_counter() - t0
+        conn = HttpConnection(broker.url, timeout=600.0)
+        node_ms = _control_digests(conn, CONTROL_TABLE, want, "broker node")
+        for m in reps:
+            m.write_ingest_stats(servers[0].ledger_path)
+        segs = a["per_segment"].values()
+        phase("control_commit", ok=True, rows=z["rows"],
+              partitions=CONTROL_PARTS, flush_threshold_rows=z["flush"],
+              segments=len(a["per_segment"]), per_segment=a["per_segment"],
+              election_ms_p50=statistics.median(
+                  s["election_ms"] for s in segs),
+              commit_ms_p50=statistics.median(s["commit_ms"] for s in segs),
+              adopt_ms_p50=statistics.median(s["adopt_ms"] for s in segs),
+              rows_per_s=z["rows"] / a["commit_s"],
+              consume_s=a["consume_s"], commit_s=a["commit_s"],
+              data_s=a["data_s"], faults_fired=a["fired"],
+              replica_stats=[{k: st[k] for k in (
+                  "commits", "commit_retries", "commit_failures",
+                  "handoff_retries")} for st in a["stats"]],
+              replica_ms=rep_ms, broker_node_ms=node_ms,
+              servers_download_and_load_s=download_s,
+              cuts=[f"{z['rows']} lineorder rows with the lineorder key "
+                    f"(SSB SF10 has {SSB_SF10_ROWS}), {CONTROL_PARTS} "
+                    f"partitions of {CONTROL_ROUNDS} x {z['flush']} rows: "
+                    "the first rows of each partition of a seeded pool"])
+
+        # (b) rollup and the closed-loop rebalance on the 8-segment table
+        seg_dirs = sorted(os.path.join(table_dir, d)
+                          for d in os.listdir(table_dir))
+        ctrl.add_table("lineorder", _seg_schema(seg_dirs[0]), replication=1)
+        for d in seg_dirs:
+            ctrl.add_segment("lineorder", os.path.basename(d), d)
+        _cluster_sync(ctrl, servers, broker)
+        hosted = {s.instance_id: sorted(
+            x.name for x in s._tables["lineorder"].acquire_segments())
+            for s in servers}
+        if sorted(n for v in hosted.values() for n in v) != \
+                [os.path.basename(d) for d in seg_dirs] or \
+                not all(hosted.values()):
+            raise AssertionError(f"control: replication 1 placed {hosted}")
+        sqls = [(qid, ssb.spec_to_sql(p, v, g))
+                for qid, p, v, g in ssb.QUERIES]
+        before, lat = {}, []
+        for it in range(ITERS):
+            for qid, sql in sqls:
+                t0 = time.perf_counter()
+                res = conn(sql)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if ssb._digest(res.rows) != digests[qid]:
+                    raise AssertionError(f"control before the move {qid}: "
+                                         "digest differs")
+                before[qid] = lat[-1]
+        p50_before, p99 = _p(lat, 50), _p(lat, 99)
+        # a latency objective the table cannot meet: the bar at half its
+        # fastest query (far under its p99), so every query is a bad event
+        bar = min(lat) / 2
+        global_slo.set_objective("lineorder", "latency", bar_ms=bar,
+                                 objective=0.99)
+        for qid, sql in sqls:
+            conn(sql)
+        _cluster_wait(lambda: global_incidents.snapshot(limit=0)["count"]
+                      >= 1, "the burn alert's incident")
+        t0 = time.perf_counter()
+        ctrl.rollup.run()
+        rollup_ms = (time.perf_counter() - t0) * 1e3
+        frozen = ctrl.rebalancer.run()
+        if not frozen["frozen"] or frozen["planned"]:
+            raise AssertionError(f"control: a pass under an open incident "
+                                 f"planned {frozen}")
+        global_incidents.reset()
+        t0 = time.perf_counter()
+        rec = ctrl.rollup.run()
+        rollup2_ms = (time.perf_counter() - t0) * 1e3
+        burn = [o for o in rec["slo"]["objectives"]
+                if o["scope"] == "lineorder"]
+        donor_copies = {x.name: (s.instance_id, x) for s in servers
+                        for x in s._tables["lineorder"].acquire_segments()}
+        result = {}
+        steps: dict = {}
+        rb = ctrl.rebalancer
+        timed = {}
+        # the cutover's steps, timed: the receiver added (prewarm_add),
+        # its load awaited (prewarm_wait), the donor removed (flip) and
+        # drained (drain)
+        names = {"_add_holder": "prewarm_add",
+                 "_wait_prewarm": "prewarm_wait", "_remove_holder": "flip"}
+        for step in names:
+            real = getattr(rb, step)
+
+            def timed_step(*args, _real=real, _step=names[step], **kw):
+                t = time.perf_counter()
+                try:
+                    return _real(*args, **kw)
+                finally:
+                    steps.setdefault(_step, []).append(
+                        (time.perf_counter() - t) * 1e3)
+
+            timed[step] = timed_step
+            setattr(rb, step, timed_step)
+        from pinot_tpu_torch.engine import tier as tier_mod
+        real_drain = tier_mod.global_tier.drain
+
+        def timed_drain(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return real_drain(*args, **kw)
+            finally:
+                steps.setdefault("drain", []).append(
+                    (time.perf_counter() - t) * 1e3)
+
+        tier_mod.global_tier.drain = timed_drain
+
+        def run_pass():
+            try:
+                result["pass"] = rb.run()
+            except Exception as e:  # noqa: BLE001 - fails the phase below
+                result["error"] = e
+
+        wave_sqls = [sqls[k % len(sqls)][1] for k in range(CONTROL_WAVE)]
+        wave_want = [digests[sqls[k % len(sqls)][0]]
+                     for k in range(CONTROL_WAVE)]
+        t_move = time.perf_counter()
+        mover = threading.Thread(target=run_pass)
+        mover.start()
+        waves, wave_lat = 0, []
+        try:
+            while True:
+                rows, errors = [None] * CONTROL_WAVE, []
+                _drive_wave(conn, wave_sqls, rows, wave_lat, errors)
+                waves += 1
+                if errors:
+                    raise AssertionError(f"control wave: {errors[:3]}")
+                if any(ssb._digest(rows[k]) != wave_want[k]
+                       for k in range(CONTROL_WAVE)):
+                    raise AssertionError("control: a digest changed during "
+                                         "the move")
+                if not mover.is_alive():
+                    break
+        finally:
+            mover.join()
+            del tier_mod.global_tier.drain
+            for step in timed:
+                delattr(rb, step)
+        move_s = time.perf_counter() - t_move
+        if "error" in result:
+            raise result["error"]
+        moved = result["pass"]
+        if moved["executed"] < 1 or moved["frozen"]:
+            raise AssertionError(f"control: the rebalance pass moved "
+                                 f"nothing: {moved}, burn {burn}")
+        plan = rb.snapshot()["last_plan"]
+        budget = rb.snapshot()["budget"]
+        if len(plan) > budget["moves"] or (len(plan) > 1 and sum(
+                m["bytes"] for m in plan) > budget["bytes"]):
+            raise AssertionError(f"control: plan {plan} over {budget}")
+        _cluster_sync(ctrl, servers, broker)
+        after, lat2 = {}, []
+        for it in range(ITERS):
+            for qid, sql in sqls:
+                t0 = time.perf_counter()
+                res = conn(sql)
+                lat2.append((time.perf_counter() - t0) * 1e3)
+                if ssb._digest(res.rows) != digests[qid]:
+                    raise AssertionError(f"control after the move {qid}: "
+                                         "digest differs")
+                after[qid] = lat2[-1]
+        by_id = {s.instance_id: s for s in servers}
+        moves = []
+        for m in plan:
+            donor, recv = by_id[m["donor"]], by_id[m["receiver"]]
+            seg = m["segment"]
+            if seg in {x.name for x in
+                       donor._tables["lineorder"].acquire_segments()}:
+                raise AssertionError(f"control: {m['donor']} still holds "
+                                     f"{seg}")
+            held = [x for x in recv._tables["lineorder"].acquire_segments()
+                    if x.name == seg]
+            mem = http_json("GET", f"{recv.url}/debug/memory")
+            cols = mem["columns"]["lineorder"].get(seg) or {}
+            if len(held) != 1 or not cols or any(
+                    not d.startswith(device) for d in cols.values()):
+                raise AssertionError(f"control: {m['receiver']} /debug/"
+                                     f"memory for {seg}: {cols}")
+            old = donor_copies[seg][1]
+            if _seg_device_bytes(old) != 0:
+                raise AssertionError(f"control: the donor's copy of {seg} "
+                                     f"holds {_seg_device_bytes(old)} "
+                                     "device bytes")
+            moves.append({**m, "receiver_device_bytes":
+                          _seg_device_bytes(held[0]),
+                          "receiver_columns_on": sorted(set(cols.values())),
+                          "donor_device_bytes": 0})
+        del donor_copies
+        _reconcile_or_fail(every + _server_segments(servers)
+                           + reps[0].acquire_segments()
+                           + reps[1].acquire_segments(), "rebalance")
+        phase("control_rebalance", ok=True, hosted_before=hosted,
+              slo_bar_ms=bar, p50_before_ms=p50_before, p99_before_ms=p99,
+              p50_after_ms=_p(lat2, 50), p99_after_ms=_p(lat2, 99),
+              burn=burn, frozen_pass=frozen, rollup_pass_ms=rollup_ms,
+              rollup_pass2_ms=rollup2_ms,
+              fleet_records=rec["fleet_records"],
+              nodes_polled=rec["nodes_polled"], pass_result=moved,
+              moves=moves, budget=budget, move_s=move_s,
+              step_ms={k: v for k, v in steps.items()},
+              bytes_moved=sum(m["bytes"] for m in plan),
+              waves_during_move=waves, wave_p50_ms=_p(wave_lat, 50),
+              wave_p99_ms=_p(wave_lat, 99), tracked_equals_held=True)
+
+        # (c) the autopsy and the web app
+        t0 = time.perf_counter()
+        verdict = http_json("GET", f"{ctrl.url}/debug/autopsy")
+        verdict_ms = (time.perf_counter() - t0) * 1e3
+        scores = {c["cause"]: c["score"] for c in verdict["causes"]}
+        if sorted(scores) != sorted(CAUSES) or not (
+                scores["rebalance_churn"] >= MIN_SCORE
+                or scores["chaos_faults"] >= MIN_SCORE):
+            raise AssertionError(f"control: the autopsy names neither the "
+                                 f"rebalance nor the faults: {verdict}")
+        why = broker.query("EXPLAIN ANALYZE " + _with_option(
+            sqls[0][1], "whydown=true"))
+        wd = (why.trace or {}).get("whydown")
+        if not isinstance(wd, dict) or "error" in wd or \
+                not wd.get("found"):
+            raise AssertionError(f"control: whydown answered {wd}")
+        page = http_raw("GET", f"{ctrl.url}/ui").decode()
+        data = http_json("GET", f"{ctrl.url}/ui/data")
+        if "Fleet" not in page or "__BOOTSTRAP__" in page or \
+                (data.get("fleet") or {}).get("rollup") is None or \
+                (data.get("rebalance") or {}).get("executed", 0) < 1:
+            raise AssertionError("control: /ui or /ui/data lacks the fleet "
+                                 "and rebalance blocks")
+        # every server execution of (a), (b) and (c), on the segments it
+        # ran on: the per-server groups before, during and after the move
+        qids = {sql: qid for qid, sql in sqls}
+        qids.update({_rt_sql((p, v, g), CONTROL_TABLE): f"{qid}:realtime"
+                     for qid, p, v, g in ssb.QUERIES})
+        n_held += _control_k1(_executed_plans(ran, servers, qids, "server"),
+                              tile, on_card)
+        phase("control_autopsy", ok=True, top_cause=verdict["top_cause"],
+              inconclusive=verdict["inconclusive"], scores=scores,
+              window=verdict["window"], verdict_ms=verdict_ms,
+              whydown_events=len(wd.get("events") or []),
+              whydown_queries=wd.get("queries"), ui_bytes=len(page),
+              ui_data_keys=sorted(data))
+
+        # (d) the minion over replica_0's committed segments
+        rt = reps[0]
+        offline = TableDataManager(
+            "lineorder_OFFLINE", device=device, table_config=TableConfig(
+                "lineorder_OFFLINE", time_column="d_yearmonthnum"))
+        ctx = MinionContext(tables={CONTROL_TABLE: rt},
+                            out_dir=os.path.join(work, "minion"),
+                            offline_tables={CONTROL_TABLE: offline})
+        worker = MinionWorker(ctx)
+        t0 = time.perf_counter()
+        r2o = worker.submit(TaskSpec(
+            "RealtimeToOfflineSegmentsTask", CONTROL_TABLE,
+            {"targetRows": z["rows"] // 4, "prefix": "lineorder_offline"}))
+        worker.drain()
+        r2o_s = time.perf_counter() - t0
+        if r2o.state != TaskState.COMPLETED:
+            raise AssertionError(f"control minion: {r2o.error}")
+        hybrid = Broker(device=device)
+        hybrid.register_table(offline)
+        hybrid.register_table(rt)
+        hq = connect(hybrid)
+        off_segs = offline.acquire_segments()
+        if rt.total_docs or offline.total_docs != z["rows"] or \
+                {s.device.type for s in off_segs} != \
+                {_device_type(device)}:
+            raise AssertionError(f"control minion: {offline.total_docs} "
+                                 f"offline rows, {rt.total_docs} realtime")
+        hybrid_ms = _control_digests(hq, "lineorder", want, "hybrid")
+        n_held += _control_k1(_hybrid_plans(hybrid, "minion"), tile,
+                              on_card)
+        ctx2 = MinionContext(tables={"lineorder_OFFLINE": offline},
+                             out_dir=os.path.join(work, "minion"))
+        worker2 = MinionWorker(ctx2)
+        pick = sorted(s.name for s in off_segs)[:2]
+        t0 = time.perf_counter()
+        merge = worker2.submit(TaskSpec("MergeRollupTask", "lineorder_OFFLINE",
+                                        {"segments": pick,
+                                         "prefix": "lineorder_merged"}))
+        worker2.drain()
+        merge_s = time.perf_counter() - t0
+        if merge.state != TaskState.COMPLETED:
+            raise AssertionError(f"control merge: {merge.error}")
+        merged_ms = _control_digests(hq, "lineorder", want, "merged")
+        n_held += _control_k1(_hybrid_plans(hybrid, "merged"), tile,
+                              on_card)
+        _reconcile_or_fail(every + _server_segments(servers)
+                           + offline.acquire_segments()
+                           + reps[1].acquire_segments(), "minion")
+        phase("control_minion", ok=True,
+              r2o={"seconds": r2o_s, "rows": offline.total_docs, **r2o.result},
+              merge={"seconds": merge_s, **merge.result},
+              offline_segments=len(offline.acquire_segments()),
+              hybrid_ms=hybrid_ms, merged_ms=merged_ms)
+        control_launches = C.launches    # ... and ends here
+    finally:
+        qs_thread.join()
+        global_slo.clear()
+        global_incidents.reset()
+        if broker is not None:
+            broker.stop()
+        for s in servers:
+            s.stop()
+        ctrl.stop()
+    if control_launches == 0:
+        raise AssertionError("control: the path never launched the "
+                             "compaction")
+
+    # clean-up: the replicas', servers' and minion's segments leave
+    held = _server_segments(servers) + offline.acquire_segments() + \
+        [x for m in reps for x in m.acquire_segments()]
+    for seg in held:
+        seg.evict_device()
+    for m in reps:
+        m.stop()
+    del held, servers, broker, ctrl, reps, offline, rt, hybrid, a
+    global_cube_cache.clear()
+    _gc.collect()
+    _reconcile_or_fail(every, "control done")
+    left = (torch.cuda.memory_allocated() - baseline) if on_card else 0
+    if left > MEM_SLACK:
+        raise AssertionError(f"control: {left} bytes left on the card")
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    phase("control_done", seconds=seconds, compact_launches=control_launches,
+          k1_checked=n_held, bytes_left=left, tracked_equals_held=True)
+    return {"launches": control_launches, "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -7347,6 +8194,8 @@ def main() -> int:
     cluster_launches = cluster_phase(table_dir, star_dirs, tables, digests,
                                      multi_p50, tile,
                                      [single, surface_seg, *segs])
+    control = control_phase(table_dir, digests, tile,
+                            [single, surface_seg, *segs])
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "compact",
@@ -7357,7 +8206,7 @@ def main() -> int:
         + tier_launches + drift_launches + statement_launches
         + geo_launches + format_launches + rollup_launches
         + trace_launches + realtime_launches + overload_launches
-        + wire_launches + cluster_launches,
+        + wire_launches + cluster_launches + control["launches"],
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -7384,6 +8233,7 @@ def main() -> int:
         "overload_launches": overload_launches,
         "wire_launches": wire_launches,
         "cluster_launches": cluster_launches,
+        "control_launches": control["launches"],
         **{f"segmented_{k}": v for k, v in seg_totals.items()},
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
@@ -7404,8 +8254,11 @@ def main() -> int:
               "hybrid, upserted and consuming tables), the overload "
               "phase's (tenant waves, forced overflow reruns, tier.evict, "
               "the kills), the wire phase's (tables fed by Kafka, "
-              "Pulsar, Kinesis and the wire stream) and the cluster "
-              "phase's (the 13 queries over HTTP on two server nodes)"}, {
+              "Pulsar, Kinesis and the wire stream), the cluster "
+              "phase's (the 13 queries over HTTP on two server nodes) and "
+              "the control phase's (replicas of a committed realtime "
+              "table, the rebalanced table on two server nodes, the "
+              "minion's offline segments)"}, {
         "name": "segscan",
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/segscan.cu",

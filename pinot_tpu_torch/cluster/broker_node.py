@@ -13,9 +13,9 @@ in-process broker uses.
 Port of ``pinot_tpu/cluster/broker_node.py``: the same routes, wire
 formats, error codes (200, 250, 427), replica retry and hedging. Joins and
 windows are refused as in the reference. The incident autopsy
-(``cluster/autopsy.py``) is not in the port yet: ``/debug/autopsy``
-answers 501 naming it and ``OPTION(whydown=true)`` annotates the trace
-with that error. The compile plane is JAX-only: the health block has no
+(``cluster/autopsy.py``) runs after each incident capture, answers
+``/debug/autopsy`` and annotates an ``OPTION(whydown=true)`` trace. The
+compile plane is JAX-only: the health block has no
 ``compile`` entry and there is no ``/debug/compile``.
 """
 from __future__ import annotations
@@ -44,15 +44,13 @@ from .forensics import (QueryForensics, debug_index,
                         parse_trace_ratio)
 from .http_util import (JsonHandler, http_json, http_raw,
                         inject_trace_context, start_http)
+from .autopsy import global_autopsy, load_corpus, whydown
 
 # pinot-common QueryException error-code analogs (the exceptions[] wire
 # contract the webapp/console already renders)
 ERR_QUERY_EXECUTION = 200      # server answered with an application error
 ERR_BROKER_TIMEOUT = 250       # query deadline exhausted mid-scatter
 ERR_SERVER_NOT_RESPONDED = 427  # transport failure / no replica left
-
-_AUTOPSY_MISSING = ("the incident autopsy needs cluster/autopsy.py, "
-                    "which is not ported to pinot_tpu_torch yet")
 
 
 class ScatterTimeoutError(SqlError):
@@ -228,6 +226,14 @@ class BrokerNode:
                 global_slo.path = self.forensics.ledger_path
             if global_incidents.path is None:
                 global_incidents.path = self.forensics.ledger_path
+            # incident autopsy plane: verdicts land in the SAME ledger,
+            # and attribution runs automatically after each incident
+            # capture — on the recorder's background thread, fenced,
+            # never on the query path
+            if global_autopsy.path is None:
+                global_autopsy.path = self.forensics.ledger_path
+            if global_incidents.post_hook is None:
+                global_incidents.post_hook = global_autopsy.on_incident
         global_incidents.register_surface(
             "slow_queries",
             lambda: self.forensics.snapshot(SLOWQ_TAIL)["queries"])
@@ -629,13 +635,16 @@ class BrokerNode:
         result.time_ms = (time.perf_counter() - t0) * 1e3
         self.forensics.record(qid, table, sql, t0, result, scatters,
                               slow_ms, trace=root, traced=True)
-        # whydown lane: needs the incident autopsy (cluster/autopsy.py),
-        # which the port does not have yet; the trace says so
+        # whydown lane: OPTION(whydown=true) annotates the analyze trace
+        # with the cross-plane events overlapping this query's wall
+        # window. AFTER forensics.record, so the query's own stats line
+        # anchors the ledger-position overlap
         from ..query.planner import _truthy
         options = getattr(stmt, "options", {}) or {}
         if _truthy(options.get("whydown", False)) and \
                 self.forensics.ledger_path:
-            trace["whydown"] = {"error": _AUTOPSY_MISSING}
+            trace["whydown"] = whydown(
+                load_corpus(self.forensics.ledger_path), qid=qid)
         return result
 
     @staticmethod
@@ -884,7 +893,7 @@ class BrokerNode:
             return s
 
         def call(server: str, segs: List[str], retry: bool = True,
-                 attempt: str = "primary"):
+                 attempt: str = "primary", rerouted: bool = False):
             url = self._server_url(server)
             sp = attempt_span(server, segs, attempt)
             rem = remaining()
@@ -999,16 +1008,34 @@ class BrokerNode:
                     sp.finish()
                     sp.annotate(status="failed",
                                 error=f"{type(e).__name__}: {e}"[:200])
-                if not retry:
+                # a failover target that answered without some segment
+                # (a rebalance moved it while the query ran) earns one
+                # more try
+                short = isinstance(e, _SegmentShortfall)
+                if not retry and (rerouted or not short):
                     raise
-                # failover: re-pick replicas per segment, one retry
-                global_metrics.count("scatter_failovers")
-                with res._lock:
-                    res.failovers += 1
+                if retry:
+                    # failover: re-pick replicas per segment, one retry
+                    global_metrics.count("scatter_failovers")
+                    with res._lock:
+                        res.failovers += 1
+                # the holders come from the controller's current routing,
+                # read once: a segment may have moved since the query's
+                # snapshot (a rebalance flipped it to a new replica). A
+                # server that answered short is picked again only where
+                # the routing names no other holder
+                try:
+                    self._refresh_routing()
+                except Exception:
+                    pass
+                fresh = self._snapshot().get("assignment", {}).get(
+                    ctx.table) or assignment
                 regrouped: Dict[str, List[str]] = {}
                 for seg in segs:
-                    holders = [h for h in assignment.get(seg, [])
-                               if h != server]
+                    listed = [h for h in fresh.get(seg, [])
+                              if self._server_url(h)]
+                    holders = [h for h in listed if h != server] or \
+                        [h for h in listed if short]
                     pick = self._pick_replica(holders)
                     if pick is None:
                         raise ReplicaExhaustedError(
@@ -1021,7 +1048,8 @@ class BrokerNode:
                 out = {"partials": [], "segmentsQueried": 0,
                        "dispatched": [server], "responders": []}
                 for srv, ss in regrouped.items():
-                    r = call(srv, ss, retry=False, attempt="failover")
+                    r = call(srv, ss, retry=False, attempt="failover",
+                             rerouted=not retry)
                     out["partials"].extend(r["partials"])
                     out["segmentsQueried"] += r["segmentsQueried"]
                     out["dispatched"].extend(r["dispatched"])
@@ -1387,7 +1415,19 @@ class BrokerNode:
             return 200, global_incidents.snapshot(_limit(h.path))
 
         def debug_autopsy(h, b):
-            raise NotImplementedError(_AUTOPSY_MISSING)
+            # GET /debug/autopsy[?n=K]: verdict ring, newest first;
+            # ?run=1 computes a fresh verdict synchronously over the
+            # node ledger; ?qid=<id> runs the per-query whydown lane
+            from urllib.parse import parse_qs, urlparse
+            params = parse_qs(urlparse(h.path).query)
+            qid = (params.get("qid") or [None])[0]
+            if qid:
+                return 200, whydown(
+                    load_corpus(node.forensics.ledger_path), qid=qid)
+            if (params.get("run") or [None])[0]:
+                return 200, global_autopsy.run(
+                    ledger_path=node.forensics.ledger_path)
+            return 200, global_autopsy.snapshot(_limit(h.path))
 
         class Handler(JsonHandler):
             routes = {

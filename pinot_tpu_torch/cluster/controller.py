@@ -16,14 +16,15 @@ watching ZK events.
 
 Port of ``pinot_tpu/cluster/controller.py``: the registry, assignment,
 reconcile loop, heartbeats, leader lease, rebalance and REST routes, with
-the same state directory (``cluster_state.json``) so either package's controller
-serves the other's. The fleet forensics rollup (``cluster/rollup.py``),
-the closed-loop rebalancer (``cluster/rebalancer.py``), the realtime
-commit arbitration (``cluster/completion.py``), the incident autopsy and
-the web app are not in the port yet: they are not scheduled, and every
-call or route that reaches one raises ``NotImplementedError`` (HTTP 501)
-naming the module. The compile-plane health block is JAX-only and left
-out of ``/ui/data``.
+the same state directory (``cluster_state.json``) so either package's
+controller serves the other's. It schedules the fleet forensics rollup
+(``cluster/rollup.py``) and the closed-loop rebalancer
+(``cluster/rebalancer.py``), leader-gated, arbitrates realtime commits
+(``cluster/completion.py``), plans the incident autopsy over the fleet
+ledger (``cluster/autopsy.py``) and serves the web app
+(``cluster/webapp.py``). Their files (the fleet ledger, the per-node
+cursors, ``rebalance_journal.json``) carry between the packages. The
+compile-plane health block is JAX-only and left out of ``/ui/data``.
 """
 from __future__ import annotations
 
@@ -35,10 +36,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from .http_util import JsonHandler, start_http
 
-
-def _missing(module: str) -> None:
-    raise NotImplementedError(
-        f"cluster/{module}.py is not ported to pinot_tpu_torch yet")
 
 HEARTBEAT_TIMEOUT_S = 10.0
 RECONCILE_INTERVAL_S = 1.0
@@ -97,9 +94,47 @@ class Controller:
         self.scheduler.register(BasePeriodicTask(
             "SegmentStatusChecker", interval_s=30.0,
             fn=self._leader_gated(self.run_status_check)))
-        # the fleet rollup, the closed-loop rebalancer and the realtime
-        # commit arbitration are not ported: nothing schedules them and
-        # every route that reaches one answers 501 (``_missing``)
+        # fleet forensics rollup: pull per-node ledgers,
+        # aggregate cluster-wide, serve at GET /debug/fleet + the
+        # webapp Fleet view. Leader-gated like every periodic task and
+        # REST-triggerable (POST /periodictask/run/ForensicsRollup);
+        # the initial delay keeps short-lived test controllers from
+        # auto-pulling mid-setup
+        from .rollup import ForensicsRollupTask
+        self.rollup = ForensicsRollupTask(self)
+        self.scheduler.register(BasePeriodicTask(
+            ForensicsRollupTask.NAME, interval_s=30.0,
+            initial_delay_s=30.0,
+            fn=self._leader_gated(self.rollup.run)))
+        # closed-loop rebalance: consumes the rollup's
+        # slo/heat/plan_shapes blocks, moves segments when a budget
+        # burns, freezes while an incident is open. Leader-gated +
+        # REST-triggerable like the rollup; the initial delay sits
+        # after the first rollup pass so a pass has a fleet view
+        from .rebalancer import ClosedLoopRebalanceTask
+        self.rebalancer = ClosedLoopRebalanceTask(self)
+        self.scheduler.register(BasePeriodicTask(
+            ClosedLoopRebalanceTask.NAME, interval_s=60.0,
+            initial_delay_s=45.0,
+            fn=self._leader_gated(self.rebalancer.run)))
+        # realtime commit arbitration (SegmentCompletionManager FSM); the
+        # registry fallback keeps restarts/purges from re-electing a
+        # committer for an already-registered segment
+        from .completion import SegmentCompletionManager
+
+        def _registered(table: str, segment: str):
+            with self._lock:
+                entry = self._state["segments"].get(table, {}).get(segment)
+                if entry is None:
+                    return None
+                meta = entry.get("meta") or {}
+                return {"downloadURI": entry.get("location"),
+                        "offset": meta.get("endOffset")}
+
+        self.completion = SegmentCompletionManager(
+            expected_replicas=lambda t: self._state["tables"]
+            .get(t, {}).get("replication", 1),
+            registered_segment=_registered)
         self._httpd, self.port, _ = start_http(self._make_handler(), port)
         if self.lease_ttl is None:
             self._become_leader()
@@ -379,6 +414,10 @@ class Controller:
             for key in ("tables", "segments", "assignment", "lineage"):
                 self._state[key].pop(name, None)
             self._bump()
+        # outside self._lock: segmentCommitEnd nests completion._lock ->
+        # self._lock (register), so nesting the other way here would be
+        # an ABBA deadlock
+        self.completion.drop_table(name)
 
     @staticmethod
     def _read_segment_meta(location: str) -> Optional[Dict[str, Any]]:
@@ -826,11 +865,12 @@ class Controller:
                 # realtime-plane health next to the cluster view (shared
                 # global_metrics for in-process roles)
                 "ingest": ingest_health(global_metrics.snapshot()),
-                # the fleet rollup and the closed-loop rebalancer are
-                # not ported: their blocks name the missing module
-                "fleet": {"error": "cluster/rollup.py is not ported"},
-                "rebalance": {"error":
-                              "cluster/rebalancer.py is not ported"}}
+                # fleet forensics rollup (webapp Fleet view): the latest
+                # ForensicsRollup pass, None until one has run
+                "fleet": self.rollup.snapshot(),
+                # closed-loop rebalance moves ring (Fleet view panel
+                # beside the SLO budgets table)
+                "rebalance": self.rebalancer.snapshot(limit=20)}
 
     def ui_page(self) -> str:
         """The controller web application (GET /ui): the reference's
@@ -838,7 +878,8 @@ class Controller:
         as one server-bootstrapped single-page app — cluster/tables/
         tasks/query-console views hydrated from the inlined snapshot,
         live-refreshing from /ui/data (cluster/webapp.py)."""
-        _missing("webapp")
+        from .webapp import render_app
+        return render_app(self.ui_data())
 
     def routing_snapshot(self) -> Dict[str, Any]:
         with self._lock:
@@ -931,6 +972,21 @@ class Controller:
             from ..utils.slo import global_incidents
             return global_incidents.snapshot()
 
+        def _autopsy(h):
+            # on-demand fleet autopsy: the controller keeps
+            # no verdict ring of its own — it plans over the rollup's
+            # fleet ledger, where the brokers' rca_verdict records and
+            # all cross-plane evidence already land. ?qid= runs the
+            # per-query whydown lane instead.
+            from urllib.parse import parse_qs, urlparse
+            from .autopsy import load_corpus, plan_autopsy, whydown
+            params = parse_qs(urlparse(h.path).query)
+            corpus = load_corpus(ctrl.rollup.ledger_path)
+            qid = (params.get("qid") or [None])[0]
+            if qid:
+                return whydown(corpus, qid=qid)
+            return plan_autopsy(corpus)
+
         class Handler(JsonHandler):
             routes = {
                 ("GET", "/ui"): lambda h, b: (
@@ -990,7 +1046,9 @@ class Controller:
                     else (404, {"error": "unknown task"})),
                 ("GET", "/periodictask/status"): lambda h, b: (
                     200, {"tasks": ctrl.scheduler.status()}),
-                ("GET", "/debug/fleet"): lambda h, b: _missing("rollup"),
+                # fleet forensics rollup plane
+                ("GET", "/debug/fleet"): lambda h, b: (
+                    200, ctrl.rollup.snapshot()),
                 # debug-surface index + incident ring: the
                 # controller serves the fleet view, not node ledgers —
                 # its index says so instead of advertising 404s
@@ -998,16 +1056,27 @@ class Controller:
                     200, _debug_index(ctrl)),
                 ("GET", "/debug/incidents"): lambda h, b: (
                     200, _incidents()),
-                ("GET", "/debug/autopsy"): lambda h, b: _missing(
-                    "autopsy"),
-                ("GET", "/debug/rebalance"): lambda h, b: _missing(
-                    "rebalancer"),
-                ("POST", "/segmentConsumed"): lambda h, b: _missing(
-                    "completion"),
-                ("POST", "/segmentCommitStart"): lambda h, b: _missing(
-                    "completion"),
-                ("POST", "/segmentCommitEnd"): lambda h, b: _missing(
-                    "completion"),
+                # incident autopsy plane: fleet-wide root-cause
+                # verdict on demand (cluster/autopsy.py)
+                ("GET", "/debug/autopsy"): lambda h, b: (
+                    200, _autopsy(h)),
+                # closed-loop rebalance audit ring
+                ("GET", "/debug/rebalance"): lambda h, b: (
+                    200, ctrl.rebalancer.snapshot()),
+                ("POST", "/segmentConsumed"): lambda h, b: (
+                    200, ctrl.completion.segment_consumed(
+                        b["table"], b["segment"], b["server"],
+                        int(b["offset"]))),
+                ("POST", "/segmentCommitStart"): lambda h, b: (
+                    200, ctrl.completion.segment_commit_start(
+                        b["table"], b["segment"], b["server"])),
+                ("POST", "/segmentCommitEnd"): lambda h, b: (
+                    200, ctrl.completion.segment_commit_end(
+                        b["table"], b["segment"], b["server"],
+                        b["downloadURI"],
+                        register=lambda: ctrl.add_segment(
+                            b["table"], b["segment"], b["downloadURI"],
+                            b.get("metadata")))),
                 ("GET", "/status"): lambda h, b: (
                     ctrl.run_status_check() or (200, ctrl._status)),
                 # admin REST reads (controller/api/resources analog)

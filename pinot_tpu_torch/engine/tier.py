@@ -241,6 +241,41 @@ class TierManager:
         self._export()
         return True
 
+    def drain(self, name: str, reason: str = "drain",
+              table: Optional[str] = None) -> int:
+        """Rebalance drain entry point (cluster/rebalancer.py): warm-demote
+        every live HOT copy of the named segment. Its device residents
+        drop (the segment-column pool and every stacked copy holding it),
+        the padded host arrays stay warm, so a copy touched again needs
+        no cold re-pad, and in-flight queries finish on the tensors they
+        already hold. In-process replicas register distinct segment
+        objects under one name and a drain demotes them all (a receiver
+        that just pre-warmed re-promotes from its warm arrays on first
+        touch; rows are unaffected). Segment names recur across tables
+        too, so ``table`` limits the drain to copies whose schema carries
+        that table. Returns the demotions performed."""
+        with self._lock:
+            self._reap_locked()
+            uids = sorted(uid for uid, n in self._names.items()
+                          if n == name
+                          and self._state.get(uid) == TIER_HOT)
+            segs = []
+            for uid in uids:
+                ref = self._refs.get(uid)
+                seg = ref() if ref is not None else None
+                if seg is None:
+                    continue
+                if table is not None and \
+                        getattr(getattr(seg, "schema", None),
+                                "name", None) != table:
+                    continue
+                segs.append(seg)
+        n = 0
+        for seg in segs:  # demote takes _lock itself (leaf): call outside
+            if self.demote(seg, TIER_WARM, reason=reason):
+                n += 1
+        return n
+
     def on_evicted(self, segment) -> None:
         """ImmutableSegment.evict_device (unload): the segment left the
         hierarchy; mark it cold without counting a demotion (an unload is
@@ -337,12 +372,15 @@ class TierManager:
                 if drop is not None and drop():
                     # logged only when a stash dropped: the log stays a
                     # faithful replay, not a visit trace
-                    with self._lock:
-                        self._log_locked("trim_warm", seg.name, TIER_HOT,
-                                         TIER_HOT, "warm_budget")
+                    self._log_warm_trim(seg)
                 with self._lock:
                     total = sum(self._warm_bytes.values())
         return n
+
+    def _log_warm_trim(self, segment) -> None:
+        with self._lock:
+            self._log_locked("trim_warm", segment.name, TIER_HOT, TIER_HOT,
+                             "warm_budget")
 
     # -- serving -------------------------------------------------------------
     def occupancy(self) -> Dict[str, Any]:

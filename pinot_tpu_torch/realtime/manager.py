@@ -17,12 +17,16 @@ The seal's swap is atomic for readers: ``acquire_segments`` never sees a
 sealed segment beside the consuming snapshot it came from, nor
 misses both.
 ``write_ingest_stats`` appends a validated ``ingest_stats`` record of
-``utils/ledger`` at the caller's path. What waits for other modules
-raises ``NotImplementedError`` naming it: the controller-arbitrated
-commit (``completion_client``, with the segment completion protocol of
-``cluster/completion``). The ``commit.http_error`` and
-``handoff.stall`` fault points belong to that protocol and have no site
-here.
+``utils/ledger`` at the caller's path. With a ``completion_client``
+(``cluster/completion``'s ``CompletionClient`` or
+``LocalCompletionClient``) a threshold is reported to the controller and
+the segment completion protocol decides: the elected replica builds the
+segment, split-commits it to the deep store and then swaps it in; the
+others download the committed artifact, load it with
+``ImmutableSegment.load(dir, self.device)`` and resume after its end
+offset. The ``commit.http_error`` point sits at every protocol boundary
+of the client and ``handoff.stall`` on the artifact's download
+(``cluster/deepstore.download_segment``).
 
 Reference parity: pinot-core/.../data/manager/realtime/
 RealtimeSegmentDataManager.java:121 (the 1863-line consumption state
@@ -57,8 +61,10 @@ rebalance (``stream.rebalance``) snaps the partition back to its
 checkpoint exactly like a restart, ``commit.crash`` /
 ``upsert.compact_crash`` raise IngestCrash (abandon + restart — the
 orphan-artifact cleanup at construction makes the restart
-idempotent). Every recovery event lands in the per-table ingest stats
-(``ingest_stats``) and the ``ingest_*`` global_metrics counters.
+idempotent), and completion-protocol RPC failures (``commit.http_error``)
+re-enter the HOLD/CATCHUP loop on the next poll. Every recovery event
+lands in the per-table ingest stats (``ingest_stats``) and the
+``ingest_*`` global_metrics counters.
 """
 from __future__ import annotations
 
@@ -82,9 +88,6 @@ from .stream import MessageBatch, OffsetOutOfRange, StreamConfig
 
 STATE_FILE = "state.json"
 FETCH_BATCH = 10_000
-_PROTOCOL_MISSING = ("the controller-arbitrated commit (completion_client) "
-                     "needs cluster/completion, which pinot_tpu_torch "
-                     "does not have yet")
 
 # gauge name -> id(manager) of the last writer: several managers of the
 # SAME table in one process (replicas) last-writer-wins the shared
@@ -107,14 +110,17 @@ class RealtimeTableDataManager(TableDataManager):
                  upsert_config=None, dedup_config=None,
                  completion_client=None,
                  device: Union[str, torch.device, None] = None):
-        if completion_client is not None:
-            raise NotImplementedError(_PROTOCOL_MISSING)
         super().__init__(table_name, device,
                          table_config or TableConfig(table_name))
         self.schema = schema
         self.stream_config = stream_config
         self.data_dir = data_dir
         self.poll_interval = poll_interval
+        # controller-arbitrated commit (cluster.completion.CompletionClient);
+        # None = standalone mode, seal locally without arbitration
+        self.completion_client = completion_client
+        self._last_report: Dict[int, float] = {}
+        self.report_interval_s = 0.05
         os.makedirs(data_dir, exist_ok=True)
         # held across a seal's swap (sealed segment in, consuming segment
         # out) and across acquire_segments' read of both
@@ -538,7 +544,145 @@ class RealtimeTableDataManager(TableDataManager):
         if not (m.n_docs >= cfg.flush_threshold_rows or (
                 m.n_docs > 0 and age >= cfg.flush_threshold_seconds)):
             return
-        self.seal_partition(p)
+        if self.completion_client is None:
+            self.seal_partition(p)
+        else:
+            self._protocol_seal(p)
+
+    def _protocol_seal(self, p: int) -> None:
+        """Controller-arbitrated commit (SegmentCompletionProtocol client
+        side): report the threshold, then act on the controller's verdict
+        — COMMIT: build + split-commit; CATCHUP: keep consuming; HOLD:
+        wait; COMMITTED: another replica won, download its artifact and
+        resume from its end offset."""
+        now = time.monotonic()
+        if now - self._last_report.get(p, 0.0) < self.report_interval_s:
+            return
+        self._last_report[p] = now
+        cc = self.completion_client
+        m = self._mutables[p]
+        name = m.name
+        offset = self._stream_offset(p, m.n_docs)
+        try:
+            resp = self._completion_rpc(
+                lambda: cc.segment_consumed(self.table_name, name,
+                                            offset))
+        except faults.IngestCrash:
+            raise
+        except Exception:
+            return  # controller unreachable past the bounded retries:
+            # report again next poll (HOLD/CATCHUP re-entry); a network
+            # blip must never kill the consumer thread
+        status = resp.get("status")
+        if status == "COMMIT":
+            # build-then-commit-then-adopt: local durable state advances
+            # ONLY after the controller acknowledged the split commit —
+            # a failed commit leaves the mutable live for retry/takeover
+            t_commit = time.monotonic()
+            with self._seal_lock:
+                built = self._build_artifact(p)
+            if built is None:
+                return
+            mm, seg, sealed = built
+            ok = False
+            try:
+                from ..cluster.deepstore import pruning_metadata
+                # the RPC (and its retry-backoff ladder) runs OUTSIDE
+                # the table-wide seal lock: a flaky controller must not
+                # stall other partitions' seal/adopt. Partition p's
+                # state can't move underneath us — only p's own
+                # consumer thread seals/adopts/resets p
+                ok = self._completion_rpc(
+                    lambda: cc.split_commit(self.table_name, name,
+                                            seg.dir,
+                                            pruning_metadata(seg.dir)))
+            except faults.IngestCrash:
+                raise
+            except Exception:
+                ok = False
+            if ok:
+                with self._seal_lock:
+                    self._commit_local(p, mm, seg, sealed)
+                self._note_commit_ms(
+                    (time.monotonic() - t_commit) * 1e3)
+            else:
+                # the mutable stays live: the next poll re-reports,
+                # the controller re-elects/continues, and the build
+                # runs again (split-commit re-entry)
+                self._count_stat("commit_failures")
+                import shutil
+                shutil.rmtree(seg.dir, ignore_errors=True)
+        elif status == "COMMITTED":
+            uri = resp.get("downloadURI")
+            if uri is None:
+                return  # nothing to adopt from; report again next poll
+            off = resp.get("offset")
+            try:
+                # off may be None (registry fallback without offsets) —
+                # _adopt_committed then derives it from the artifact's own
+                # endOffset metadata, so the replica never stalls forever
+                self._adopt_committed(
+                    p, name, uri, None if off is None else int(off))
+            except faults.IngestCrash:
+                raise
+            except Exception:
+                # deep store stalled/corrupt (handoff.stall) or
+                # unreachable: retry on the next poll
+                self._count_stat("handoff_retries")
+        # CATCHUP / HOLD: keep consuming / report again next poll
+
+    def _completion_rpc(self, call: Callable[[], Any]) -> Any:
+        """A completion-protocol RPC (injected commit.http_error or a
+        real controller blip) under bounded retry; exhaustion falls back
+        to report-again-next-poll at the caller."""
+        return self._retry_bounded(call, "commit_retries")
+
+    def _adopt_committed(self, p: int, name: str, download_uri: str,
+                         end_offset: Optional[int]) -> None:
+        """A peer replica committed this segment: drop the local consuming
+        state, download the canonical artifact, resume after it (the
+        non-winner CONSUMING->ONLINE transition with deep-store
+        download)."""
+        from ..cluster.deepstore import download_segment
+        with self._seal_lock:
+            if name in self._partition_state(p)["segments"]:
+                return
+        # the download (and any handoff stall, injected or real) runs
+        # OUTSIDE the table-wide seal lock — same rule as the
+        # split-commit RPC: one wedged deep store must not freeze other
+        # partitions' seal/adopt. Only p's own consumer thread adopts p,
+        # so p's state can't move underneath us
+        seg_dir = download_segment(download_uri, self.data_dir)
+        seg = ImmutableSegment.load(seg_dir, self.device)
+        recount = 0
+        with self._seal_lock:
+            st = self._partition_state(p)
+            if name in st["segments"]:
+                return
+            if end_offset is None:
+                end_offset = seg.metadata.get(
+                    "endOffset", st["next_offset"] + seg.n_docs)
+            # the consuming tail past the adopted artifact's end will be
+            # fetched (and counted) again: back it out below so
+            # rows/rows_per_s keep meaning DELIVERED rows (approximate
+            # under gapped kinesis sequence numbers, exact for dense)
+            m = self._mutables[p]
+            recount = max(0, self._stream_offset(p, m.n_docs)
+                          - int(end_offset))
+            with self._view_lock:  # the same atomic swap as a seal
+                self.add_segment(seg)
+                st["next_offset"] = end_offset
+                st["seq"] += 1
+                st["segments"].append(name)
+                self._write_state()
+                self._new_mutable(p)
+            # the discarded mutable polluted the upsert/dedup metadata
+            # with rows past end_offset that will be re-consumed; rebuild
+            # the partition's PK state from committed segments only, or
+            # re-consumed rows would be dropped as phantom duplicates
+            self._rebuild_partition_metadata(p)
+        if recount:
+            self._count_stat("rows", -recount)
 
     def _rebuild_partition_metadata(self, p: int) -> None:
         if p in self._upsert:

@@ -124,6 +124,9 @@ class ImmutableSegment:
         # bytes were just registered. Reads (a dict get) take no lock: a
         # racy miss only uploads again.
         self._res_lock = threading.Lock()
+        # set by retire(): the segment left its table, so a query still
+        # running on it uploads what it reads without caching it
+        self._retired = False
         self.valid_docs: Optional[np.ndarray] = None
         # bumped by every set_valid_docs: the device mask is cached under
         # its version, so a mask uploaded before an upsert invalidation is
@@ -249,7 +252,7 @@ class ImmutableSegment:
         ``t`` was made, ``t`` is returned uncached: nothing would ask for
         that key again to release it."""
         with self._res_lock:
-            if current is not None and not current():
+            if self._retired or (current is not None and not current()):
                 return t
             self._device[key] = t
             global_device_memory.add("segment_cols", (self.uid, key),
@@ -464,6 +467,16 @@ class ImmutableSegment:
         # segment of its own on this device and leaves with its parent
         for rollup in self.rollup_segments():
             rollup.evict_device()
+
+    def retire(self) -> None:
+        """The segment left its table (an unload, a move to another
+        server, a minion's replacement): release its device residency now
+        and never cache again. A query that acquired it before keeps
+        running on it; its uploads are its own and leave with it, so no
+        device byte or tracked byte outlives the unload."""
+        with self._res_lock:
+            self._retired = True
+        self.evict_device()
 
     def rollup_segments(self) -> List["ImmutableSegment"]:
         """The star-tree rollups loaded from this segment so far."""

@@ -61,13 +61,14 @@ class TableDataManager:
         """Drop a segment and release its device residency now (padded
         columns, warm copies, every stacked copy and cube holding it), so
         the device-memory registry stops counting it; queries in flight
-        keep their own tensor references."""
+        keep their own tensor references, and what they upload after this
+        is not cached (``ImmutableSegment.retire``)."""
         with self._lock:
             segs = dict(self._segments)
             seg = segs.pop(name, None)
             self._segments = segs
         if seg is not None:
-            seg.evict_device()
+            seg.retire()
             segdir.invalidate(seg.dir)
 
     def replace_segment(self, segment: ImmutableSegment) -> None:

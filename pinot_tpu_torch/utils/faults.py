@@ -8,9 +8,11 @@ effects. In the port the ingest family has its call sites
 ``upsert/metadata.py``) and so do the device points: ``tier.evict``
 (``engine/tier.on_access``), ``device.overflow`` (``engine/executor``'s
 compact rerun and ``multistage/fused``'s fallback) and
-``accounting.oom_kill`` (``engine/accounting.sample``); the RPC, wire,
-commit-protocol, handoff and rebalance points wait for the cluster
-plane.
+``accounting.oom_kill`` (``engine/accounting.sample``), and so does
+the cluster plane: the RPC points in ``cluster/http_util``,
+``commit.http_error`` in ``cluster/completion``'s clients,
+``handoff.stall`` in ``cluster/deepstore.download_segment``, and
+``cutover.stall`` and ``rebalance.crash`` in ``cluster/rebalancer``.
 
 Reference parity: the reference exercises its ConnectionFailureDetector,
 deadline budgets, and partial-response paths with Netty-level chaos in

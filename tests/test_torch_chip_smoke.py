@@ -325,6 +325,41 @@ def _counting_compact(monkeypatch):
     monkeypatch.setattr(compact, "compact", counted)
 
 
+def _fingerprinted_compact(monkeypatch, holder: str):
+    """The compaction's plain version, counted as launches; returns two
+    lists of the inputs' digests: those of the path's launches and those
+    launched inside chip_smoke.<holder> (the checks that hold K1)."""
+    import hashlib
+
+    from pinot_tpu_torch.ops import compact
+
+    real, real_holder = compact.compact, getattr(chip_smoke, holder)
+    launched, held, holding = [], [], []
+
+    def digest(mask, cols, cap) -> str:
+        h = hashlib.sha256(repr(int(cap)).encode())
+        for t in (mask, *cols):
+            h.update(str(t.dtype).encode())
+            h.update(t.contiguous().numpy().tobytes())
+        return h.hexdigest()
+
+    def fingerprinted(mask, cols, cap):
+        (held if holding else launched).append(digest(mask, cols, cap))
+        compact.launches += 1
+        return real(mask, cols, cap)
+
+    def holding_checks(*a, **k):
+        holding.append(True)
+        try:
+            return real_holder(*a, **k)
+        finally:
+            holding.pop()
+
+    monkeypatch.setattr(compact, "compact", fingerprinted)
+    monkeypatch.setattr(chip_smoke, holder, holding_checks)
+    return launched, held
+
+
 def test_wire_phase_on_cpu(tmp_path, monkeypatch):
     """The wire phase end to end on the CPU at 2^13 Kafka rows: the
     Kafka table resumes from the checkpoints of its first manager (past
@@ -460,3 +495,66 @@ def test_cluster_phase_on_cpu(tmp_path, monkeypatch):
     assert got["cluster_failover"]["both_down_codes"] == [427]
     assert got["cluster_done"]["partials_encoded"] > 0
     assert got["cluster_done"]["bytes_left"] == 0
+
+
+def test_control_phase_on_cpu(tmp_path, monkeypatch):
+    """The control phase end to end on the CPU at 2^13 realtime rows and
+    8 segments of 2^13 rows: two replicas commit 8 segments through the
+    controller (one COMMIT_SUCCESS each, the other replica adopts, the
+    armed commit.http_error and handoff.stall fire once each), the
+    servers and the broker node answer the oracle's digests, a rollup
+    and a rebalancer pass move a segment with the digests unchanged,
+    the autopsy names the move, the minion's offline segments and a
+    merge keep the digests, and the quickstart answers in a subprocess;
+    K1 is held on every compact input of the path: each input a launch
+    of the path was given is among the inputs the phase held."""
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.tools import ssb
+    from test_torch_tier import reset_port_memory
+
+    n = 1 << 13
+    table = ssb.build_table_dir([n // 8] * 8, str(tmp_path / "eight"))
+    single = load_segment(ssb.build_segment_dir(n, str(tmp_path / "one")),
+                          "cpu")
+    digests = {qid: ssb._digest(ssb.oracle_run(single, p, v, g)[0])
+               for qid, p, v, g in ssb.QUERIES}
+    reset_port_memory([single])
+    launched, held = _fingerprinted_compact(monkeypatch, "_control_k1")
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "ITERS", 1)
+    monkeypatch.setattr(chip_smoke, "CONTROL_ROWS", 1 << 13)
+    monkeypatch.setattr(chip_smoke, "CONTROL_QS_ROWS", 500)
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda label, **f: printed.append((label, f)))
+    try:
+        out = chip_smoke.control_phase(table, digests, 4096, [single],
+                                       device="cpu")
+    finally:
+        global_cube_cache.clear()
+        reset_port_memory([single])
+    assert out["launches"] > 0
+    got = dict(printed)
+    commit = got["control_commit"]
+    assert commit["segments"] == 8
+    assert [p for p, _k in commit["faults_fired"]] == [
+        "commit.http_error", "handoff.stall"]
+    assert {s["committer"] for s in commit["per_segment"].values()} == {
+        "replica_0", "replica_1"}
+    moved = got["control_rebalance"]
+    assert moved["pass_result"]["executed"] >= 1
+    assert all(m["donor_device_bytes"] == 0 for m in moved["moves"])
+    assert got["control_autopsy"]["scores"]["rebalance_churn"] > 0
+    assert got["control_minion"]["r2o"]["rows"] == 1 << 13
+    assert "cpu" in got["control_quickstart"]["served"]
+    labels = {f["query"].split(":")[0] for label, f in printed
+              if label == "kernel_at_control_path"}
+    assert labels == {"replica_0", "replica_1", "server", "minion",
+                      "merged"}
+    servers = {f["query"].split("@")[1].split("/")[0] for label, f in printed
+               if label == "kernel_at_control_path"
+               and f["query"].startswith("server:")}
+    assert servers == {"server_0", "server_1"}
+    assert launched and set(launched) <= set(held)
+    assert got["control_done"]["bytes_left"] == 0

@@ -394,20 +394,30 @@ def test_deepstore_segment_served_by_port_servers(fleets, segments,
 
 
 def test_unported_routes_answer_501(fleets):
-    f = fleets["torch"]
-    for url, method, body in (
-            (f"{f.ctrl.url}/debug/fleet", "GET", None),
-            (f"{f.ctrl.url}/debug/autopsy", "GET", None),
-            (f"{f.ctrl.url}/debug/rebalance", "GET", None),
-            (f"{f.ctrl.url}/segmentConsumed", "POST",
-             {"table": "t", "segment": "s", "server": "x", "offset": 1}),
-            (f"{f.broker.url}/debug/autopsy", "GET", None)):
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            thttp.http_json(method, url, body)
-        assert ei.value.code == 501
-        assert "not ported" in json.loads(ei.value.read())["error"]
+    """The routes that answered 501 while the control plane was missing
+    now answer as the reference's do: the same status and the same keys
+    on the controller's fleet, autopsy, rebalance and commit routes and
+    the broker's autopsy, and the same fleet and rebalance blocks in
+    ``/ui/data``."""
+    f, j = fleets["torch"], fleets["jax"]
+    for path, method, body, node in (
+            ("/debug/fleet", "GET", None, "ctrl"),
+            ("/debug/autopsy", "GET", None, "ctrl"),
+            ("/debug/rebalance", "GET", None, "ctrl"),
+            ("/segmentConsumed", "POST",
+             {"table": "t", "segment": "s", "server": "x", "offset": 1},
+             "ctrl"),
+            ("/debug/autopsy", "GET", None, "broker")):
+        got = thttp.http_json(method, getattr(f, node).url + path, body)
+        want = jhttp.http_json(method, getattr(j, node).url + path, body)
+        assert sorted(got) == sorted(want), path
+        if path == "/segmentConsumed":
+            assert got == want == {"status": "COMMIT", "offset": 1}
     data = thttp.http_json("GET", f"{f.ctrl.url}/ui/data")
-    assert "not ported" in data["fleet"]["error"]
+    ref = jhttp.http_json("GET", f"{j.ctrl.url}/ui/data")
+    assert sorted(data["fleet"]) == sorted(ref["fleet"])
+    assert sorted(data["rebalance"]) == sorted(ref["rebalance"])
+    assert set(ref) == set(data) | {"compile"}
     mem = thttp.http_json("GET", f"{f.servers[0].url}/debug/memory")
     assert mem["device"] == "cpu" and mem["columns"]["sales"]
     assert all(d == "cpu" for by_seg in mem["columns"].values()

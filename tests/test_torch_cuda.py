@@ -39,7 +39,10 @@ its wall time, and OPTION(profilePhases=true) a phase ladder timed with
 CUDA events. A two-server cluster fleet on the card (server nodes, a
 broker node over loopback HTTP) must give the CPU fleet's rows through
 K1 on its servers, with host values only on the wire and every resident
-column on the card by the servers' /debug/memory.
+column on the card by the servers' /debug/memory. Two realtime replicas
+on the card must commit and adopt through the controller the segments
+the CPU's do, answer with the CPU's rows through K1, and the minion's
+offline segments built from them must load on the card with those rows.
 """
 import json
 import os
@@ -2150,4 +2153,113 @@ def test_cluster_fleet_on_card_matches_cpu(cuda, tmp_path):
     finally:
         datablock.encode_partial = real
     assert seen
+    assert got["cuda"] == got["cpu"]
+
+
+def _control_commit(tmp_path, dev, rows, flush):
+    """Two replicas on ``dev`` commit one segment of ``flush`` rows in
+    each of two partitions through a controller; returns the replicas
+    after both adopted every segment."""
+    import numpy as np
+
+    from pinot_tpu_torch.cluster import Controller
+    from pinot_tpu_torch.cluster.completion import CompletionClient
+    from pinot_tpu_torch.realtime import (InMemoryStream,
+                                          RealtimeTableDataManager,
+                                          StreamConfig)
+
+    ctrl = Controller(str(tmp_path / f"ctrl_{dev}"), heartbeat_timeout=60.0,
+                      reconcile_interval=5.0)
+    schema = ssb.keyed_schema(rows)
+    ctrl.add_table("lineorder_REALTIME", schema.to_dict(), replication=2)
+    stream = InMemoryStream(2, name=f"ctl_{dev}")
+    part = rows["lo_orderkey"] % 2
+    for p in range(2):
+        # exactly one segment's rows a partition: nothing stays consuming
+        idx = np.nonzero(part == p)[0][:flush]
+        stream.produce_many(ssb.row_dicts(ssb.take_rows(rows, idx)),
+                            partition=p)
+    reps = []
+    for i in range(2):
+        m = RealtimeTableDataManager(
+            "lineorder_REALTIME", schema, StreamConfig(
+                "ctl", num_partitions=2, flush_threshold_rows=flush,
+                flush_threshold_seconds=1e9, consumer_factory=stream),
+            str(tmp_path / f"rep_{dev}_{i}"), device=dev,
+            completion_client=CompletionClient(
+                ctrl.url, f"rep_{i}", f"file://{tmp_path}/deep_{dev}"))
+        m.report_interval_s = 0.0
+        reps.append(m)
+    try:
+        for p in range(2):
+            for m in reps:
+                m.consume_once(p)
+            name = f"lineorder_REALTIME__{p}__0"
+            deadline = time.monotonic() + 60.0
+            while not all(name in m._partition_state(p)["segments"]
+                          for m in reps):
+                assert time.monotonic() < deadline
+                for m in reps:
+                    m._maybe_seal(p)
+    finally:
+        ctrl.stop()
+    return reps
+
+
+def test_control_commit_and_minion_on_card_match_cpu(cuda, tmp_path):
+    """Replicas on the card commit and adopt through the controller the
+    segments the CPU replicas do, hold them on the card, and answer the
+    SSB queries with the CPU's rows through K1; the minion's
+    RealtimeToOfflineSegments builds offline segments on the card with
+    the same rows."""
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.minion import (MinionContext, MinionWorker,
+                                        TaskSpec, TaskState)
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.server import TableDataManager
+
+    n = 1 << 15
+    cols = ssb.gen_columns(n)
+    cols.update(ssb.gen_lineorder_keys(n))
+    flush = 1 << 13
+    sqls = [ssb.spec_to_sql(p, v, g).replace("FROM lineorder",
+                                            "FROM lineorder_REALTIME")
+            for _q, p, v, g in ssb.QUERIES]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        reps = _control_commit(tmp_path, dev, cols, flush)
+        out = []
+        for m in reps:
+            segs = m.acquire_segments()
+            assert all(s.device.type == dev for s in segs
+                       if not getattr(s, "is_mutable", False))
+            b = Broker(device=dev)
+            b.register_table(m)
+            q = connect(b)
+            before = C.launches
+            out.append([sorted(map(tuple, q(s).rows), key=repr)
+                        for s in sqls])
+            if dev == "cuda":
+                assert C.launches > before
+        assert out[0] == out[1]
+        off = TableDataManager("lineorder_OFFLINE", device=dev)
+        w = MinionWorker(MinionContext(
+            {"lineorder_REALTIME": reps[0]}, str(tmp_path / f"min_{dev}"),
+            offline_tables={"lineorder_REALTIME": off}))
+        spec = w.submit(TaskSpec("RealtimeToOfflineSegmentsTask",
+                                 "lineorder_REALTIME", {"targetRows": n // 4},
+                                 task_id="fixed"))
+        w.drain()
+        assert spec.state == TaskState.COMPLETED, spec.error
+        assert all(s.device.type == dev for s in off.acquire_segments())
+        b = Broker(device=dev)
+        b.register_table(off)
+        q = connect(b)
+        out.append([sorted(map(tuple, q(s.replace(
+            "lineorder_REALTIME", "lineorder_OFFLINE")).rows), key=repr)
+            for s in sqls])
+        assert out[2] == out[0]
+        got[dev] = out[0]
+        for x in [*off.acquire_segments(), *reps[1].acquire_segments()]:
+            x.evict_device()
     assert got["cuda"] == got["cpu"]

@@ -428,19 +428,20 @@ def test_freshness_owner_registry_guards_replicas():
 
 def test_manager_defaults_to_cuda_and_refuses_the_protocol(tmp_path):
     """No device means CUDA, which this machine lacks: the manager
-    raises rather than run on the CPU. The controller-arbitrated commit
-    raises NotImplementedError naming what it waits for; the ingest
-    ledger writes a record the JAX package's validator accepts."""
+    raises rather than run on the CPU. A completion client is taken (the
+    controller-arbitrated commit, tests/test_torch_completion.py); the
+    ingest ledger writes a record the JAX package's validator accepts."""
     from pinot_tpu.utils.ledger import validate_record
     ns = _pkg("torch")
     cfg = trt.StreamConfig("events", consumer_factory=trt.InMemoryStream(1))
     with pytest.raises(RuntimeError, match="CUDA"):
         trt.RealtimeTableDataManager("events", _events_schema(ns), cfg,
                                      str(tmp_path / "a"))
-    with pytest.raises(NotImplementedError, match="cluster/completion"):
-        trt.RealtimeTableDataManager("events", _events_schema(ns), cfg,
-                                     str(tmp_path / "b"), device="cpu",
-                                     completion_client=object())
+    client = object()
+    dm_b = trt.RealtimeTableDataManager("events", _events_schema(ns), cfg,
+                                        str(tmp_path / "b"), device="cpu",
+                                        completion_client=client)
+    assert dm_b.completion_client is client
     dm = _manager(ns, tmp_path / "c", trt.InMemoryStream(1))
     rec = dm.write_ingest_stats(str(tmp_path / "ledger.jsonl"))
     assert validate_record(rec) == [] and rec["table"] == "events"

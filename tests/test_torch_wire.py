@@ -396,10 +396,12 @@ assert a.__module__ == "pinot_tpu_torch.realtime.kafka", a.__module__
 assert b.__module__ == "pinot_tpu_torch.realtime.filestream"
 c = resolve_class("pinot_tpu.cluster.broker_node.BrokerNode")
 assert c.__module__ == "pinot_tpu_torch.cluster.broker_node"
+d = resolve_class("pinot_tpu.cluster.rebalancer.ClosedLoopRebalanceTask")
+assert d.__module__ == "pinot_tpu_torch.cluster.rebalancer"
 try:
-    resolve_class("pinot_tpu.cluster.rebalancer.ClosedLoopRebalanceTask")
+    resolve_class("pinot_tpu.cluster.grpc_plane.start_grpc")
 except KeyError as e:
-    assert "pinot_tpu_torch.cluster.rebalancer" in str(e), e
+    assert "pinot_tpu_torch.cluster.grpc_plane" in str(e), e
 else:
     raise AssertionError("resolved a module the port lacks")
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
