@@ -94,9 +94,10 @@ Phases, each printed as it runs; any failure exits non-zero:
              host path): sketch states bitwise, percentile centroids
              against a numpy build of the same split to a relative 1e-9;
 10. star, multistage - the multi-stage engine: bench.py's star schema
-             (tools/star.py: orders PINOT_SMOKE_MS_ROWS rows, default 2^22
+             (tools/star.py: orders PINOT_SMOKE_MS_ROWS rows, default 2^21
              (2^24 before the format, rollup and trace phases, 2^23
-             before the control phase),
+             before the control phase, 2^22 before the loadgen, fuzz
+             and remote phases),
              in 4 segments; customers 60,000; parts 2,000; seed 16) built
              under .torch_cache/, then five shapes (join_gb, join3_gb,
              join_window, a running window sum, a partition window sum)
@@ -149,7 +150,8 @@ Phases, each printed as it runs; any failure exits non-zero:
              K1 held bitwise on the path's compact inputs
              (kernel_at_statement_path); the p50 of each statement;
 12. geo    - NYC-taxi-pickup-shaped points (PINOT_SMOKE_GEO_ROWS,
-             default 2^22, in 2 segments; a mixture over the NYC box,
+             default 2^21 (2^22 before the loadgen, fuzz and remote
+             phases), in 2 segments; a mixture over the NYC box,
              geography hex-WKB, a few empty) with a geo index at
              resolution 16: ST_Distance sums at 500 m and 5 km around
              Times Square, the 5 km filter grouped by hc_key (K1), a
@@ -230,9 +232,15 @@ Phases, each printed as it runs; any failure exits non-zero:
              its wall time (the median of 3 EXPLAIN ANALYZE runs) and the
              children not past it, every span name in phases.SPAN_NAMES,
              on the single segment each device_execute span at least the
-             device time of the work launched inside it (torch.profiler,
-             a record_function range a span; a missed window retried,
-             and a failure if every window missed);
+             device time of the work launched inside it: CUDA events on
+             the span's stream, from its opening to its device fence
+             right after its last launch (device_source "events"; a span
+             that reaches no fence fails), with torch.profiler's sum of
+             the kernels launched in a record_function range of the span
+             printed beside it (its attribution drifts after the main
+             path: q2.3's range read from 0.022 to 2.980 ms across whole
+             checks on an H100 80GB HBM3 at 700.00 W, once past its
+             2.661 ms span);
              OPTION(profilePhases=true) on a compact and a scalar plan
              (positive, nondecreasing cumulative phase times, CUDA events);
              traced against untraced p50, the tracer's calls per
@@ -356,7 +364,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              segments per server, the split, the wave's q/s and
              p50/p99, the dispatch's rows and ms per stage, the phase's
              seconds.
-22. control (last) - the cluster's control plane in this process over
+22. control - the cluster's control plane in this process over
              loopback HTTP: a Controller (state directory and a local
              deep store under .torch_cache/control/). (a) The flat
              lineorder with its lineorder key, CONTROL_ROWS rows (2^19,
@@ -390,21 +398,85 @@ Phases, each printed as it runs; any failure exits non-zero:
              QuickStart in a subprocess (90 s limit), run beside (a)'s
              commit and over before K1 is timed, answers its queries
              from the card. (f) K1 held bitwise and timed (CUDA events)
-             on every compact input of the path: both replicas' and,
-             from a log of the segments each server execution ran on,
-             every distinct per-server group of (a), (b) (before, during
-             and after the move) and (c), and the hybrid's halves in (d)
-             before and after the merge (kernel_at_control_path). Printed:
+             on every compact input of the path, on the plans each
+             execution ran, recorded inside it: both replicas' and the
+             hybrid's halves in (d) before and after the merge (the
+             in-process brokers' batched dispatches, _plans_run), every
+             distinct per-server group of (a), (b) (before, during and
+             after the move) and (c) (ServerNode.on_execute, also for
+             an execution killed part way; a hedge straggler's after
+             the servers stop), and at full capacity where the plan
+             cache knows a capacity to overflow
+             (kernel_at_control_path). Printed:
              election, commit and adopt ms per segment, rows/s, the
              rollup pass ms, ms per cutover step (prewarm, flip, drain)
              and bytes moved, p50 before and after the move, the verdict
              and its ms, the minion tasks' seconds and rows, the
              quickstart's seconds, the phase's seconds.
+23. loadgen - ingest while querying, chaos armed: engine/loadgen.run_load
+             with two tables of 4 partitions, lg_append over the Kafka
+             fake and lg_upsert (full upsert, commits arbitrated by the
+             completion protocol) over the wire stream, LG_ROWS rows in
+             all (2^19, PINOT_SMOKE_LG_ROWS: 2^16 a partition) at a flush
+             threshold of 16,384 (4 sealed segments a partition), 4
+             query workers through Broker(device="cuda"), the fault plan
+             tools/ingest_fuzz.ingest_plan(seed, protocol=True), drain
+             mode: each table's final rows equal ingest_fuzz.oracle_rows
+             per partition, at least one restart with commit.crash fired,
+             the ingest_bench record (a temporary ledger, never
+             PERF_LEDGER.jsonl) validates with backend "cuda" beside one
+             ingest_stats a table, tracked == held after teardown, and
+             each K1 launch of the query mix held bitwise as it launches
+             (the phase says so when the mix plans none). Printed:
+             rows/s, freshness and commit p50/p99, restarts, faults
+             fired, query p50/p99 and errors.
+24. fuzz   - the query fuzzer (tools/fuzzer) on the card, 200 specs of
+             one seed (aggregations with MV predicates and groups,
+             selections, window functions) on two fz segments of its
+             data: at FUZZ_ORACLE_ROWS rows (2^14) every spec through
+             Broker(device="cuda"), OPTION(forceHostExecution=true) and
+             fuzzer.oracle_rows (their Python walks rows); at FUZZ_ROWS
+             rows (2^20, PINOT_SMOKE_FUZZ_ROWS; the phase took 74.0 s at
+             the 2^21 asked on an H100 80GB HBM3 at 700.00 W), built by
+             a worker process
+             meanwhile, the aggregations without an MV group or MV
+             aggregate through the card and the host path. Each pair's
+             rows agree, floats to a relative 1e-9 (_fuzz_close; a
+             value on a rounding tie of fuzzer.digest printed in
+             float_ties; a mismatch prints its (seed, index)); every K1
+             launch of the device queries captured with its inputs as
+             it launches, held bitwise and timed (kernel_at_fuzz_path),
+             the phase failing when the corpus launches none or one it
+             did not hold. Printed: specs and p50 per route at each size.
+25. remote (last) - batch ingestion through remote deep stores: the
+             flat lineorder at REMOTE_ROWS rows (2^19,
+             PINOT_SMOKE_REMOTE_ROWS) as 8 Avro container files (deflate)
+             from 8 writer processes started before the fuzz phase; the
+             batch job (format avro, 8
+             worker processes) pushes a segment a file to s3:// on
+             fs/stub.FakeS3Server (SigV4, one injected 500 the client
+             retries) and registers it with a Controller; two
+             ServerNode(device="cuda") load them and a BrokerNode answers
+             the 13 SSB queries with the host path's digests over the
+             same segments in process; K1 held bitwise and timed on
+             every compact input the servers ran (recorded inside each
+             execution; kernel_at_remote_path); one segment each pushed
+             to gs://, hdfs:// and abfs:// on fs/stub_cloud's stores
+             answers q1.1 and q2.1 from a server; a MetricsFlushTask
+             runs the statsd (UDP loopback), Prometheus-file and ledger
+             sinks through the phase, each carrying the broker's query
+             counter; Thrift and CLP files read into tables on the card;
+             protobuf, ORC and Parquet read where their library is
+             installed, else the reference's error. Printed: Avro encode
+             and decode rows/s, build and push s, p50 per query over
+             HTTP, push and load s per scheme.
 
 The SSB phases run at 2^25 rows by default (2^26 before the multi-stage
-phase was added), the star schema at 2^22 orders rows (2^24 before
+phase was added), the star schema at 2^21 orders rows (2^24 before
 the format, rollup and trace phases were added, 2^23 before the control
-phase was), the realtime phase
+phase was, 2^22 before the loadgen, fuzz and remote phases were), the
+geo cell at 2^21 pickups (2^22 before those three phases), the realtime
+phase
 at 2^20 rows (2^21 before the wire and overload phases were added) and
 the wire phase's Kafka table at 2^18 rows (2^19 before the cluster
 phase was added), so that the whole run fits its time limit.
@@ -2267,10 +2339,11 @@ def surface_phase(seg_list, label: str):
 # the multi-stage engine (K16, K17, K19) over the star schema
 # ---------------------------------------------------------------------------
 
-# the star schema's depth: 2^22 orders rows (2^24 at first, halved when
-# the format, rollup and trace phases were added and again when the
-# control phase was, so that the whole check fits its time limit)
-MS_ROWS = int(os.environ.get("PINOT_SMOKE_MS_ROWS", 1 << 22))
+# the star schema's depth: 2^21 orders rows (2^24 at first, halved when
+# the format, rollup and trace phases were added, again when the control
+# phase was and again when the loadgen, fuzz and remote phases were, so
+# that the whole check fits its time limit)
+MS_ROWS = int(os.environ.get("PINOT_SMOKE_MS_ROWS", 1 << 21))
 MS_VARIANTS = 3                  # literal variants of each shape
 MS_STATE_CAP = 1 << 25           # PINOT_FUSED_MAX_STATE of the fused plane
 # the capped plane's PINOT_FUSED_MAX_STATE: under the probe rows, so
@@ -2304,8 +2377,9 @@ def star_phase():
           parts=star.PART_ROWS, segments={k: len(v) for k, v in dirs.items()},
           seconds=time.perf_counter() - t0,
           cuts=[f"{MS_ROWS} orders rows; 2^24 at first, halved when the "
-                "format, rollup and trace phases were added and again "
-                "when the control phase was"])
+                "format, rollup and trace phases were added, again when "
+                "the control phase was and again when the loadgen, fuzz "
+                "and remote phases were"])
     return tables, dirs
 
 
@@ -3731,9 +3805,9 @@ def _vec_kernel_entries(vsearch: dict) -> list:
 # geo: NYC-taxi-pickup-shaped points through the geo index
 # ---------------------------------------------------------------------------
 
-GEO_ROWS = int(os.environ.get("PINOT_SMOKE_GEO_ROWS", 1 << 22))
+GEO_ROWS = int(os.environ.get("PINOT_SMOKE_GEO_ROWS", 1 << 21))
 GEO_SEGMENTS = 2
-GEO_TWIN_ROWS = GEO_ROWS // 4        # 2^20 at the default depth
+GEO_TWIN_ROWS = GEO_ROWS // 4        # 2^19 at the default depth
 GEO_RES = 16                         # cells ~0.46 km wide at NYC's latitude
 GEO_TLC_JAN_2015 = 12_748_986        # NYC TLC yellow-cab trips, Jan 2015
 GEO_BOX = (40.49, 40.92, -74.27, -73.68)     # lat lo, lat hi, lng lo, hi
@@ -4541,6 +4615,14 @@ if job["kind"] == "ssb":
     ssb.build_segment_dir(job["rows"], job["out"], TableConfig(
         "lineorder", indexing=IndexingConfig(**job["indexing"])))
     out = {"seconds": time.perf_counter() - t0}
+elif job["kind"] == "fuzz":
+    from pinot_tpu_torch.tools import fuzzer
+    seg = fuzzer.build_fuzz_segment(job["rows"], job["out"], device="cpu")
+    out = {"dir": seg.dir, "seconds": time.perf_counter() - t0}
+elif job["kind"] == "avro":
+    import chip_smoke
+    out = chip_smoke._avro_part(job["dir"], job["file"], job["each"],
+                                job["rows"])
 else:
     from pinot_tpu_torch.segment import load_segment
     from pinot_tpu_torch.startree import RollupConfig, build_rollup
@@ -5041,22 +5123,48 @@ def _coverage_check(roots: list, what: str) -> tuple:
 
 
 @contextlib.contextmanager
-def _ranged_spans(name: str):
+def _ranged_spans(name: str, marks=None):
     """While open, every ``name`` span of a trace also runs inside a
     torch.profiler record_function range labelled ``name#i``; yields
-    {label: Span}, filled as the spans open."""
+    {label: Span}, filled as the spans open. Given a dict ``marks``, each
+    such span also records a pair of CUDA events on the current stream
+    around the work it launches: the start as it opens, before its first
+    launch, and the end at its device fence (utils/spans.device_fence,
+    called right after its last launch and before the host waits on
+    it): ``marks[label] = (start, end)``, the end None where the span
+    reached no fence."""
     import torch
+    from pinot_tpu_torch.engine import batch, executor, ragged
+    from pinot_tpu_torch.utils import spans
     from pinot_tpu_torch.utils.spans import span_tracer
 
     real = span_tracer.span
     opened: dict = {}
+    live: list = []                      # the open spans' labels
+
+    def fence(out):
+        if live:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            marks[live[-1]] = (marks[live[-1]][0], end)
+        spans.device_fence(out)
 
     @contextlib.contextmanager
     def ranged(cm, label):
         with torch.profiler.record_function(label):
             with cm as sp:
                 opened[label] = sp
-                yield sp
+                if marks is None:
+                    yield sp
+                    return
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                marks[label] = (start, None)
+                live.append(label)
+                try:
+                    yield sp
+                finally:
+                    live.pop()
 
     def wrapped(n, **attrs):
         cm = real(n, **attrs)
@@ -5064,11 +5172,17 @@ def _ranged_spans(name: str):
             return cm
         return ranged(cm, f"{name}#{len(opened)}")
 
+    fenced = {mod: mod.device_fence for mod in (batch, executor, ragged)
+              if marks is not None}
     span_tracer.span = wrapped
+    for mod in fenced:
+        mod.device_fence = fence
     try:
         yield opened
     finally:
         del span_tracer.span
+        for mod, real_fence in fenced.items():
+            mod.device_fence = real_fence
 
 
 def _span_device_ms(prof, opened: dict) -> dict:
@@ -5101,6 +5215,23 @@ def _span_device_ms(prof, opened: dict) -> dict:
     return out
 
 
+def _span_event_ms(opened: dict, marks: dict) -> dict:
+    """{label: (span ms, device ms, "events")}: the device time between
+    each labelled span's CUDA event pair (_ranged_spans), from before its
+    first launch to the end of its last, the same launches the profiler
+    window was to see; 0 where a span recorded no pair or reached no
+    fence."""
+    import torch
+
+    torch.cuda.synchronize()
+    out = {}
+    for label, sp in opened.items():
+        start, end = marks.get(label, (None, None))
+        ms = float(start.elapsed_time(end)) if end is not None else 0.0
+        out[label] = (sp.duration_ms, ms, "events")
+    return out
+
+
 def trace_check(query, sql: str, label: str, profile: bool = False,
                 digest=None) -> dict:
     """EXPLAIN ANALYZE and OPTION(trace=true) of one query against its
@@ -5109,11 +5240,14 @@ def trace_check(query, sql: str, label: str, profile: bool = False,
     the root after the broker's prefix to within 10% of its wall time
     (_coverage_check, the median of ANALYZE_RUNS runs), every span name
     is in phases.SPAN_NAMES and every flat phase in TRACED_PHASES. With
-    ``profile``, one EXPLAIN ANALYZE runs under torch.profiler with each
-    device_execute span inside a record_function range: each such span
-    must last at least the device time of the work launched inside it. A
-    window that shows no device time for a range is retried up to
-    PROFILE_TRIES times; the check fails if every window missed."""
+    ``profile``, one EXPLAIN ANALYZE runs with each device_execute span
+    recording CUDA events around its launches (_ranged_spans): each span
+    must last at least the device time between them, and fails where it
+    reached no fence. torch.profiler runs over the same EXPLAIN ANALYZE,
+    a record_function range a span, and its device sum is printed beside
+    the events' (``profiled_spans``: span ms, events ms, profiler ms, how
+    the profiler attributed it); it decides nothing, since after the main
+    path it misses a range's kernels or counts others'."""
     from pinot_tpu_torch.tools import ssb
     from pinot_tpu_torch.utils import phases
 
@@ -5155,25 +5289,22 @@ def trace_check(query, sql: str, label: str, profile: bool = False,
         import torch
         from torch.profiler import ProfilerActivity, profile as prof_ctx
 
-        per_span, tries = None, 0
-        while tries < PROFILE_TRIES:
-            tries += 1
-            with _ranged_spans("device_execute") as opened, prof_ctx(
-                    activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
-                query("EXPLAIN ANALYZE " + sql)
-                torch.cuda.synchronize()
-            per_span = _span_device_ms(prof, opened)
-            if per_span and all(v[1] > 0 for v in per_span.values()):
-                break
-        row.update(profile_tries=tries,
-                   profiled_spans=[[round(s, 6), round(d, 6), by]
-                                   for s, d, by in (per_span or {}).values()])
+        marks: dict = {}
+        with _ranged_spans("device_execute", marks) as opened, prof_ctx(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            query("EXPLAIN ANALYZE " + sql)
+            torch.cuda.synchronize()
+        per_span = _span_event_ms(opened, marks)
+        by_profiler = _span_device_ms(prof, opened)
+        row.update(device_source="events", profiled_spans=[
+            [round(s, 6), round(d, 6), round(by_profiler[k][1], 6),
+             by_profiler[k][2]] for k, (s, d, _by) in per_span.items()])
         if not per_span:
             fails.append("the profiled run opened no device_execute span")
         elif not all(v[1] > 0 for v in per_span.values()):
-            fails.append(f"no profiler window of {PROFILE_TRIES} caught "
-                         f"every device_execute span's work: {per_span}")
+            fails.append(f"a device_execute span reached no device fence, "
+                         f"or its CUDA events measured nothing: {per_span}")
         else:
             short = {k: v for k, v in per_span.items() if v[0] < v[1]}
             if short:
@@ -6925,20 +7056,15 @@ def _server_segments(servers) -> list:
 
 
 def _record_executions(node, log: list) -> None:
-    """Log (server, sql, names of the segments it runs on in the order it
-    runs them, segments queried) of every execution on ``node``."""
-    inner = node._execute
+    """Log (server, sql, the segment objects it ran on in the order it
+    ran them, the plans it ran on them) of every execution on ``node``,
+    from inside the execution (ServerNode.on_execute): the plans carry
+    the capacities the run used, which a run's measured selectivity can
+    re-plan for the next one."""
+    def logged(sql, segments, plans):
+        log.append((node.instance_id, sql, tuple(segments), list(plans)))
 
-    def logged(sql, segment_names=None, *a, **k):
-        wanted = set(segment_names or ())
-        names = tuple(x.name for dm in list(node._tables.values())
-                      for x in dm.acquire_segments() if x.name in wanted)
-        out = inner(sql, segment_names, *a, **k)
-        log.append((node.instance_id, sql, names,
-                    out.get("segmentsQueried", 0)))
-        return out
-
-    node._execute = logged
+    node.on_execute = logged
 
 
 def _host_values(value, where: str) -> int:
@@ -7124,19 +7250,15 @@ def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
                 raise AssertionError(f"cluster {qid}: numSegmentsQueried "
                                      f"{res.num_segments}")
             last = calls[-(len(calls) // (ITERS + 1)):]
-            split = {sid: sum(n for s2, _q, _n, n in last if s2 == sid)
+            split = {sid: sum(len(segs) for s2, _q, segs, _p in last
+                              if s2 == sid)
                      for sid in hosted}
             for sid, n in split.items():
                 per_server.setdefault(sid, 0)
                 per_server[sid] += n
-            for s in servers:
-                names = {n for sid, _q, segs, _c in last
-                         if sid == s.instance_id for n in segs}
-                segs = [x for x in s._tables["lineorder"].acquire_segments()
-                        if x.name in names]
+            for sid, _q, segs, plans in last:
                 if segs:
-                    plans_by_query[f"{qid}@{s.instance_id}"] = _plans(
-                        sql, segs)
+                    plans_by_query[f"{qid}@{sid}"] = plans
             phase("cluster_query", qid=qid, ok=True,
                   p50_ms=statistics.median(times), times_ms=times,
                   in_process_p50_ms=multi_p50.get(qid),
@@ -7354,6 +7476,9 @@ def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
         s._tables.clear()
         shutil.rmtree(s.data_dir, ignore_errors=True)
     del held, servers, broker, ctrl
+    log.clear()                          # the executions' plans
+    plans_by_query.clear()
+    runs.clear()
     global_cube_cache.clear()
     _gc.collect()
     _reconcile_or_fail(list(live_segments), "cluster done")
@@ -7583,66 +7708,96 @@ def _control_digests(query, table: str, want: dict, label: str) -> dict:
     return ms
 
 
-def _control_k1(labelled_plans, tile: int, on_card: bool) -> int:
+@contextlib.contextmanager
+def _plans_run(ran: list):
+    """While open, the plans each batched dispatch runs (engine/serving,
+    inside the execution, before it runs them) are appended to ``ran``,
+    a list a dispatch."""
+    from pinot_tpu_torch.engine import serving
+
+    real = serving.execute_plans_batched
+
+    def batched(plans):
+        ran.append(list(plans))
+        return real(plans)
+
+    serving.execute_plans_batched = batched
+    try:
+        yield
+    finally:
+        serving.execute_plans_batched = real
+
+
+def _control_k1(labelled_plans, tile: int, on_card: bool,
+                path: str = "kernel_at_control_path") -> int:
     """K1 held bitwise on every compact input of ``labelled_plans`` ((label,
     one execution's plans over the segments it ran on) pairs), each timed
     on the card with CUDA events (k1_event_times; the profiler's device
     split, seconds an input where its windows miss, is left to the main
-    path's inputs). The launches these comparisons make are not the
-    path's: K1's counter is put back as it was."""
+    path's inputs). An input that overflows its capacity is held again at
+    the full capacity the executor reruns it at, and so is a segment's
+    input whose capacity the plan cache knows to overflow (the executor
+    launches it at full capacity directly). The launches these
+    comparisons make are not the path's: K1's counter is put back as it
+    was."""
+    from pinot_tpu_torch.engine import batch
     from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops.plan_cache import global_plan_cache
 
     n, launches = 0, C.launches
     for label, plans in labelled_plans:
         for group in _k1_groups(plans):
             route, cases = _k1_cases(group)
-            for mask, cols, cap in cases:
-                got = C.compact(mask, cols, cap)
-                same_outputs(got, C.compact_reference(mask, cols, cap))
-                phase("kernel_at_control_path", query=label,
-                      **_k1_case_row(mask, cols, cap, got, route, tile),
-                      **(k1_event_times(mask, cols, cap, got) if on_card
-                         else {}))
-                n += 1
+            for k, (mask, cols, cap) in enumerate(cases):
+                known = route == batch.PER_SEGMENT and \
+                    global_plan_cache.overflowed(
+                        group[k].kernel_plan, group[k].segment.bucket, cap)
+                while True:
+                    got = C.compact(mask, cols, cap)
+                    same_outputs(got, C.compact_reference(mask, cols, cap))
+                    phase(path, query=label,
+                          **_k1_case_row(mask, cols, cap, got, route, tile),
+                          **(k1_event_times(mask, cols, cap, got)
+                             if on_card else {}))
+                    n += 1
+                    full = C.full_slots_cap(mask.shape[0])
+                    if not (int(got[4]) or known) or cap == full:
+                        break
+                    cap = full
     C.launches = launches
     return n
 
 
-def _control_plans(segs, label: str) -> list:
-    """(label:qid, plans) of the 13 SSB queries over ``segs``, as an
-    in-process broker runs them."""
-    from pinot_tpu_torch.tools import ssb
-
-    return [(f"{label}:{qid}", _plans(_rt_sql((p, v, g), "lineorder"), segs))
-            for qid, p, v, g in ssb.QUERIES]
-
-
-def _executed_plans(log: list, servers, qids: dict, label: str) -> list:
-    """(label:qid@server, plans) for each distinct execution of ``log``
-    over the copies of its segments that stand now: the executing
-    server's, else the holder of a segment moved since (the copies of one
-    segment hold the same columns, and a donor's copy is retired)."""
-    held = {}
-    for s in servers:
-        for dm in list(s._tables.values()):
-            for x in dm.acquire_segments():
-                held[(s.instance_id, x.name)] = x
-                held.setdefault(x.name, x)
-    out = []
-    for sid, sql, names, _n in dict.fromkeys(log):
-        if names:
-            segs = [held.get((sid, n)) or held[n] for n in names]
+def _executed_plans(log: list, qids: dict, label: str) -> list:
+    """(label:qid@server, plans) for each distinct execution of ``log``:
+    the plans it ran, over the very segment objects it ran on (a donor's
+    copy that a move retired since holds the same columns; it uploads
+    without caching), at the capacities it ran."""
+    out, seen = [], set()
+    for sid, sql, segs, plans in log:
+        key = (sid, sql, tuple(x.name for x in segs), tuple(
+            p.slots_cap for p in plans if p.kind == "kernel"))
+        if segs and key not in seen:
+            seen.add(key)
             out.append((f"{label}:{qids.get(sql, sql[:48])}@{sid}"
-                        f"/{len(names)}", _plans(sql, segs)))
+                        f"/{len(segs)}", plans))
     return out
 
 
-def _hybrid_plans(broker, label: str) -> list:
-    """(label:qid, plans) of both halves of each SSB query on the hybrid
-    lineorder, split at its time boundary as the broker splits it."""
-    by_query: dict = {}
-    _rt_hybrid_plans(broker, by_query)
-    return [(f"{label}:{k.split(':', 1)[1]}", v) for k, v in by_query.items()]
+def _hold_stragglers(ran: list, qids: dict, label: str, tile: int,
+                     on_card: bool, path: str = "kernel_at_control_path"
+                     ) -> int:
+    """K1 held on what server executions logged after a phase held its
+    log: a hedge straggler that the broker node abandoned runs on, so
+    once the servers stop, wait until none of the phase's queries
+    (``qids``' SQL) runs, then hold what they ran."""
+    from pinot_tpu_torch.engine.accounting import global_accountant
+
+    _cluster_wait(lambda: not any(u.sql in qids for u in
+                                  global_accountant.running()),
+                  "the servers' last executions")
+    return _control_k1(_executed_plans(ran, qids, label), tile, on_card,
+                       path)
 
 
 def _quickstart_run(qs_dir: str, device: str, out: dict) -> None:
@@ -7765,7 +7920,7 @@ def control_phase(table_dir: str, digests: dict, tile: int,
         a = _control_commit(ctrl, work, z, device)
         reps = a["reps"]
         want = _rt_oracle(a["chosen"], os.path.join(work, "oracle"))
-        rep_ms = {}
+        rep_ms, rep_ran = {}, []
         for m in reps:
             b = Broker(device=device)
             b.register_table(m)
@@ -7774,16 +7929,19 @@ def control_phase(table_dir: str, digests: dict, tile: int,
             if count != [(z["rows"],)]:
                 raise AssertionError(f"control: COUNT(*) {count} on a "
                                      f"replica, {z['rows']} produced")
-            rep_ms[m.completion_client.server_id] = _control_digests(
-                q, CONTROL_TABLE, want, "replica")
+            ran: list = []
+            with _plans_run(ran):
+                rep_ms[m.completion_client.server_id] = _control_digests(
+                    q, CONTROL_TABLE, want, "replica")
+            rep_ran.append(ran)
             _reconcile_or_fail(every + reps[0].acquire_segments()
                                + reps[1].acquire_segments(), "replicas")
         # the quickstart is over before K1 is timed on this card
         qs_thread.join()
         _quickstart_check(qs, device)
         n_held += _control_k1(
-            [lp for i, m in enumerate(reps) for lp in _control_plans(
-                m.acquire_segments(), f"replica_{i}")], tile, on_card)
+            [(f"replica_{i}:{k}", plans) for i, ran in enumerate(rep_ran)
+             for k, plans in enumerate(ran)], tile, on_card)
         t0 = time.perf_counter()
         servers = [ServerNode(f"server_{i}", ctrl.url, poll_interval=0.1,
                               device=device,
@@ -8040,8 +8198,9 @@ def control_phase(table_dir: str, digests: dict, tile: int,
         qids = {sql: qid for qid, sql in sqls}
         qids.update({_rt_sql((p, v, g), CONTROL_TABLE): f"{qid}:realtime"
                      for qid, p, v, g in ssb.QUERIES})
-        n_held += _control_k1(_executed_plans(ran, servers, qids, "server"),
+        n_held += _control_k1(_executed_plans(ran, qids, "server"),
                               tile, on_card)
+        ran.clear()                      # the executions' plans
         phase("control_autopsy", ok=True, top_cause=verdict["top_cause"],
               inconclusive=verdict["inconclusive"], scores=scores,
               window=verdict["window"], verdict_ms=verdict_ms,
@@ -8076,8 +8235,11 @@ def control_phase(table_dir: str, digests: dict, tile: int,
                 {_device_type(device)}:
             raise AssertionError(f"control minion: {offline.total_docs} "
                                  f"offline rows, {rt.total_docs} realtime")
-        hybrid_ms = _control_digests(hq, "lineorder", want, "hybrid")
-        n_held += _control_k1(_hybrid_plans(hybrid, "minion"), tile,
+        hy_ran: list = []
+        with _plans_run(hy_ran):
+            hybrid_ms = _control_digests(hq, "lineorder", want, "hybrid")
+        n_held += _control_k1([(f"minion:{k}", plans)
+                               for k, plans in enumerate(hy_ran)], tile,
                               on_card)
         ctx2 = MinionContext(tables={"lineorder_OFFLINE": offline},
                              out_dir=os.path.join(work, "minion"))
@@ -8091,8 +8253,11 @@ def control_phase(table_dir: str, digests: dict, tile: int,
         merge_s = time.perf_counter() - t0
         if merge.state != TaskState.COMPLETED:
             raise AssertionError(f"control merge: {merge.error}")
-        merged_ms = _control_digests(hq, "lineorder", want, "merged")
-        n_held += _control_k1(_hybrid_plans(hybrid, "merged"), tile,
+        hy_ran = []
+        with _plans_run(hy_ran):
+            merged_ms = _control_digests(hq, "lineorder", want, "merged")
+        n_held += _control_k1([(f"merged:{k}", plans)
+                               for k, plans in enumerate(hy_ran)], tile,
                               on_card)
         _reconcile_or_fail(every + _server_segments(servers)
                            + offline.acquire_segments()
@@ -8115,6 +8280,7 @@ def control_phase(table_dir: str, digests: dict, tile: int,
     if control_launches == 0:
         raise AssertionError("control: the path never launched the "
                              "compaction")
+    n_held += _hold_stragglers(ran, qids, "server", tile, on_card)
 
     # clean-up: the replicas', servers' and minion's segments leave
     held = _server_segments(servers) + offline.acquire_segments() + \
@@ -8135,6 +8301,922 @@ def control_phase(table_dir: str, digests: dict, tile: int,
     phase("control_done", seconds=seconds, compact_launches=control_launches,
           k1_checked=n_held, bytes_left=left, tracked_equals_held=True)
     return {"launches": control_launches, "seconds": seconds}
+
+
+LG_ROWS = int(os.environ.get("PINOT_SMOKE_LG_ROWS", 1 << 19))
+LG_PARTITIONS = 4                # a table
+LG_QUERY_WORKERS = 4
+LG_SEED = 1716
+LG_WALL_S = 600.0                # run_load's own cap (chaos stall guard)
+
+
+def loadgen_phase(live_segments=(), device: str = "cuda") -> int:
+    """engine/loadgen.run_load on ``device``: two tables of LG_PARTITIONS
+    partitions each, lg_append over the Kafka fake and lg_upsert (full
+    upsert, controller-arbitrated commits) over the wire stream,
+    LG_ROWS rows in all at a flush threshold of a quarter of a
+    partition's rows, LG_QUERY_WORKERS query workers through
+    Broker(device), the seeded fault plan ingest_plan(LG_SEED,
+    protocol=True), drain mode. The final rows of each table must equal
+    ingest_fuzz.oracle_rows per partition, the run must restart at least
+    once with a commit.crash fired, the ingest_bench record (written to
+    a temporary ledger, with one ingest_stats a table) must validate with
+    the device's type as backend, and tracked == held once it is torn
+    down. Each K1 launch of the path is held bitwise to the plain version
+    on its own inputs as it launches. Returns K1's launches."""
+    import gc as _gc
+
+    import torch
+
+    from pinot_tpu_torch.engine import loadgen as LG
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.tools import ingest_fuzz
+    from pinot_tpu_torch.utils import faults, ledger
+
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+    _gc.collect()
+    baseline = torch.cuda.memory_allocated() if on_card else 0
+    work = os.path.join(CACHE, "loadgen")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    per_part = LG_ROWS // (2 * LG_PARTITIONS)
+    flush = max(per_part // 4, 1)
+    ledger_path = os.path.join(work, "ledger.jsonl")
+    cfg = LG.LoadgenConfig(
+        tables=[LG.TableLoadSpec("lg_append", partitions=LG_PARTITIONS,
+                                 backend="kafka", threshold=flush),
+                LG.TableLoadSpec("lg_upsert", partitions=LG_PARTITIONS,
+                                 upsert=True, protocol=True,
+                                 backend="wire", threshold=flush)],
+        seed=LG_SEED, rows_per_partition=per_part,
+        query_concurrency=LG_QUERY_WORKERS, query_timeout_ms=600_000,
+        fault_plan=ingest_fuzz.ingest_plan(LG_SEED, protocol=True),
+        ledger_path=ledger_path, max_wall_s=LG_WALL_S)
+    plans, bad, checked = [], [], [0]
+    real_install, real_compact = faults.install, C.compact
+
+    def capture(plan, seed=None):
+        p = real_install(plan, seed)
+        plans.append(p)
+        return p
+
+    def holding(mask, cols, cap):
+        got = real_compact(mask, cols, cap)
+        try:
+            same_outputs(got, C.compact_reference(mask, cols, cap))
+        except AssertionError as e:     # a worker would count it an error
+            bad.append(str(e))
+        checked[0] += 1
+        return got
+
+    C.launches = 0                       # the loadgen path starts here
+    faults.install, C.compact = capture, holding
+    try:
+        s = LG.run_load(os.path.join(work, "run"), cfg, device=device)
+    finally:
+        faults.install, C.compact = real_install, real_compact
+    launches = C.launches                # ... and ends here
+    fired = sorted({pt for p in plans for pt, _k, _h in p.fired_summary()})
+    per_table = {k: {f: v.get(f) for f in (
+        "oracle_ok", "restarts", "commits", "freshness_p50_ms",
+        "freshness_p99_ms", "commit_p50_ms", "commit_p99_ms")}
+        for k, v in s["per_table"].items()}
+    if not s["ok"] or not all(v["oracle_ok"] for v in per_table.values()):
+        raise AssertionError(f"loadgen: not the oracle's rows: "
+                             f"{s.get('error')} {per_table}")
+    if s["restarts"] < 1 or "commit.crash" not in fired:
+        raise AssertionError(f"loadgen: {s['restarts']} restarts, fired "
+                             f"{fired}")
+    if s["queries"] == 0 or s["backend"] != _device_type(device):
+        raise AssertionError(f"loadgen: {s['queries']} queries, backend "
+                             f"{s['backend']}")
+    if bad:
+        raise AssertionError(f"loadgen: K1 differs from the plain "
+                             f"version: {bad[:3]}")
+    checked_ledger = ledger.validate_file(ledger_path)
+    with open(ledger_path) as fh:
+        bench = [json.loads(ln) for ln in fh
+                 if '"ingest_bench"' in ln]
+    if checked_ledger["errors"] or checked_ledger["kinds"] != {
+            "ingest_bench": 1, "ingest_stats": 2} or \
+            bench[0]["backend"] != _device_type(device):
+        raise AssertionError(f"loadgen: ledger {checked_ledger}")
+    del s["per_table"]
+    global_cube_cache.clear()
+    _gc.collect()
+    _reconcile_or_fail(list(live_segments), "loadgen done")
+    left = (torch.cuda.memory_allocated() - baseline) if on_card else 0
+    if left > MEM_SLACK:
+        raise AssertionError(f"loadgen: {left} bytes left on the card")
+    shutil.rmtree(work, ignore_errors=True)
+    phase("loadgen", ok=True, **{k: s[k] for k in (
+        "rows", "duration_s", "rows_per_s", "rows_per_s_per_partition",
+        "freshness_p50_ms", "freshness_p99_ms", "commit_p50_ms",
+        "commit_p99_ms", "commits", "restarts", "faults_fired", "queries",
+        "query_p50_ms", "query_p99_ms", "query_errors", "batched",
+        "backend")},
+          fired_points=fired, per_table=per_table,
+          partitions=2 * LG_PARTITIONS, rows_per_partition=per_part,
+          flush_threshold_rows=flush, query_workers=LG_QUERY_WORKERS,
+          backends={"lg_append": "kafka", "lg_upsert": "wire"},
+          ledger_kinds=checked_ledger["kinds"], compact_launches=launches,
+          k1_held_at_launch=checked[0],
+          k1_note=(None if launches else
+                   "the query mix (QUERY_MIX over 13 pks) planned no "
+                   "compact group-by: K1 is held by the fuzz and remote "
+                   "phases"),
+          bytes_left=left, tracked_equals_held=True,
+          seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+# 2^21 asked; the phase took 74.0 s there (its build 49.8 s; H100 80GB
+# HBM3, 700.00 W), over the 60 s that allow 2^20
+FUZZ_ROWS = int(os.environ.get("PINOT_SMOKE_FUZZ_ROWS", 1 << 20))
+FUZZ_ORACLE_ROWS = 1 << 14
+FUZZ_SEED = 20260730
+FUZZ_SPECS = 200
+
+
+def _fuzz_at_scale(spec) -> bool:
+    """Whether a spec runs on the FUZZ_ROWS segment too: the aggregations
+    that neither group by nor aggregate the MV column (the host path
+    walks MV rows in Python, about 8 s a spec at 2^20 rows; selections
+    plan on the host on both paths, windows run in the multi-stage
+    engine's host leaf scans)."""
+    return spec.kind == "agg" and "mv" not in spec.group and not any(
+        a.fn in ("summv", "countmv") for a in spec.aggs)
+
+
+def _fuzz_close(a, *others) -> list:
+    """[(equal, tie)] for each of ``others`` against rows ``a``: paired
+    in fuzzer.digest's order, the rows are equal, every float to a
+    relative 1e-9 and the rest exactly; a tie is an equal pair whose
+    digests differ (a float on a rounding tie of the digest's 9
+    significant digits, split by 1 ulp)."""
+    from pinot_tpu_torch.tools import fuzzer
+
+    def keyed(rows):
+        return sorted(((fuzzer.digest([r])[0], r) for r in rows),
+                      key=lambda kr: kr[0])
+
+    def same(x, y) -> bool:
+        if isinstance(x, (list, tuple)) and isinstance(y, (list, tuple)):
+            return len(x) == len(y) and all(map(same, x, y))
+        if isinstance(x, (int, float)) and isinstance(y, (int, float)) \
+                and not isinstance(x, bool) and not isinstance(y, bool):
+            return math.isclose(x, y, rel_tol=1e-9, abs_tol=1e-12)
+        return x == y
+
+    ka, out = keyed(a), []
+    for b in others:
+        kb = keyed(b)
+        equal = len(ka) == len(kb) and all(
+            len(x) == len(y) and all(map(same, x, y))
+            for (_k, x), (_l, y) in zip(ka, kb))
+        out.append((equal, equal and [k for k, _r in ka]
+                    != [k for k, _r in kb]))
+    return out
+
+
+@contextlib.contextmanager
+def _fuzz_recording(captured: list, label: str):
+    """While open, every K1 call's inputs, cloned as it launches, are
+    appended to ``captured`` as (label, mask, cols, cap)."""
+    from pinot_tpu_torch.ops import compact as C
+
+    real = C.compact
+
+    def capturing(mask, cols, cap):
+        captured.append((label, mask.clone(),
+                         tuple(c.clone() for c in cols), cap))
+        return real(mask, cols, cap)
+
+    C.compact = capturing
+    try:
+        yield
+    finally:
+        C.compact = real
+
+
+def _fuzz_query(broker, spec, sql: str, captured: list, label: str
+                ) -> tuple:
+    """(rows, ms, route) of one spec through ``broker``: the route is the
+    one its execution took (the kernel strategy or the plan kind of the
+    plans it ran; window specs run in the multi-stage engine)."""
+    ran: list = []
+    t0 = time.perf_counter()
+    with _plans_run(ran), _fuzz_recording(captured, label):
+        rows = broker.query(sql).rows
+    ms = (time.perf_counter() - t0) * 1e3
+    if spec.kind == "window":
+        return rows, ms, "multistage"
+    kinds = {p.kernel_plan.strategy if p.kind == "kernel" else p.kind
+             for plans in ran for p in plans}
+    return rows, ms, "+".join(sorted(kinds)) or "none"
+
+
+def _hold_captured(captured: list, tile: int, on_card: bool) -> int:
+    """K1 held bitwise on each captured launch's own inputs
+    (_fuzz_recording) and timed on the card with CUDA events
+    (kernel_at_fuzz_path); returns the inputs held."""
+    from pinot_tpu_torch.engine import batch
+    from pinot_tpu_torch.ops import compact as C
+
+    for label, mask, cols, cap in captured:
+        got = C.compact(mask, cols, cap)
+        same_outputs(got, C.compact_reference(mask, cols, cap))
+        phase("kernel_at_fuzz_path", query=label,
+              **_k1_case_row(mask, cols, cap, got, batch.PER_SEGMENT, tile),
+              **(k1_event_times(mask, cols, cap, got) if on_card else {}))
+    return len(captured)
+
+
+def _fuzz_broker(seg, device: str):
+    from pinot_tpu_torch.broker import Broker
+    from pinot_tpu_torch.server import TableDataManager
+
+    dm = TableDataManager("fz", device=device)
+    dm.add_segment(seg)
+    broker = Broker(device=device)
+    broker.register_table(dm)
+    return broker
+
+
+def fuzz_phase(tile: int, live_segments=(), device: str = "cuda") -> int:
+    """tools/fuzzer on ``device``, FUZZ_SPECS specs of
+    QueryGenerator(FUZZ_SEED) (aggregations, MV predicates and groups,
+    selections, window functions) on two fz segments of the seed's data:
+    - FUZZ_ORACLE_ROWS rows (build_fuzz_segment on the card): every spec
+      through Broker(device), OPTION(forceHostExecution=true) and
+      fuzzer.oracle_rows, whose Python is the phase's cost;
+    - FUZZ_ROWS rows, built by a worker process while the first runs,
+      loaded on the card: every spec of _fuzz_at_scale through
+      Broker(device) and the host path.
+    The rows of each pair must agree under _fuzz_close (a rounding tie of
+    the digest is printed in float_ties); a mismatch prints its (seed,
+    index). Every K1 launch of the device queries is captured with its
+    inputs as it launches and held bitwise and timed afterwards
+    (kernel_at_fuzz_path); the phase fails when the corpus launches none
+    or launches one it did not hold. Returns K1's launches on the path."""
+    import gc as _gc
+
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.segment.immutable import ImmutableSegment
+    from pinot_tpu_torch.tools import fuzzer
+
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+    work = os.path.join(CACHE, "fuzz")
+    shutil.rmtree(work, ignore_errors=True)
+    job = _start_job({"kind": "fuzz", "rows": FUZZ_ROWS,
+                      "out": os.path.join(work, "scale")})
+    segs, captured, ties = [], [], []
+    try:
+        t0 = time.perf_counter()
+        small = fuzzer.build_fuzz_segment(
+            FUZZ_ORACLE_ROWS, os.path.join(work, "oracle"), device=device)
+        segs.append(small)
+        data = fuzzer.make_data(FUZZ_ORACLE_ROWS)
+        oracle_build_s = time.perf_counter() - t0
+        gen = fuzzer.QueryGenerator(FUZZ_SEED)
+        specs = [gen.generate() for _ in range(FUZZ_SPECS)]
+        kinds: dict = {}
+        for spec in specs:
+            kinds[spec.kind] = kinds.get(spec.kind, 0) + 1
+        runs = {"oracle": ({}, []), "scale": ({}, [])}
+        oracle_s = 0.0
+        C.launches = 0                   # the fuzz path starts here
+
+        def pair(broker, spec, size: str, want=None) -> None:
+            nonlocal oracle_s
+            sql = fuzzer.render_sql(spec)
+            where = f"{size}:{spec.seed[0]}/{spec.seed[1]}"
+            got, ms, route = _fuzz_query(broker, spec, sql, captured, where)
+            t1 = time.perf_counter()
+            host = broker.query(sql.replace(
+                "OPTION(", "OPTION(forceHostExecution=true,")).rows
+            by_route, host_ms = runs[size]
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+            by_route.setdefault(route, []).append(ms)
+            others = {"host": host}
+            if want is not None:
+                t1 = time.perf_counter()
+                others["oracle"] = want(spec)
+                oracle_s += time.perf_counter() - t1
+            checked = _fuzz_close(got, *others.values())
+            for (what, rows), (equal, _tie) in zip(others.items(), checked):
+                if not equal:
+                    raise AssertionError(
+                        f"fuzz: seed {spec.seed[0]} index {spec.seed[1]} "
+                        f"at {size} size: the device's {len(got)} rows "
+                        f"differ from the {what}'s {len(rows)}: {sql}")
+            if any(tie for _equal, tie in checked):
+                ties.append([size, *spec.seed[:2]])
+
+        broker = _fuzz_broker(small, device)
+        for spec in specs:
+            pair(broker, spec, "oracle",
+                 lambda sp: fuzzer.oracle_rows(sp, data, FUZZ_ORACLE_ROWS))
+        t0 = time.perf_counter()
+        built = _finish_job(job)
+        scale_wait_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        big = ImmutableSegment.load(built["dir"], device)
+        segs.append(big)
+        load_s = time.perf_counter() - t0
+        broker = _fuzz_broker(big, device)
+        at_scale = [sp for sp in specs if _fuzz_at_scale(sp)]
+        for spec in at_scale:
+            pair(broker, spec, "scale")
+        launches = C.launches            # ... and ends here
+    finally:
+        if job.poll() is None:
+            job.kill()
+            job.wait()
+    if launches == 0:
+        raise AssertionError("fuzz: the corpus never launched the "
+                             "compaction")
+    held = _hold_captured(captured, tile, on_card)
+    C.launches = launches
+    if launches > held:
+        raise AssertionError(f"fuzz: {launches} K1 launches, {held} of "
+                             f"them held")
+    del captured, broker
+    for s in segs:
+        s.evict_device()
+    del segs, small, big
+    global_cube_cache.clear()
+    _gc.collect()
+    _reconcile_or_fail(list(live_segments), "fuzz done")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def routes(size: str) -> dict:
+        by_route, host_ms = runs[size]
+        return {"specs_per_route": {r: len(v) for r, v in
+                                    sorted(by_route.items())},
+                "p50_ms_per_route": {r: statistics.median(v) for r, v in
+                                     sorted(by_route.items())},
+                "host_path_p50_ms": statistics.median(host_ms)}
+
+    phase("fuzz", ok=True, rows=FUZZ_ROWS, oracle_rows=FUZZ_ORACLE_ROWS,
+          seed=FUZZ_SEED, specs=FUZZ_SPECS, kinds=kinds,
+          specs_at_scale=len(at_scale),
+          oracle_size=routes("oracle"), scale=routes("scale"),
+          float_ties=ties, oracle_s=oracle_s,
+          oracle_build_s=oracle_build_s, scale_build_s=built["seconds"],
+          scale_wait_s=scale_wait_s, scale_load_s=load_s,
+          compact_launches=launches, k1_checked=held,
+          seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+REMOTE_ROWS = int(os.environ.get("PINOT_SMOKE_REMOTE_ROWS", 1 << 19))
+REMOTE_FILES = 8
+REMOTE_WORKERS = 8               # batch workers; 1 runs the job in process
+REMOTE_QIDS = ("q1.1", "q2.1")   # asked of each other scheme's segment
+REMOTE_AK, REMOTE_SK = "remote-ak", "remote-sk"
+
+
+def _remote_stores() -> dict:
+    """The four stores on loopback and their clients registered for
+    s3://, gs://, hdfs:// and abfs:// in this process."""
+    from pinot_tpu_torch.fs import (AdlsPinotFS, GcsPinotFS, HdfsPinotFS,
+                                    S3PinotFS)
+    from pinot_tpu_torch.fs.stub import FakeS3Server
+    from pinot_tpu_torch.fs.stub_cloud import (FakeAdlsServer,
+                                               FakeGcsServer,
+                                               FakeWebHdfsServer)
+
+    s3 = FakeS3Server(access_key=REMOTE_AK, secret_key=REMOTE_SK)
+    gcs, hdfs, adls = (FakeGcsServer(token="gcs-tok"), FakeWebHdfsServer(),
+                       FakeAdlsServer(token="az-tok"))
+    S3PinotFS.register(endpoint_url=s3.endpoint_url, access_key=REMOTE_AK,
+                       secret_key=REMOTE_SK, backoff=0.05)
+    GcsPinotFS.register(endpoint_url=gcs.endpoint_url, token="gcs-tok")
+    HdfsPinotFS.register(endpoint_url=hdfs.endpoint_url)
+    AdlsPinotFS.register(endpoint_url=adls.endpoint_url, token="az-tok")
+    return {"s3": s3, "gs": gcs, "hdfs": hdfs, "abfs": adls}
+
+
+class _StatsdReceiver:
+    """UDP statsd datagrams on loopback, summed per counter."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.settimeout(0.05)
+        self.port = self.sock.getsockname()[1]
+        self.counters: dict = {}
+        self.datagrams = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        import socket
+
+        while not self._stop.is_set():
+            try:
+                line = self.sock.recv(65536).decode()
+            except socket.timeout:
+                continue
+            self.datagrams += 1
+            name, _, rest = line.partition(":")
+            value, _, kind = rest.partition("|")
+            if kind == "c":
+                self.counters[name] = self.counters.get(name, 0) + int(value)
+
+    def stop(self) -> None:
+        time.sleep(0.1)                  # the last flush's datagrams
+        self._stop.set()
+        self._thread.join()
+        self.sock.close()
+
+
+def _remote_formats(work: str, device: str) -> dict:
+    """Thrift and CLP files read into tables on ``device`` and queried;
+    protobuf, ORC and Parquet read where their library is present, else
+    the reference's gating error asserted."""
+    import importlib.util
+    import struct
+
+    from pinot_tpu_torch.broker import Broker
+    from pinot_tpu_torch.inputformat import extended, read_records
+    from pinot_tpu_torch.segment import SegmentBuilder
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.spi import (DataType, FieldSpec, FieldType, Schema,
+                                     TableConfig)
+
+    os.makedirs(work, exist_ok=True)
+    out: dict = {}
+
+    def served(name, schema, rows, sql):
+        d = SegmentBuilder(schema, TableConfig(name)).build(
+            rows, os.path.join(work, name), "s0")
+        dm = TableDataManager(name, device=device)
+        seg = dm.add_segment_dir(d)
+        b = Broker(device=device)
+        b.register_table(dm)
+        got = b.query(sql).rows
+        seg.evict_device()
+        return got
+
+    def tstr(s: bytes) -> bytes:
+        return struct.pack(">i", len(s)) + s
+
+    def field(ttype, fid, payload):
+        return struct.pack(">bh", ttype, fid) + payload
+
+    trips = [("nyc", 1200, 2.5), ("sf", 800, 1.25), ("la", 950, 7.0)]
+    path = os.path.join(work, "trips.thrift")
+    with open(path, "wb") as fh:
+        for city, fare, dist in trips:
+            fh.write(field(11, 1, tstr(city.encode()))
+                     + field(10, 2, struct.pack(">q", fare))
+                     + field(4, 3, struct.pack(">d", dist))
+                     + field(8, 9, struct.pack(">i", 7)) + b"\x00")
+    rows = read_records(path, "thrift",
+                        field_names={1: "city", 2: "fare", 3: "dist"})
+    got = served("thr", Schema("thr", [
+        FieldSpec("city", DataType.STRING),
+        FieldSpec("fare", DataType.LONG, FieldType.METRIC),
+        FieldSpec("dist", DataType.DOUBLE, FieldType.METRIC)]), rows,
+        "SELECT city, fare, dist FROM thr ORDER BY city LIMIT 10")
+    if [tuple(r) for r in got] != sorted(trips):
+        raise AssertionError(f"remote: thrift rows {got}")
+    out["thrift"] = len(got)
+    msgs = [f"job_{i} wrote {i * 4096} bytes to host-{i % 3} in "
+            f"{i / 8:.2f} s" for i in range(12)]
+    path = os.path.join(work, "log.jsonl")
+    with open(path, "w") as fh:
+        for i, m in enumerate(msgs):
+            fh.write(json.dumps({"message": m, "level": "WARN" if i % 3
+                                 else "INFO"}) + "\n")
+    rows = read_records(path, "clp")
+    got = served("clp", Schema("clp", [
+        FieldSpec("level", DataType.STRING),
+        FieldSpec("message_logtype", DataType.STRING),
+        FieldSpec("message_dictionaryVars", DataType.STRING,
+                  single_value=False),
+        FieldSpec("message_encodedVars", DataType.LONG,
+                  single_value=False)]), rows,
+        "SELECT message_logtype, message_dictionaryVars, "
+        "message_encodedVars FROM clp LIMIT 100")
+    decoded = sorted(extended.clp_decode(lt, list(dv), list(ev))
+                     for lt, dv, ev in got)
+    if decoded != sorted(msgs):
+        raise AssertionError(f"remote: CLP rows decode to {decoded[:2]}")
+    out["clp"] = len(got)
+    gates = {}
+    for fmt, lib in (("protobuf", "google.protobuf"), ("orc", "pyarrow"),
+                     ("parquet", "pyarrow")):
+        try:
+            present = importlib.util.find_spec(lib) is not None
+        except ModuleNotFoundError:
+            present = False
+        path = os.path.join(work, f"x.{fmt}")
+        if present:
+            gates[fmt] = _remote_library_format(path, fmt)
+            continue
+        try:
+            read_records(path, fmt, **({"descriptor_file": path + ".desc",
+                                        "message_type": "fmt.Trip"}
+                                       if fmt == "protobuf" else {}))
+        except (ImportError, RuntimeError) as e:
+            want = ((ModuleNotFoundError, "No module named 'google'")
+                    if fmt == "protobuf" else
+                    (RuntimeError, f"{fmt} input needs the 'pyarrow' "
+                     "package, which is not installed in this environment"))
+            if not isinstance(e, want[0]) or str(e) != want[1]:
+                raise AssertionError(f"remote: {fmt} raised "
+                                     f"{type(e).__name__}: {e}")
+            gates[fmt] = f"gated: {type(e).__name__}: {e}"
+            continue
+        raise AssertionError(f"remote: {fmt} read without its library")
+    out["gates"] = gates
+    return out
+
+
+def _remote_library_format(path: str, fmt: str) -> str:
+    """Write and read one small file of ``fmt`` where its library is
+    present; returns what was read."""
+    from pinot_tpu_torch.inputformat import extended, read_records
+
+    want = [{"city": "nyc", "fare": 1200}, {"city": "sf", "fare": 800}]
+    if fmt == "protobuf":
+        from google.protobuf import descriptor_pb2
+
+        fd = descriptor_pb2.FileDescriptorProto(
+            name="trip.proto", package="fmt", syntax="proto3")
+        msg = fd.message_type.add(name="Trip")
+        F = descriptor_pb2.FieldDescriptorProto
+        msg.field.add(name="city", number=1, type=F.TYPE_STRING,
+                      label=F.LABEL_OPTIONAL)
+        msg.field.add(name="fare", number=2, type=F.TYPE_INT64,
+                      label=F.LABEL_OPTIONAL)
+        with open(path + ".desc", "wb") as fh:
+            fh.write(descriptor_pb2.FileDescriptorSet(file=[fd])
+                     .SerializeToString())
+        cls = extended._message_class(path + ".desc", "fmt.Trip")
+        extended.write_protobuf(path, [cls(**r) for r in want])
+        got = read_records(path, fmt, descriptor_file=path + ".desc",
+                           message_type="fmt.Trip")
+    else:
+        import pyarrow as pa
+
+        table = pa.table({k: [r[k] for r in want] for k in want[0]})
+        if fmt == "orc":
+            from pyarrow import orc
+            orc.write_table(table, path)
+        else:
+            import pyarrow.parquet as pq
+            pq.write_table(table, path)
+        got = read_records(path, fmt)
+    if got != want:
+        raise AssertionError(f"remote: {fmt} read {got}")
+    return f"read {len(got)} rows"
+
+
+def _avro_part(in_dir: str, f: int, each: int, rows: int) -> dict:
+    """File ``f`` (rows f * each up to (f + 1) * each of the ``rows``
+    seeded lineorder rows) of the remote table's Avro input; a writer
+    process runs it as the "avro" build job."""
+    from pinot_tpu_torch.inputformat.avro import write_container
+    from pinot_tpu_torch.tools import ssb
+
+    cols = ssb.gen_columns(rows)
+    rows = ssb.row_dicts(ssb.take_rows(cols, slice(f * each,
+                                                   (f + 1) * each)))
+    t0 = time.perf_counter()
+    write_container(os.path.join(in_dir, f"lineorder_{f}.avro"),
+                    ssb.avro_schema(cols), rows, "deflate")
+    return {"encode_s": time.perf_counter() - t0, "rows": each}
+
+
+def _stop_all(*nodes) -> None:
+    """Stop servers, brokers, controllers and stores side by side (each
+    stop waits out its own HTTP server's shutdown poll)."""
+    import threading
+
+    threads = [threading.Thread(target=n.stop) for n in nodes
+               if n is not None]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+
+def start_remote_avro() -> dict:
+    """The remote phase's Avro input: REMOTE_FILES writer processes
+    started at once, a file each ({"dir", "jobs"}); with one
+    REMOTE_WORKERS no process is started and the phase writes the files
+    itself."""
+    in_dir = os.path.join(CACHE, "remote_avro")
+    shutil.rmtree(in_dir, ignore_errors=True)
+    os.makedirs(in_dir)
+    each = REMOTE_ROWS // REMOTE_FILES
+    return {"dir": in_dir, "jobs": [
+        _start_job({"kind": "avro", "dir": in_dir, "file": f, "each": each,
+                    "rows": REMOTE_ROWS}) for f in range(REMOTE_FILES)]
+        if REMOTE_WORKERS > 1 else []}
+
+
+def remote_phase(tile: int, live_segments=(), device: str = "cuda",
+                 avro=None) -> int:
+    """Batch ingestion through remote deep stores, served from the card:
+    the flat SSB lineorder at REMOTE_ROWS rows written as REMOTE_FILES
+    Avro container files (deflate; one writer process a file,
+    start_remote_avro, which main starts before the fuzz phase); the
+    port's batch job (format avro, REMOTE_WORKERS worker processes)
+    builds a segment a file and pushes each to s3:// on FakeS3Server
+    (SigV4; one injected 500 that the client's retry rides out) and
+    registers it with a Controller; two ServerNode(device) download and
+    load them and a BrokerNode answers the 13 SSB queries with the
+    digests of Broker(device) over the same segments in process; K1
+    held bitwise and timed on every compact input a server ran, recorded
+    inside each execution (kernel_at_remote_path). One segment each is
+    pushed to gs://, hdfs:// and abfs:// on their stores; a server loads
+    it from there and answers q1.1 and q2.1 with the in-process digests.
+    A MetricsFlushTask runs the statsd (UDP loopback), Prometheus-file
+    and ledger sinks through the phase; each must carry the broker's
+    query counter. Thrift and CLP files are read into tables on the
+    card; protobuf, ORC and Parquet are read where their library is
+    present, else the reference's gating error is asserted. Returns K1's
+    launches on the path."""
+    import gc as _gc
+
+    import torch
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.clients import HttpConnection
+    from pinot_tpu_torch.cluster import BrokerNode, Controller, ServerNode
+    from pinot_tpu_torch.cluster.deepstore import (pruning_metadata,
+                                                   upload_segment)
+    from pinot_tpu_torch.cluster.periodic import PeriodicTaskScheduler
+    from pinot_tpu_torch.ingestion import run_batch_ingestion
+    from pinot_tpu_torch.inputformat.avro import read_container
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.spi import filesystem as fsreg
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.utils import ledger
+    from pinot_tpu_torch.utils.metrics import global_metrics
+    from pinot_tpu_torch.utils.metrics_sinks import (LedgerSink,
+                                                     MetricsFlushTask,
+                                                     PrometheusFileSink,
+                                                     StatsdSink)
+
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+    _gc.collect()
+    baseline = torch.cuda.memory_allocated() if on_card else 0
+    work = os.path.join(CACHE, "remote")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    saved_fs = dict(fsreg._REGISTRY)
+    stores = _remote_stores()
+    statsd = _StatsdReceiver()
+    prom_path = os.path.join(work, "metrics.prom")
+    ledger_path = os.path.join(work, "metrics.jsonl")
+    flush = MetricsFlushTask([StatsdSink("127.0.0.1", statsd.port),
+                              PrometheusFileSink(prom_path),
+                              LedgerSink(ledger_path)], interval_s=0.5)
+    sched = PeriodicTaskScheduler()
+    sched.register(flush)
+    sched.start(tick_s=0.05)
+    queries_before = global_metrics.snapshot()["counters"].get(
+        "broker_queries", 0)
+    in_process_queries = 0
+    ctrl = servers = broker = None
+    local_dms: list = []
+    try:
+        # the Avro files, one writer process a file (started before the
+        # fuzz phase when main passes them in)
+        if avro is None:
+            avro = start_remote_avro()
+        in_dir = avro["dir"]
+        each = REMOTE_ROWS // REMOTE_FILES
+        t0 = time.perf_counter()
+        enc = ([_finish_job(j) for j in avro["jobs"]] if avro["jobs"] else
+               [_avro_part(in_dir, f, each, REMOTE_ROWS)
+                for f in range(REMOTE_FILES)])
+        encode_wait = time.perf_counter() - t0
+        avro_bytes = sum(os.path.getsize(os.path.join(in_dir, f))
+                         for f in os.listdir(in_dir))
+        t0 = time.perf_counter()
+        first = read_container(os.path.join(in_dir, "lineorder_0.avro"))
+        decode_s = time.perf_counter() - t0
+        cols = ssb.gen_columns(REMOTE_ROWS)
+        if first != ssb.row_dicts(ssb.take_rows(cols, slice(0, each))):
+            raise AssertionError("remote: the Avro rows differ from the "
+                                 "generated rows")
+        del first
+        phase("remote_avro", ok=True, files=REMOTE_FILES, rows=REMOTE_ROWS,
+              bytes=avro_bytes, codec="deflate",
+              encode_rows_per_s_per_process=statistics.median(
+                  e["rows"] / e["encode_s"] for e in enc),
+              writers=len(avro["jobs"]), encode_wait_s=encode_wait,
+              decode_rows_per_s=each / decode_s)
+
+        # the batch job: build, push to s3://, register
+        ctrl = Controller(os.path.join(work, "ctrl"), heartbeat_timeout=60.0,
+                          reconcile_interval=0.2)
+        schema = ssb.lineorder_schema(cols).to_dict()
+        ctrl.add_table("lineorder", schema, replication=1)
+        servers = [ServerNode(f"server_{i}", ctrl.url, poll_interval=0.1,
+                              device=device) for i in range(2)]
+        broker = BrokerNode(ctrl.url, routing_refresh=0.1,
+                            slow_query_ms=1e9)
+        ran: list = []
+        for s in servers:
+            _record_executions(s, ran)
+        spec = {"inputDirURI": in_dir, "format": "avro",
+                "outputDirURI": os.path.join(work, "segments"),
+                "tableName": "lineorder", "schema": schema,
+                "rowsPerSegment": each,
+                "push": {"controllerUrl": ctrl.url,
+                         "deepstoreURI": "s3://deepstore/remote"}}
+        if REMOTE_WORKERS > 1:
+            spec["executionFrameworkSpec"] = {
+                "name": "parallel", "numWorkers": REMOTE_WORKERS}
+        stores["s3"].inject_failures(1)  # the first PUT answers 500
+        t0 = time.perf_counter()
+        locations = run_batch_ingestion(spec)
+        batch_s = time.perf_counter() - t0
+        if stores["s3"].fail_next != 0 or len(locations) != REMOTE_FILES \
+                or not all(u.startswith("s3://deepstore/remote/lineorder/")
+                           for u in locations):
+            raise AssertionError(f"remote: the s3 push gave {locations} "
+                                 f"(fail_next {stores['s3'].fail_next})")
+        seg_dirs = sorted(os.path.join(spec["outputDirURI"], d)
+                          for d in os.listdir(spec["outputDirURI"]))
+        # in process: the same segments on the card
+        local = TableDataManager("lineorder", device=device)
+        for d in seg_dirs:
+            local.add_segment_dir(d)
+        local_dms.append(local)
+        lb = Broker(device=device)
+        lb.register_table(local)
+        lq = connect(lb)
+        want = {}
+        for qid, p, v, g in ssb.QUERIES:
+            want[qid] = ssb._digest(lq(_with_option(
+                ssb.spec_to_sql(p, v, g), "forceHostExecution=true")).rows)
+            in_process_queries += 1
+        phase("remote_batch", ok=True, segments=len(seg_dirs),
+              build_and_push_s=batch_s, workers=REMOTE_WORKERS,
+              s3_failures_injected=1, s3_objects=len(locations))
+
+        # the two servers download from s3:// (as the job pushes) and
+        # serve; a broker node
+        t0 = time.perf_counter()
+        _cluster_sync(ctrl, servers, broker)
+        synced_s = time.perf_counter() - t0
+        held = sorted(x.name for s in servers
+                      for x in s._tables["lineorder"].acquire_segments())
+        if held != sorted(os.path.basename(d) for d in seg_dirs) or any(
+                x.device.type != _device_type(device) for s in servers
+                for x in s._tables["lineorder"].acquire_segments()):
+            raise AssertionError(f"remote: the servers hold {held}")
+        conn = HttpConnection(broker.url, timeout=600.0)
+        sqls = [(qid, ssb.spec_to_sql(p, v, g))
+                for qid, p, v, g in ssb.QUERIES]
+        C.launches = 0                   # the remote path starts here
+        p50 = {}
+        for qid, sql in sqls:
+            times = []
+            for _ in range(ITERS + 1):
+                t1 = time.perf_counter()
+                res = conn(sql)
+                times.append((time.perf_counter() - t1) * 1e3)
+                if ssb._digest(res.rows) != want[qid] or \
+                        res.num_segments != REMOTE_FILES:
+                    raise AssertionError(f"remote {qid}: digest differs "
+                                         "over HTTP")
+            p50[qid] = statistics.median(times[1:])
+        phase("remote_query", ok=True, p50_ms=p50,
+              servers_synced_after_the_push_s=synced_s)
+
+        # one segment each through gs://, hdfs:// and abfs://
+        schemes = {}
+        one = seg_dirs[0]
+        name = os.path.basename(one)
+        for scheme, root in (("gs", "gs://remote-bucket/deep"),
+                             ("hdfs", "hdfs:///pinot/deep"),
+                             ("abfs", "abfs://remote-fs/deep")):
+            table = f"lineorder_{scheme}"
+            ctrl.add_table(table, schema, replication=1)
+            t0 = time.perf_counter()
+            loc = upload_segment(one, f"{root}/{table}")
+            push_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ctrl.add_segment(table, name, loc, pruning_metadata(one))
+            _cluster_sync(ctrl, servers, broker)
+            dl_s = time.perf_counter() - t0
+            mine = TableDataManager(table, device=device)
+            mine.add_segment_dir(one)
+            local_dms.append(mine)
+            mb = Broker(device=device)
+            mb.register_table(mine)
+            got = {}
+            for qid, p, v, g in ssb.QUERIES:
+                if qid not in REMOTE_QIDS:
+                    continue
+                sql = _rt_sql((p, v, g), table)
+                t1 = time.perf_counter()
+                rows = conn(sql).rows
+                got[qid] = (time.perf_counter() - t1) * 1e3
+                in_process_queries += 1
+                if ssb._digest(rows) != ssb._digest(mb.query(_with_option(
+                        sql, "forceHostExecution=true")).rows):
+                    raise AssertionError(f"remote {scheme} {qid}: digest "
+                                         "differs")
+            holders = [s.instance_id for s in servers
+                       if table in s._tables and any(
+                           x.name == name
+                           for x in s._tables[table].acquire_segments())]
+            if len(holders) != 1 or not loc.startswith(scheme + "://"):
+                raise AssertionError(f"remote {scheme}: {loc} held by "
+                                     f"{holders}")
+            schemes[scheme] = {"location": loc, "push_s": push_s,
+                               "download_and_load_s": dl_s,
+                               "held_by": holders[0], "ms": got}
+        phase("remote_schemes", ok=True, schemes=schemes)
+        launches = C.launches            # ... and ends here
+        qids = {sql: qid for qid, sql in sqls}
+        n_held = _control_k1(_executed_plans(ran, qids, "remote"), tile,
+                             on_card, "kernel_at_remote_path")
+        ran.clear()                      # the executions' plans
+        if launches == 0 or n_held == 0:
+            raise AssertionError(f"remote: {launches} K1 launches, "
+                                 f"{n_held} inputs held")
+
+        # the input formats beside Avro
+        formats = _remote_formats(os.path.join(work, "formats"), device)
+        in_process_queries += 2
+        phase("remote_formats", ok=True, **formats)
+    finally:
+        sched.stop()
+        _stop_all(broker, *(servers or ()), ctrl, *stores.values())
+        fsreg._REGISTRY.clear()
+        fsreg._REGISTRY.update(saved_fs)
+        fsreg._INSTANCES.clear()
+    n_held += _hold_stragglers(ran, qids, "remote", tile, on_card,
+                               "kernel_at_remote_path")
+
+    # the sinks against the broker's counter
+    flush.run_once()
+    statsd.stop()
+    counters = global_metrics.snapshot()["counters"]
+    total = counters.get("broker_queries", 0)
+    with open(prom_path) as fh:
+        prom = dict(ln.rsplit(" ", 1) for ln in fh.read().splitlines())
+    with open(ledger_path) as fh:
+        last = json.loads(fh.read().splitlines()[-1])
+    sink_counts = {
+        "statsd": statsd.counters.get("pinot_tpu.broker_queries"),
+        "prometheus_file": int(prom.get("pinot_tpu_broker_queries_total",
+                                        -1)),
+        "ledger": last["counters"].get("broker_queries")}
+    if any(v != total for v in sink_counts.values()) or \
+            total - queries_before != in_process_queries or \
+            ledger.validate_file(ledger_path)["errors"]:
+        raise AssertionError(f"remote: the sinks count {sink_counts}, the "
+                             f"broker {total} ({in_process_queries} in "
+                             f"this phase)")
+    phase("remote_metrics", ok=True, broker_queries=total,
+          phase_queries=in_process_queries, sinks=sink_counts,
+          flushes=flush.run_count, statsd_datagrams=statsd.datagrams)
+
+    # clean-up: every segment of the phase leaves the card
+    for s in servers or ():
+        for dm in list(s._tables.values()):
+            for x in dm.acquire_segments():
+                x.evict_device()
+    for dm in local_dms:
+        for x in dm.acquire_segments():
+            x.evict_device()
+    del servers, broker, ctrl, local_dms
+    global_cube_cache.clear()
+    _gc.collect()
+    _reconcile_or_fail(list(live_segments), "remote done")
+    left = (torch.cuda.memory_allocated() - baseline) if on_card else 0
+    if left > MEM_SLACK:
+        raise AssertionError(f"remote: {left} bytes left on the card")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(avro["dir"], ignore_errors=True)
+    phase("remote_done", seconds=time.perf_counter() - t_phase,
+          compact_launches=launches, k1_checked=n_held, bytes_left=left,
+          tracked_equals_held=True)
+    return launches
 
 
 def main() -> int:
@@ -8196,6 +9278,11 @@ def main() -> int:
                                      [single, surface_seg, *segs])
     control = control_phase(table_dir, digests, tile,
                             [single, surface_seg, *segs])
+    loadgen_launches = loadgen_phase([single, surface_seg, *segs])
+    avro = start_remote_avro()           # written while the fuzz phase runs
+    fuzz_launches = fuzz_phase(tile, [single, surface_seg, *segs])
+    remote_launches = remote_phase(tile, [single, surface_seg, *segs],
+                                   avro=avro)
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "compact",
@@ -8206,7 +9293,8 @@ def main() -> int:
         + tier_launches + drift_launches + statement_launches
         + geo_launches + format_launches + rollup_launches
         + trace_launches + realtime_launches + overload_launches
-        + wire_launches + cluster_launches + control["launches"],
+        + wire_launches + cluster_launches + control["launches"]
+        + loadgen_launches + fuzz_launches + remote_launches,
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -8234,6 +9322,9 @@ def main() -> int:
         "wire_launches": wire_launches,
         "cluster_launches": cluster_launches,
         "control_launches": control["launches"],
+        "loadgen_launches": loadgen_launches,
+        "fuzz_launches": fuzz_launches,
+        "remote_launches": remote_launches,
         **{f"segmented_{k}": v for k, v in seg_totals.items()},
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
@@ -8255,10 +9346,13 @@ def main() -> int:
               "phase's (tenant waves, forced overflow reruns, tier.evict, "
               "the kills), the wire phase's (tables fed by Kafka, "
               "Pulsar, Kinesis and the wire stream), the cluster "
-              "phase's (the 13 queries over HTTP on two server nodes) and "
+              "phase's (the 13 queries over HTTP on two server nodes), "
               "the control phase's (replicas of a committed realtime "
               "table, the rebalanced table on two server nodes, the "
-              "minion's offline segments)"}, {
+              "minion's offline segments), the loadgen phase's (query "
+              "workers under chaos-armed ingest), the fuzz phase's (the "
+              "fuzzer's corpus) and the remote phase's (two server nodes "
+              "over segments pushed to s3, gs, hdfs and abfs stores)"}, {
         "name": "segscan",
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/segscan.cu",

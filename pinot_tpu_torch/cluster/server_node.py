@@ -26,7 +26,7 @@ import threading
 import time
 import urllib.error
 import uuid
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from ..engine.accounting import global_accountant
 from ..engine.scheduler import make_scheduler
@@ -96,6 +96,11 @@ class ServerNode:
         self.heap_watcher = (HeapWatcher(global_accountant, rss_limit).start()
                              if rss_limit > 0 else None)
         self._tables: Dict[str, TableDataManager] = {}
+        # called as on_execute(sql, segments, plans) once an execution
+        # has run or failed: the segment objects it acquired, in the order
+        # it ran them, and the plans it ran on them
+        self.on_execute: Optional[Callable[
+            [str, List[ImmutableSegment], List[Any]], None]] = None
         self._assignment_version = -1
         self._stop = threading.Event()
         self._httpd, self.port, _ = start_http(self._make_handler(), port)
@@ -336,7 +341,7 @@ class ServerNode:
             wanted = set(segment_names)
             segments = [s for s in segments if s.name in wanted]
         # shared loop with the in-process broker (engine/serving.py)
-        from ..engine.serving import execute_segments, plan_segments
+        from ..engine.serving import execute_planned, plan_segments
         if stmt.explain:
             ex = plan_segments(ctx, segments, use_rollups=False)
             from ..query.explain import explain_rows
@@ -344,7 +349,14 @@ class ServerNode:
             return {"explain": {"columns": cols,
                                 "rows": [list(r) for r in rows]},
                     "segmentsQueried": len(segments)}
-        ex = execute_segments(ctx, segments)
+        ex = plan_segments(ctx, segments)
+        try:
+            execute_planned(ex)
+        finally:
+            # also when the execution was killed part way (a deadline):
+            # what it launched before that ran on these plans
+            if self.on_execute is not None:
+                self.on_execute(sql, segments, ex.real_plans)
         return {"partials_raw": ex.partials,
                 "segmentsQueried": len(segments)}
 

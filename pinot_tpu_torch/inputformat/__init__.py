@@ -1,11 +1,12 @@
 """Input-format record readers (batch ingestion sources).
 
-Port of ``pinot_tpu/inputformat/__init__.py``: CSV and JSON (array or
-JSON lines) read with the standard library, as the reference reads them.
-Avro, Parquet, ORC, protobuf, Thrift and CLP
-(``pinot_tpu/inputformat/{avro,extended}.py``) come with the cluster
-plane; ``read_records`` raises ``NotImplementedError`` naming the module
-for them.
+Port of ``pinot_tpu/inputformat/__init__.py`` (pinot-plugins/
+pinot-input-format/ — RecordReader SPI implementations for csv, json,
+avro, parquet, orc, protobuf, thrift, clp). CSV and JSON(L) read with
+the standard library; Avro container files decode through the port's
+own binary codec (``inputformat/avro.py``); Parquet loads through
+pyarrow when present and raises the reference's gating error when not;
+ORC, protobuf, Thrift and CLP come from ``inputformat/extended.py``.
 """
 from __future__ import annotations
 
@@ -48,27 +49,43 @@ def read_json(path: str) -> List[Dict[str, Any]]:
     return rows
 
 
-_PENDING = {"avro": "pinot_tpu/inputformat/avro.py",
-            "parquet": "pinot_tpu/inputformat/__init__.py (pyarrow)",
-            "orc": "pinot_tpu/inputformat/extended.py",
-            "protobuf": "pinot_tpu/inputformat/extended.py",
-            "thrift": "pinot_tpu/inputformat/extended.py",
-            "clp": "pinot_tpu/inputformat/extended.py"}
+def read_avro(path: str) -> List[Dict[str, Any]]:
+    """Object-container-file reader — the binary codec of
+    inputformat/avro.py, no fastavro dependency."""
+    from .avro import read_container
+    return read_container(path)
 
-_READERS = {"csv": read_csv, "json": read_json}
+
+def read_parquet(path: str) -> List[Dict[str, Any]]:
+    try:
+        import pyarrow.parquet as pq  # type: ignore[import-not-found]
+    except ImportError:
+        raise RuntimeError(
+            "parquet input needs the 'pyarrow' package, which is not "
+            "installed in this environment") from None
+    return pq.read_table(path).to_pylist()
+
+
+_READERS = {"csv": read_csv, "json": read_json, "avro": read_avro,
+            "parquet": read_parquet}
 
 
 def read_records(path: str, fmt: str = "",
                  **format_args: Any) -> List[Dict[str, Any]]:
-    """Read a CSV or JSON file into row dicts; the format is inferred
-    from the extension when not given."""
+    """Read a file into row dicts; format inferred from the extension when
+    not given. protobuf needs (descriptor_file, message_type), thrift
+    needs field_names={id: name}, clp accepts fields=(...) — see
+    inputformat/extended.py."""
     fmt = (fmt or os.path.splitext(path)[1].lstrip(".")).lower()
     if fmt == "jsonl":
         fmt = "json"
-    if fmt in _PENDING:
-        raise NotImplementedError(
-            f"{fmt} input is not ported yet: it waits for the port of "
-            f"{_PENDING[fmt]}, which comes with the cluster plane")
+    if fmt in ("orc", "protobuf", "thrift", "clp") \
+            and fmt not in _READERS:
+        from . import extended
+        _READERS.update(orc=extended.read_orc,
+                        protobuf=extended.read_protobuf,
+                        thrift=extended.read_thrift,
+                        clp=extended.read_clp)
     reader = _READERS.get(fmt)
     if reader is None:
         raise ValueError(f"unknown input format {fmt!r}; have {FORMATS}")

@@ -44,8 +44,9 @@ clients. Where the port differs, the bytes do not:
 - a consumer decodes a fetch's JSON values in one call
   (``stream.decode_json_values``) when no ``value_decoder`` is given;
 - sockets are read into one preallocated buffer.
-The Confluent Avro decoder comes with ``inputformat/avro`` in the
-cluster plane; ``value_decoder`` takes any bytes -> row callable."""
+``value_decoder`` takes any bytes -> row callable, such as
+``inputformat.avro.ConfluentAvroDecoder`` for schema-registry-framed
+Avro values."""
 from __future__ import annotations
 
 import functools
@@ -643,9 +644,10 @@ class KafkaStream(StreamConsumerFactory):
     def __init__(self, topic: str, host: str = "127.0.0.1", port: int = 0,
                  timeout: float = 10.0, value_decoder=None):
         """value_decoder: bytes -> row dict (default JSON, a fetch's
-        values decoded in one call). The Confluent Avro decoder (the
-        KafkaConfluentSchemaRegistryAvroMessageDecoder analog) comes
-        with ``inputformat/avro``."""
+        values decoded in one call). Pass a
+        pinot_tpu_torch.inputformat.avro.ConfluentAvroDecoder for
+        schema-registry-framed Avro messages (the
+        KafkaConfluentSchemaRegistryAvroMessageDecoder analog)."""
         self.topic = topic
         self.host = host
         self.port = int(port)

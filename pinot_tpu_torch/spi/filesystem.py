@@ -8,9 +8,9 @@ behind their client libraries, which are not installable in this
 environment: they register as stubs that raise with a clear message, and
 a real implementation can be dropped in via register_fs().
 
-Port of ``pinot_tpu/spi/filesystem.py`` (``fs_for_uri`` and the local
-filesystem; the S3 PinotFS client of ``fs/s3.py`` is not ported yet, so
-``s3://`` stays gated until a caller registers an implementation).
+Port of ``pinot_tpu/spi/filesystem.py``: ``fs_for_uri`` and the local
+filesystem. ``s3``, ``gs``, ``hdfs`` and ``abfs`` stay gated until their
+client (``pinot_tpu_torch.fs``) is registered with its endpoint.
 """
 from __future__ import annotations
 
@@ -115,13 +115,13 @@ class _GatedFS(PinotFS):
 
 
 def _UnconfiguredS3() -> PinotFS:
-    """s3:// needs a PinotFS client the port does not have yet
-    (``fs/s3.py`` holds only the request signer); until one is
-    registered, operations explain how."""
+    """s3:// has a real implementation (pinot_tpu_torch.fs.S3PinotFS) but
+    it needs endpoint + credentials; until registered, operations explain
+    how."""
     return _GatedFS("s3", msg=(
-        "s3:// deep store is not configured; the port has no S3 PinotFS "
-        "client yet: register one via "
-        "pinot_tpu_torch.spi.filesystem.register_fs('s3', ...)"))
+        "s3:// deep store is not configured; call "
+        "pinot_tpu_torch.fs.S3PinotFS.register(endpoint_url=..., "
+        "access_key=..., secret_key=..., region=...) first"))
 
 
 _REGISTRY: Dict[str, Callable[[], PinotFS]] = {

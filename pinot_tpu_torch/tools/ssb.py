@@ -120,6 +120,19 @@ def row_dicts(cols):
     return [dict(zip(names, vals)) for vals in zip(*lists)]
 
 
+def lineorder_schema(cols) -> Schema:
+    """The flat lineorder schema of ``cols`` (``gen_columns``)."""
+    return Schema("lineorder", _ssb_fields(cols))
+
+
+def avro_schema(cols) -> dict:
+    """An Avro record schema for ``row_dicts(cols)``: ``int`` for the
+    integer columns, ``string`` for the dictionary-encoded ones."""
+    return {"type": "record", "name": "lineorder", "fields": [
+        {"name": c, "type": "int" if isinstance(v, np.ndarray)
+         else "string"} for c, v in cols.items()]}
+
+
 def _ssb_fields(cols):
     fields = []
     for name in cols:
@@ -141,8 +154,7 @@ def build_segment_dir(n: int, out_dir: str,
     ``TableConfig("lineorder")``) chooses the forward-index formats, e.g.
     ``IndexingConfig(bit_packed_ids=True)`` or raw compressed metrics."""
     cols = gen_columns(n)
-    schema = Schema("lineorder", _ssb_fields(cols))
-    return SegmentBuilder(schema, table_config
+    return SegmentBuilder(lineorder_schema(cols), table_config
                           or TableConfig("lineorder")).build(
         cols, out_dir, "seg_0")
 
@@ -156,7 +168,7 @@ def build_table_dir(sizes, out_dir: str,
     tier-bench table); each segment builds its own dictionaries. Returns
     ``out_dir`` (``TableDataManager.add_table_dir`` loads it)."""
     cols = gen_columns(int(sum(sizes)))
-    builder = SegmentBuilder(Schema("lineorder", _ssb_fields(cols)),
+    builder = SegmentBuilder(lineorder_schema(cols),
                              table_config or TableConfig("lineorder"))
     width = len(str(len(sizes) - 1))
     lo = 0

@@ -9,10 +9,17 @@ becomes None. The trace phase's gates: broker_overhead over 10% of the
 root fails; each device_execute span runs inside a record_function range
 of its own, whose device time is read by correlation (or, where that is
 0, by the device events starting inside the range) and is 0 when the
-window missed it.
+window missed it; where every window misses, the CUDA events each span
+recorded give the device time, and the check fails only when they
+measure nothing either. The phases are rehearsed end to end at tiny
+sizes; the cluster, control, fuzz and remote phases hold K1 on every
+input their path launched, the servers' taken from the plans each
+execution ran (recorded inside it, also when a move's drain lands in
+the middle).
 """
 import os
 import sys
+import time
 
 import pytest
 import torch
@@ -37,7 +44,7 @@ def _stub_profiler(monkeypatch, windows):
 
     class _Prof:
         def __init__(self, activities=None):
-            self.events = windows[min(len(opened), len(windows) - 1)]
+            self._events = windows[min(len(opened), len(windows) - 1)]
             opened.append(self)
 
         def __enter__(self):
@@ -47,7 +54,10 @@ def _stub_profiler(monkeypatch, windows):
             return False
 
         def key_averages(self):
-            return self.events
+            return self._events
+
+        def events(self):
+            return []
 
     monkeypatch.setattr(torch.profiler, "profile", _Prof)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
@@ -558,3 +568,353 @@ def test_control_phase_on_cpu(tmp_path, monkeypatch):
     assert servers == {"server_0", "server_1"}
     assert launched and set(launched) <= set(held)
     assert got["control_done"]["bytes_left"] == 0
+
+
+class _CudaEvent:
+    """torch.cuda.Event on the CPU: every pair measures ``ms``."""
+    ms = 0.0
+    recorded = 0
+
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self, stream=None):
+        _CudaEvent.recorded += 1
+
+    def elapsed_time(self, other):
+        return _CudaEvent.ms
+
+
+@pytest.mark.parametrize("event_ms,error", [
+    (0.001, None), (0.0, "no device fence"),
+    (1e9, "shorter than their device work")])
+def test_missed_profiler_windows_fall_through_to_events(tmp_path,
+                                                        monkeypatch,
+                                                        event_ms, error):
+    """The profiler's window empty: each device_execute span's device
+    time comes from the CUDA events it recorded as it opened and at its
+    device fence (device_source "events"), the profiler's 0 printed
+    beside it; where the events measure nothing, or more than a span
+    lasted, the check fails."""
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.utils import spans
+
+    opened = _stub_profiler(monkeypatch, [[]])
+    monkeypatch.setattr(_CudaEvent, "ms", event_ms)
+    monkeypatch.setattr(_CudaEvent, "recorded", 0)
+    monkeypatch.setattr(torch.cuda, "Event", _CudaEvent)
+    fences = []
+    real_fence = spans.device_fence
+    monkeypatch.setattr(spans, "device_fence",
+                        lambda out: fences.append(_CudaEvent.recorded)
+                        or real_fence(out))
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda name, /, **f: printed.append((name, f)))
+    dm = TableDataManager("lineorder", device="cpu")
+    dm.add_segment_dir(ssb.build_segment_dir(1 << 12, str(tmp_path / "s")))
+    b = Broker(device="cpu")
+    b.register_table(dm)
+    qid, p, v, g = ssb.QUERIES[3]
+    sql = ssb.spec_to_sql(p, v, g)
+    if error is None:
+        row = chip_smoke.trace_check(connect(b), sql, qid, profile=True)
+    else:
+        with pytest.raises(AssertionError, match=error):
+            chip_smoke.trace_check(connect(b), sql, qid, profile=True)
+        row = dict(printed)["trace_check"]
+    assert len(opened) == 1
+    assert row["device_source"] == "events"
+    assert row["profiled_spans"] and all(
+        d == event_ms and prof == 0.0 and by is None
+        for _s, d, prof, by in row["profiled_spans"])
+    n_spans = len(row["profiled_spans"])
+    assert _CudaEvent.recorded == 2 * n_spans
+    # each span's end event is recorded just before its fence waits:
+    # the fences see an even count, the start and the end of each span
+    assert len(fences) >= n_spans
+    assert all(n % 2 == 0 for n in fences[-n_spans:])
+    assert row["ok"] == (error is None)
+    # the patched fences are put back
+    from pinot_tpu_torch.engine import batch, executor, ragged
+    assert batch.device_fence is executor.device_fence is \
+        ragged.device_fence is real_fence
+
+
+@pytest.mark.parametrize("drain_at", ["before_acquire", "after_acquire",
+                                      "killed"])
+def test_recorded_group_is_the_one_that_ran(tmp_path, monkeypatch,
+                                            drain_at):
+    """A move's drain lands inside an execution, before or after it
+    acquires its segments, or the execution is killed after its launches
+    (a deadline): the group the control phase records for K1 is the
+    group that ran, object for object and in order, and the plans it
+    holds are the plans that ran, over those objects."""
+    from pinot_tpu_torch.cluster import Controller, ServerNode
+    from pinot_tpu_torch.cluster import server_node as SN
+    from pinot_tpu_torch.engine import serving
+    from pinot_tpu_torch.tools import ssb
+    from test_torch_tier import reset_port_memory
+
+    table = ssb.build_table_dir([1 << 10] * 3, str(tmp_path / "t"))
+    dirs = sorted(os.path.join(table, d) for d in os.listdir(table))
+    ctrl = Controller(str(tmp_path / "ctrl"), heartbeat_timeout=30.0,
+                      reconcile_interval=0.2)
+    node = None
+    try:
+        node = ServerNode("server_0", ctrl.url, poll_interval=0.1,
+                          device="cpu")
+        ctrl.add_table("lineorder", chip_smoke._seg_schema(dirs[0]),
+                       replication=1)
+        for d in dirs:
+            ctrl.add_segment("lineorder", os.path.basename(d), d)
+        assert node.wait_for_version(ctrl.routing_snapshot()["version"],
+                                     60.0)
+        ctrl.stop()                  # no reconcile undoes the drain
+        dm = node._tables["lineorder"]
+        names = sorted(x.name for x in dm.acquire_segments())
+        drained = names[1]
+        log, ran = [], []
+
+        def drain():
+            if drained in {x.name for x in dm.acquire_segments()}:
+                dm.remove_segment(drained)
+
+        real_ctx, real_plan, real_exec = SN.build_query_context, \
+            serving.plan_segments, serving.execute_planned
+
+        def ctx_then_drain(stmt):
+            if drain_at == "before_acquire":
+                drain()
+            return real_ctx(stmt)
+
+        def drain_then_plan(ctx, segments, *a, **k):
+            if drain_at == "after_acquire":
+                drain()
+            ran.append(tuple(segments))
+            return real_plan(ctx, segments, *a, **k)
+
+        def execute_then_kill(ex):
+            out = real_exec(ex)
+            if drain_at == "killed":
+                raise RuntimeError("killed after its launches")
+            return out
+
+        monkeypatch.setattr(SN, "build_query_context", ctx_then_drain)
+        monkeypatch.setattr(serving, "plan_segments", drain_then_plan)
+        monkeypatch.setattr(serving, "execute_planned", execute_then_kill)
+        chip_smoke._record_executions(node, log)
+        qid, p, v, g = ssb.QUERIES[3]
+        sql = ssb.spec_to_sql(p, v, g)
+        if drain_at == "killed":
+            with pytest.raises(RuntimeError, match="killed"):
+                node._execute(sql, names)
+        else:
+            node._execute(sql, names)
+        assert len(log) == len(ran) == 1
+        assert log[0][2] == ran[0]
+        assert [x.name for x in ran[0]] == (
+            [n for n in names if n != drained]
+            if drain_at == "before_acquire" else names)
+        [(label, plans)] = chip_smoke._executed_plans(log, {sql: qid},
+                                                      "server")
+        assert label == f"server:{qid}@server_0/{len(ran[0])}"
+        assert [pl.segment for pl in plans] == list(ran[0])
+        assert plans is log[0][3]
+    finally:
+        if node is not None:
+            node.stop()
+        ctrl.stop()
+        reset_port_memory()
+
+
+@pytest.mark.parametrize("known", [False, True])
+def test_control_k1_holds_a_known_overflow_at_full_capacity(
+        tmp_path, monkeypatch, known):
+    """A per-segment compact plan whose capacity the plan cache knows to
+    overflow is launched at full capacity directly (engine/executor), so
+    _control_k1 holds its input there too, though the planned capacity
+    does not overflow on this segment."""
+    from pinot_tpu_torch.engine import executor
+    from pinot_tpu_torch.ops import compact
+    from pinot_tpu_torch.ops.plan_cache import global_plan_cache
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.tools import ssb
+
+    seg = load_segment(ssb.build_segment_dir(1 << 14, str(tmp_path / "s")),
+                       "cpu")
+    qid, p, v, g = ssb.QUERIES[3]
+    [plan] = chip_smoke._plans(ssb.spec_to_sql(p, v, g), [seg])
+    assert plan.kernel_plan.strategy == "compact"
+    launched, held = _fingerprinted_compact(monkeypatch, "_control_k1")
+    monkeypatch.setattr(chip_smoke, "phase", lambda name, /, **f: None)
+    global_plan_cache.clear()
+    try:
+        if known:
+            global_plan_cache.mark_overflowed(
+                plan.kernel_plan, seg.bucket, plan.slots_cap)
+        executor.execute_plan(plan)
+        n = chip_smoke._control_k1([(qid, [plan])], 4096, False)
+    finally:
+        global_plan_cache.clear()
+    caps = {plan.slots_cap, compact.full_slots_cap(seg.bucket)}
+    assert len(caps) == 2
+    assert n == len(held) == (2 if known else 1)
+    assert launched and set(launched) <= set(held)
+
+
+def test_hold_stragglers_waits_for_the_last_execution(tmp_path,
+                                                      monkeypatch):
+    """A hedge straggler that is still running when its phase holds K1
+    logs its execution later: _hold_stragglers waits until none of the
+    phase's queries runs, then holds what the straggler ran."""
+    import threading
+
+    from pinot_tpu_torch.engine.accounting import global_accountant
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.tools import ssb
+
+    seg = load_segment(ssb.build_segment_dir(1 << 14, str(tmp_path / "s")),
+                       "cpu")
+    qid, p, v, g = ssb.QUERIES[3]
+    sql = ssb.spec_to_sql(p, v, g)
+    [plan] = chip_smoke._plans(sql, [seg])
+    monkeypatch.setattr(chip_smoke, "phase", lambda name, /, **f: None)
+    ran: list = []
+    global_accountant.register("straggler", sql=sql)
+
+    def straggler():
+        time.sleep(0.3)
+        ran.append(("server_1", sql, (seg,), [plan]))
+        global_accountant.unregister("straggler")
+
+    t = threading.Thread(target=straggler)
+    t.start()
+    try:
+        n = chip_smoke._hold_stragglers(ran, {sql: qid}, "server", 4096,
+                                        False)
+    finally:
+        t.join()
+        global_accountant.unregister("straggler")
+    assert n >= 1 and ran
+
+
+def test_loadgen_phase_on_cpu(tmp_path, monkeypatch):
+    """The loadgen phase end to end on the CPU at 2^11 rows: two tables
+    of four partitions over the Kafka fake and the wire stream, chaos
+    armed, drained to the oracle's rows, the ledger records valid with
+    backend "cpu", a restart with commit.crash fired, tracked == held."""
+    from test_torch_tier import reset_port_memory
+
+    reset_port_memory()
+    launched, held = _fingerprinted_compact(monkeypatch, "same_outputs")
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "LG_ROWS", 1 << 11)
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda name, /, **f: printed.append((name, f)))
+    try:
+        launches = chip_smoke.loadgen_phase(device="cpu")
+    finally:
+        reset_port_memory()
+    got = dict(printed)["loadgen"]
+    assert got["rows"] == 1 << 11 and got["partitions"] == 8
+    assert got["restarts"] >= 1 and "commit.crash" in got["fired_points"]
+    assert got["backend"] == "cpu" and got["queries"] > 0
+    assert all(t["oracle_ok"] for t in got["per_table"].values())
+    assert got["ledger_kinds"] == {"ingest_bench": 1, "ingest_stats": 2}
+    assert launches == got["compact_launches"] == got["k1_held_at_launch"]
+    assert len(launched) == launches and not held
+
+
+def test_fuzz_phase_on_cpu(tmp_path, monkeypatch):
+    """The fuzz phase end to end on the CPU: 24 specs three ways on a
+    2^11-row segment and the aggregations of _fuzz_at_scale device
+    against host on a 2^12-row one built by a worker process, every
+    route taken, and K1 held on every input the corpus launched, as
+    captured at launch."""
+    from test_torch_tier import reset_port_memory
+
+    reset_port_memory()
+    launched, held = _fingerprinted_compact(monkeypatch, "_hold_captured")
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "FUZZ_ROWS", 1 << 12)
+    monkeypatch.setattr(chip_smoke, "FUZZ_ORACLE_ROWS", 1 << 11)
+    monkeypatch.setattr(chip_smoke, "FUZZ_SEED", 23)
+    monkeypatch.setattr(chip_smoke, "FUZZ_SPECS", 24)
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda name, /, **f: printed.append((name, f)))
+    try:
+        launches = chip_smoke.fuzz_phase(4096, device="cpu")
+    finally:
+        reset_port_memory()
+    got = dict(printed)["fuzz"]
+    assert launches > 0 and got["specs"] == 24
+    assert set(got["kinds"]) == {"agg", "select", "window"}
+    small, scale = (got[k]["specs_per_route"]
+                    for k in ("oracle_size", "scale"))
+    assert {"compact", "host", "multistage"} <= set(small)
+    assert sum(scale.values()) == got["specs_at_scale"] > 0
+    assert "compact" in scale and "multistage" not in scale
+    assert got["scale_build_s"] > 0
+    assert launched and set(launched) <= set(held)
+    assert len(launched) == launches == got["k1_checked"] == sum(
+        1 for name, _f in printed if name == "kernel_at_fuzz_path")
+    assert {f["query"].split(":")[0] for name, f in printed
+            if name == "kernel_at_fuzz_path"} == {"oracle", "scale"}
+
+
+def test_remote_phase_on_cpu(tmp_path, monkeypatch):
+    """The remote phase end to end on the CPU at 2^13 rows in 8 Avro
+    files: the batch job pushes to s3:// past an injected 500, two
+    server nodes download and answer the in-process digests, each other
+    scheme's segment answers q1.1 and q2.1, the sinks count the broker's
+    queries, the extra formats read, and K1 is held on every compact
+    input the servers launched."""
+    from test_torch_tier import reset_port_memory
+
+    reset_port_memory()
+    launched, held = _fingerprinted_compact(monkeypatch, "_control_k1")
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "ITERS", 1)
+    monkeypatch.setattr(chip_smoke, "REMOTE_ROWS", 1 << 13)
+    monkeypatch.setattr(chip_smoke, "REMOTE_WORKERS", 1)
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda name, /, **f: printed.append((name, f)))
+    try:
+        launches = chip_smoke.remote_phase(4096, device="cpu")
+    finally:
+        reset_port_memory()
+    got = dict(printed)
+    assert launches > 0
+    assert got["remote_batch"]["segments"] == 8
+    assert sorted(got["remote_schemes"]["schemes"]) == ["abfs", "gs",
+                                                        "hdfs"]
+    assert set(got["remote_metrics"]["sinks"].values()) == {
+        got["remote_metrics"]["broker_queries"]}
+    assert got["remote_formats"]["thrift"] == 3
+    assert launched and set(launched) <= set(held)
+    assert got["remote_done"]["bytes_left"] == 0
+
+
+def test_fuzz_close_takes_a_rounding_tie_and_refuses_a_difference():
+    """fuzzer.digest rounds floats to 9 significant digits, so a value
+    on a rounding tie (50.408203125) digests differently 1 ulp apart;
+    the fuzz phase's one rule takes that as a tie, and nothing wider."""
+    from pinot_tpu_torch.tools import fuzzer
+
+    a = [(87, None, 50.408203125), (3, 1.0, 2.5)]
+    b = [(3, 1.0, 2.5), (87, None, 50.408203125 + 7.2e-15)]
+    assert fuzzer.digest(a) != fuzzer.digest(b)
+    assert chip_smoke._fuzz_close(a, b, a[::-1]) == [(True, True),
+                                                      (True, False)]
+    for bad in ([(87, None, 50.4082), (3, 1.0, 2.5)],
+                [(86, None, 50.408203125), (3, 1.0, 2.5)],
+                [(87, 0.0, 50.408203125), (3, 1.0, 2.5)],
+                a[:1]):
+        assert chip_smoke._fuzz_close(a, b, bad) == [(True, True),
+                                                     (False, False)]

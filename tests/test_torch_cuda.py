@@ -43,6 +43,9 @@ column on the card by the servers' /debug/memory. Two realtime replicas
 on the card must commit and adopt through the controller the segments
 the CPU's do, answer with the CPU's rows through K1, and the minion's
 offline segments built from them must load on the card with those rows.
+A chaos-armed loadgen run on the card must end in the CPU run's rows, and
+the query fuzzer's corpus on the card must give the host path's and the
+oracle's rows through K1.
 """
 import json
 import os
@@ -2263,3 +2266,106 @@ def test_control_commit_and_minion_on_card_match_cpu(cuda, tmp_path):
         for x in [*off.acquire_segments(), *reps[1].acquire_segments()]:
             x.evict_device()
     assert got["cuda"] == got["cpu"]
+
+
+def test_loadgen_on_card_matches_cpu(cuda, tmp_path):
+    """A drained loadgen run on the card (two tables over the Kafka fake
+    and the wire stream, chaos armed) ends in the CPU run's final rows
+    and the oracle's, with its sealed segments on the card while it
+    runs and backend "cuda" in its summary."""
+    from pinot_tpu_torch.engine import loadgen as LG
+    from pinot_tpu_torch.tools import ingest_fuzz
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        cfg = LG.LoadgenConfig(
+            tables=[LG.TableLoadSpec("lg_a", partitions=2, backend="kafka",
+                                     threshold=96),
+                    LG.TableLoadSpec("lg_u", partitions=2, upsert=True,
+                                     protocol=True, backend="wire",
+                                     threshold=96)],
+            seed=5, rows_per_partition=400, query_concurrency=2,
+            fault_plan=ingest_fuzz.ingest_plan(5, protocol=True))
+        lg = LG.IngestLoadGen(str(tmp_path / dev), cfg, device=dev)
+        try:
+            s = lg.run()
+            assert s["ok"] and s["backend"] == dev, s
+            sealed = [x for t in lg.tables
+                      for x in t.current()[1].acquire_segments()
+                      if not getattr(x, "is_mutable", False)]
+            assert sealed and {x.device.type for x in sealed} == {dev}
+            got[dev] = {t.spec.name: sorted(lg._queryable_rows(t.spec.name))
+                        for t in lg.tables}
+        finally:
+            lg.close()
+    assert got["cuda"] == got["cpu"]
+
+
+def test_fuzz_rounding_tie_spec_on_card(cuda, tmp_path):
+    """Spec 201 of seed 20260730 at 2^16 rows, the one a whole check of
+    the fuzz phase stopped on when it compared digests alone: the card's
+    rows equal the host path's and the oracle's under the phase's rule
+    (chip_smoke._fuzz_close); prints whether each pair's digests differ
+    (a float on a rounding tie of the digest)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from pinot_tpu_torch.broker import Broker
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import fuzzer
+
+    n = 1 << 16
+    seg = fuzzer.build_fuzz_segment(n, str(tmp_path), device="cuda")
+    dm = TableDataManager("fz", device="cuda")
+    dm.add_segment(seg)
+    b = Broker(device="cuda")
+    b.register_table(dm)
+    gen = fuzzer.QueryGenerator(20260730)
+    for _ in range(201):
+        gen.generate()
+    spec = gen.generate()
+    assert spec.seed[:2] == (20260730, 201)
+    sql = fuzzer.render_sql(spec)
+    got = b.query(sql).rows
+    host = b.query(sql.replace("OPTION(",
+                               "OPTION(forceHostExecution=true,")).rows
+    want = fuzzer.oracle_rows(spec, fuzzer.make_data(n), n)
+    res = dict(zip(("host", "oracle"),
+                   chip_smoke._fuzz_close(got, host, want)))
+    print(json.dumps({"fuzz_tie_spec": list(spec.seed[:2]), "rows": n,
+                      "equal_and_tie": res, "sql": sql}))
+    assert all(equal for equal, _tie in res.values()), res
+    seg.evict_device()
+
+
+def test_fuzz_corpus_on_card_matches_host_path(cuda, tmp_path):
+    """The fuzzer's corpus over build_fuzz_segment on the card: every
+    spec's rows through Broker("cuda") equal the host path's and the
+    oracle's, and the corpus launches K1."""
+    from pinot_tpu_torch.broker import Broker
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import fuzzer
+
+    n = 1 << 14
+    seg = fuzzer.build_fuzz_segment(n, str(tmp_path), device="cuda")
+    assert seg.device.type == "cuda"
+    data = fuzzer.make_data(n)
+    dm = TableDataManager("fz", device="cuda")
+    dm.add_segment(seg)
+    b = Broker(device="cuda")
+    b.register_table(dm)
+    gen = fuzzer.QueryGenerator(23)
+    before = C.launches
+    for _ in range(80):
+        spec = gen.generate()
+        sql = fuzzer.render_sql(spec)
+        got = fuzzer.digest(b.query(sql).rows)
+        host = fuzzer.digest(b.query(sql.replace(
+            "OPTION(", "OPTION(forceHostExecution=true,")).rows)
+        assert got == host == fuzzer.digest(
+            fuzzer.oracle_rows(spec, data, n)), (spec.seed, sql)
+    assert C.launches > before
+    seg.evict_device()

@@ -6,8 +6,9 @@ sites in both packages, hit for hit), the same inline effects and no
 effect without a plan. A chaotic ingest (``stream.error``,
 ``stream.rebalance``, ``commit.crash``, ``upsert.compact_crash`` armed
 from a seed; every injected crash answered by a restart from the
-checkpoint) ends in the rows of the fault-free oracle and of the JAX
-package's run of the same plan, having fired the same faults.
+checkpoint), driven by the port's ``tools/ingest_fuzz``, ends in the rows
+of the fault-free oracle and of the JAX package's ``ingest_fuzz`` run of
+the same plan, having fired the same faults.
 """
 import os
 import sys
@@ -20,16 +21,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import pinot_tpu.utils.faults as jfaults  # noqa: E402
-from pinot_tpu.tools import ingest_fuzz as IF  # noqa: E402
+from pinot_tpu.tools import ingest_fuzz as JIF  # noqa: E402
 import pinot_tpu_torch.utils.faults as tfaults  # noqa: E402
-from pinot_tpu_torch.broker import Broker  # noqa: E402
-from pinot_tpu_torch.realtime import (InMemoryStream,  # noqa: E402
-                                      RealtimeTableDataManager,
-                                      StreamConfig)
 from pinot_tpu_torch.realtime.stream import consume_faults  # noqa: E402
-from pinot_tpu_torch.spi import (DataType, FieldSpec,  # noqa: E402
-                                 FieldType, Schema)
-from pinot_tpu_torch.upsert import UpsertConfig  # noqa: E402
+from pinot_tpu_torch.tools import ingest_fuzz as IF  # noqa: E402
 
 INGEST_POINTS = ("stream.error", "stream.rebalance", "commit.crash",
                  "upsert.compact_crash")
@@ -99,69 +94,18 @@ def test_inline_effects_and_no_plan():
     assert tfaults.install_from_env({}) is None
 
 
-def _schema():
-    return Schema(IF.TABLE, [
-        FieldSpec("pk", DataType.INT),
-        FieldSpec("ts", DataType.INT, FieldType.METRIC),
-        FieldSpec("val", DataType.INT, FieldType.METRIC)])
-
-
-def _port_run(data_dir, rows, upsert, threshold=32):
-    """The port's run of IF.IngestRun's loop (standalone seal): consume
-    until the stream is drained, restarting from the checkpoint on every
-    injected crash."""
-    stream = InMemoryStream(1)
-    stream.produce_many(rows)
-
-    def start():
-        while True:
-            try:
-                return RealtimeTableDataManager(
-                    IF.TABLE, _schema(), StreamConfig(
-                        IF.TABLE, flush_threshold_rows=threshold,
-                        consumer_factory=stream, fetch_backoff_s=0.001),
-                    os.path.join(data_dir, "server"),
-                    upsert_config=(UpsertConfig(["pk"], "ts")
-                                   if upsert else None),
-                    device="cpu")
-            except tfaults.IngestCrash:
-                pass                          # died inside the replay
-
-    m = start()
-    for _ in range(IF.MAX_RESTARTS):
-        try:
-            m.consume_once(0)
-            if m._stream_offset(0, m._mutables[0].n_docs) >= len(rows):
-                return m
-        except tfaults.IngestCrash:
-            m = start()
-        except ConnectionError:
-            pass                              # past the bounded retries
-    raise AssertionError("ingest did not recover")
-
-
-def _port_rows(m):
-    b = Broker(device="cpu")
-    b.register_table(m)
-    return IF.digest(b.query(f"SELECT pk, ts, val FROM {IF.TABLE} "
-                             "LIMIT 1000000").rows)
-
-
 @pytest.mark.parametrize("seed,upsert", [(40, False), (50, True),
                                          (57, True)])
 def test_chaotic_ingest_matches_oracle_and_reference(tmp_path, seed,
                                                      upsert):
+    m, plan, _restarts = IF.run_one(str(tmp_path / "torch"), seed, 300,
+                                    upsert=upsert, device="cpu")
+    got = IF.digest(IF.queryable_rows(m))
     rows = IF.gen_rows(seed, 300)
-    plan = tfaults.install(IF.ingest_plan(seed))
-    try:
-        m = _port_run(str(tmp_path / "torch"), rows, upsert)
-    finally:
-        tfaults.clear()
-    got = _port_rows(m)
     assert got == IF.digest(IF.oracle_rows(rows, upsert))
-    jm, jplan, _restarts = IF.run_one(str(tmp_path / "jax"), seed, 300,
-                                      upsert=upsert)
-    assert got == IF.digest(IF.queryable_rows(jm))
+    jm, jplan, _jrestarts = JIF.run_one(str(tmp_path / "jax"), seed, 300,
+                                        upsert=upsert)
+    assert got == JIF.digest(JIF.queryable_rows(jm))
     assert plan.fired_summary() == jplan.fired_summary()
     assert {f["point"] for f in plan.fired} & {"commit.crash",
                                                "stream.error"}

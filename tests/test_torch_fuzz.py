@@ -1,28 +1,28 @@
-"""The JAX package's query fuzzer through the port.
+"""The query fuzzer through the port.
 
-``pinot_tpu/tools/fuzzer.py``'s ``QueryGenerator`` draws seeded specs —
-aggregations, selections and (``kind="window"``) window functions —
-over a two-segment ``fz`` table built by the port's builder from the
-fuzzer's own data. Each spec runs through ``Broker(device="cpu")`` on
-the kernel path and under ``OPTION(forceHostExecution=true)``, and both
-digests (``fuzzer.digest``: a row multiset, floats to a relative 1e-9)
-must equal the fuzzer's independent numpy oracle. The window specs go
+The port's ``tools/fuzzer.py`` (the JAX package's ``pinot_tpu/tools/
+fuzzer.py`` ported) draws seeded specs — aggregations, selections and
+(``kind="window"``) window functions — over a two-segment ``fz`` table
+built by the port's builder from the fuzzer's own data. Each spec runs
+through ``Broker(device="cpu")`` on the kernel path and under
+``OPTION(forceHostExecution=true)``, and both digests
+(``fuzzer.digest``: a row multiset, floats to a relative 1e-9) must
+equal the fuzzer's independent numpy oracle. The window specs go
 through the multi-stage engine; with the window threshold at 0 its
 device functions run (on the CPU, their plain versions). Seeds drawn
 ``with_exists`` add correlated [NOT] EXISTS predicates over the fuzzer's
 ``fzd`` side table, which the broker decorrelates into semi-joins; their
-rows must equal the JAX broker's and the oracle's. A few seeds run in
+rows must equal the JAX broker's and the oracle's. For 20 seeds the
+port's fuzzer makes the reference's data, specs and SQL, and its fuzz
+segment's files are byte-equal to the reference's. A few seeds run in
 tier-1; the soak of more seeds is slow-marked; the card-only suite
 (tests/test_torch_cuda.py) runs a seed on CUDA.
-
-The fuzzer module is loaded from its file: it needs only numpy, while
-the JAX package's ``__init__`` imports JAX, which the card's machine
-does not have.
 """
-import importlib.util
+import filecmp
+import json
 import os
-import sys
 
+import numpy as np
 import pytest
 
 from pinot_tpu_torch.broker import Broker
@@ -30,32 +30,10 @@ from pinot_tpu_torch.segment import SegmentBuilder
 from pinot_tpu_torch.server import TableDataManager
 from pinot_tpu_torch.spi import (DataType, FieldSpec, FieldType, Schema,
                                  TableConfig)
+from pinot_tpu_torch.tools import fuzzer
 
 N_ROWS = 4000
-
-
-def _load_fuzzer():
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "pinot_tpu", "tools", "fuzzer.py")
-    spec = importlib.util.spec_from_file_location("_pinot_fuzzer", path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod         # its dataclasses look it up
-    spec.loader.exec_module(mod)
-    return mod
-
-
-fuzzer = _load_fuzzer()
-# the columns of fuzzer.fuzz_schema()
-SCHEMA = Schema("fz", [
-    FieldSpec("ci", DataType.INT),
-    FieldSpec("chi", DataType.INT),
-    FieldSpec("cs", DataType.STRING),
-    FieldSpec("m1", DataType.LONG, FieldType.METRIC),
-    FieldSpec("m2", DataType.DOUBLE, FieldType.METRIC),
-    FieldSpec("nm", DataType.LONG, FieldType.METRIC),
-    FieldSpec("ns", DataType.STRING),
-    FieldSpec("mv", DataType.INT, single_value=False),
-])
+SCHEMA = fuzzer.fuzz_schema()
 
 
 DIM_SCHEMA = Schema("fzd", [FieldSpec("dk", DataType.LONG),
@@ -93,6 +71,53 @@ def test_schema_matches_the_fuzzers():
             for f in fuzz_schema().fields] == \
         [(f.name, f.data_type.name, f.field_type.name, f.single_value)
          for f in SCHEMA.fields]
+
+
+def _same_segment_files(a: str, b: str) -> None:
+    assert sorted(os.listdir(a)) == sorted(os.listdir(b))
+    for f in os.listdir(a):
+        if f == "metadata.json":
+            ma, mb = (json.load(open(os.path.join(d, f))) for d in (a, b))
+            ma.pop("creationTimeMs"), mb.pop("creationTimeMs")
+            assert ma == mb
+        else:
+            assert filecmp.cmp(os.path.join(a, f), os.path.join(b, f),
+                               shallow=False), f
+
+
+def test_fuzzer_data_sql_and_segments_match_the_references(tmp_path):
+    """20 seeds: the same data and dim data, the same specs and SQL
+    (with and without EXISTS), the same oracle rows, and byte-equal
+    segment files from build_fuzz_segment."""
+    import jax.numpy as jnp  # noqa: F401  (JAX on the CPU first)
+    from pinot_tpu.tools import fuzzer as jfuzzer
+
+    for seed in range(20):
+        n = 150 + 7 * seed
+        data, jdata = fuzzer.make_data(n, seed), jfuzzer.make_data(n, seed)
+        assert data.keys() == jdata.keys()
+        for k in data:
+            assert np.array_equal(np.asarray(data[k], dtype=object),
+                                  np.asarray(jdata[k], dtype=object)), k
+        dim = fuzzer.make_dim_data(60, seed)
+        jdim = jfuzzer.make_dim_data(60, seed)
+        assert all(np.array_equal(dim[k], jdim[k]) for k in dim)
+        for exists in (False, True):
+            gen = fuzzer.QueryGenerator(seed, with_exists=exists)
+            jgen = jfuzzer.QueryGenerator(seed, with_exists=exists)
+            for _ in range(4):
+                spec, jspec = gen.generate(), jgen.generate()
+                sql = fuzzer.render_sql(spec)
+                assert sql == jfuzzer.render_sql(jspec)
+                assert fuzzer.digest(fuzzer.oracle_rows(
+                    spec, data, n, dim)) == jfuzzer.digest(
+                    jfuzzer.oracle_rows(jspec, jdata, n, jdim)), sql
+        seg = fuzzer.build_fuzz_segment(n, str(tmp_path / "t"), f"fz{seed}",
+                                        seed, device="cpu")
+        jseg = jfuzzer.build_fuzz_segment(n, str(tmp_path / "j"),
+                                          f"fz{seed}", seed)
+        assert seg.n_docs == n and seg.device.type == "cpu"
+        _same_segment_files(seg.dir, jseg.dir)
 
 
 def run_specs(broker, data, seed: int, n: int, reference=None,

@@ -182,6 +182,28 @@ def test_walk_covers_the_segment_format_and_the_tracing_plane():
     assert not os.path.commonpath([native.BUILD_DIR, PKG]) == PKG
 
 
+INGEST_AND_REMOTE = tuple(f"pinot_tpu_torch.{m}" for m in (
+    "engine.loadgen", "tools.ingest_fuzz", "tools.fuzzer",
+    "utils.metrics_sinks", "fs.common", "fs.s3", "fs.gcs", "fs.hdfs",
+    "fs.adls", "fs.stub", "fs.stub_cloud", "inputformat.avro",
+    "inputformat.extended"))
+
+
+def test_walk_covers_the_ingest_harness_and_remote_stores():
+    """The import checks above reach the load harness, the fuzzers, the
+    metrics sinks, every PinotFS client and stub store, and the input
+    formats."""
+    import pkgutil
+
+    import pinot_tpu_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(
+        pinot_tpu_torch.__path__, "pinot_tpu_torch.")}
+    assert set(INGEST_AND_REMOTE) <= walked
+    srcs = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert {m.replace(".", "/") + ".py" for m in INGEST_AND_REMOTE} <= srcs
+
+
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch,
                                                           tmp_path):
     from pinot_tpu_torch.broker import Broker
@@ -193,11 +215,24 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     seg_dir = SegmentBuilder(Schema("t", [FieldSpec("v", DataType.INT)])
                              ).build({"v": [1, 2]}, str(tmp_path), "s")
+    from pinot_tpu_torch.engine.loadgen import (IngestLoadGen,
+                                                LoadgenConfig, run_load)
+    from pinot_tpu_torch.tools import fuzzer, ingest_fuzz
+
     for make in (Broker, lambda: TableDataManager("t"),
                  lambda: ImmutableSegment.load(seg_dir),
-                 lambda: resolve_device("cuda")):
+                 lambda: resolve_device("cuda"),
+                 lambda: IngestLoadGen(str(tmp_path / "lg"),
+                                       LoadgenConfig()),
+                 lambda: run_load(str(tmp_path / "rl"), LoadgenConfig()),
+                 lambda: ingest_fuzz.run_one(str(tmp_path / "if"), 1, 10,
+                                             upsert=False),
+                 lambda: fuzzer.build_fuzz_segment(10, str(tmp_path / "fz"))):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
+    # refused before any work: no stream, table or segment was made
+    assert not any(os.path.exists(tmp_path / d)
+                   for d in ("lg", "rl", "if", "fz"))
     with pytest.raises(ValueError):
         resolve_device("meta")
     assert Broker(device="cpu").device.type == "cpu"

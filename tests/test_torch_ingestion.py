@@ -6,8 +6,9 @@ input; a batch job over CSV and JSON inputs builds byte-equal segments in
 both packages (standalone, and the parallel runner's worker processes)
 that answer equal rows through both brokers; an ingestion filter and a
 derived column apply to a stream as in the reference; a job's push
-registers its segments with a controller. What waits for a later slice
-(Avro and Parquet input) raises ``NotImplementedError`` naming it.
+registers its segments with a controller. The formats that once waited
+for a later slice (Avro, Parquet, ORC) now read as the reference reads
+them: a missing file raises the reference's error.
 """
 import csv
 import filecmp
@@ -208,8 +209,14 @@ def test_batch_job_edges(tmp_path):
 
 @pytest.mark.parametrize("fmt", ["avro", "parquet", "orc"])
 def test_unported_formats_raise(tmp_path, fmt):
-    with pytest.raises(NotImplementedError, match="inputformat"):
-        tin.read_records(str(tmp_path / f"x.{fmt}"))
+    """Ported since: a missing file raises what the reference raises."""
+    errs = []
+    for mod in (tin, jin):
+        with pytest.raises(Exception) as ei:
+            mod.read_records(str(tmp_path / f"x.{fmt}"))
+        errs.append((type(ei.value).__name__,
+                     str(ei.value).replace("pinot_tpu_torch", "pinot_tpu")))
+    assert errs[0] == errs[1]
     with pytest.raises(ValueError, match="unknown input format"):
         tin.read_records(str(tmp_path / "x.xls"))
 
