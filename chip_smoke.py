@@ -367,13 +367,14 @@ Phases, each printed as it runs; any failure exits non-zero:
 22. control - the cluster's control plane in this process over
              loopback HTTP: a Controller (state directory and a local
              deep store under .torch_cache/control/). (a) The flat
-             lineorder with its lineorder key, CONTROL_ROWS rows (2^19,
-             PINOT_SMOKE_CONTROL_ROWS) in InMemoryStream(4)
-             (lo_orderkey % 4), the first 2 x 2^16 rows of each partition
+             lineorder with its lineorder key, CONTROL_ROWS rows (2^18,
+             PINOT_SMOKE_CONTROL_ROWS; 2^19 before the compat phase was
+             added) in InMemoryStream(4)
+             (lo_orderkey % 4), the first 2 x 2^15 rows of each partition
              of a seeded pool: two RealtimeTableDataManager(device=
              "cuda") replicas with CompletionClients commit 8 segments
              through the segment completion protocol at a flush
-             threshold of 2^16, one COMMIT_SUCCESS each, the other
+             threshold of 2^15, one COMMIT_SUCCESS each, the other
              replica adopting the deep-store artifact, with one
              commit.http_error armed on a segmentCommitEnd leg and one
              handoff.stall on an adopt; each replica holds every row
@@ -448,7 +449,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              it launches, held bitwise and timed (kernel_at_fuzz_path),
              the phase failing when the corpus launches none or one it
              did not hold. Printed: specs and p50 per route at each size.
-25. remote (last) - batch ingestion through remote deep stores: the
+25. remote - batch ingestion through remote deep stores: the
              flat lineorder at REMOTE_ROWS rows (2^19,
              PINOT_SMOKE_REMOTE_ROWS) as 8 Avro container files (deflate)
              from 8 writer processes started before the fuzz phase; the
@@ -470,6 +471,26 @@ Phases, each printed as it runs; any failure exits non-zero:
              installed, else the reference's error. Printed: Avro encode
              and decode rows/s, build and push s, p50 per query over
              HTTP, push and load s per scheme.
+26. compat (last) - the rolling-upgrade verifier (tools/compat.py) on
+             the card: tests/resources/compat_suite.yaml through
+             CompatVerifier(device="cuda") (two server nodes, a broker
+             node, a controller, every role rolled over its persisted
+             state); the golden segment (tests/resources/golden/
+             sales_seg) loaded on the card answers expected.json and the
+             golden wire blobs decode; the flat lineorder at COMPAT_ROWS
+             rows (2^22, PINOT_SMOKE_COMPAT_ROWS) in 8 segments built by
+             tools/ssb.py, registered through the verifier's controller
+             at replication 2 on two ServerNode(device="cuda"): the
+             controller, each server in turn, then the broker roll, and
+             the 13 SSB queries answer before and after each roll and
+             while each server is down, every digest equal to
+             Broker(device="cuda")'s in process over the same segments;
+             every K1 launch of the phase captured with its inputs as it
+             launches, then held bitwise and timed, failing on a launch
+             it did not hold (kernel_at_compat_path). Printed: seconds
+             per roll, p50
+             over the 13 queries before, during and after each roll, the
+             phase's seconds.
 
 The SSB phases run at 2^25 rows by default (2^26 before the multi-stage
 phase was added), the star schema at 2^21 orders rows (2^24 before
@@ -479,7 +500,9 @@ geo cell at 2^21 pickups (2^22 before those three phases), the realtime
 phase
 at 2^20 rows (2^21 before the wire and overload phases were added) and
 the wire phase's Kafka table at 2^18 rows (2^19 before the cluster
-phase was added), so that the whole run fits its time limit.
+phase was added) and the control phase's commit at 2^18 rows (2^19
+before the compat phase was added), so that the whole run fits its time
+limit.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, and without
@@ -7497,7 +7520,7 @@ def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
     return cluster_launches
 
 
-CONTROL_ROWS = int(os.environ.get("PINOT_SMOKE_CONTROL_ROWS", 1 << 19))
+CONTROL_ROWS = int(os.environ.get("PINOT_SMOKE_CONTROL_ROWS", 1 << 18))
 CONTROL_PARTS = 4
 CONTROL_ROUNDS = 2               # segments committed per partition
 CONTROL_WAVE = 8                 # HTTP clients of the wave during the move
@@ -7507,8 +7530,8 @@ CONTROL_TABLE = "lineorder_REALTIME"
 
 
 def control_sizes() -> dict:
-    """The control phase's sizes from CONTROL_ROWS (2^19 by default): the
-    flush threshold (2^16 at 2^19) gives each of the CONTROL_PARTS
+    """The control phase's sizes from CONTROL_ROWS (2^18 by default): the
+    flush threshold (2^15 at 2^18) gives each of the CONTROL_PARTS
     partitions CONTROL_ROUNDS committed segments and no consuming tail."""
     flush = CONTROL_ROWS // (CONTROL_PARTS * CONTROL_ROUNDS)
     return {"rows": flush * CONTROL_PARTS * CONTROL_ROUNDS, "flush": flush,
@@ -8518,18 +8541,22 @@ def _fuzz_query(broker, spec, sql: str, captured: list, label: str
     return rows, ms, "+".join(sorted(kinds)) or "none"
 
 
-def _hold_captured(captured: list, tile: int, on_card: bool) -> int:
+def _hold_captured(captured: list, tile: int, on_card: bool,
+                   path: str = "kernel_at_fuzz_path", route: str = ""
+                   ) -> int:
     """K1 held bitwise on each captured launch's own inputs
-    (_fuzz_recording) and timed on the card with CUDA events
-    (kernel_at_fuzz_path); returns the inputs held."""
+    (_fuzz_recording) and timed on the card with CUDA events (``path``,
+    each row labelled ``route``, the per-segment route by default);
+    returns the inputs held."""
     from pinot_tpu_torch.engine import batch
     from pinot_tpu_torch.ops import compact as C
 
     for label, mask, cols, cap in captured:
         got = C.compact(mask, cols, cap)
         same_outputs(got, C.compact_reference(mask, cols, cap))
-        phase("kernel_at_fuzz_path", query=label,
-              **_k1_case_row(mask, cols, cap, got, batch.PER_SEGMENT, tile),
+        phase(path, query=label,
+              **_k1_case_row(mask, cols, cap, got,
+                             route or batch.PER_SEGMENT, tile),
               **(k1_event_times(mask, cols, cap, got) if on_card else {}))
     return len(captured)
 
@@ -9219,6 +9246,214 @@ def remote_phase(tile: int, live_segments=(), device: str = "cuda",
     return launches
 
 
+COMPAT_ROWS = int(os.environ.get("PINOT_SMOKE_COMPAT_ROWS", 1 << 22))
+COMPAT_SEGMENTS = 8
+COMPAT_REPLICATION = 2
+COMPAT_SERVERS = 2
+
+
+def _compat_round(v, sqls, want: dict, label: str) -> dict:
+    """The 13 SSB queries once each through the verifier's broker node
+    (its retry window rides out a restarting role); each digest must
+    equal the in-process one. Returns the ms of each."""
+    from pinot_tpu_torch.tools import ssb
+
+    ms = {}
+    for qid, sql in sqls:
+        t0 = time.perf_counter()
+        rows = v.query_rows(sql, retry_window=60.0)
+        ms[qid] = (time.perf_counter() - t0) * 1e3
+        if ssb._digest(rows) != want[qid]:
+            raise AssertionError(f"compat {label} {qid}: digest differs "
+                                 "from the in-process digest")
+    return ms
+
+
+def _compat_quiesce(qids: dict) -> None:
+    """Wait until none of the phase's queries (``qids``' SQL) runs: a
+    hedge straggler that the broker node abandoned runs on after its
+    server stops, and its K1 launches are the path's too."""
+    from pinot_tpu_torch.engine.accounting import global_accountant
+
+    _cluster_wait(lambda: not any(u.sql in qids for u in
+                                  global_accountant.running()),
+                  "the servers' last executions")
+
+
+def compat_phase(tile: int, live_segments=(), device: str = "cuda"
+                 ) -> dict:
+    """The rolling-upgrade verifier (tools/compat.py) on the card: (a)
+    tests/resources/compat_suite.yaml through CompatVerifier(device):
+    two ServerNode(device), a BrokerNode and a Controller, every role
+    rolled over its persisted state, each query answering as the suite
+    expects; (b) the golden segment (tests/resources/golden/sales_seg)
+    loaded on the card answers expected.json's queries, and the golden
+    wire blobs decode; (c) the flat SSB lineorder at COMPAT_ROWS rows
+    (2^22, PINOT_SMOKE_COMPAT_ROWS) in COMPAT_SEGMENTS segments built by
+    tools/ssb.py, registered through the verifier's controller at
+    replication 2 on two servers on the card: the controller, then each
+    server in turn, then the broker roll over their persisted state, and
+    the 13 SSB queries answer before and after each roll and while each
+    server is down, every digest equal to Broker(device)'s in process
+    over the same segments. Every K1 launch of (a) to (c), a hedge
+    straggler's after the servers stop included, is captured with its
+    inputs as it launches (_fuzz_recording) and held bitwise and timed
+    (CUDA events) afterwards (kernel_at_compat_path); the phase fails
+    when the path launches none or launches one it did not hold. Printed: the
+    seconds each roll took, the p50 over the 13 queries before, during
+    and after it, the phase's seconds. Returns {"launches": K1's
+    launches on the path, "held": inputs held}."""
+    import gc as _gc
+
+    import torch
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.spi import Schema
+    from pinot_tpu_torch.tools import compat, ssb
+
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+    _gc.collect()
+    baseline = torch.cuda.memory_allocated() if on_card else 0
+    work = os.path.join(CACHE, "compat")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    resources = os.path.join(ROOT, "tests", "resources")
+
+    # the table and its in-process digests: Broker(device) over the same
+    # segments in this process, before the path's count starts (the
+    # host path would take ~30 s at 2^22 rows)
+    t0 = time.perf_counter()
+    sizes = [COMPAT_ROWS // COMPAT_SEGMENTS] * COMPAT_SEGMENTS
+    table_dir = os.path.join(work, "table")
+    ssb.build_table_dir(sizes, table_dir)
+    seg_dirs = sorted(os.path.join(table_dir, d)
+                      for d in os.listdir(table_dir))
+    build_s = time.perf_counter() - t0
+    local = TableDataManager("lineorder", device=device)
+    for d in seg_dirs:
+        local.add_segment_dir(d)
+    lb = Broker(device=device)
+    lb.register_table(local)
+    lq = connect(lb)
+    sqls = [(qid, ssb.spec_to_sql(p, v, g)) for qid, p, v, g in ssb.QUERIES]
+    t0 = time.perf_counter()
+    want = {qid: ssb._digest(lq(sql).rows) for qid, sql in sqls}
+    in_process_s = time.perf_counter() - t0
+    for x in local.acquire_segments():
+        x.retire()
+    del local, lb, lq
+
+    suite = compat.load_suite(os.path.join(resources, "compat_suite.yaml"))
+    qids = {sql: qid for qid, sql in sqls}
+    for ph in suite["phases"]:
+        for op in ph.get("ops", []):
+            if op["op"] == "query":
+                qids.setdefault(op["sql"], f"suite:{ph['name']}")
+    v = None
+    rolls = []
+    captured: list = []                  # every K1 launch's inputs
+    C.launches = 0                       # the compat path starts here
+    # (a) the yaml suite
+    t0 = time.perf_counter()
+    with _fuzz_recording(captured, "compat:suite"):
+        sv = compat.CompatVerifier(os.path.join(work, "suite"),
+                                   n_servers=suite.get("servers", 2),
+                                   device=device)
+        try:
+            suite_log = sv.run_suite(suite)
+        finally:
+            sv.stop()
+            _compat_quiesce(qids)
+    phase("compat_suite", ok=True, seconds=time.perf_counter() - t0,
+          ops=len(suite_log),
+          rolled=[e for e in suite_log if e.startswith("rolled")])
+
+    # (b) the golden artifacts of an earlier incarnation
+    with _fuzz_recording(captured, "compat:golden"):
+        gold = compat.check_golden_segment(
+            os.path.join(resources, "golden"), device)
+    wire = compat.check_golden_wire(os.path.join(resources, "golden"))
+    phase("compat_golden", ok=True, **gold, wire=wire)
+
+    # (c) the rolled SSB table
+    with _fuzz_recording(captured, "compat:ssb"):
+        try:
+            t0 = time.perf_counter()
+            v = compat.CompatVerifier(os.path.join(work, "cluster"),
+                                      n_servers=COMPAT_SERVERS,
+                                      device=device)
+            v.create_table(Schema.from_dict(_seg_schema(seg_dirs[0])),
+                           replication=COMPAT_REPLICATION)
+            for d in seg_dirs:
+                v.add_segment("lineorder", os.path.basename(d), d)
+            held = {s.instance_id: sorted(
+                x.name for x in s._tables["lineorder"].acquire_segments())
+                for s in v.servers}
+            if any(len(h) != COMPAT_SEGMENTS for h in held.values()) or any(
+                    x.device.type != _device_type(device) for s in v.servers
+                    for x in s._tables["lineorder"].acquire_segments()):
+                raise AssertionError(f"compat: the servers hold {held}")
+            setup_s = time.perf_counter() - t0
+            before = _compat_round(v, sqls, want, "before")
+            for role in ("controller", "server", "broker"):
+                during = {}
+
+                def down(i, _during=during) -> None:
+                    _during[f"server_{i}"] = _compat_round(
+                        v, sqls, want, f"during server_{i}'s restart")
+
+                t0 = time.perf_counter()
+                v.roll(role, during=down if role == "server" else None)
+                roll_s = time.perf_counter() - t0 - sum(
+                    sum(ms.values()) for ms in during.values()) / 1e3
+                after = _compat_round(v, sqls, want,
+                                      f"after the {role} roll")
+                rolls.append({"role": role, "roll_s": roll_s,
+                              "p50_before_ms": statistics.median(
+                                  before.values()),
+                              "p50_after_ms": statistics.median(
+                                  after.values()),
+                              "p50_during_ms": {
+                                  k: statistics.median(ms.values())
+                                  for k, ms in during.items()}})
+                phase("compat_roll", ok=True, **rolls[-1], after_ms=after)
+                before = after
+        finally:
+            if v is not None:
+                v.stop()
+            _compat_quiesce(qids)
+    launches = C.launches                # ... and ends here
+    n_held = _hold_captured(captured, tile, on_card,
+                            "kernel_at_compat_path", "as launched")
+    C.launches = launches
+    del captured
+    if launches == 0 or launches > n_held:
+        raise AssertionError(f"compat: {launches} K1 launches, {n_held} "
+                             "of them held")
+
+    # clean-up: every segment of the phase has left the card
+    del v
+    global_cube_cache.clear()
+    _gc.collect()
+    _reconcile_or_fail(list(live_segments), "compat done")
+    left = (torch.cuda.memory_allocated() - baseline) if on_card else 0
+    if left > MEM_SLACK:
+        raise AssertionError(f"compat: {left} bytes left on the card")
+    shutil.rmtree(work, ignore_errors=True)
+    phase("compat_done", seconds=time.perf_counter() - t_phase,
+          rows=COMPAT_ROWS, segments=COMPAT_SEGMENTS,
+          replication=COMPAT_REPLICATION, table_build_s=build_s,
+          in_process_s=in_process_s, cluster_setup_s=setup_s,
+          roll_s={r["role"]: r["roll_s"] for r in rolls},
+          compact_launches=launches, k1_checked=n_held, bytes_left=left,
+          tracked_equals_held=True)
+    return {"launches": launches, "held": n_held}
+
+
 def main() -> int:
     import torch
 
@@ -9283,6 +9518,7 @@ def main() -> int:
     fuzz_launches = fuzz_phase(tile, [single, surface_seg, *segs])
     remote_launches = remote_phase(tile, [single, surface_seg, *segs],
                                    avro=avro)
+    compat = compat_phase(tile, [single, surface_seg, *segs])
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "compact",
@@ -9294,7 +9530,8 @@ def main() -> int:
         + geo_launches + format_launches + rollup_launches
         + trace_launches + realtime_launches + overload_launches
         + wire_launches + cluster_launches + control["launches"]
-        + loadgen_launches + fuzz_launches + remote_launches,
+        + loadgen_launches + fuzz_launches + remote_launches
+        + compat["launches"],
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -9325,6 +9562,7 @@ def main() -> int:
         "loadgen_launches": loadgen_launches,
         "fuzz_launches": fuzz_launches,
         "remote_launches": remote_launches,
+        "compat_launches": compat["launches"],
         **{f"segmented_{k}": v for k, v in seg_totals.items()},
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
@@ -9351,8 +9589,11 @@ def main() -> int:
               "table, the rebalanced table on two server nodes, the "
               "minion's offline segments), the loadgen phase's (query "
               "workers under chaos-armed ingest), the fuzz phase's (the "
-              "fuzzer's corpus) and the remote phase's (two server nodes "
-              "over segments pushed to s3, gs, hdfs and abfs stores)"}, {
+              "fuzzer's corpus), the remote phase's (two server nodes "
+              "over segments pushed to s3, gs, hdfs and abfs stores) and "
+              "the compat phase's (the yaml suite's cluster, the golden "
+              "segment, and the SSB table on two server nodes rolled "
+              "role by role)"}, {
         "name": "segscan",
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/segscan.cu",

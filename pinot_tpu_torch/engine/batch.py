@@ -107,7 +107,11 @@ def _stacked_cols(plans: List[CompiledPlan], bucket: int
         torch.stack([p.segment.device_col(c, bucket) for p in plans])
         for c in plans[0].col_names)
     with _STACK_LOCK:
-        if _EVICT_EPOCH != epoch:
+        # a retired segment (one that left its table: a move, an unload,
+        # a stopped server) is served but never cached, as its own
+        # columns are not: nothing would evict the stack again
+        if _EVICT_EPOCH != epoch or any(
+                getattr(p.segment, "retired", False) for p in plans):
             return cols          # serve this query, never cache
         _STACK_CACHE[key] = cols
         global_device_memory.add("stack_cache", key,

@@ -148,7 +148,7 @@ class TierManager:
         self.enforce()
 
     # -- bookkeeping ---------------------------------------------------------
-    def _reap_locked(self) -> None:
+    def _reap_locked(self) -> None:  # holds-lock: _lock
         while self._dead:
             uid = self._dead.pop()
             self._refs.pop(uid, None)
@@ -156,19 +156,19 @@ class TierManager:
             self._names.pop(uid, None)
             self._warm_bytes.pop(uid, None)
 
-    def _register_locked(self, segment) -> None:
+    def _register_locked(self, segment) -> None:  # holds-lock: _lock
         self._reap_locked()
         uid = segment.uid
         if uid not in self._refs:
             # the callback appends without the lock: list.append is atomic
             # under the GIL, and taking _lock there could self-deadlock
             self._refs[uid] = weakref.ref(
-                segment, lambda _r, u=uid: self._dead.append(u))
+                segment, lambda _r, u=uid: self._dead.append(u))  # concur: ok CC201
             self._names[uid] = segment.name
             self._state[uid] = TIER_COLD
 
     def _log_locked(self, action: str, name: str, frm: str, to: str,
-                    reason: str) -> None:
+                    reason: str) -> None:  # holds-lock: _lock
         self.decisions.append((action, name, frm, to, reason))
         if len(self.decisions) > MAX_DECISIONS:
             del self.decisions[: MAX_DECISIONS // 2]

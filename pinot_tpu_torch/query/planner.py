@@ -2,8 +2,10 @@
 
 Port of ``pinot_tpu/query/planner.py``, kept line for line where the two
 agree. What differs: the execution platform is the segment's torch device
-type instead of ``jax.default_backend()``; plan verification, spans and
-the plan-cache drift loop are not ported. TEXT_MATCH, JSON_MATCH and
+type instead of ``jax.default_backend()``; the per-query plan
+verification (``tools/check_static.py`` runs ``analysis/plan_verify``
+over the query corpora instead), spans and the plan-cache drift loop are
+not ported. TEXT_MATCH, JSON_MATCH and
 VECTOR_SIMILARITY filters, and the geo filters over a geo-indexed column
 (ST_Distance(col, point) <op> r, ST_Contains/ST_Within of a literal
 polygon, bare or ``= 0|1``), become a ``docmask`` kernel param, as in the
@@ -1230,9 +1232,9 @@ class SegmentPlanner:
     def plan(self) -> CompiledPlan:
         """Plan this segment, recording the outcome (plan kind, strategy,
         cost-model trace) as a child span of the query's planning span
-        when a trace is active (utils/spans.py; no-op otherwise). The JAX
-        package's static plan verification (analysis/plan_verify) is not
-        ported."""
+        when a trace is active (utils/spans.py; no-op otherwise). The
+        static plan verification (analysis/plan_verify) does not run per
+        query here; tools/check_static.py runs it over the query corpora."""
         with span("plan_segment", segment=self.seg.name) as sp:
             plan = self._plan()
             if sp is not None:

@@ -441,7 +441,7 @@ class ImmutableSegment:
             if kind == "vector":
                 rd.evict_device()
 
-    def _drop_warm_locked(self) -> bool:
+    def _drop_warm_locked(self) -> bool:  # holds-lock: _res_lock
         # caller holds self._res_lock
         if not self._warm:
             return False
@@ -477,6 +477,12 @@ class ImmutableSegment:
         with self._res_lock:
             self._retired = True
         self.evict_device()
+
+    @property
+    def retired(self) -> bool:
+        """The segment left its table (``retire``): no cache keeps a
+        device copy of it any more."""
+        return self._retired
 
     def rollup_segments(self) -> List["ImmutableSegment"]:
         """The star-tree rollups loaded from this segment so far."""

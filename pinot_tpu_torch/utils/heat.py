@@ -54,7 +54,7 @@ class SegmentHeat:
         uid = getattr(segment, "uid", None)
         return uid if uid is not None else f"m:{segment.name}"
 
-    def _entry(self, segment) -> Dict[str, Any]:
+    def _entry(self, segment) -> Dict[str, Any]:  # holds-lock: _lock
         # caller holds self._lock
         key = self._key(segment)
         e = self._entries.get(key)

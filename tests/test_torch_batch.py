@@ -286,3 +286,82 @@ def test_to_host_packs_every_dtype():
     for k, v in out.items():
         assert host[k].dtype == v.numpy().dtype and host[k].shape == v.shape
         np.testing.assert_array_equal(host[k], v.numpy())
+
+
+def test_case_over_dict_ids_keeps_the_per_segment_route(tmp_path):
+    """A CASE over dictionary ids in an aggregation value, grouped over
+    three same-bucket segments whose dictionaries differ: the JAX
+    package's segmented kernel evaluates the WHEN predicate with the
+    first segment's dictionary id on every segment, so its sums differ
+    from its own host path (a reference fault). The port keeps such
+    plans on the per-segment route and answers with the host path's
+    rows."""
+    from pinot_tpu.ops import kernels as jkernels
+    from pinot_tpu.segment import SegmentBuilder as JaxBuilder
+    from pinot_tpu.spi import (DataType, FieldSpec, FieldType, Schema,
+                               TableConfig)
+
+    schema = Schema("t", [FieldSpec("g", DataType.STRING),
+                          FieldSpec("r", DataType.STRING),
+                          FieldSpec("v", DataType.INT, FieldType.METRIC)])
+    rng = np.random.default_rng(3)
+    n, dirs = 1000, []
+    for i, values in enumerate((["a", "b", "c"], ["b", "c", "d"],
+                                ["c", "d", "e"])):
+        cols = {"g": np.asarray([f"g{k}" for k in rng.integers(0, 4, n)]),
+                "r": np.asarray(values)[rng.integers(0, 3, n)],
+                "v": rng.integers(1, 100, n).astype(np.int32)}
+        dirs.append(JaxBuilder(schema, TableConfig("t")).build(
+            cols, str(tmp_path), f"s{i}"))
+    sql = ("SELECT g, SUM(CASE WHEN r = 'c' THEN v ELSE 0 END), COUNT(*) "
+           "FROM t GROUP BY g ORDER BY g")
+    jdm = JaxTable("t")
+    dm = TableDataManager("t", device="cpu")
+    for d in dirs:
+        jdm.add_segment_dir(d)
+        dm.add_segment_dir(d)
+    jb = JaxBroker()
+    jb.register_table(jdm)
+    tb = Broker(device="cpu")
+    tb.register_table(dm)
+    built = []
+    real = jkernels.build_segmented_compact_kernel
+
+    def spy(*a, **k):
+        built.append(a[2])
+        return real(*a, **k)
+
+    jkernels.build_segmented_compact_kernel = spy
+    try:
+        jax_rows = jb.query(sql + COMPACT).rows
+    finally:
+        jkernels.build_segmented_compact_kernel = real
+    host_rows = jb.query(sql + " OPTION(forceHostExecution=true)").rows
+    assert built == [3]                     # the JAX segmented kernel ran
+    assert jax_rows != host_rows            # ... and missed rows of 'c'
+    assert tb.query(sql + COMPACT).rows == host_rows
+    assert _routes(dm, sql + COMPACT) == {1024: {batch.PER_SEGMENT}}
+
+
+def test_a_retired_segment_is_never_stacked_into_the_cache(tmp_path):
+    """A straggler execution on segments that already left their table
+    (ImmutableSegment.retire: a move, an unload, a stopped server) runs
+    the segmented route on a stack of their columns; the stack serves it
+    but is not cached, so no device byte outlives the unload."""
+    from pinot_tpu_torch.utils.devmem import global_device_memory
+
+    d = ssb.build_table_dir([3000, 3000, 3000], str(tmp_path))
+    dm = TableDataManager("lineorder", device="cpu")
+    dm.add_table_dir(d)
+    segs = dm.acquire_segments()
+    ex = serving.plan_segments(t_ctx(t_parse(dict(SSB_SQL)["q2.1"])), segs)
+    plans = ex.real_plans
+    assert len({p.segment.bucket for p in plans}) == 1
+    for s in segs:
+        s.retire()
+    before = global_device_memory.pool_bytes("stack_cache")
+    cols = batch._stacked_cols(plans, plans[0].segment.bucket)
+    assert len(cols) == len(plans[0].col_names)
+    assert not [k for k in batch._STACK_CACHE
+                if {n for _u, n in k[0]} & {s.name for s in segs}]
+    assert global_device_memory.pool_bytes("stack_cache") == before

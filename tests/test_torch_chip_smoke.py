@@ -17,6 +17,7 @@ input their path launched, the servers' taken from the plans each
 execution ran (recorded inside it, also when a move's drain lands in
 the middle).
 """
+import contextlib
 import os
 import sys
 import time
@@ -335,16 +336,18 @@ def _counting_compact(monkeypatch):
     monkeypatch.setattr(compact, "compact", counted)
 
 
-def _fingerprinted_compact(monkeypatch, holder: str):
+def _fingerprinted_compact(monkeypatch, holder: str, within: str = ""):
     """The compaction's plain version, counted as launches; returns two
-    lists of the inputs' digests: those of the path's launches and those
-    launched inside chip_smoke.<holder> (the checks that hold K1)."""
+    lists of the inputs' digests: those of the path's launches (only
+    those inside the context manager chip_smoke.<within> when given) and
+    those launched inside chip_smoke.<holder> (the checks that hold
+    K1)."""
     import hashlib
 
     from pinot_tpu_torch.ops import compact
 
     real, real_holder = compact.compact, getattr(chip_smoke, holder)
-    launched, held, holding = [], [], []
+    launched, held, holding, inside = [], [], [], []
 
     def digest(mask, cols, cap) -> str:
         h = hashlib.sha256(repr(int(cap)).encode())
@@ -354,7 +357,10 @@ def _fingerprinted_compact(monkeypatch, holder: str):
         return h.hexdigest()
 
     def fingerprinted(mask, cols, cap):
-        (held if holding else launched).append(digest(mask, cols, cap))
+        if holding:
+            held.append(digest(mask, cols, cap))
+        elif inside or not within:
+            launched.append(digest(mask, cols, cap))
         compact.launches += 1
         return real(mask, cols, cap)
 
@@ -367,6 +373,19 @@ def _fingerprinted_compact(monkeypatch, holder: str):
 
     monkeypatch.setattr(compact, "compact", fingerprinted)
     monkeypatch.setattr(chip_smoke, holder, holding_checks)
+    if within:
+        real_within = getattr(chip_smoke, within)
+
+        @contextlib.contextmanager
+        def marked(*a, **k):
+            inside.append(True)
+            try:
+                with real_within(*a, **k):
+                    yield
+            finally:
+                inside.pop()
+
+        monkeypatch.setattr(chip_smoke, within, marked)
     return launched, held
 
 
@@ -918,3 +937,44 @@ def test_fuzz_close_takes_a_rounding_tie_and_refuses_a_difference():
                 a[:1]):
         assert chip_smoke._fuzz_close(a, b, bad) == [(True, True),
                                                      (False, False)]
+
+
+def test_compat_phase_on_cpu(tmp_path, monkeypatch):
+    """The compat phase end to end on the CPU at 2^13 rows in 8
+    segments: the yaml suite rolls every role, the golden segment and
+    wire blobs check out, the SSB table answers the in-process digests
+    before, during and after each roll (controller, each server, broker),
+    and K1 is held on every compact input the phase launched (the
+    in-process digests before the path are not the path's)."""
+    from test_torch_tier import reset_port_memory
+
+    reset_port_memory()
+    launched, held = _fingerprinted_compact(monkeypatch, "_hold_captured",
+                                            "_fuzz_recording")
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "COMPAT_ROWS", 1 << 13)
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda name, /, **f: printed.append((name, f)))
+    from pinot_tpu_torch.utils.devmem import global_device_memory
+
+    try:
+        out = chip_smoke.compat_phase(4096, device="cpu")
+        # no stack of a stopped server's (retired) segments outlives it
+        left = global_device_memory.snapshot()["total"]["bytes"]
+    finally:
+        reset_port_memory()
+    got = dict(printed)
+    assert left == 0
+    assert out["launches"] > 0 and out["held"] > 0
+    assert launched and set(launched) <= set(held)
+    assert got["compat_suite"]["rolled"] == [
+        "rolled server", "rolled controller", "rolled broker",
+        "rolled server", "rolled controller"]
+    assert got["compat_golden"]["n_docs"] == 500
+    rolls = [f for name, f in printed if name == "compat_roll"]
+    assert [r["role"] for r in rolls] == ["controller", "server", "broker"]
+    assert sorted(rolls[1]["p50_during_ms"]) == ["server_0", "server_1"]
+    assert got["compat_done"]["bytes_left"] == 0
+    assert got["compat_done"]["compact_launches"] == out["launches"]
+    assert out["held"] == out["launches"] == len(launched)

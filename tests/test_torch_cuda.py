@@ -576,7 +576,7 @@ def test_fused_vs_serial_under_32_threads_on_cuda(cuda, cube_table):
                          for c in cubes for t in c.values())
 
 
-RACE_CYCLES = 4 * SLEEP_CYCLES    # about 100 ms
+RACE_CYCLES = 40 * SLEEP_CYCLES   # about 1 s
 
 
 def _cube_race(cube_table, fence: bool, monkeypatch):
