@@ -204,11 +204,13 @@ Phases, each printed as it runs; any failure exits non-zero:
              compiler's output, native.available(); fails when the
              library does not build (a library without zstd builds with
              -DPINOT_NO_ZSTD, and that is printed);
-15. format (after drift) - the SSB segment written twice more by the
-             port's builder: BITPACK (bit_packed_ids) and the five metric
-             columns raw under ZSTD: write seconds, bytes against PLAIN,
-             decode seconds, the 13 digests equal to the PLAIN
-             segment's, p50 per query, K1 held bitwise on each copy's
+15. format (after drift) - the SSB segment at FORMAT_ROWS rows (2^24,
+             PINOT_SMOKE_FORMAT_ROWS; the 2^25-row segment until the mesh
+             phase was added) written three times by the port's builder:
+             PLAIN, BITPACK (bit_packed_ids) and the five metric columns
+             raw under ZSTD: write seconds, bytes against PLAIN, decode
+             seconds, the 13 digests equal to the numpy oracle's over the
+             PLAIN copy, p50 per query, K1 held bitwise on each copy's
              compact inputs (kernel_at_format_path); then LZ4, SNAPPY,
              ZLIB, PASS_THROUGH (and ZSTD) on lo_revenue and DELTA on a
              sorted column: ratio, seconds, round trip equal;
@@ -408,7 +410,11 @@ Phases, each printed as it runs; any failure exits non-zero:
              an execution killed part way; a hedge straggler's after
              the servers stop), and at full capacity where the plan
              cache knows a capacity to overflow
-             (kernel_at_control_path). Printed:
+             (kernel_at_control_path); and every K1 launch of the path
+             held bitwise against its plain version on its own inputs as
+             it launches (kernel_at_control_launch; the inputs are not
+             kept: the server groups reach 25,165,824 rows), the phase
+             failing on a launch it did not hold. Printed:
              election, commit and adopt ms per segment, rows/s, the
              rollup pass ms, ms per cutover step (prewarm, flip, drain)
              and bytes moved, p50 before and after the move, the verdict
@@ -461,7 +467,10 @@ Phases, each printed as it runs; any failure exits non-zero:
              the 13 SSB queries with the host path's digests over the
              same segments in process; K1 held bitwise and timed on
              every compact input the servers ran (recorded inside each
-             execution; kernel_at_remote_path); one segment each pushed
+             execution; kernel_at_remote_path), and every K1 launch of
+             the path held bitwise on its own inputs as it launches
+             (kernel_at_remote_launch), failing on a launch it did not
+             hold; one segment each pushed
              to gs://, hdfs:// and abfs:// on fs/stub_cloud's stores
              answers q1.1 and q2.1 from a server; a MetricsFlushTask
              runs the statsd (UDP loopback), Prometheus-file and ledger
@@ -492,8 +501,37 @@ Phases, each printed as it runs; any failure exits non-zero:
              over the 13 queries before, during and after each roll, the
              phase's seconds.
 
+27. mesh (after the multistage phase's kernel checks) - the mesh plane
+             on logical shards of the one card: the SSB lineorder at
+             MESH_ROWS rows (2^23, PINOT_SMOKE_MESH_ROWS) in 8 segments
+             with shared dictionaries (cached under .torch_cache/), the
+             13 queries through Broker(device="cuda") per segment, then
+             resident on a 1-shard and a 4-shard mesh (DistributedTable:
+             K1 on each shard's flattened segments, the combine by the
+             collectives): every digest equal on the three arms, every
+             query taken by the mesh, p50 per query on each, tracked ==
+             held with the stacks resident; the star schema under
+             using_mesh(logical_mesh(4)): join3_gb on the mailbox plane
+             (mesh_shuffle for customers, mesh_broadcast for parts) and
+             join_gb and join3_gb on the fused plane with every stage a
+             hash exchange (PINOT_FUSED_HASH_MIN=0, no broadcast bound),
+             rows equal to ms_oracle; every K1 and hash_partition launch
+             of the phase captured with its inputs as it launches, each
+             distinct input held bitwise against its plain version and
+             timed with CUDA events (kernel_at_mesh_path,
+             hashpart_at_mesh_path: hot, L2-cold, the device split by
+             torch.profiler, the plain version, torch.sort(stable=True)
+             of the partition ids as the sort half's yardstick, the
+             bytes bound), every repeated launch relaunched on its inputs
+             and held, the phase failing on a launch it did not hold;
+             hash_partition on its edge cases (n = 1, the tile's edges,
+             one partition past its cap and one filling it exactly, no
+             partition, 1 to 64 partitions, int64 and 16 payloads) and
+             20 launches in a row; memory back at the phase's baseline.
+
 The SSB phases run at 2^25 rows by default (2^26 before the multi-stage
-phase was added), the star schema at 2^21 orders rows (2^24 before
+phase was added), the format phase's copies at 2^24 (2^25 before the
+mesh phase was added), the star schema at 2^21 orders rows (2^24 before
 the format, rollup and trace phases were added, 2^23 before the control
 phase was, 2^22 before the loadgen, fuzz and remote phases were), the
 geo cell at 2^21 pickups (2^22 before those three phases), the realtime
@@ -519,6 +557,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -661,10 +700,11 @@ def build_phase() -> None:
     phase("build", seconds=time.perf_counter() - t0, libraries=sorted(logs),
           ptxas=[ln for log in logs.values() for ln in log.splitlines()
                  if "registers" in ln or "smem" in ln])
-    # K15's and K17's kernels by name: registers, spills, static shared
-    # memory (the dynamic shared memory is in the sources: vecsearch.cu's
-    # Smem, segscan.cu's SMEM_BYTES, segagg.cu's bins)
-    for name in ("vecsearch", "segscan", "segagg"):
+    # K15's, K17's and the hash partition's kernels by name: registers,
+    # spills, static shared memory (the dynamic shared memory is in the
+    # sources: vecsearch.cu's Smem, segscan.cu's SMEM_BYTES, segagg.cu's
+    # bins)
+    for name in ("vecsearch", "segscan", "segagg", "hashpart"):
         phase(f"build_{name}", kernels=ptxas_table(logs[name]))
 
 
@@ -2366,6 +2406,9 @@ def surface_phase(seg_list, label: str):
 # the format, rollup and trace phases were added, again when the control
 # phase was and again when the loadgen, fuzz and remote phases were, so
 # that the whole check fits its time limit)
+# the format phase's copies (PLAIN, BITPACK, COMPRESSED) of the SSB segment
+FORMAT_ROWS = int(os.environ.get("PINOT_SMOKE_FORMAT_ROWS",
+                                 min(N_ROWS, 1 << 24)))
 MS_ROWS = int(os.environ.get("PINOT_SMOKE_MS_ROWS", 1 << 21))
 MS_VARIANTS = 3                  # literal variants of each shape
 MS_STATE_CAP = 1 << 25           # PINOT_FUSED_MAX_STATE of the fused plane
@@ -2848,11 +2891,12 @@ def _scan_err(op, got, want) -> float:
     return 0.0
 
 
-def kernel_split_ms(fn, names, reps: int = 10):
+def kernel_split_ms(fn, names, reps: int = 10, memsets: int = 1):
     """Device ms per call of each named kernel of fn (substrings of the
-    kernels' names) and of its memsets, from torch.profiler over ``reps``
-    calls; None when no window of PROFILE_TRIES recorded every call's
-    device operations (not measured)."""
+    kernels' names) and of its memsets (``memsets`` a call, when it makes
+    any), from torch.profiler over ``reps`` calls; None when no window of
+    PROFILE_TRIES recorded every call's device operations (not
+    measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2871,23 +2915,25 @@ def kernel_split_ms(fn, names, reps: int = 10):
                        "memset" if "emset" in e.key else None)
             if key:
                 out[key] += _dev_ms(e) / reps
-                whole = whole and e.count == reps
+                whole = whole and e.count == reps * (
+                    memsets if key == "memset" else 1)
         if whole and any(out.values()):
             return out
     return None
 
 
-def _timed(row: dict, fn, plain, names, cold: bool = True) -> dict:
+def _timed(row: dict, fn, plain, names, cold: bool = True,
+           memsets: int = 1) -> dict:
     """The kernel's times on its inputs, into row: ms (CUDA events over 20
     back-to-back calls), cold_ms (events around each of 10 calls after a
     128 MiB write), host_ms (host clock to issue a call), the device split
-    by torch.profiler (device_ms its sum) and plain_ms (the plain version,
-    events over 5 calls)."""
+    by torch.profiler (device_ms its sum; ``memsets`` a call) and plain_ms
+    (the plain version, events over 5 calls)."""
     row["ms"] = cuda_time_ms(fn, 20)
     if cold:
         row["cold_ms"] = cuda_cold_ms(fn, 10)
     row["host_ms"] = host_time_ms(fn, 20)
-    split = kernel_split_ms(fn, names)
+    split = kernel_split_ms(fn, names, memsets=memsets)
     row["split_ms"] = split
     row["device_ms"] = sum(split.values()) if split else None
     row["memset_ms"] = split["memset"] if split else None
@@ -3084,6 +3130,493 @@ def traced_check(ms_inputs: dict, device: str = "cuda") -> dict:
     for r in (k16, k19):
         phase("traced_at_multistage_path", **r)
     return {"k16": k16, "k19": k19}
+
+
+# ---------------------------------------------------------------------------
+# the mesh plane (K18, K16's mesh variants, K19's hash kind, hash_partition)
+# ---------------------------------------------------------------------------
+
+MESH_ROWS = int(os.environ.get("PINOT_SMOKE_MESH_ROWS", 1 << 23))
+MESH_SEGMENTS = 8
+MESH_SHARDS = 4
+# the mailbox plane's broadcast bound in the mesh phase: parts (2,000
+# rows) broadcast, customers and orders past it shuffle
+MESH_BROADCAST = 4096
+# (plane, shapes, OPTION(multistageFused=...), env, BROADCAST_THRESHOLD):
+# the mailbox plane's backends over the mesh (mesh_shuffle for customers,
+# mesh_broadcast for parts), then the fused plane with every stage a hash
+# exchange (PINOT_FUSED_HASH_MIN=0 and no broadcast bound, as the JAX
+# suite's test_hash_exchange_parity lowers them)
+MESH_MS_PLANES = (
+    ("mailbox_mesh", ("join3_gb",), "false", {}, MESH_BROADCAST),
+    ("fused_hash", ("join_gb", "join3_gb"), "true",
+     {"PINOT_FUSED_HASH_MIN": "0",
+      "PINOT_FUSED_MAX_STATE": str(MS_STATE_CAP)}, 0),
+)
+HP_EDGE_SEED = 1719
+HP_KERNELS = ("hp_count", "hp_scan", "hp_scatter")
+
+
+@contextlib.contextmanager
+def _hp_recording(captured: list, label: str):
+    """While open, every hash_partition call's inputs, cloned as it
+    launches, are appended to ``captured`` as (label, codes, payloads,
+    n_dev, cap); a hold's own launches (``_holding``) are not."""
+    from pinot_tpu_torch.ops import hashpart as H
+
+    real = H.hash_partition
+
+    def capturing(codes, payloads, n_dev, cap):
+        if not getattr(_HOLDING, "on", 0):
+            captured.append((label, codes.clone(),
+                             tuple(p.clone() for p in payloads), n_dev, cap))
+        return real(codes, payloads, n_dev, cap)
+
+    H.hash_partition = capturing
+    try:
+        yield
+    finally:
+        H.hash_partition = real
+
+
+def _same_tensors(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(a, b))
+
+
+def _fold(captured: list, distinct: list, key) -> None:
+    """Move ``captured`` launches into ``distinct`` ([key, tensors,
+    labels]): a launch whose inputs equal a kept one's adds its label
+    there and frees its copy (a query run again launches on the same
+    inputs); ``key`` gives a launch's (statics, tensors)."""
+    for item in captured:
+        statics, tensors = key(item)
+        for d in distinct:
+            if d[0] == statics and _same_tensors(d[1], tensors):
+                d[2].append(item[0])
+                break
+        else:
+            distinct.append([statics, tensors, [item[0]]])
+    captured.clear()
+
+
+def _k1_key(item):
+    _label, mask, cols, cap = item
+    return (cap, len(cols)), (mask, *cols)
+
+
+def _hp_key(item):
+    _label, codes, payloads, n_dev, cap = item
+    return (n_dev, cap, len(payloads)), (codes, *payloads)
+
+
+def _hold_distinct_k1(distinct: list, tile: int, on_card: bool) -> int:
+    """K1 on each distinct input of the mesh path, bitwise against its
+    plain version and timed (kernel_at_mesh_path), and relaunched once for
+    every other launch that had the same inputs, each bitwise against the
+    same plain output; returns the launches held."""
+    from pinot_tpu_torch.ops import compact as C
+
+    held = 0
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "bound_ms": 0.0}
+    with _holding():
+        for (cap, _n), (mask, *cols), labels in distinct:
+            cols = tuple(cols)
+            want = C.compact_reference(mask, cols, cap)
+            got = C.compact(mask, cols, cap)
+            same_outputs(got, want)
+            for _again in labels[1:]:
+                same_outputs(C.compact(mask, cols, cap), want)
+            held += len(labels)
+            row = k1_event_times(mask, cols, cap, got) if on_card else {}
+            for k in totals:
+                totals[k] += row.get(k, 0.0)
+            phase("kernel_at_mesh_path", query=labels[0],
+                  launches=len(labels), **_k1_case_row(
+                      mask, cols, cap, got, "mesh", tile), **row)
+    phase("kernel_at_mesh_path_sum", inputs=len(distinct), launches=held,
+          **(totals if on_card else {}))
+    return held
+
+
+def _hp_row(codes, payloads, n_dev: int, cap: int, got, on_card: bool
+            ) -> dict:
+    """hash_partition's row on one input: shape, the bytes bound, and on
+    the card its times (_timed: events hot and L2-cold, host launch
+    time, device split by kernel) beside the plain version's and the sort
+    half's yardstick, torch.sort(stable=True) of the partition ids."""
+    import torch
+
+    from pinot_tpu_torch.ops import hashpart as H
+
+    widths = [p.element_size() for p in payloads]
+    row = {"n": codes.shape[0], "n_dev": n_dev, "cap": cap,
+           "payloads": [str(p.dtype) for p in payloads],
+           "overflow": bool(got[1].any()),
+           "bound_ms": H.partition_bytes(codes.shape[0], widths, n_dev, cap)
+           / HBM_BYTES_PER_S * 1e3}
+    if on_card:
+        # a call sets its buckets and its flag with memsets
+        _timed(row, lambda: H.hash_partition(codes, payloads, n_dev, cap),
+               lambda: H.hash_partition_reference(codes, payloads, n_dev,
+                                                  cap), HP_KERNELS,
+               memsets=len(payloads) + 2)
+        part = H.partition_of(codes, n_dev)
+        row["sort_ms"] = cuda_time_ms(
+            lambda: torch.sort(part, stable=True), 20)
+    return row
+
+
+def _same_partition(got, want, what: str) -> None:
+    import torch
+
+    (gb, go), (wb, wo) = got, want
+    if len(gb) != len(wb) or not all(
+            x.dtype == y.dtype and torch.equal(x, y)
+            for x, y in zip(gb, wb)) or not torch.equal(go, wo):
+        raise AssertionError(f"hash_partition {what}: the kernel differs "
+                             "from its plain version")
+
+
+def _hold_distinct_hp(distinct: list, on_card: bool) -> dict:
+    """hash_partition on each distinct input of the mesh path, bitwise
+    against its plain version and timed (hashpart_at_mesh_path), and
+    relaunched for every other launch that had the same inputs; returns
+    the launches held and the widest input's row."""
+    from pinot_tpu_torch.ops import hashpart as H
+
+    held, widest = 0, None
+    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    with _holding():
+        for (n_dev, cap, _k), (codes, *payloads), labels in distinct:
+            payloads = tuple(payloads)
+            want = H.hash_partition_reference(codes, payloads, n_dev, cap)
+            got = H.hash_partition(codes, payloads, n_dev, cap)
+            _same_partition(got, want, labels[0])
+            for _again in labels[1:]:
+                _same_partition(H.hash_partition(codes, payloads, n_dev,
+                                                 cap), want, labels[0])
+            held += len(labels)
+            row = _hp_row(codes, payloads, n_dev, cap, got, on_card)
+            for k in sums:
+                sums[k] += row.get(k) or 0.0
+            phase("hashpart_at_mesh_path", query=labels[0],
+                  launches=len(labels), **row)
+            if widest is None or row["n"] > widest["n"]:
+                widest = row
+    phase("hashpart_at_mesh_path_sum", inputs=len(distinct), launches=held,
+          **(sums if on_card else {}))
+    return {"held": held, "widest": widest, "sums": sums}
+
+
+def _hp_edge_inputs(device: str):
+    """(label, codes, payloads, n_dev, cap) of hash_partition's edge
+    cases: n = 1 and the tile's edges, every row one partition (the flag
+    set, and cap at the run length exactly), every row without a
+    partition, n_dev 1 to 64, int32 and int64 payloads and 16 of them."""
+    import numpy as np
+    import torch
+
+    from pinot_tpu_torch.ops import hashpart as H
+
+    tile = H.tile_rows() if device.startswith("cuda") else 2048
+    rng = np.random.default_rng(HP_EDGE_SEED)
+    out = []
+
+    def add(label, codes, n_pay, n_dev, cap, wide=(1,)):
+        c = torch.from_numpy(np.asarray(codes, dtype=np.int32)).to(device)
+        pays = tuple(
+            torch.from_numpy(rng.integers(-2**62 if k in wide else -2**31,
+                                          2**62 if k in wide else 2**31,
+                                          len(codes)).astype(
+                np.int64 if k in wide else np.int32)).to(device)
+            for k in range(n_pay))
+        out.append((label, c, pays, n_dev, cap))
+
+    for n in (1, tile - 1, tile, tile + 1, 33 * tile + 7):
+        for n_dev in (1, 3, 8, 64):
+            codes = rng.integers(-1, 1 << 20, n)
+            cap = 1 << max(((2 * n) // n_dev + 16 - 1).bit_length(), 0)
+            add(f"n{n}_dev{n_dev}", codes, 2, n_dev, cap)
+    n = 4 * tile + 5
+    add("one_partition_overflow", np.full(n, 77), 1, 4, 1024)
+    add("one_partition_cap_exact", np.full(4096, 77), 1, 2, 4096)
+    add("all_without_partition", np.full(n, -1), 2, 8, 64)
+    add("sixteen_payloads", rng.integers(0, 1000, n), 16, 16, 1024,
+        wide=(0, 5, 9, 15))
+    for n_dev in (2, 4, 5, 16, 31, 32, 63, 64):
+        add(f"dev{n_dev}", rng.integers(-3, 50_000, 50_000), 1, n_dev,
+            1 << max(((2 * 50_000) // n_dev + 16 - 1).bit_length(), 0))
+    return out
+
+
+def hashpart_edge_check(device: str = "cuda") -> dict:
+    """hash_partition held bitwise against its plain version on the edge
+    cases and across 20 back-to-back launches of one input; the flag must
+    be set exactly where a partition outgrows its cap."""
+    from pinot_tpu_torch.ops import hashpart as H
+
+    cases = _hp_edge_inputs(device)
+    with _holding():
+        flags = {}
+        for label, codes, pays, n_dev, cap in cases:
+            want = H.hash_partition_reference(codes, pays, n_dev, cap)
+            got = H.hash_partition(codes, pays, n_dev, cap)
+            _same_partition(got, want, label)
+            flags[label] = bool(got[1].any())
+        if not flags["one_partition_overflow"] or \
+                flags["one_partition_cap_exact"] or \
+                flags["all_without_partition"]:
+            raise AssertionError(f"hash_partition's flags: {flags}")
+        label, codes, pays, n_dev, cap = cases[-1]
+        want = H.hash_partition_reference(codes, pays, n_dev, cap)
+        outs = [H.hash_partition(codes, pays, n_dev, cap)
+                for _ in range(20)]
+        for got in outs:
+            _same_partition(got, want, f"{label} (20 back to back)")
+    row = {"cases": len(cases), "repeats": 20, "max_abs_err": 0.0,
+           "overflow_cases": sorted(k for k, v in flags.items() if v)}
+    phase("hashpart_edges", **row)
+    return row
+
+
+def _mesh_ssb(query, dm, segs, arm: str, shards, device: str,
+              k1_cap: list, k1_distinct: list, ran: list,
+              live: list) -> tuple:
+    """The 13 SSB queries on one arm (the per-segment path, or the table
+    resident on a mesh of ``shards`` logical shards): one warm-up and
+    ITERS timed runs each; each query's K1 launches folded into
+    ``k1_distinct`` after it; tracked == held over ``live`` (every
+    segment on the device) with the mesh's stacks resident. Returns
+    ({qid: digest}, {qid: p50 ms})."""
+    from pinot_tpu_torch.parallel import DistributedTable, logical_mesh
+    from pinot_tpu_torch.tools import ssb
+
+    if shards is not None:
+        dm.set_distributed(DistributedTable(segs,
+                                            logical_mesh(shards, device)))
+    digests, p50 = {}, {}
+    try:
+        for qid, p, v, g in ssb.QUERIES:
+            sql = ssb.spec_to_sql(p, v, g)
+            n0 = len(ran)
+            res = query(sql)
+            times = []
+            for _ in range(ITERS):
+                t0 = time.perf_counter()
+                res = query(sql)
+                times.append((time.perf_counter() - t0) * 1e3)
+            digests[qid] = ssb._digest(res.rows)
+            p50[qid] = statistics.median(times)
+            if shards is not None and ran[n0:] != [True] * (ITERS + 1):
+                raise AssertionError(f"mesh {arm} {qid}: the mesh did not "
+                                     f"take the query ({ran[n0:]})")
+            for i, item in enumerate(k1_cap):
+                k1_cap[i] = (f"{arm}:{qid}", *item[1:])
+            _fold(k1_cap, k1_distinct, _k1_key)
+        if shards is not None:
+            # the mesh's stacks resident: tracked == held
+            _reconcile_or_fail(live, f"mesh {arm}")
+    finally:
+        if shards is not None:
+            dm.set_distributed(None)
+    return digests, p50
+
+
+def mesh_phase(star_dirs, tables, tile: int, live_segments=(),
+               device: str = "cuda") -> dict:
+    """The mesh plane on logical shards: (a) the SSB lineorder at
+    MESH_ROWS rows in MESH_SEGMENTS segments with shared dictionaries
+    (tools/ssb.build_table_dir(..., shared_dicts=True), cached under
+    .torch_cache/), the 13 queries through Broker(device) on the
+    per-segment path, then with the table resident on a 1-shard and a
+    MESH_SHARDS-shard mesh (DistributedTable, K18: K1 on each shard's
+    flattened segments, the collectives' combine): every digest equal on
+    the three arms, every mesh query taken by the mesh, p50 per query on
+    each; (b) the star schema's join3_gb on the mailbox plane and join_gb
+    and join3_gb on the fused plane over the mesh (using_mesh): the
+    mailbox plane's mesh_shuffle and mesh_broadcast backends, the fused
+    plane's hash stages (hash_partition and one all_to_all a column a
+    stage), rows equal to ms_oracle; (c) every K1 and hash_partition
+    launch of (a) and (b) captured with its inputs as it launches, held
+    bitwise against its plain version and timed with CUDA events
+    (kernel_at_mesh_path, hashpart_at_mesh_path; the phase fails on a
+    launch it did not hold), hash_partition on its edge cases; (d)
+    tracked == held with the mesh's stacks resident and after the phase,
+    and the memory back to the phase's baseline. Returns the launches of
+    K1 and hash_partition on the path and hash_partition's rows."""
+    import gc as _gc
+
+    import torch
+
+    from pinot_tpu_torch.broker import Broker, connect
+    from pinot_tpu_torch.multistage import device_join, fused
+    from pinot_tpu_torch.multistage import executor as msexec
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops import hashpart as H
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.parallel import distributed as pdist
+    from pinot_tpu_torch.parallel import logical_mesh, using_mesh
+    from pinot_tpu_torch.server import TableDataManager
+    from pinot_tpu_torch.tools import ssb, star
+
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+    _gc.collect()
+    base_mem = torch.cuda.memory_allocated() if on_card else 0
+    table_dir = os.path.join(CACHE, f"ssb_mesh_{MESH_ROWS}_{MESH_SEGMENTS}")
+    t0 = time.perf_counter()
+    cached = os.path.isdir(table_dir) and sum(
+        os.path.exists(os.path.join(table_dir, d, "metadata.json"))
+        for d in os.listdir(table_dir)) == MESH_SEGMENTS
+    if not cached:
+        shutil.rmtree(table_dir, ignore_errors=True)
+        ssb.build_table_dir([MESH_ROWS // MESH_SEGMENTS] * MESH_SEGMENTS,
+                            table_dir, shared_dicts=True)
+    build_s = time.perf_counter() - t0
+    dm = TableDataManager("lineorder", device=device)
+    dm.add_table_dir(table_dir)
+    segs = dm.acquire_segments()
+    broker = Broker(device=device)
+    broker.register_table(dm)
+    query = connect(broker)
+    ms_broker = star.load_broker(star_dirs, device)
+    ms_query = connect(ms_broker)
+    ms_segs = [s for name in star_dirs
+               for s in ms_broker.table(name).acquire_segments()]
+    oracle = ms_oracle(tables)
+    ran: list = []                       # the mesh took each query or not
+    real_try = pdist.DistributedTable.try_execute
+
+    def try_spy(self, ctx):
+        out = real_try(self, ctx)
+        ran.append(out is not None)
+        return out
+
+    kinds: list = []                     # each fused plan's stage kinds
+    real_plan = fused.plan_fused
+
+    def plan_spy(*a, **kw):
+        plan, stages, reason = real_plan(*a, **kw)
+        if plan is not None:
+            kinds.append([s.kind for s in stages])
+        return plan, stages, reason
+
+    k1_cap: list = []
+    k1_distinct: list = []
+    hp_cap: list = []
+    hp_distinct: list = []
+    arms: dict = {}
+    ms_rows: dict = {}
+    pdist.DistributedTable.try_execute = try_spy
+    fused.plan_fused = plan_spy
+    saved_bound = msexec.BROADCAST_THRESHOLD
+    d0, f0 = dict(device_join.STATS), dict(fused.STATS)
+    C.launches = H.launches = 0          # the mesh path starts here
+    try:
+        with _fuzz_recording(k1_cap, "mesh"), \
+                _hp_recording(hp_cap, "mesh"):
+            for arm, shards in (("per_segment", None), ("mesh_1", 1),
+                                (f"mesh_{MESH_SHARDS}", MESH_SHARDS)):
+                arms[arm] = _mesh_ssb(query, dm, segs, arm, shards, device,
+                                      k1_cap, k1_distinct, ran,
+                                      list(live_segments) + segs + ms_segs)
+            with using_mesh(logical_mesh(MESH_SHARDS, device)):
+                for plane, shapes, opt, env, bound in MESH_MS_PLANES:
+                    msexec.BROADCAST_THRESHOLD = bound
+                    with _plane_env(env):
+                        for shape in shapes:
+                            sql = dict(star.SHAPES)[shape](0) + \
+                                f" OPTION(multistageFused={opt}," \
+                                "timeoutMs=600000)"
+                            t0 = time.perf_counter()
+                            rows = _ms_rows(ms_query(sql).rows)
+                            ms_rows[(plane, shape)] = \
+                                (time.perf_counter() - t0) * 1e3
+                            if rows != oracle[shape](0):
+                                raise AssertionError(
+                                    f"mesh {shape} on {plane}: rows differ "
+                                    "from the oracle")
+                            for i, item in enumerate(hp_cap):
+                                hp_cap[i] = (f"{plane}:{shape}", *item[1:])
+                            _fold(hp_cap, hp_distinct, _hp_key)
+                    msexec.BROADCAST_THRESHOLD = saved_bound
+        k1_launches, hp_launches = C.launches, H.launches  # ... and ends
+    finally:
+        pdist.DistributedTable.try_execute = real_try
+        fused.plan_fused = real_plan
+        msexec.BROADCAST_THRESHOLD = saved_bound
+    joins = {k: device_join.STATS[k] - d0[k] for k in d0}
+    fplans = {k: fused.STATS[k] - f0[k] for k in f0}
+    path_s = time.perf_counter() - t_phase - build_s
+    ref = arms["per_segment"][0]
+    for arm, (dig, _p50) in arms.items():
+        bad = [q for q in ref if dig[q] != ref[q]]
+        if bad:
+            raise AssertionError(f"mesh {arm}: digests differ from the "
+                                 f"per-segment path's on {bad}")
+    for qid in ref:
+        phase("mesh_query", qid=qid, ok=True,
+              **{f"{arm}_p50_ms": pq[qid] for arm, (_d, pq)
+                 in arms.items()})
+    if joins["mesh_joins"] <= 0 or not any("hash" in k for k in kinds) or \
+            fplans["fused_plans"] < 2:
+        raise AssertionError(f"mesh: the multi-stage mesh planes did not "
+                             f"run: joins {joins}, fused {fplans}, stage "
+                             f"kinds {kinds}")
+    phase("mesh_multistage", ok=True, shards=MESH_SHARDS,
+          orders_rows=MS_ROWS, ms={f"{pl}:{sh}": ms for (pl, sh), ms
+                                   in ms_rows.items()},
+          joins=joins, fused=fplans, stage_kinds=kinds)
+    # every launch of the path held (c)
+    for i, item in enumerate(k1_cap):
+        k1_cap[i] = ("mesh", *item[1:])
+    _fold(k1_cap, k1_distinct, _k1_key)
+    _fold(hp_cap, hp_distinct, _hp_key)
+    t0 = time.perf_counter()
+    k1_held = _hold_distinct_k1(k1_distinct, tile, on_card)
+    C.launches = k1_launches
+    hp = _hold_distinct_hp(hp_distinct, on_card)
+    H.launches = hp_launches
+    edges = hashpart_edge_check(device)
+    H.launches = hp_launches
+    hold_s = time.perf_counter() - t0
+    if k1_launches == 0 or k1_launches > k1_held:
+        raise AssertionError(f"mesh: {k1_launches} K1 launches, {k1_held} "
+                             "of them held at launch")
+    if (on_card and hp_launches == 0) or hp_launches > hp["held"]:
+        raise AssertionError(f"mesh: {hp_launches} hash_partition "
+                             f"launches, {hp['held']} of them held at "
+                             "launch")
+    del k1_distinct, hp_distinct
+    # clean-up (d): the table's and the star's segments leave the card
+    _reconcile_or_fail(list(live_segments) + segs + ms_segs, "mesh")
+    for s in segs + ms_segs:
+        s.evict_device()
+    del dm, broker, query, ms_broker, ms_query, segs, ms_segs
+    global_cube_cache.clear()
+    _gc.collect()
+    _reconcile_or_fail(list(live_segments), "mesh done")
+    left = (torch.cuda.memory_allocated() - base_mem) if on_card else 0
+    if left > MEM_SLACK:
+        raise AssertionError(f"mesh: {left} bytes left on the card")
+    seconds = time.perf_counter() - t_phase
+    phase("mesh_done", seconds=seconds, rows=MESH_ROWS,
+          segments=MESH_SEGMENTS, shards=MESH_SHARDS, table_cached=cached,
+          table_build_s=build_s, path_s=path_s, hold_s=hold_s,
+          compact_launches=k1_launches, k1_held_at_launch=k1_held,
+          hashpart_launches=hp_launches, hashpart_held_at_launch=hp["held"],
+          bytes_left=left, tracked_equals_held=True,
+          cuts=[f"{MESH_ROWS} SSB rows (PINOT_SMOKE_MESH_ROWS) in "
+                f"{MESH_SEGMENTS} segments, {MESH_SHARDS} logical shards "
+                "on one card; the star schema at the multistage phase's "
+                f"{MS_ROWS} orders rows"])
+    return {"k1_launches": k1_launches, "hp_launches": hp_launches,
+            "hp": hp, "hp_edges": edges}
 
 
 # ---------------------------------------------------------------------------
@@ -4689,24 +5222,26 @@ def _stop_jobs() -> None:
 
 def start_builds(seg_dir: str, table_dir: str) -> dict:
     """Start every host build the format and rollup phases need, all at
-    once, a process each: the BITPACK and COMPRESSED copies of the SSB
-    segment (the COMPRESSED one asked for ZSTD, which the builder writes
-    as ZLIB where the native library lacks zstd) and the rollups of
+    once, a process each: the SSB segment at FORMAT_ROWS rows in PLAIN,
+    BITPACK and COMPRESSED copies (the COMPRESSED one asked for ZSTD,
+    which the builder writes as ZLIB where the native library lacks zstd)
+    and the rollups of
     hard-linked copies of the single segment and of the table's segments.
     Returns the jobs and what the phases need to read them (``codec``:
     the codec the COMPRESSED copy must name)."""
     from pinot_tpu_torch import native
 
     codec = "ZSTD" if native.zstd_available() else "ZLIB"
-    formats = {"bitpack": {"bit_packed_ids": True},
+    formats = {"plain": {},
+               "bitpack": {"bit_packed_ids": True},
                "compressed": {"no_dictionary_columns": list(METRIC_COLUMNS),
                               "compression": "ZSTD"}}
     copies = {}
     for name, indexing in formats.items():
-        out = os.path.join(CACHE, f"ssb_{name}_{N_ROWS}")
+        out = os.path.join(CACHE, f"ssb_{name}_{FORMAT_ROWS}")
         shutil.rmtree(out, ignore_errors=True)
         copies[name] = (os.path.join(out, "seg_0"), _start_job(
-            {"kind": "ssb", "rows": N_ROWS, "out": out,
+            {"kind": "ssb", "rows": FORMAT_ROWS, "out": out,
              "indexing": indexing}))
     base = os.path.join(CACHE, f"rollup_{N_ROWS}")
     shutil.rmtree(base, ignore_errors=True)
@@ -4763,18 +5298,19 @@ def _dir_bytes(path: str) -> int:
                for d, _s, fs in os.walk(path) for f in fs)
 
 
-def format_phase(plain_dir: str, builds: dict, digests: dict, tile: int,
-                 device: str = "cuda") -> int:
-    """The SSB lineorder (N_ROWS rows, seed 1992, one segment) written
-    twice more by the builds start_builds started: (a) with
-    bit_packed_ids (every dictionary column BITPACK) and (b) with the five
-    metric columns raw, asked for ZSTD (written and named ZLIB, printed,
-    where the library lacks zstd). Per copy: write seconds (the build process's own), bytes on disk
-    against PLAIN, load (decode) seconds, the 13 queries' digests (equal
-    to the PLAIN segment's) and p50 through Broker(device), K1 held
-    bitwise on each compact query's inputs (kernel_at_format_path). Then
-    each codec on one N_ROWS column: ratio, compress and decompress
-    seconds, the round trip equal. Returns K1's launches on the path."""
+def format_phase(builds: dict, tile: int, device: str = "cuda") -> int:
+    """The SSB lineorder at FORMAT_ROWS rows (seed 1992, one segment)
+    written three times by the builds start_builds started: PLAIN, (a)
+    with bit_packed_ids (every dictionary column BITPACK) and (b) with the
+    five metric columns raw, asked for ZSTD (written and named ZLIB,
+    printed, where the library lacks zstd). The numpy oracle's digests of
+    the 13 queries come from the PLAIN copy. Per copy: write seconds (the
+    build process's own), bytes on disk against PLAIN, load (decode)
+    seconds, the 13 queries' digests (equal to the oracle's) and p50
+    through Broker(device), K1 held bitwise on each compact query's inputs
+    (kernel_at_format_path). Then each codec on the PLAIN copy's
+    lo_revenue: ratio, compress and decompress seconds, the round trip
+    equal. Returns K1's launches on the path."""
     import numpy as np
 
     from pinot_tpu_torch import native
@@ -4785,11 +5321,20 @@ def format_phase(plain_dir: str, builds: dict, digests: dict, tile: int,
     from pinot_tpu_torch.tools import ssb
 
     codec = builds["codec"]
-    plain_bytes = _dir_bytes(plain_dir)
     sqls = [(qid, ssb.spec_to_sql(p, v, g)) for qid, p, v, g in ssb.QUERIES]
     t_start = time.perf_counter()
+    copies = dict(builds["copies"])
+    plain_dir, plain_proc = copies.pop("plain")
+    plain_write_s = _finish_job(plain_proc)["seconds"]
+    plain_bytes = _dir_bytes(plain_dir)
+    plain = load_segment(plain_dir, "cpu")       # host arrays only
+    t0 = time.perf_counter()
+    digests = {qid: ssb._digest(ssb.oracle_run(plain, p, v, g)[0])
+               for qid, p, v, g in ssb.QUERIES}
+    phase("format_plain", rows=FORMAT_ROWS, write_s=plain_write_s,
+          bytes=plain_bytes, oracle_s=time.perf_counter() - t0)
     launches = 0
-    for name, (seg_dir, proc) in builds["copies"].items():
+    for name, (seg_dir, proc) in copies.items():
         write_s = _finish_job(proc)["seconds"]
         t0 = time.perf_counter()
         seg = load_segment(seg_dir, device)
@@ -4829,7 +5374,7 @@ def format_phase(plain_dir: str, builds: dict, digests: dict, tile: int,
                   rows=len(res.rows))
             if not ok:
                 raise AssertionError(f"{name} {qid}: digest differs from "
-                                     "the PLAIN segment's")
+                                     "the oracle's")
         checked = 0
         for qid, sql in sqls:
             plans = _plans(sql, [seg])
@@ -4841,7 +5386,7 @@ def format_phase(plain_dir: str, builds: dict, digests: dict, tile: int,
         if copy_launches == 0 or checked == 0:
             raise AssertionError(f"the {name} copy never launched K1")
         nbytes = _dir_bytes(seg_dir)
-        phase("format", copy=name, rows=N_ROWS, write_s=write_s,
+        phase("format", copy=name, rows=FORMAT_ROWS, write_s=write_s,
               load_s=load_s, bytes=nbytes, plain_bytes=plain_bytes,
               bytes_vs_plain=nbytes / plain_bytes, formats=formats,
               asked="ZSTD" if name == "compressed" else None,
@@ -4851,7 +5396,6 @@ def format_phase(plain_dir: str, builds: dict, digests: dict, tile: int,
         seg.evict_device()
         shutil.rmtree(os.path.dirname(seg_dir), ignore_errors=True)
 
-    plain = load_segment(plain_dir, "cpu")       # host arrays only
     rev = np.ascontiguousarray(plain.fwd("lo_revenue"))
     sorted_col = next((c for c, m in plain.columns.items()
                        if m.is_sorted and m.encoding == "RAW"
@@ -4879,8 +5423,12 @@ def format_phase(plain_dir: str, builds: dict, digests: dict, tile: int,
               decompress_s=dec_s, equal=equal)
         if not equal:
             raise AssertionError(f"{codec_name} round trip differs")
+    shutil.rmtree(os.path.dirname(plain_dir), ignore_errors=True)
     phase("format_done", seconds=time.perf_counter() - t_start,
-          compact_launches=launches)
+          rows=FORMAT_ROWS, compact_launches=launches,
+          cuts=[f"{FORMAT_ROWS} rows (PINOT_SMOKE_FORMAT_ROWS); the "
+                "copies were of the 2^25-row SSB segment until the mesh "
+                "phase was added"])
     return launches
 
 
@@ -7767,6 +8315,13 @@ def _control_k1(labelled_plans, tile: int, on_card: bool,
     from pinot_tpu_torch.ops import compact as C
     from pinot_tpu_torch.ops.plan_cache import global_plan_cache
 
+    with _holding():
+        return _control_k1_held(labelled_plans, tile, on_card, path, C,
+                                batch, global_plan_cache)
+
+
+def _control_k1_held(labelled_plans, tile, on_card, path, C, batch,
+                     global_plan_cache) -> int:
     n, launches = 0, C.launches
     for label, plans in labelled_plans:
         for group in _k1_groups(plans):
@@ -7893,8 +8448,12 @@ def control_phase(table_dir: str, digests: dict, tile: int,
     beside (a)'s commit answers its queries from the card; (f) K1 held
     bitwise on every compact input of the path (kernel_at_control_path):
     both replicas', each distinct (server, query, segments) execution of
-    (a)-(c) as logged, the hybrid's before and after the merge. Returns
-    {"launches": K1's launches on the path, "seconds": the phase's}."""
+    (a)-(c) as logged, the hybrid's before and after the merge; and every
+    K1 launch of (a)-(d), a hedge straggler's after the servers stop
+    included, held bitwise against its plain version on its own inputs
+    as it launches (_held_as_launched, kernel_at_control_launch), the
+    phase failing on a launch it did not hold. Returns {"launches": K1's
+    launches on the path, "seconds": the phase's}."""
     import gc as _gc
     import threading
 
@@ -7937,9 +8496,12 @@ def control_phase(table_dir: str, digests: dict, tile: int,
     servers, broker, reps, n_held = [], None, [], 0
     global_slo.clear()
     global_incidents.reset()
+    at_launch: list = []                 # every K1 launch, held as launched
+    recording = contextlib.ExitStack()
     try:
         # (a) the replicated commit
         C.launches = 0                   # the control path starts here
+        recording.enter_context(_held_as_launched(at_launch, "control"))
         a = _control_commit(ctrl, work, z, device)
         reps = a["reps"]
         want = _rt_oracle(a["chosen"], os.path.join(work, "oracle"))
@@ -8290,7 +8852,10 @@ def control_phase(table_dir: str, digests: dict, tile: int,
               merge={"seconds": merge_s, **merge.result},
               offline_segments=len(offline.acquire_segments()),
               hybrid_ms=hybrid_ms, merged_ms=merged_ms)
-        control_launches = C.launches    # ... and ends here
+        control_launches = C.launches
+    except BaseException:
+        recording.close()
+        raise
     finally:
         qs_thread.join()
         global_slo.clear()
@@ -8301,9 +8866,12 @@ def control_phase(table_dir: str, digests: dict, tile: int,
             s.stop()
         ctrl.stop()
     if control_launches == 0:
+        recording.close()
         raise AssertionError("control: the path never launched the "
                              "compaction")
-    n_held += _hold_stragglers(ran, qids, "server", tile, on_card)
+    with recording:
+        n_held += _hold_stragglers(ran, qids, "server", tile, on_card)
+    control_launches = C.launches        # ... and ends here (stragglers in)
 
     # clean-up: the replicas', servers' and minion's segments leave
     held = _server_segments(servers) + offline.acquire_segments() + \
@@ -8313,6 +8881,8 @@ def control_phase(table_dir: str, digests: dict, tile: int,
     for m in reps:
         m.stop()
     del held, servers, broker, ctrl, reps, offline, rt, hybrid, a
+    n_launched = _check_held_at_launch(at_launch, control_launches, tile,
+                                       "kernel_at_control_launch", "control")
     global_cube_cache.clear()
     _gc.collect()
     _reconcile_or_fail(every, "control done")
@@ -8322,7 +8892,8 @@ def control_phase(table_dir: str, digests: dict, tile: int,
     shutil.rmtree(work, ignore_errors=True)
     seconds = time.perf_counter() - t_phase
     phase("control_done", seconds=seconds, compact_launches=control_launches,
-          k1_checked=n_held, bytes_left=left, tracked_equals_held=True)
+          k1_checked=n_held, k1_held_at_launch=n_launched, bytes_left=left,
+          tracked_equals_held=True)
     return {"launches": control_launches, "seconds": seconds}
 
 
@@ -8504,17 +9075,33 @@ def _fuzz_close(a, *others) -> list:
     return out
 
 
+# set on a thread while it holds a kernel to its plain version: the
+# launches a hold makes are not the path's and are not captured
+_HOLDING = threading.local()
+
+
+@contextlib.contextmanager
+def _holding():
+    _HOLDING.on = getattr(_HOLDING, "on", 0) + 1
+    try:
+        yield
+    finally:
+        _HOLDING.on -= 1
+
+
 @contextlib.contextmanager
 def _fuzz_recording(captured: list, label: str):
     """While open, every K1 call's inputs, cloned as it launches, are
-    appended to ``captured`` as (label, mask, cols, cap)."""
+    appended to ``captured`` as (label, mask, cols, cap); a hold's own
+    launches (``_holding``) are not."""
     from pinot_tpu_torch.ops import compact as C
 
     real = C.compact
 
     def capturing(mask, cols, cap):
-        captured.append((label, mask.clone(),
-                         tuple(c.clone() for c in cols), cap))
+        if not getattr(_HOLDING, "on", 0):
+            captured.append((label, mask.clone(),
+                             tuple(c.clone() for c in cols), cap))
         return real(mask, cols, cap)
 
     C.compact = capturing
@@ -8551,14 +9138,68 @@ def _hold_captured(captured: list, tile: int, on_card: bool,
     from pinot_tpu_torch.engine import batch
     from pinot_tpu_torch.ops import compact as C
 
-    for label, mask, cols, cap in captured:
-        got = C.compact(mask, cols, cap)
-        same_outputs(got, C.compact_reference(mask, cols, cap))
-        phase(path, query=label,
-              **_k1_case_row(mask, cols, cap, got,
-                             route or batch.PER_SEGMENT, tile),
-              **(k1_event_times(mask, cols, cap, got) if on_card else {}))
+    with _holding():
+        for label, mask, cols, cap in captured:
+            got = C.compact(mask, cols, cap)
+            same_outputs(got, C.compact_reference(mask, cols, cap))
+            phase(path, query=label,
+                  **_k1_case_row(mask, cols, cap, got,
+                                 route or batch.PER_SEGMENT, tile),
+                  **(k1_event_times(mask, cols, cap, got) if on_card
+                     else {}))
     return len(captured)
+
+
+@contextlib.contextmanager
+def _held_as_launched(held: list, label: str):
+    """While open, every K1 call outside a hold (_holding) is held bitwise
+    against its plain version on its own inputs right after it launches,
+    in the caller's thread, and recorded in ``held`` as (label, rows,
+    column dtypes, cap, matched, the difference or None). The inputs are
+    not kept: the control phase's server groups reach 25,165,824 rows,
+    and a copy of each launch's would not fit on the card beside the
+    tables."""
+    from pinot_tpu_torch.ops import compact as C
+
+    real = C.compact
+
+    def holding(mask, cols, cap):
+        got = real(mask, cols, cap)
+        if not getattr(_HOLDING, "on", 0):
+            try:
+                same_outputs(got, C.compact_reference(mask, cols, cap))
+                err = None
+            except AssertionError as e:
+                err = str(e)
+            held.append((label, mask.shape[0], [str(c.dtype) for c in cols],
+                         cap, int(got[3]), err))
+        return got
+
+    C.compact = holding
+    try:
+        yield
+    finally:
+        C.compact = real
+
+
+def _check_held_at_launch(held: list, launched: int, tile: int, path: str,
+                          where: str) -> int:
+    """Print each launch held as it launched (``path``, route "as
+    launched"); fail on a launch whose kernel output differed from its
+    plain version, or when the path launched K1 more often than it held
+    (a launch that bypassed the hold). Returns the launches held."""
+    for label, n, cols, cap, matched, err in held:
+        phase(path, query=label, route="as launched", n=n,
+              tiles=-(-n // tile), cols=cols, slots_cap=cap, matched=matched,
+              equal=err is None)
+    bad = [h for h in held if h[-1] is not None]
+    if bad:
+        raise AssertionError(f"{where}: K1 differs from its plain version on "
+                             f"{len(bad)} launches: {bad[0]}")
+    if launched > len(held):
+        raise AssertionError(f"{where}: {launched} K1 launches, {len(held)} "
+                             "of them held at launch")
+    return len(held)
 
 
 def _fuzz_broker(seg, device: str):
@@ -8968,7 +9609,10 @@ def remote_phase(tile: int, live_segments=(), device: str = "cuda",
     load them and a BrokerNode answers the 13 SSB queries with the
     digests of Broker(device) over the same segments in process; K1
     held bitwise and timed on every compact input a server ran, recorded
-    inside each execution (kernel_at_remote_path). One segment each is
+    inside each execution (kernel_at_remote_path), and on every input the
+    path launched, held as it launched (_held_as_launched,
+    kernel_at_remote_launch; the phase fails on a launch it did not
+    hold). One segment each is
     pushed to gs://, hdfs:// and abfs:// on their stores; a server loads
     it from there and answers q1.1 and q2.1 with the in-process digests.
     A MetricsFlushTask runs the statsd (UDP loopback), Prometheus-file
@@ -9024,6 +9668,8 @@ def remote_phase(tile: int, live_segments=(), device: str = "cuda",
     in_process_queries = 0
     ctrl = servers = broker = None
     local_dms: list = []
+    at_launch: list = []                 # every K1 launch, held as launched
+    recording = contextlib.ExitStack()
     try:
         # the Avro files, one writer process a file (started before the
         # fuzz phase when main passes them in)
@@ -9117,6 +9763,7 @@ def remote_phase(tile: int, live_segments=(), device: str = "cuda",
         sqls = [(qid, ssb.spec_to_sql(p, v, g))
                 for qid, p, v, g in ssb.QUERIES]
         C.launches = 0                   # the remote path starts here
+        recording.enter_context(_held_as_launched(at_launch, "remote"))
         p50 = {}
         for qid, sql in sqls:
             times = []
@@ -9177,7 +9824,7 @@ def remote_phase(tile: int, live_segments=(), device: str = "cuda",
                                "download_and_load_s": dl_s,
                                "held_by": holders[0], "ms": got}
         phase("remote_schemes", ok=True, schemes=schemes)
-        launches = C.launches            # ... and ends here
+        launches = C.launches
         qids = {sql: qid for qid, sql in sqls}
         n_held = _control_k1(_executed_plans(ran, qids, "remote"), tile,
                              on_card, "kernel_at_remote_path")
@@ -9190,14 +9837,19 @@ def remote_phase(tile: int, live_segments=(), device: str = "cuda",
         formats = _remote_formats(os.path.join(work, "formats"), device)
         in_process_queries += 2
         phase("remote_formats", ok=True, **formats)
+    except BaseException:
+        recording.close()
+        raise
     finally:
         sched.stop()
         _stop_all(broker, *(servers or ()), ctrl, *stores.values())
         fsreg._REGISTRY.clear()
         fsreg._REGISTRY.update(saved_fs)
         fsreg._INSTANCES.clear()
-    n_held += _hold_stragglers(ran, qids, "remote", tile, on_card,
-                               "kernel_at_remote_path")
+    with recording:
+        n_held += _hold_stragglers(ran, qids, "remote", tile, on_card,
+                                   "kernel_at_remote_path")
+    launches = C.launches                # ... and ends here (stragglers in)
 
     # the sinks against the broker's counter
     flush.run_once()
@@ -9222,6 +9874,8 @@ def remote_phase(tile: int, live_segments=(), device: str = "cuda",
     phase("remote_metrics", ok=True, broker_queries=total,
           phase_queries=in_process_queries, sinks=sink_counts,
           flushes=flush.run_count, statsd_datagrams=statsd.datagrams)
+    n_launched = _check_held_at_launch(at_launch, launches, tile,
+                                       "kernel_at_remote_launch", "remote")
 
     # clean-up: every segment of the phase leaves the card
     for s in servers or ():
@@ -9241,7 +9895,8 @@ def remote_phase(tile: int, live_segments=(), device: str = "cuda",
     shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(avro["dir"], ignore_errors=True)
     phase("remote_done", seconds=time.perf_counter() - t_phase,
-          compact_launches=launches, k1_checked=n_held, bytes_left=left,
+          compact_launches=launches, k1_checked=n_held,
+          k1_held_at_launch=n_launched, bytes_left=left,
           tracked_equals_held=True)
     return launches
 
@@ -9484,7 +10139,7 @@ def main() -> int:
     drift_launches = drift_phase(single)
     overload_launches = overload_phase(single, segs, digests, tile)
     builds = start_builds(seg_dir, table_dir)
-    format_launches = format_phase(seg_dir, builds, digests, tile)
+    format_launches = format_phase(builds, tile)
     rollup_launches, rollup_query_fn, rollup_segs = rollup_phase(
         builds, digests, single, segs, tile)
     trace_launches = trace_phase(single, segs, rollup_query_fn, digests)
@@ -9502,6 +10157,7 @@ def main() -> int:
     scan = segscan_check(ms_inputs, S.tile_rows())
     agg = segagg_check(ms_inputs)
     traced_check(ms_inputs)
+    mesh = mesh_phase(star_dirs, tables, tile, [single, surface_seg, *segs])
     statement_launches = statements_phase(surface_seg, segs, star_dirs,
                                           tables, tile, [single])
     geo_launches = geo_phase(tile, [single, surface_seg, *segs])
@@ -9531,7 +10187,7 @@ def main() -> int:
         + trace_launches + realtime_launches + overload_launches
         + wire_launches + cluster_launches + control["launches"]
         + loadgen_launches + fuzz_launches + remote_launches
-        + compat["launches"],
+        + compat["launches"] + mesh["k1_launches"],
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -9563,6 +10219,7 @@ def main() -> int:
         "fuzz_launches": fuzz_launches,
         "remote_launches": remote_launches,
         "compat_launches": compat["launches"],
+        "mesh_launches": mesh["k1_launches"],
         **{f"segmented_{k}": v for k, v in seg_totals.items()},
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
@@ -9593,7 +10250,43 @@ def main() -> int:
               "over segments pushed to s3, gs, hdfs and abfs stores) and "
               "the compat phase's (the yaml suite's cluster, the golden "
               "segment, and the SSB table on two server nodes rolled "
-              "role by role)"}, {
+              "role by role) and the mesh phase's (the SSB table per "
+              "segment and resident on 1 and 4 logical shards)"}, {
+        "name": "hash_partition",
+        "route": "cuda",
+        "source": "pinot_tpu_torch/ops/csrc/hashpart.cu",
+        "replaces": "pinot_tpu/ops/join.py:92",
+        "launches": mesh["hp_launches"],
+        "max_abs_err": mesh["hp_edges"]["max_abs_err"],
+        "ms": mesh["hp"]["widest"]["ms"],
+        "plain_ms": mesh["hp"]["widest"]["plain_ms"],
+        "bound_ms": mesh["hp"]["widest"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "sort_ms": mesh["hp"]["widest"]["sort_ms"],
+        "cold_ms": mesh["hp"]["widest"]["cold_ms"],
+        "device_ms": mesh["hp"]["widest"]["device_ms"],
+        "split_ms": mesh["hp"]["widest"]["split_ms"],
+        "host_ms": mesh["hp"]["widest"]["host_ms"],
+        "n": mesh["hp"]["widest"]["n"],
+        "n_dev": mesh["hp"]["widest"]["n_dev"],
+        "cap": mesh["hp"]["widest"]["cap"],
+        "payloads": mesh["hp"]["widest"]["payloads"],
+        "path_sums": mesh["hp"]["sums"],
+        "edge_cases": mesh["hp_edges"]["cases"],
+        "at": "the widest input of the mesh phase's path (the star schema "
+              f"at {MS_ROWS} orders rows on {MESH_SHARDS} logical shards: "
+              "the shuffle join's and the fused hash stages' exchanges), "
+              "also pinot_tpu/multistage/fused.py:333; ms = CUDA events "
+              "over 20 back-to-back calls, cold_ms after a 128 MiB write, "
+              "device_ms by torch.profiler (count, scan, scatter, memsets); "
+              "plain_ms = hash_partition_reference (stable sort, "
+              "searchsorted, index_put) on the card; no single PyTorch "
+              "call computes it (library_ms null): sort_ms is "
+              "torch.sort(stable=True) of the partition ids alone, the "
+              "sort half; path_sums over every distinct input; launches = "
+              "the mesh phase's, each held bitwise; max_abs_err over the "
+              "path's inputs and the edge cases (bitwise)"}, {
         "name": "segscan",
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/segscan.cu",

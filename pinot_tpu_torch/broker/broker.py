@@ -896,7 +896,22 @@ class Broker:
 
     def _execute_ctx(self, ctx, stmt, t0: float, deadline: float,
                      query_id: str) -> ResultTable:
-        segments = self.table(ctx.table).acquire_segments()
+        dm = self.table(ctx.table)
+        segments = dm.acquire_segments()
+        # mesh-resident table: one dispatch over the mesh and the
+        # collectives' combine replace the per-segment scatter-gather
+        dist = getattr(dm, "distributed", None)
+        if dist is not None and ctx.is_aggregation and not stmt.explain:
+            with Tracing.phase(ph.DISTRIBUTED_EXECUTE), \
+                    span(ph.DISTRIBUTED_EXECUTE):
+                partial = dist.try_execute(ctx)
+            if partial is not None:
+                result = reduce_partials(ctx, [partial])
+                result.num_segments = len(dist.segments)
+                result.num_docs_scanned = sum(s.n_docs
+                                              for s in dist.segments)
+                result.time_ms = (time.perf_counter() - t0) * 1e3
+                return result
         if stmt.explain:
             # a rollup that would answer a segment is counted, never run
             ex = plan_segments(ctx, segments, explain=True)

@@ -466,19 +466,23 @@ def tier_health(snapshot: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def reconcile_devmem(segments) -> Dict[str, Dict[str, int]]:
-    """Tracked-vs-actual bytes of the port's five pools: the check that
+    """Tracked-vs-actual bytes of the port's six pools: the check that
     no promote/demote/evict path leaks accounting. ``segments`` is the
     live segment set whose device caches (and their loaded rollups') back
     the segment_cols pool; the actual bytes are read from
     ``ImmutableSegment._device``, every live
     vector index reader (index/vector.live_readers),
-    ``engine/batch._STACK_CACHE`` and the cube cache's per-segment and
-    stacked entries (ops/plan_cache.global_cube_cache). Verification
-    only, never on a serving path."""
+    ``engine/batch._STACK_CACHE``, the cube cache's per-segment and
+    stacked entries (ops/plan_cache.global_cube_cache) and every live
+    mesh-resident table's stacks (parallel/distributed.live_tables).
+    Verification only, never on a serving path."""
     from ..index import vector as vix
     from ..ops.plan_cache import global_cube_cache
+    from ..parallel import distributed
     from . import batch
     actual = {
+        "mesh_stack": sum(t.device_bytes()
+                          for t in distributed.live_tables()),
         "segment_cols": sum(int(t.nbytes) for s in segments
                             for r in [s, *s.rollup_segments()]
                             for t in list(r._device.values())),

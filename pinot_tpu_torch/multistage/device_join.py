@@ -1,18 +1,22 @@
-"""Device-backed equi-join for the multi-stage engine, on one device.
+"""Device-backed equi-join for the multi-stage engine.
 
 Port of ``pinot_tpu/multistage/device_join.py``: dict-encodable
 equi-joins whose build side fits the broadcast bound route through
-``ops.join.device_equi_join`` (K16) on the broker's device, with numpy
-``hash_join`` as the fallback for shapes the dense formulation does not
-fit. Key factorization stays on the host (it is a dictionary build); the
-O(L log R) probe runs on the device. The mesh backends (broadcast over a
-mesh, the hash shuffle) are not ported: ``try_mesh_shuffle_join`` returns
-None, as the reference does on one device.
+``ops.join.device_equi_join`` (K16) on the broker's device, or
+``ops.join.mesh_equi_join`` (the probe side sharded over the default mesh
+of ``parallel/mesh.py``) when that mesh has more than one shard, with
+numpy ``hash_join`` as the fallback for shapes the dense formulation does
+not fit. Big-build INNER joins try ``try_mesh_shuffle_join`` first (the
+hash-bucket exchange over the mesh, ``ops.join.mesh_shuffle_join``); on a
+one-shard mesh it returns None, as the reference does on one device. Key
+factorization stays on the host (it is a dictionary build); the
+O(L log R) probe runs on the device.
 
 Output is BYTE-IDENTICAL to numpy ``hash_join``, including row order
 (left-major, build rows within a run in stable sorted-key order): the
-device join resolves pairs through the same stable sort of the same
-factorized codes, so the executor switches backends per join with no
+broadcast backends resolve pairs through the same stable sort of the
+same factorized codes, and the shuffle backend lexsorts its pairs back
+into that order, so the executor switches backends per join with no
 downstream difference. The per-join tensors are scratch of the call:
 only host arrays leave it.
 """
@@ -24,7 +28,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.join import device_equi_join
+from ..ops.join import device_equi_join, mesh_equi_join, mesh_shuffle_join
 from ..utils.stats import make_bump
 from .join import _composite_codes, _key_nulls, materialize_join
 from .relation import Relation
@@ -92,12 +96,41 @@ def _bounded_max_dup(valid_build_codes: np.ndarray) -> Optional[int]:
 
 
 def try_mesh_shuffle_join(left: Relation, right: Relation,
-                          lkeys: List[str], rkeys: List[str]
+                          lkeys: List[str], rkeys: List[str],
+                          device: torch.device
                           ) -> Optional[Relation]:
-    """The device hash-shuffle join over a mesh of devices. The port runs
-    on one device, where the reference returns None too: the caller
-    falls back to the mailbox HashExchange."""
-    return None
+    """Device hash-shuffle INNER join over the default mesh for
+    ``device`` (big build sides the broadcast path rejects): one
+    ``all_to_all`` repartitions both key streams across the shards, each
+    shard joins its partition locally (``ops.join.mesh_shuffle_join``).
+    None -> the caller falls back to the mailbox HashExchange (one shard,
+    a small probe, an oversized key multiplicity, or a bucket overflow
+    after the slack retry)."""
+    from ..parallel.mesh import default_mesh
+
+    mesh = default_mesh(device)
+    if mesh.size <= 1:
+        return None
+    if left.n_rows < _min_probe_rows() or right.n_rows == 0:
+        return None
+    code_l, code_r = _poisoned_codes(left, right, lkeys, rkeys)
+    valid_r = code_r[code_r >= 0]
+    if valid_r.size == 0:
+        return None
+    max_dup = _bounded_max_dup(valid_r)
+    if max_dup is None:
+        return None
+    pairs = mesh_shuffle_join(mesh, code_l, code_r, max_dup)
+    if pairs is None:
+        pairs = mesh_shuffle_join(mesh, code_l, code_r, max_dup,
+                                  slack=4.0)   # one skew retry
+    if pairs is None:
+        return None
+    l_idx, r_idx = pairs
+    bump("mesh_joins")
+    matched = np.ones(len(l_idx), dtype=bool)
+    return materialize_join(left, right, l_idx.astype(np.int64),
+                            r_idx.astype(np.int64), matched, "inner")
 
 
 def try_device_join(left: Relation, right: Relation,
@@ -138,13 +171,21 @@ def try_device_join(left: Relation, right: Relation,
         code_l = code_l.astype(np.int32)
         code_r = code_r.astype(np.int32)
 
-    match, r_dense = device_equi_join(
-        torch.from_numpy(code_l).to(device),
-        torch.from_numpy(code_r).to(device), max_dup)
-    match = match.cpu().numpy()
-    r_dense = r_dense.cpu().numpy()
-    backend = "device"
-    bump("device_joins")
+    from ..parallel.mesh import default_mesh
+
+    mesh = default_mesh(device)
+    if mesh.size > 1:
+        match, r_dense = mesh_equi_join(mesh, code_l, code_r, max_dup)
+        backend = "mesh_broadcast"
+        bump("mesh_joins")
+    else:
+        match, r_dense = device_equi_join(
+            torch.from_numpy(code_l).to(device),
+            torch.from_numpy(code_r).to(device), max_dup)
+        match = match.cpu().numpy()
+        r_dense = r_dense.cpu().numpy()
+        backend = "device"
+        bump("device_joins")
 
     counts = match.sum(axis=1)
     li, j = np.nonzero(match)             # left-major, sorted-run order

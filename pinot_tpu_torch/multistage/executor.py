@@ -1,10 +1,12 @@
 """Multi-stage query execution: leaf scans -> shuffles -> joins -> agg.
 
 Port of ``pinot_tpu/multistage/executor.py`` (``MultiStageExecutor``,
-``execute_multistage``) on the broker's one device: leaf scans read the
-segments' host copies, joins run on the device (``device_join``, K16) or
-numpy, the window stage's scans on the device (``window``, K17), and a
-co-located plan may run whole as one device program (``fused``, K19).
+``execute_multistage``) on the broker's device, or over the shards of
+its default mesh (``parallel/mesh.py``): leaf scans read the segments'
+host copies, joins run on the device (``device_join``, K16, with its mesh
+broadcast and hash-shuffle variants) or numpy, the window stage's scans
+on the device (``window``, K17), and a co-located plan may run whole as
+one device program (``fused``, K19).
 EXPLAIN (``explain_multistage``) describes the stage topology without a
 scan, with the reference's operator names. The span instrumentation is
 not ported.
@@ -301,8 +303,12 @@ class MultiStageExecutor:
             # the common small query routes mailbox without asking for a
             # device count it won't use
             return choose_multistage_plane(0, est, width, None, None)
-        # the port runs a plan on the broker's one device
-        return choose_multistage_plane(1, est, width, None, force)
+        from ..parallel.mesh import default_mesh
+
+        # the shards of the broker's mesh (jax.device_count() in the
+        # reference)
+        return choose_multistage_plane(default_mesh(self.broker.device).size,
+                                       est, width, None, force)
 
     # -- joins -------------------------------------------------------------
     def _split_on(self, on: Any, left_labels: Set[str], right_label: str
@@ -371,10 +377,11 @@ class MultiStageExecutor:
                 return hash_join(left, right, lkeys, rkeys, how)
             self.join_backends.append(backend)
             return rel
-        # big build side: the device hash-shuffle across devices runs
-        # first (None on one device); the mailbox HashExchange is the
-        # host fallback
-        rel = device_join.try_mesh_shuffle_join(left, right, lkeys, rkeys)
+        # big build side: the device hash-shuffle across the mesh's
+        # shards runs first (None on one shard); the mailbox HashExchange
+        # is the host fallback
+        rel = device_join.try_mesh_shuffle_join(left, right, lkeys, rkeys,
+                                                self.broker.device)
         if rel is not None:
             self.join_backends.append("mesh_shuffle")
             return rel
@@ -488,7 +495,7 @@ class MultiStageExecutor:
             if plane == "fused":
                 from .fused import execute_fused
                 current = execute_fused(self, ordered_joins, needed,
-                                        pushed)
+                                        pushed, BROADCAST_THRESHOLD)
                 if current is not None:
                     self.plane = "fused"
                     self.join_backends = ["fused"] * len(ordered_joins)

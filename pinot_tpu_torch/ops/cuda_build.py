@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel library name -> its sources under csrc/
 SOURCES: Dict[str, List[str]] = {"compact": ["compact.cu"],
+                                  "hashpart": ["hashpart.cu"],
                                   "segagg": ["segagg.cu"],
                                   "segscan": ["segscan.cu"],
                                   "vecsearch": ["vecsearch.cu"]}

@@ -1036,24 +1036,36 @@ def build_select_kernel(plan: SelectPlan, bucket: int):
 def build_kernel(plan: KernelPlan, bucket: int,
                  slots_cap: Optional[int] = None,
                  xfer_compact: bool = True,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 local_segments: int = 1):
     """Return fn(cols, n_docs, params) -> dict of partial aggregation
-    states. Every cols[i] has the same (bucket,) length; params are
-    tensors on the same device (engine/executor.resolve_params).
+    states. Every cols[i] has the same (bucket * local_segments,) length;
+    params are tensors on the same device (engine/executor.resolve_params).
     slots_cap sizes the compaction output for the 'compact' strategy
-    (default ops/compact.default_slots_cap); its "overflow" output tells
-    the executor to retry at full capacity. ``device`` is the segment's
-    (inferred from the inputs when None)."""
+    (default ops/compact.default_slots_cap of the total rows); its
+    "overflow" output tells the executor to retry at full capacity.
+    ``device`` is the segment's (inferred from the inputs when None).
 
-    def kernel(cols: Tuple[Tensor, ...], n_docs: int,
+    With ``local_segments`` > 1 the cols are that many same-bucket
+    segments concatenated along the row axis (a mesh shard's, the
+    reference's ``local_segments`` path) and ``n_docs`` holds their
+    ``local_segments`` doc counts."""
+    total = bucket * local_segments
+
+    def kernel(cols: Tuple[Tensor, ...], n_docs,
                params: Tuple[Tensor, ...]) -> Dict[str, Tensor]:
         dev = device if device is not None else _device_of(cols, params)
-        valid = torch.arange(bucket, device=dev) < n_docs
-        mask = valid & _eval_pred(plan.pred, cols, params, bucket, dev)
+        if local_segments == 1:
+            valid = torch.arange(total, device=dev) < n_docs
+        else:
+            docs = torch.as_tensor(n_docs, dtype=torch.int64, device=dev)
+            valid = (torch.arange(bucket, device=dev)[None, :]
+                     < docs[:, None]).reshape(total)
+        mask = valid & _eval_pred(plan.pred, cols, params, total, dev)
         out: Dict[str, Tensor] = {}
         if plan.is_group_by and plan.strategy == "compact":
             from .compact import default_slots_cap
-            cap = slots_cap or default_slots_cap(bucket)
+            cap = slots_cap or default_slots_cap(total)
             sparse = (xfer_compact and _needs_sort(plan)
                       and plan.group_space >= GROUP_XFER_SPACE)
             _compact_group_aggs(plan, mask, cols, params, cap, out,

@@ -6,7 +6,9 @@ which reconciles every segment's secondary indexes with the table config).
 Every segment of a table lives on the table's ``device``. A realtime
 table (``realtime/manager.py``) adds its consuming snapshots to
 ``acquire_segments``; ``reload`` skips them, as they have no files yet.
-The mesh-resident table is not ported.
+A table may also be resident on a mesh (``set_distributed``, a
+``parallel/distributed.DistributedTable``): the broker then prefers it for
+kernel-plan aggregations.
 """
 from __future__ import annotations
 
@@ -33,6 +35,16 @@ class TableDataManager:
         self._lock = threading.Lock()
         self._reload_lock = threading.Lock()
         self._schema = None
+        # optional mesh-resident DistributedTable (parallel/distributed.py);
+        # the broker prefers it for kernel-plan aggregations
+        self.distributed = None
+
+    def set_distributed(self, distributed) -> None:
+        """Make ``distributed`` (or None) the table's mesh-resident copy;
+        the copy it replaces leaves the mesh (its stacks are freed)."""
+        old, self.distributed = self.distributed, distributed
+        if old is not None and old is not distributed:
+            old.close()
 
     def add_segment(self, segment: ImmutableSegment) -> None:
         if segment.device != self.device:

@@ -160,23 +160,40 @@ def build_segment_dir(n: int, out_dir: str,
 
 
 def build_table_dir(sizes, out_dir: str,
-                    table_config: Optional[TableConfig] = None) -> str:
+                    table_config: Optional[TableConfig] = None,
+                    shared_dicts: bool = False) -> str:
     """Build a many-segment lineorder table: the seeded columns of
     ``sum(sizes)`` rows (the rows of ``build_segment_dir`` at that size,
     in order) split into one segment directory per entry of ``sizes``
     (``seg_0``, ``seg_1``, ... under ``out_dir``, as bench.py splits its
-    tier-bench table); each segment builds its own dictionaries. Returns
-    ``out_dir`` (``TableDataManager.add_table_dir`` loads it)."""
+    tier-bench table); each segment builds its own dictionaries, or with
+    ``shared_dicts`` every segment takes one table-level dictionary a
+    column (a mesh-resident table's requirement,
+    ``parallel/distributed.py``; the string columns' dictionaries already
+    list every value of the table). Returns ``out_dir``
+    (``TableDataManager.add_table_dir`` loads it)."""
     cols = gen_columns(int(sum(sizes)))
-    builder = SegmentBuilder(lineorder_schema(cols),
-                             table_config or TableConfig("lineorder"))
+    schema = lineorder_schema(cols)
+    builder = SegmentBuilder(schema, table_config or TableConfig("lineorder"))
+    shared = None
+    if shared_dicts:
+        from ..segment.dictionary import Dictionary
+        shared = {}
+        for f in schema.fields:
+            v = cols[f.name]
+            if isinstance(v, Categorical):
+                continue
+            uniq = np.unique(v)
+            if builder._use_dictionary(f, len(uniq)):
+                shared[f.name], _ = Dictionary.build(uniq, f.data_type)
     width = len(str(len(sizes) - 1))
     lo = 0
     for k, n in enumerate(sizes):
         part = {c: (Categorical(v.codes[lo:lo + n], v.values)
                     if isinstance(v, Categorical) else v[lo:lo + n])
                 for c, v in cols.items()}
-        builder.build(part, out_dir, f"seg_{k:0{width}d}")
+        builder.build(part, out_dir, f"seg_{k:0{width}d}",
+                      shared_dicts=shared)
         lo += n
     return out_dir
 

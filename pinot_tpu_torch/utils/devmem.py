@@ -24,10 +24,11 @@ from .metrics import global_metrics
 #   cube_cache    ops/plan_cache.CubeCache per-segment cubes (micro-batching)
 #   cube_stacked  ops/plan_cache.CubeCache stacks of those cubes
 #   vector        index/vector.VectorIndexReader device tensors
+#   mesh_stack    parallel/distributed.DistributedTable per-shard stacks
 # The JAX package's plan_cache_acc pool comes with the slice that ports
 # the donated plan-cache accumulators.
 POOLS = ("segment_cols", "stack_cache", "cube_cache", "cube_stacked",
-         "vector")
+         "vector", "mesh_stack")
 
 
 def nbytes_of(tree: Any) -> int:

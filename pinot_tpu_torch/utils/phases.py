@@ -71,12 +71,13 @@ TRACED_PHASES = frozenset(
     {PLANNING, EXECUTION, REDUCE, DISTRIBUTED_EXECUTE})
 
 # kernel-level span names, owned by their emit sites (engine/executor.py,
-# engine/batch.py, query/planner.py, ops/phase_profile.py)
+# engine/batch.py, parallel/distributed.py, query/planner.py,
+# ops/phase_profile.py)
 KERNEL_SPAN_NAMES = frozenset(
     {"plan_segment", "segment_host", "segment_kernel", "segment_kselect",
      "extract_partial", "device_execute", "device_transfer",
      "overflow_retry", "group_overflow_retry", "vmap_dispatch",
-     "segmented_compact_dispatch", "phase_profile",
+     "segmented_compact_dispatch", "mesh_dispatch", "phase_profile",
      "phase_mask", "phase_fuse", "phase_compact", "phase_sort",
      "phase_aggregate", "phase_transfer"})
 

@@ -15,7 +15,10 @@ measure nothing either. The phases are rehearsed end to end at tiny
 sizes; the cluster, control, fuzz and remote phases hold K1 on every
 input their path launched, the servers' taken from the plans each
 execution ran (recorded inside it, also when a move's drain lands in
-the middle).
+the middle), and the control and remote phases also hold every launch
+on its own inputs as it launches and fail on one they did not hold. The
+mesh phase holds every K1 and hash_partition launch of its path as
+captured.
 """
 import contextlib
 import os
@@ -978,3 +981,138 @@ def test_compat_phase_on_cpu(tmp_path, monkeypatch):
     assert got["compat_done"]["bytes_left"] == 0
     assert got["compat_done"]["compact_launches"] == out["launches"]
     assert out["held"] == out["launches"] == len(launched)
+
+
+def _launch_aside(monkeypatch, name: str):
+    """chip_smoke.<name> runs, then K1's count moves by one launch that
+    never passed the hold (a kernel call that bypassed
+    ``ops.compact.compact``)."""
+    from pinot_tpu_torch.ops import compact
+
+    real = getattr(chip_smoke, name)
+
+    def with_a_launch_aside(*a, **k):
+        out = real(*a, **k)
+        compact.launches += 1
+        return out
+
+    monkeypatch.setattr(chip_smoke, name, with_a_launch_aside)
+
+
+def test_control_phase_fails_on_a_launch_it_did_not_hold(tmp_path,
+                                                         monkeypatch):
+    """The control phase holds every K1 launch of its path on its own
+    inputs as it launches and fails on one it did not hold: one launch
+    past the hold, right after the replicated commit, fails the
+    phase."""
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.segment import load_segment
+    from pinot_tpu_torch.tools import ssb
+    from test_torch_tier import reset_port_memory
+
+    n = 1 << 13
+    table = ssb.build_table_dir([n // 8] * 8, str(tmp_path / "eight"))
+    single = load_segment(ssb.build_segment_dir(n, str(tmp_path / "one")),
+                          "cpu")
+    digests = {qid: ssb._digest(ssb.oracle_run(single, p, v, g)[0])
+               for qid, p, v, g in ssb.QUERIES}
+    reset_port_memory([single])
+    _counting_compact(monkeypatch)
+    _launch_aside(monkeypatch, "_control_commit")
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "ITERS", 1)
+    monkeypatch.setattr(chip_smoke, "CONTROL_ROWS", 1 << 13)
+    monkeypatch.setattr(chip_smoke, "CONTROL_QS_ROWS", 500)
+    monkeypatch.setattr(chip_smoke, "phase", lambda label, **f: None)
+    try:
+        with pytest.raises(AssertionError, match="held at launch"):
+            chip_smoke.control_phase(table, digests, 4096, [single],
+                                     device="cpu")
+    finally:
+        global_cube_cache.clear()
+        reset_port_memory([single])
+
+
+def test_remote_phase_fails_on_a_launch_it_did_not_hold(tmp_path,
+                                                        monkeypatch):
+    """The remote phase fails on a K1 launch of its path that it did not
+    hold as it launched (one launch past the hold as the gs:// segment is
+    pushed)."""
+    from pinot_tpu_torch.cluster import deepstore
+    from pinot_tpu_torch.ops import compact
+    from test_torch_tier import reset_port_memory
+
+    reset_port_memory()
+    _counting_compact(monkeypatch)
+    real_upload = deepstore.upload_segment
+
+    def upload_with_a_launch_aside(*a, **k):
+        compact.launches += 1
+        return real_upload(*a, **k)
+
+    monkeypatch.setattr(deepstore, "upload_segment",
+                        upload_with_a_launch_aside)
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "ITERS", 1)
+    monkeypatch.setattr(chip_smoke, "REMOTE_ROWS", 1 << 13)
+    monkeypatch.setattr(chip_smoke, "REMOTE_WORKERS", 1)
+    monkeypatch.setattr(chip_smoke, "phase", lambda name, /, **f: None)
+    try:
+        with pytest.raises(AssertionError, match="held at launch"):
+            chip_smoke.remote_phase(4096, device="cpu")
+    finally:
+        reset_port_memory()
+
+
+def test_mesh_phase_on_cpu(tmp_path, monkeypatch):
+    """The mesh phase end to end on the CPU: the SSB table at 2^14 rows in
+    8 shared-dictionary segments answers the same digests per segment and
+    resident on 1 and 4 logical shards (every query through the mesh),
+    the star schema at 2^13 orders rows takes the mesh shuffle, the mesh
+    broadcast and the fused hash stages with the oracle's rows, and every
+    K1 and hash_partition launch of the path is held as launched."""
+    from pinot_tpu_torch.ops import hashpart
+    from test_torch_tier import reset_port_memory
+
+    reset_port_memory()
+    _counting_compact(monkeypatch)
+    real_hp = hashpart.hash_partition
+    hp_calls = []
+
+    def counted_hp(*a, **k):
+        hp_calls.append(1)
+        hashpart.launches += 1
+        return real_hp(*a, **k)
+
+    monkeypatch.setattr(hashpart, "hash_partition", counted_hp)
+    monkeypatch.setenv("PINOT_DEVICE_JOIN_MIN_ROWS", "0")
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "ITERS", 1)
+    monkeypatch.setattr(chip_smoke, "MESH_ROWS", 1 << 14)
+    monkeypatch.setattr(chip_smoke, "MS_ROWS", 1 << 13)
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda name, /, **f: printed.append((name, f)))
+    try:
+        tables, dirs = chip_smoke.star_phase()
+        out = chip_smoke.mesh_phase(dirs, tables, 4096, device="cpu")
+    finally:
+        reset_port_memory()
+    got = dict(printed)
+    assert out["k1_launches"] > 0 and out["hp_launches"] > 0
+    done = got["mesh_done"]
+    assert done["k1_held_at_launch"] == out["k1_launches"]
+    assert done["hashpart_held_at_launch"] == out["hp_launches"]
+    assert done["bytes_left"] == 0
+    ms = got["mesh_multistage"]
+    assert ms["joins"]["mesh_joins"] >= 2 and ms["fused"]["fused_plans"] == 2
+    assert ["hash", "hash"] in ms["stage_kinds"]
+    queries = [f for name, f in printed if name == "mesh_query"]
+    assert len(queries) == 13 and all(q["ok"] for q in queries)
+    assert got["hashpart_edges"]["overflow_cases"] == [
+        "one_partition_overflow"]
+    # one launch a query a shard on the 4-shard arm's compact queries
+    labels = [f["query"] for name, f in printed
+              if name == "kernel_at_mesh_path"]
+    assert any(lb.startswith("mesh_4:") for lb in labels)
+    assert any(lb.startswith("per_segment:") for lb in labels)

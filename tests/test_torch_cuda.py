@@ -45,12 +45,18 @@ the CPU's do, answer with the CPU's rows through K1, and the minion's
 offline segments built from them must load on the card with those rows.
 A chaos-armed loadgen run on the card must end in the CPU run's rows, and
 the query fuzzer's corpus on the card must give the host path's and the
-oracle's rows through K1.
+oracle's rows through K1. The hash-bucket partition kernel must equal its
+plain version bitwise at sizes on and around its tile, for 1 to 64
+partitions, with a partition that overflows its cap, one that fills it
+exactly, rows without a partition, 16 payloads and over 20 launches in a
+row; a table resident on 4 logical shards of the card must answer the SSB
+queries as on 1 shard and per segment, through K1 on every shard.
 """
 import json
 import os
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -2369,3 +2375,119 @@ def test_fuzz_corpus_on_card_matches_host_path(cuda, tmp_path):
             fuzzer.oracle_rows(spec, data, n)), (spec.seed, sql)
     assert C.launches > before
     seg.evict_device()
+
+
+HP_SIZES = [0, 1, "tile-1", "tile", "tile+1", "33*tile+7", 1 << 20]
+
+
+def _hp_inputs(n: int, n_dev: int, seed: int, n_pay: int = 2):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-1, 1 << 24, n).astype(np.int32)
+    codes[::5] = -1
+    pays = [rng.integers(-2**31, 2**31, n).astype(
+        np.int64 if k % 2 else np.int32) for k in range(n_pay)]
+    cap = 1 << ((2 * n) // n_dev + 16 - 1).bit_length()
+    return codes, pays, cap
+
+
+def _hp_same(got, want) -> None:
+    (gb, go), (wb, wo) = got, want
+    assert len(gb) == len(wb)
+    for x, y in zip(gb, wb):
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+    assert torch.equal(go.cpu(), wo.cpu())
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("n", HP_SIZES)
+def test_hash_partition_on_card_matches_plain(cuda, n, n_dev):
+    from pinot_tpu_torch.ops import hashpart as H
+
+    n = _size(n, H.tile_rows())
+    codes, pays, cap = _hp_inputs(n, n_dev, 7 * n + n_dev)
+    c, p = torch.from_numpy(codes), tuple(torch.from_numpy(x) for x in pays)
+    before = H.launches
+    got = H.hash_partition(c.to(cuda), tuple(x.to(cuda) for x in p),
+                           n_dev, cap)
+    torch.cuda.synchronize()
+    assert H.launches == before + 1
+    _hp_same(got, H.hash_partition_reference(c, p, n_dev, cap))
+    _hp_same(got, H.hash_partition_reference(
+        c.to(cuda), tuple(x.to(cuda) for x in p), n_dev, cap))
+
+
+@pytest.mark.parametrize("case", ["overflow", "cap_exact", "no_partition",
+                                  "sixteen_payloads", "repeats",
+                                  "side_stream"])
+def test_hash_partition_edges_on_card(cuda, case):
+    from pinot_tpu_torch.ops import hashpart as H
+
+    tile = H.tile_rows()
+    if case in ("overflow", "cap_exact"):
+        n = 4 * tile + 5 if case == "overflow" else 4096
+        codes = np.full(n, 77, dtype=np.int32)
+        pays = [np.arange(n, dtype=np.int64)]
+        n_dev, cap = (4, 1024) if case == "overflow" else (2, 4096)
+    elif case == "no_partition":
+        n, n_dev, cap = 3 * tile + 1, 8, 64
+        codes = np.full(n, -1, dtype=np.int32)
+        pays = [np.arange(n, dtype=np.int32)]
+    else:
+        n, n_dev = 5 * tile + 17, 16
+        codes, pays, cap = _hp_inputs(n, n_dev, 99,
+                                      16 if case == "sixteen_payloads"
+                                      else 3)
+    c = torch.from_numpy(codes).to(cuda)
+    p = tuple(torch.from_numpy(x).to(cuda) for x in pays)
+    want = H.hash_partition_reference(c, p, n_dev, cap)
+    if case == "repeats":
+        outs = [H.hash_partition(c, p, n_dev, cap) for _ in range(20)]
+    elif case == "side_stream":
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            outs = [H.hash_partition(c, p, n_dev, cap)]
+        torch.cuda.current_stream().wait_stream(side)
+    else:
+        outs = [H.hash_partition(c, p, n_dev, cap)]
+    torch.cuda.synchronize()
+    for got in outs:
+        _hp_same(got, want)
+    assert bool(outs[0][1].any()) == (case == "overflow")
+
+
+def test_mesh_resident_table_on_card(cuda, tmp_path):
+    """An 8-segment shared-dictionary SSB table on the card answers the 13
+    queries per segment, resident on 1 shard and on 4 logical shards,
+    with equal digests; the 4-shard mesh runs K1 on every shard and its
+    stacks are tracked, then freed."""
+    from pinot_tpu_torch.broker import Broker
+    from pinot_tpu_torch.engine.tier import reconcile_devmem
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.parallel import DistributedTable, logical_mesh
+    from pinot_tpu_torch.server import TableDataManager
+
+    d = ssb.build_table_dir([1 << 15] * 8, str(tmp_path / "t"),
+                            shared_dicts=True)
+    dm = TableDataManager("lineorder", device="cuda")
+    dm.add_table_dir(d)
+    segs = dm.acquire_segments()
+    b = Broker(device="cuda")
+    b.register_table(dm)
+    sqls = [(qid, ssb.spec_to_sql(p, v, g)) for qid, p, v, g in ssb.QUERIES]
+    want = {qid: ssb._digest(b.query(sql).rows) for qid, sql in sqls}
+    for shards in (1, 4):
+        dist = DistributedTable(segs, logical_mesh(shards, "cuda"))
+        assert all(dev.type == "cuda" for dev in dist.mesh)
+        dm.set_distributed(dist)
+        before = C.launches
+        for qid, sql in sqls:
+            assert ssb._digest(b.query(sql).rows) == want[qid], (shards, qid)
+        assert C.launches - before >= shards
+        assert dist.device_bytes() > 0
+        for pool, v in reconcile_devmem(segs).items():
+            assert v["tracked"] == v["actual"], pool
+        dm.set_distributed(None)
+        assert dist.device_bytes() == 0
+    for s in segs:
+        s.evict_device()

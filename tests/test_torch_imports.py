@@ -204,6 +204,42 @@ def test_walk_covers_the_ingest_harness_and_remote_stores():
     assert {m.replace(".", "/") + ".py" for m in INGEST_AND_REMOTE} <= srcs
 
 
+MESH_PLANE = tuple(f"pinot_tpu_torch.{m}" for m in (
+    "parallel", "parallel.mesh", "parallel.collectives",
+    "parallel.distributed", "ops.hashpart"))
+
+
+def test_walk_covers_the_mesh_plane():
+    """The import checks above reach the mesh modules and the hash-bucket
+    partition's wrapper, whose CUDA source builds with the others; none
+    of them imports JAX or pinot_tpu, and the wrapper has no path to its
+    plain version for a CUDA tensor."""
+    import inspect
+    import pkgutil
+
+    import pinot_tpu_torch
+    from pinot_tpu_torch.ops import cuda_build, hashpart
+
+    walked = {m.name for m in pkgutil.walk_packages(
+        pinot_tpu_torch.__path__, "pinot_tpu_torch.")}
+    assert set(MESH_PLANE) <= walked | {"pinot_tpu_torch.parallel"}
+    srcs = {os.path.relpath(p, ROOT) for p in _sources()}
+    want = {"pinot_tpu_torch/parallel/__init__.py"} | {
+        m.replace(".", "/") + ".py" for m in MESH_PLANE[1:]}
+    assert want <= srcs
+    for rel in want:
+        with open(os.path.join(ROOT, rel)) as fh:
+            tree = ast.parse(fh.read(), rel)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                assert not any(_forbidden(a.name) for a in node.names), rel
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                assert not _forbidden(node.module or ""), rel
+    assert cuda_build.SOURCES["hashpart"] == ["hashpart.cu"]
+    cuda_path = inspect.getsource(hashpart._hash_partition_cuda)
+    assert "reference" not in cuda_path
+
+
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch,
                                                           tmp_path):
     from pinot_tpu_torch.broker import Broker
