@@ -7,7 +7,8 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. device  - the card's name and power limit (nvidia-smi);
 2. build   - every hand-written CUDA kernel, compiled with nvcc from the
-             sources in this checkout (one nvcc per source, in parallel);
+             sources in this checkout (one nvcc per source, in parallel,
+             while this process builds the segment of phase 4);
 3. kernel  - each kernel against its plain PyTorch version on the card
              (exact equality on every output) over a grid of sizes,
              selectivities, column sets and capacities, with its time,
@@ -150,8 +151,9 @@ Phases, each printed as it runs; any failure exits non-zero:
              K1 held bitwise on the path's compact inputs
              (kernel_at_statement_path); the p50 of each statement;
 12. geo    - NYC-taxi-pickup-shaped points (PINOT_SMOKE_GEO_ROWS,
-             default 2^21 (2^22 before the loadgen, fuzz and remote
-             phases), in 2 segments; a mixture over the NYC box,
+             default 2^20 (2^21 until the whole check ran past its time
+             limit on slower hosts, 2^22 before the loadgen, fuzz and
+             remote phases), in 2 segments; a mixture over the NYC box,
              geography hex-WKB, a few empty) with a geo index at
              resolution 16: ST_Distance sums at 500 m and 5 km around
              Times Square, the 5 km filter grouped by hc_key (K1), a
@@ -159,7 +161,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              a Manhattan polygon with Central Park as a hole, = 1 and = 0,
              grouped by pu_zone: each plans the kernel with a docmask
              param and equals a numpy oracle (haversine, even-odd), p50
-             of 3 runs, the mask upload bytes; a 2^20-row twin's indexed
+             of 3 runs, the mask upload bytes; a 2^18-row twin's indexed
              rows equal its host path's and the oracle's, ST_UNION over a
              small circle the oracle's MULTIPOINT; K1 held bitwise on the
              path's inputs (kernel_at_geo_path); the index build's seconds
@@ -204,9 +206,11 @@ Phases, each printed as it runs; any failure exits non-zero:
              compiler's output, native.available(); fails when the
              library does not build (a library without zstd builds with
              -DPINOT_NO_ZSTD, and that is printed);
-15. format (after drift) - the SSB segment at FORMAT_ROWS rows (2^24,
-             PINOT_SMOKE_FORMAT_ROWS; the 2^25-row segment until the mesh
-             phase was added) written three times by the port's builder:
+15. format (after drift) - the SSB segment at FORMAT_ROWS rows (2^23,
+             PINOT_SMOKE_FORMAT_ROWS; 2^24 until the whole check ran past
+             its time limit on slower hosts, the 2^25-row segment until
+             the mesh phase was added) written three times by the port's
+             builder:
              PLAIN, BITPACK (bit_packed_ids) and the five metric columns
              raw under ZSTD: write seconds, bytes against PLAIN, decode
              seconds, the 13 digests equal to the numpy oracle's over the
@@ -249,14 +253,15 @@ Phases, each printed as it runs; any failure exits non-zero:
              untraced query times the ns of an inactive call as a share
              of the p50, the Prometheus rendering's size.
 
-18. realtime - realtime ingestion and upsert (RT_ROWS = 2^20 by
-             default, PINOT_SMOKE_RT_ROWS; 2^21 until the wire and
+18. realtime - realtime ingestion and upsert (RT_ROWS = 2^19 by
+             default, PINOT_SMOKE_RT_ROWS; 2^20 until the whole check ran
+             past its time limit on slower hosts, 2^21 until the wire and
              overload phases were added, cut to make room for them in
              the time limit): the flat lineorder with the
              SSB lineorder key (tools/ssb.gen_lineorder_keys) streamed in
              d_yearmonthnum order through InMemoryStream(4) (lo_orderkey
              % 4) into RealtimeTableDataManager("lineorder_REALTIME",
-             device="cuda") at a flush threshold of 100,000 rows (200,000
+             device="cuda") at a flush threshold of 50,000 rows (200,000
              at 2^21): 8 sealed segments on the card and 4 consuming
              snapshots on the host; the 13 SSB queries equal one offline
              segment of the rows (itself equal to the numpy oracle), and
@@ -520,27 +525,39 @@ Phases, each printed as it runs; any failure exits non-zero:
              distinct input held bitwise against its plain version and
              timed with CUDA events (kernel_at_mesh_path,
              hashpart_at_mesh_path: hot, L2-cold, the device split by
-             torch.profiler, the plain version, torch.sort(stable=True)
-             of the partition ids as the sort half's yardstick, the
-             bytes bound), every repeated launch relaunched on its inputs
-             and held, the phase failing on a launch it did not hold;
-             hash_partition on its edge cases (n = 1, the tile's edges,
-             one partition past its cap and one filling it exactly, no
-             partition, 1 to 64 partitions, int64 and 16 payloads) and
-             20 launches in a row; memory back at the phase's baseline.
+             torch.profiler (pass, fill), the plain version,
+             torch.sort(stable=True) of the partition ids as the sort
+             half's yardstick, the bytes bound; hashpart_host_split: the
+             widest input's host issue by step), every repeated launch
+             relaunched on its inputs and held, the phase failing on a
+             launch it did not hold; K18's first call of each query on
+             4 shards and the first mesh shuffle and broadcast joins
+             (K16) timed alone on their own inputs beside their bytes
+             bounds (traced_at_mesh_path); hash_partition on its edge
+             cases (n = 1, the tile's edges, one partition past its cap
+             and one filling it exactly, no partition, 1 to 64
+             partitions, 64 over 200 tiles, totals on cap at a tile's
+             edge, a tile past cap for one partition only, sliced
+             inputs, int64 and 16 payloads), on calls back to back with
+             sizes growing and shrinking, on two streams, across a
+             stream's epochs running out, and 20 launches in a row;
+             memory back at the phase's baseline.
 
 The SSB phases run at 2^25 rows by default (2^26 before the multi-stage
-phase was added), the format phase's copies at 2^24 (2^25 before the
-mesh phase was added), the star schema at 2^21 orders rows (2^24 before
-the format, rollup and trace phases were added, 2^23 before the control
+phase was added), the format phase's copies at 2^23 (2^25 before the
+mesh phase was added, 2^24 until the whole check ran 1,207-1,267 s on
+slower hosts), the star schema at 2^21 orders rows (2^24 before the
+format, rollup and trace phases were added, 2^23 before the control
 phase was, 2^22 before the loadgen, fuzz and remote phases were), the
-geo cell at 2^21 pickups (2^22 before those three phases), the realtime
-phase
-at 2^20 rows (2^21 before the wire and overload phases were added) and
-the wire phase's Kafka table at 2^18 rows (2^19 before the cluster
-phase was added) and the control phase's commit at 2^18 rows (2^19
-before the compat phase was added), so that the whole run fits its time
-limit.
+geo cell at 2^20 pickups (2^22 before those three phases, 2^21 until
+those slower hosts), the realtime phase at 2^19 rows (2^21 before the
+wire and overload phases were added, 2^20 until those slower hosts),
+the hooks phase's pairs at 4 (6 until those slower hosts), the wire
+phase's Kafka table at 2^18 rows (2^19 before the cluster phase was
+added) and the control phase's commit at 2^18 rows (2^19 before the
+compat phase was added), so that the whole run fits its time limit;
+the 8-segment table is built by a worker process from the start, beside
+the kernels' build and the segment's.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without CUDA, and without
@@ -690,6 +707,27 @@ def ptxas_table(log: str) -> list:
             if m:
                 cur[key] = int(m.group(1))
     return out
+
+
+def _in_background(fn):
+    """Start ``fn()`` in a thread; returns a function that waits for it
+    and raises what it raised."""
+    failed = []
+
+    def run():
+        try:
+            fn()
+        except BaseException as exc:  # handed to the caller on join
+            failed.append(exc)
+
+    th = threading.Thread(target=run, name=fn.__name__, daemon=True)
+    th.start()
+
+    def join():
+        th.join()
+        if failed:
+            raise failed[0]
+    return join
 
 
 def build_phase() -> None:
@@ -1155,26 +1193,50 @@ def main_phase(seg_dir: str, tile: int, device: str = "cuda"):
     return main_launches, totals, len(compact_plans), digests, seg
 
 
-def table_phase() -> str:
-    from pinot_tpu_torch.tools import ssb
-
-    n_seg = TABLE_SEGMENTS
-    sizes = [N_ROWS // n_seg] * n_seg
-    out_dir = os.path.join(CACHE, f"ssb_table_{N_ROWS}_{n_seg}")
-    t0 = time.perf_counter()
-    # a build cut off half way leaves a segment without metadata.json
+def _table_spec():
+    """(the 8-segment table's directory, its segments' sizes, whether a
+    whole build of it is cached: a build cut off half way leaves a
+    segment without metadata.json)."""
+    sizes = [N_ROWS // TABLE_SEGMENTS] * TABLE_SEGMENTS
+    out_dir = os.path.join(CACHE, f"ssb_table_{N_ROWS}_{TABLE_SEGMENTS}")
     cached = os.path.isdir(out_dir) and sum(
         os.path.exists(os.path.join(out_dir, d, "metadata.json"))
-        for d in os.listdir(out_dir)) == n_seg
-    if not cached:
-        shutil.rmtree(out_dir, ignore_errors=True)
-        ssb.build_table_dir(sizes, out_dir)
-    cuts = [f"{n_seg} segments of {sizes[0]} rows: the {sum(sizes)} rows of "
-            "the single segment, in order, split",
+        for d in os.listdir(out_dir)) == TABLE_SEGMENTS
+    return out_dir, sizes, cached
+
+
+def start_table_build():
+    """The table phase's build in a process of its own (its rows come
+    from the same seed; it reads nothing another phase writes), so it
+    runs beside the kernels' build and the segment's; None when cached."""
+    out_dir, sizes, cached = _table_spec()
+    if cached:
+        return None
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return _start_job({"kind": "table", "sizes": sizes, "out": out_dir})
+
+
+def table_phase(job=None) -> str:
+    """The 8-segment table: ``job``'s build (start_table_build) waited
+    for, or built here when no job was started and none is cached."""
+    from pinot_tpu_torch.tools import ssb
+
+    out_dir, sizes, cached = _table_spec()
+    t0 = time.perf_counter()
+    if job is not None:
+        cached = False
+        build_s = _finish_job(job)["seconds"]
+    else:
+        if not cached:
+            shutil.rmtree(out_dir, ignore_errors=True)
+            ssb.build_table_dir(sizes, out_dir)
+        build_s = time.perf_counter() - t0
+    cuts = [f"{len(sizes)} segments of {sizes[0]} rows: the {sum(sizes)} "
+            "rows of the single segment, in order, split",
             "dimension tables denormalized onto lineorder (as bench.py)"]
-    phase("table", segments=n_seg, rows=sum(sizes),
+    phase("table", segments=len(sizes), rows=sum(sizes),
           dir=os.path.relpath(out_dir, ROOT), cached=cached,
-          seconds=time.perf_counter() - t0, cuts=cuts)
+          seconds=build_s, waited_s=time.perf_counter() - t0, cuts=cuts)
     return out_dir
 
 
@@ -1730,7 +1792,7 @@ def concurrent_phase(single, segs, device: str = "cuda") -> int:
     return serial_launches
 
 
-HOOK_PAIRS = 6                   # hooks phase: live/stubbed pairs, ABBA
+HOOK_PAIRS = 4                   # hooks phase: live/stubbed pairs, ABBA
 HOOK_ITERS = 5                   # timed runs per query and arm
 HOOK_CALLS = 2000                # calls per hook in its own timing
 
@@ -2408,7 +2470,7 @@ def surface_phase(seg_list, label: str):
 # that the whole check fits its time limit)
 # the format phase's copies (PLAIN, BITPACK, COMPRESSED) of the SSB segment
 FORMAT_ROWS = int(os.environ.get("PINOT_SMOKE_FORMAT_ROWS",
-                                 min(N_ROWS, 1 << 24)))
+                                 min(N_ROWS, 1 << 23)))
 MS_ROWS = int(os.environ.get("PINOT_SMOKE_MS_ROWS", 1 << 21))
 MS_VARIANTS = 3                  # literal variants of each shape
 MS_STATE_CAP = 1 << 25           # PINOT_FUSED_MAX_STATE of the fused plane
@@ -2893,8 +2955,9 @@ def _scan_err(op, got, want) -> float:
 
 def kernel_split_ms(fn, names, reps: int = 10, memsets: int = 1):
     """Device ms per call of each named kernel of fn (substrings of the
-    kernels' names) and of its memsets (``memsets`` a call, when it makes
-    any), from torch.profiler over ``reps`` calls; None when no window of
+    kernels' names) and of its memsets (``memsets`` a call; 0: a call
+    makes none, and a window that shows one is not taken), from
+    torch.profiler over ``reps`` calls; None when no window of
     PROFILE_TRIES recorded every call's device operations (not
     measured)."""
     import torch
@@ -3154,7 +3217,7 @@ MESH_MS_PLANES = (
       "PINOT_FUSED_MAX_STATE": str(MS_STATE_CAP)}, 0),
 )
 HP_EDGE_SEED = 1719
-HP_KERNELS = ("hp_count", "hp_scan", "hp_scatter")
+HP_KERNELS = ("hp_pass", "hp_fill")
 
 
 @contextlib.contextmanager
@@ -3260,15 +3323,58 @@ def _hp_row(codes, payloads, n_dev: int, cap: int, got, on_card: bool
            "bound_ms": H.partition_bytes(codes.shape[0], widths, n_dev, cap)
            / HBM_BYTES_PER_S * 1e3}
     if on_card:
-        # a call sets its buckets and its flag with memsets
+        # a call is the pass and the fill: no memset
         _timed(row, lambda: H.hash_partition(codes, payloads, n_dev, cap),
                lambda: H.hash_partition_reference(codes, payloads, n_dev,
                                                   cap), HP_KERNELS,
-               memsets=len(payloads) + 2)
+               memsets=0)
         part = H.partition_of(codes, n_dev)
         row["sort_ms"] = cuda_time_ms(
             lambda: torch.sort(part, stable=True), 20)
     return row
+
+
+def hashpart_host_split_ms(codes, payloads, n_dev: int, cap: int,
+                           reps: int = 20) -> dict:
+    """The host's ms to issue one hash_partition call, by step (host
+    clock, mean of ``reps`` calls, each a whole call with its own epoch):
+    check (the wrapper's argument checks), allocate (the one allocation
+    and its views), marshal (the stream, the scratch and its epoch under
+    the lock, the argument block), call (the C entry: two launches)."""
+    import torch
+
+    from pinot_tpu_torch.ops import hashpart as H
+
+    k = H._bound_kernel()
+    cols = (codes, *payloads)
+    dev = codes.device
+    words = H.scratch_words(codes.shape[0], n_dev, k["tile"])
+    H.hash_partition(codes, payloads, n_dev, cap)
+    torch.cuda.synchronize()
+    spent = dict.fromkeys(("check", "allocate", "marshal", "call"), 0.0)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        H._check(codes, payloads, n_dev, cap)
+        t1 = time.perf_counter()
+        _outs, _flag, dsts, flag_addr = H._buckets(cols, n_dev, cap)
+        t2 = time.perf_counter()
+        stream = H._stream(dev)
+        with H._SCRATCH.lock:
+            scratch, epoch = H._SCRATCH.take(dev, stream, words)
+            H._marshal(k["args"], cols, dsts, flag_addr, n_dev, cap,
+                       scratch, epoch)
+            t3 = time.perf_counter()
+            rc = k["run"](k["args_ptr"], stream)
+            t4 = time.perf_counter()
+            if rc != 0:
+                H._SCRATCH.drop(dev, stream)
+        if rc != 0:
+            raise AssertionError(f"hash_partition's host split: CUDA error "
+                                 f"{rc}")
+        for key, dt in zip(spent, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            spent[key] += dt * 1e3 / reps
+    torch.cuda.synchronize()
+    return spent
 
 
 def _same_partition(got, want, what: str) -> None:
@@ -3289,7 +3395,7 @@ def _hold_distinct_hp(distinct: list, on_card: bool) -> dict:
     the launches held and the widest input's row."""
     from pinot_tpu_torch.ops import hashpart as H
 
-    held, widest = 0, None
+    held, widest, widest_in = 0, None, None
     sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     with _holding():
         for (n_dev, cap, _k), (codes, *payloads), labels in distinct:
@@ -3307,17 +3413,39 @@ def _hold_distinct_hp(distinct: list, on_card: bool) -> dict:
             phase("hashpart_at_mesh_path", query=labels[0],
                   launches=len(labels), **row)
             if widest is None or row["n"] > widest["n"]:
-                widest = row
+                widest, widest_in = row, (codes, payloads, n_dev, cap)
+        if on_card and widest is not None:
+            widest["host_split_ms"] = hashpart_host_split_ms(*widest_in)
+            phase("hashpart_host_split", n=widest["n"],
+                  host_ms=widest["host_ms"], **widest["host_split_ms"])
     phase("hashpart_at_mesh_path_sum", inputs=len(distinct), launches=held,
           **(sums if on_card else {}))
     return {"held": held, "widest": widest, "sums": sums}
+
+
+def _hp_codes_of(n_dev: int, count: int):
+    """``count`` distinct non-negative codes of each partition of
+    ``n_dev`` (a numpy (n_dev, count) int32 array)."""
+    import numpy as np
+    import torch
+
+    from pinot_tpu_torch.ops import hashpart as H
+
+    pool = np.arange(1 << 16, dtype=np.int32)
+    part = H.partition_of(torch.from_numpy(pool), n_dev).numpy()
+    return np.stack([pool[part == p][:count] for p in range(n_dev)])
 
 
 def _hp_edge_inputs(device: str):
     """(label, codes, payloads, n_dev, cap) of hash_partition's edge
     cases: n = 1 and the tile's edges, every row one partition (the flag
     set, and cap at the run length exactly), every row without a
-    partition, n_dev 1 to 64, int32 and int64 payloads and 16 of them."""
+    partition, n_dev 1 to 64, int32 and int64 payloads and 16 of them;
+    n_dev 64 over 200 tiles (the widest look-back); partitions whose
+    totals land exactly on cap at a tile's edge; a tile entirely past cap
+    for one partition and not for the other; codes and payloads sliced
+    off their allocation (data_ptr() 4 and 24 bytes past a 16-byte
+    boundary)."""
     import numpy as np
     import torch
 
@@ -3348,19 +3476,73 @@ def _hp_edge_inputs(device: str):
     add("all_without_partition", np.full(n, -1), 2, 8, 64)
     add("sixteen_payloads", rng.integers(0, 1000, n), 16, 16, 1024,
         wide=(0, 5, 9, 15))
+    n = 200 * tile + 3
+    add("dev64_many_tiles", rng.integers(-1, 1 << 24, n), 2, 64,
+        1 << ((2 * n) // 64 + 16 - 1).bit_length())
+    two = _hp_codes_of(2, 64)
+    edge = np.concatenate([rng.choice(two[0], tile), rng.choice(two[1],
+                                                               tile)])
+    add("cap_exact_at_tile_edge", edge, 2, 2, tile)
+    # after a first tile of partition 0 (its cap), two tiles that are
+    # past cap for partition 0 and fill partition 1 to its cap exactly
+    mixed = rng.choice(two[0], 2 * tile)
+    mixed[rng.permutation(2 * tile)[:tile]] = rng.choice(two[1], tile)
+    add("tile_past_cap_for_one_partition",
+        np.concatenate([rng.choice(two[0], tile), mixed]), 3, 2, tile,
+        wide=(2,))
     for n_dev in (2, 4, 5, 16, 31, 32, 63, 64):
         add(f"dev{n_dev}", rng.integers(-3, 50_000, 50_000), 1, n_dev,
             1 << max(((2 * 50_000) // n_dev + 16 - 1).bit_length(), 0))
+    n = 3 * tile + 11
+    big = torch.from_numpy(rng.integers(-1, 1 << 20, n + 1).astype(
+        np.int32)).to(device)
+    p64 = torch.from_numpy(rng.integers(-2**62, 2**62, n + 3)).to(device)
+    p32 = torch.from_numpy(rng.integers(-2**31, 2**31, n + 1).astype(
+        np.int32)).to(device)
+    out.append(("sliced_inputs", big[1:], (p64[3:], p32[1:]), 8,
+                1 << ((2 * n) // 8 + 16 - 1).bit_length()))
+    return out
+
+
+def _hp_sequence_inputs(device: str):
+    """(label, codes, payloads, n_dev, cap) launched back to back on one
+    stream without a sync between: sizes growing, then shrinking, with
+    n_dev changing, so a stream's scratch is re-grown and reused with
+    another call's words in it."""
+    import numpy as np
+    import torch
+
+    from pinot_tpu_torch.ops import hashpart as H
+
+    tile = H.tile_rows() if device.startswith("cuda") else 2048
+    rng = np.random.default_rng(HP_EDGE_SEED + 1)
+    out = []
+    for n, n_dev in ((tile, 4), (40 * tile + 1, 64), (300 * tile + 5, 3),
+                     (7 * tile, 64), (1, 8), (0, 2), (90 * tile, 4)):
+        cap = 1 << max(((2 * n) // n_dev + 16 - 1).bit_length(), 0)
+        c = torch.from_numpy(rng.integers(-1, 1 << 22, n).astype(
+            np.int32)).to(device)
+        pay = torch.from_numpy(rng.integers(-2**62, 2**62, n)).to(device)
+        out.append((f"seq_n{n}_dev{n_dev}", c, (pay,), n_dev, cap))
     return out
 
 
 def hashpart_edge_check(device: str = "cuda") -> dict:
     """hash_partition held bitwise against its plain version on the edge
-    cases and across 20 back-to-back launches of one input; the flag must
-    be set exactly where a partition outgrows its cap."""
-    from pinot_tpu_torch.ops import hashpart as H
+    cases; on calls back to back on one stream, sizes growing then
+    shrinking (the stream's scratch re-grown and reused); on two streams
+    at once; across a stream's epochs running out (on the card: its
+    epoch set near EPOCH_MAX, so the scratch is replaced mid-run); and
+    across 20 back-to-back launches of one input. The flag must be set
+    exactly where a partition outgrows its cap."""
+    import torch
 
+    from pinot_tpu_torch.ops import hashpart as H
+    from pinot_tpu_torch.ops.stream_scratch import EPOCH_MAX
+
+    on_card = device.startswith("cuda")
     cases = _hp_edge_inputs(device)
+    seq = _hp_sequence_inputs(device)
     with _holding():
         flags = {}
         for label, codes, pays, n_dev, cap in cases:
@@ -3369,16 +3551,65 @@ def hashpart_edge_check(device: str = "cuda") -> dict:
             _same_partition(got, want, label)
             flags[label] = bool(got[1].any())
         if not flags["one_partition_overflow"] or \
+                not flags["tile_past_cap_for_one_partition"] or \
                 flags["one_partition_cap_exact"] or \
+                flags["cap_exact_at_tile_edge"] or \
                 flags["all_without_partition"]:
             raise AssertionError(f"hash_partition's flags: {flags}")
-        label, codes, pays, n_dev, cap = cases[-1]
+        wants = [H.hash_partition_reference(c, p, d, cap)
+                 for _l, c, p, d, cap in seq]
+        # back to back on one stream, no sync between
+        outs = [H.hash_partition(c, p, d, cap) for _l, c, p, d, cap in seq]
+        for (label, *_r), got, want in zip(seq, outs, wants):
+            _same_partition(got, want, f"{label} (back to back)")
+        # two streams at once, each its own scratch
+        if on_card:
+            main = torch.cuda.current_stream()
+            side = (torch.cuda.Stream(), torch.cuda.Stream())
+            for st in side:
+                st.wait_stream(main)
+            outs = [None] * (2 * len(seq))
+            for i, (_l, c, p, d, cap) in enumerate(seq * 2):
+                with torch.cuda.stream(side[i % 2]):
+                    outs[i] = H.hash_partition(c, p, d, cap)
+            for st in side:
+                main.wait_stream(st)
+        else:
+            outs = [H.hash_partition(c, p, d, cap)
+                    for _l, c, p, d, cap in seq * 2]
+        for i, got in enumerate(outs):
+            label = seq[i % len(seq)][0]
+            _same_partition(got, wants[i % len(seq)],
+                            f"{label} (two streams)")
+        # a stream's epochs running out: the scratch is replaced
+        replaced = False
+        if on_card:
+            dev = seq[0][1].device
+            key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+            H.hash_partition(*seq[1][1:])
+            with H._SCRATCH.lock:
+                entry = H._SCRATCH._bufs[key]
+                entry[1] = EPOCH_MAX - 2
+                before = entry[0]
+        outs = [H.hash_partition(c, p, d, cap)
+                for _l, c, p, d, cap in seq[1:4]]
+        if on_card:
+            with H._SCRATCH.lock:
+                replaced = H._SCRATCH._bufs[key][0] is not before
+            if not replaced:
+                raise AssertionError("hash_partition's scratch was not "
+                                     "replaced when its epochs ran out")
+        for (label, *_r), got, want in zip(seq[1:4], outs, wants[1:4]):
+            _same_partition(got, want, f"{label} (epochs run out)")
+        label, codes, pays, n_dev, cap = cases[-2]
         want = H.hash_partition_reference(codes, pays, n_dev, cap)
         outs = [H.hash_partition(codes, pays, n_dev, cap)
                 for _ in range(20)]
         for got in outs:
             _same_partition(got, want, f"{label} (20 back to back)")
-    row = {"cases": len(cases), "repeats": 20, "max_abs_err": 0.0,
+    row = {"cases": len(cases), "sequence": len(seq),
+           "two_streams": 2 * len(seq), "epoch_replaced": replaced,
+           "repeats": 20, "max_abs_err": 0.0,
            "overflow_cases": sorted(k for k, v in flags.items() if v)}
     phase("hashpart_edges", **row)
     return row
@@ -3386,12 +3617,14 @@ def hashpart_edge_check(device: str = "cuda") -> dict:
 
 def _mesh_ssb(query, dm, segs, arm: str, shards, device: str,
               k1_cap: list, k1_distinct: list, ran: list,
-              live: list) -> tuple:
+              live: list, first_call=None) -> tuple:
     """The 13 SSB queries on one arm (the per-segment path, or the table
     resident on a mesh of ``shards`` logical shards): one warm-up and
     ITERS timed runs each; each query's K1 launches folded into
     ``k1_distinct`` after it; tracked == held over ``live`` (every
-    segment on the device) with the mesh's stacks resident. Returns
+    segment on the device) with the mesh's stacks resident; with
+    ``first_call``, its "qid" names the query whose warm-up runs (the
+    spy that reads it keeps that query's first K18 call). Returns
     ({qid: digest}, {qid: p50 ms})."""
     from pinot_tpu_torch.parallel import DistributedTable, logical_mesh
     from pinot_tpu_torch.tools import ssb
@@ -3404,7 +3637,11 @@ def _mesh_ssb(query, dm, segs, arm: str, shards, device: str,
         for qid, p, v, g in ssb.QUERIES:
             sql = ssb.spec_to_sql(p, v, g)
             n0 = len(ran)
+            if first_call is not None:
+                first_call["qid"] = qid
             res = query(sql)
+            if first_call is not None:
+                first_call["qid"] = None
             times = []
             for _ in range(ITERS):
                 t0 = time.perf_counter()
@@ -3425,6 +3662,64 @@ def _mesh_ssb(query, dm, segs, arm: str, shards, device: str,
         if shards is not None:
             dm.set_distributed(None)
     return digests, p50
+
+
+def _mesh_traced_alone(k18_calls: list, k16_calls: dict,
+                       on_card: bool) -> dict:
+    """K18 (each query's first call on the mesh's shards) and the K16
+    mesh joins (the mailbox plane's first shuffle and broadcast joins),
+    each called alone on the mesh phase's own inputs: the bytes bound
+    (parallel/distributed.kernel_bytes, ops/join.mesh_join_bytes,
+    shuffle_join_bytes) and, on the card, CUDA events over 5 calls of
+    K18 and 2 of a join (host included: the joins take and return host
+    arrays, and the shuffle join takes about a second)
+    (traced_at_mesh_path)."""
+    import numpy as np
+
+    from pinot_tpu_torch.ops import join as ops_join
+    from pinot_tpu_torch.parallel import distributed as pdist
+
+    rows = []
+    for qid, a, kw in k18_calls:
+        out = pdist.distributed_kernel(*a, **kw)
+        _plan, _bucket, mesh, cols, n_docs, params = a[:6]
+        row = {"name": "k18_distributed_kernel", "query": qid,
+               "shards": mesh.size, "columns": len(cols),
+               "rows": sum(sum(d) for d in n_docs),
+               "bound_ms": pdist.kernel_bytes(cols, n_docs, params, out)
+               / HBM_BYTES_PER_S * 1e3}
+        if on_card:
+            row["ms"] = cuda_time_ms(
+                lambda a=a, kw=kw: pdist.distributed_kernel(*a, **kw), 5)
+        rows.append(row)
+    for name, (a, kw, got) in sorted(k16_calls.items()):
+        mesh, lk, rk, max_dup = a[:4]
+        lk, rk = np.asarray(lk), np.asarray(rk)
+        fn = getattr(ops_join, name)
+        row = {"name": f"k16_{name}", "probe": len(lk), "build": len(rk),
+               "max_dup": max_dup, "shards": mesh.size}
+        if name == "mesh_equi_join":
+            row["bound_ms"] = ops_join.mesh_join_bytes(
+                len(lk), len(rk), lk.itemsize, max_dup, mesh.size) \
+                / HBM_BYTES_PER_S * 1e3
+        else:
+            row["pairs"] = 0 if got is None else len(got[0])
+            row["bound_ms"] = ops_join.shuffle_join_bytes(
+                len(lk), len(rk), row["pairs"]) / HBM_BYTES_PER_S * 1e3
+        if on_card:
+            row["ms"] = cuda_time_ms(lambda fn=fn, a=a, kw=kw: fn(*a, **kw),
+                                     2)
+        rows.append(row)
+    for row in rows:
+        phase("traced_at_mesh_path", **row)
+    k18 = [r for r in rows if r["name"] == "k18_distributed_kernel"]
+    out = {"k18": k18, "k16": [r for r in rows if r not in k18]}
+    if on_card and k18:
+        out["k18_ms"] = [min(r["ms"] for r in k18),
+                         max(r["ms"] for r in k18)]
+        out["k18_bound_ms"] = [min(r["bound_ms"] for r in k18),
+                               max(r["bound_ms"] for r in k18)]
+    return out
 
 
 def mesh_phase(star_dirs, tables, tile: int, live_segments=(),
@@ -3506,6 +3801,29 @@ def mesh_phase(star_dirs, tables, tile: int, live_segments=(),
             kinds.append([s.kind for s in stages])
         return plan, stages, reason
 
+    # the first call of K18 (each query's warm-up on the MESH_SHARDS-shard
+    # arm) and of each K16 mesh join, kept to be timed alone
+    k18_calls: list = []
+    first_k18 = {"qid": None}
+    real_dk = pdist.distributed_kernel
+
+    def dk_spy(*a, **kw):
+        if first_k18["qid"] is not None:
+            k18_calls.append((first_k18["qid"], a, kw))
+            first_k18["qid"] = None
+        return real_dk(*a, **kw)
+
+    k16_calls: dict = {}
+    real_joins = {"mesh_shuffle_join": device_join.mesh_shuffle_join,
+                  "mesh_equi_join": device_join.mesh_equi_join}
+
+    def join_spy(name):
+        def spy(*a, **kw):
+            out = real_joins[name](*a, **kw)
+            k16_calls.setdefault(name, (a, kw, out))
+            return out
+        return spy
+
     k1_cap: list = []
     k1_distinct: list = []
     hp_cap: list = []
@@ -3513,6 +3831,9 @@ def mesh_phase(star_dirs, tables, tile: int, live_segments=(),
     arms: dict = {}
     ms_rows: dict = {}
     pdist.DistributedTable.try_execute = try_spy
+    pdist.distributed_kernel = dk_spy
+    for name in real_joins:
+        setattr(device_join, name, join_spy(name))
     fused.plan_fused = plan_spy
     saved_bound = msexec.BROADCAST_THRESHOLD
     d0, f0 = dict(device_join.STATS), dict(fused.STATS)
@@ -3522,9 +3843,10 @@ def mesh_phase(star_dirs, tables, tile: int, live_segments=(),
                 _hp_recording(hp_cap, "mesh"):
             for arm, shards in (("per_segment", None), ("mesh_1", 1),
                                 (f"mesh_{MESH_SHARDS}", MESH_SHARDS)):
-                arms[arm] = _mesh_ssb(query, dm, segs, arm, shards, device,
-                                      k1_cap, k1_distinct, ran,
-                                      list(live_segments) + segs + ms_segs)
+                arms[arm] = _mesh_ssb(
+                    query, dm, segs, arm, shards, device, k1_cap,
+                    k1_distinct, ran, list(live_segments) + segs + ms_segs,
+                    first_k18 if shards == MESH_SHARDS else None)
             with using_mesh(logical_mesh(MESH_SHARDS, device)):
                 for plane, shapes, opt, env, bound in MESH_MS_PLANES:
                     msexec.BROADCAST_THRESHOLD = bound
@@ -3548,8 +3870,14 @@ def mesh_phase(star_dirs, tables, tile: int, live_segments=(),
         k1_launches, hp_launches = C.launches, H.launches  # ... and ends
     finally:
         pdist.DistributedTable.try_execute = real_try
+        pdist.distributed_kernel = real_dk
+        for name, real in real_joins.items():
+            setattr(device_join, name, real)
         fused.plan_fused = real_plan
         msexec.BROADCAST_THRESHOLD = saved_bound
+    alone = _mesh_traced_alone(k18_calls, k16_calls, on_card)
+    del k18_calls, k16_calls
+    C.launches, H.launches = k1_launches, hp_launches
     joins = {k: device_join.STATS[k] - d0[k] for k in d0}
     fplans = {k: fused.STATS[k] - f0[k] for k in f0}
     path_s = time.perf_counter() - t_phase - build_s
@@ -3616,7 +3944,7 @@ def mesh_phase(star_dirs, tables, tile: int, live_segments=(),
                 "on one card; the star schema at the multistage phase's "
                 f"{MS_ROWS} orders rows"])
     return {"k1_launches": k1_launches, "hp_launches": hp_launches,
-            "hp": hp, "hp_edges": edges}
+            "hp": hp, "hp_edges": edges, "alone": alone}
 
 
 # ---------------------------------------------------------------------------
@@ -4361,9 +4689,9 @@ def _vec_kernel_entries(vsearch: dict) -> list:
 # geo: NYC-taxi-pickup-shaped points through the geo index
 # ---------------------------------------------------------------------------
 
-GEO_ROWS = int(os.environ.get("PINOT_SMOKE_GEO_ROWS", 1 << 21))
+GEO_ROWS = int(os.environ.get("PINOT_SMOKE_GEO_ROWS", 1 << 20))
 GEO_SEGMENTS = 2
-GEO_TWIN_ROWS = GEO_ROWS // 4        # 2^19 at the default depth
+GEO_TWIN_ROWS = GEO_ROWS // 4        # 2^18 at the default depth
 GEO_RES = 16                         # cells ~0.46 km wide at NYC's latitude
 GEO_TLC_JAN_2015 = 12_748_986        # NYC TLC yellow-cab trips, Jan 2015
 GEO_BOX = (40.49, 40.92, -74.27, -73.68)     # lat lo, lat hi, lng lo, hi
@@ -5159,7 +5487,8 @@ INACTIVE_CALLS = 200_000         # inactive span() calls timed
 
 # a build job run in a process of its own (the host builds are
 # single-threaded numpy and Python; the card machine has 8 cores): an SSB
-# segment in a forward-index format, or the rollups of one segment
+# segment in a forward-index format, the 8-segment SSB table, or the
+# rollups of one segment
 _BUILD_WORKER = r"""
 import json, os, sys, time
 sys.path.insert(0, os.getcwd())
@@ -5170,6 +5499,10 @@ if job["kind"] == "ssb":
     from pinot_tpu_torch.tools import ssb
     ssb.build_segment_dir(job["rows"], job["out"], TableConfig(
         "lineorder", indexing=IndexingConfig(**job["indexing"])))
+    out = {"seconds": time.perf_counter() - t0}
+elif job["kind"] == "table":
+    from pinot_tpu_torch.tools import ssb
+    ssb.build_table_dir(job["sizes"], job["out"])
     out = {"seconds": time.perf_counter() - t0}
 elif job["kind"] == "fuzz":
     from pinot_tpu_torch.tools import fuzzer
@@ -6111,7 +6444,7 @@ def trace_phase(single, segs, rollup_query_fn, digests: dict,
 # realtime: consuming segments, seals onto the card, hybrid, upsert, dedup
 # ---------------------------------------------------------------------------
 
-RT_ROWS = int(os.environ.get("PINOT_SMOKE_RT_ROWS", 1 << 20))
+RT_ROWS = int(os.environ.get("PINOT_SMOKE_RT_ROWS", 1 << 19))
 RT_PARTITIONS = 4
 RT_THREADS = 4                   # query threads under consumption
 RT_BOUNDARY = 199506             # the hybrid's offline half: d_yearmonthnum <=
@@ -6123,9 +6456,9 @@ RT_LIVE_DEADLINE_S = 300.0
 
 
 def rt_sizes() -> dict:
-    """The realtime phase's sizes from RT_ROWS (2^20 by default): the
+    """The realtime phase's sizes from RT_ROWS (2^19 by default): the
     append table, its flush threshold (200,000 rows at 2^21, scaled with
-    the depth: 100,000 at 2^20), the upsert table and its updates, the
+    the depth: 50,000 at 2^19), the upsert table and its updates, the
     dedup table and the rows streamed under consumption."""
     return {"rows": RT_ROWS, "flush": round(200_000 * RT_ROWS / (1 << 21)),
             "upsert": RT_ROWS // 2, "updates": RT_ROWS // 8,
@@ -10121,16 +10454,22 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = device_phase()
-    build_phase()
+    # a worker process builds the 8-segment table and nvcc the kernels
+    # (one process a source) while this process builds the SSB segment;
+    # the table is waited for before the main phase, whose queries then
+    # run on an otherwise idle host
+    table_job = start_table_build()
+    kernels_built = _in_background(build_phase)
+    seg_dir = segment_phase()
+    kernels_built()
     native_phase()
     from pinot_tpu_torch.ops import compact as C
     from pinot_tpu_torch.ops import segscan as S
     tile = C.tile_rows()
     err = max(kernel_phase(), edge_phase(tile))
     repeat_check(CHECK_N[0])
-    seg_dir = segment_phase()
+    table_dir = table_phase(table_job)
     launches, totals, n_compact, digests, single = main_phase(seg_dir, tile)
-    table_dir = table_phase()
     seg_launches, seg_totals, n_segmented, segs, multi_p50 = multi_phase(
         table_dir, digests, tile)
     concurrent_launches = concurrent_phase(single, segs)
@@ -10268,6 +10607,7 @@ def main() -> int:
         "device_ms": mesh["hp"]["widest"]["device_ms"],
         "split_ms": mesh["hp"]["widest"]["split_ms"],
         "host_ms": mesh["hp"]["widest"]["host_ms"],
+        "host_split_ms": mesh["hp"]["widest"]["host_split_ms"],
         "n": mesh["hp"]["widest"]["n"],
         "n_dev": mesh["hp"]["widest"]["n_dev"],
         "cap": mesh["hp"]["widest"]["cap"],
@@ -10279,7 +10619,9 @@ def main() -> int:
               "the shuffle join's and the fused hash stages' exchanges), "
               "also pinot_tpu/multistage/fused.py:333; ms = CUDA events "
               "over 20 back-to-back calls, cold_ms after a 128 MiB write, "
-              "device_ms by torch.profiler (count, scan, scatter, memsets); "
+              "device_ms by torch.profiler (the pass and the fill: no "
+              "memset), host_ms to issue a call, host_split_ms by step "
+              "(check, allocate, marshal, the C call); "
               "plain_ms = hash_partition_reference (stable sort, "
               "searchsorted, index_put) on the card; no single PyTorch "
               "call computes it (library_ms null): sort_ms is "

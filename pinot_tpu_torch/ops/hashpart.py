@@ -18,9 +18,14 @@ shuffle join's row ids are int64), ``n_dev`` 1 to 64, ``cap`` a power of
 two, at most 16 payloads.
 
 On a CUDA tensor ``hash_partition`` launches the kernel
-(``csrc/hashpart.cu``: a per-block histogram, a scan of the block offsets
-per partition, a stable warp-ballot scatter; design and bound in its
-header) or raises. On a CPU tensor it runs ``hash_partition_reference``,
+(``csrc/hashpart.cu``: one pass over ticketed tiles with a decoupled
+look-back over every partition and a coalesced scatter of each
+partition's run, then a fill of the buckets' tails; design and bound in
+its header) or raises. Its host path is lean: the buckets of every column
+and the flag are views carved from one allocation (``bucket_layout``),
+the scratch is the stream's (``stream_scratch.StreamScratch``, no
+memset), and the pointers go to the C entry in one argument block filled
+in place. On a CPU tensor it runs ``hash_partition_reference``,
 the plain PyTorch version: a stable sort of the partitions, run starts by
 ``searchsorted``, and a masked ``index_put``. The kernel is held against
 it bitwise on the card. No single PyTorch call computes it; the sort half
@@ -35,7 +40,7 @@ from typing import Sequence, Tuple
 import torch
 
 from . import cuda_build
-from .stream_scratch import device_scope
+from .stream_scratch import StreamScratch, device_scope
 
 MAX_DEV = 64
 MAX_PAYLOADS = 16
@@ -44,6 +49,11 @@ _M32 = 0xFFFFFFFF
 # calls that launched the CUDA kernels (chip_smoke.py resets and reads it)
 launches = 0
 _LAUNCH_LOCK = threading.Lock()
+# per (device, stream) ticket counter and status words; its lock is held
+# from taking the scratch to the launch, and guards the argument block
+_SCRATCH = StreamScratch()
+ALIGN = 16          # each column's buckets start on a 16-byte boundary
+_PAYLOAD_DTYPES = (torch.int32, torch.int64)
 
 
 def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -76,7 +86,7 @@ def hash_partition(codes: torch.Tensor, payloads: Sequence[torch.Tensor],
     """The buckets and the overflow flag (module doc)."""
     payloads = tuple(payloads)
     _check(codes, payloads, n_dev, cap)
-    if codes.device.type == "cpu":
+    if not codes.is_cuda:
         return hash_partition_reference(codes, payloads, n_dev, cap)
     return _hash_partition_cuda(codes, payloads, n_dev, cap)
 
@@ -86,19 +96,20 @@ def _check(codes: torch.Tensor, payloads: Tuple[torch.Tensor, ...],
     if codes.dtype != torch.int32 or codes.dim() != 1 \
             or not codes.is_contiguous():
         raise ValueError("codes must be a contiguous 1-D int32 tensor")
-    if codes.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no hash partition on {codes.device}")
+    dev = codes.device
+    if not codes.is_cuda and not codes.is_cpu:
+        raise ValueError(f"no hash partition on {dev}")
     if len(payloads) > MAX_PAYLOADS:
         raise ValueError(f"at most {MAX_PAYLOADS} payloads, got "
                          f"{len(payloads)}")
+    shape = codes.shape
     for p in payloads:
-        if p.dtype not in (torch.int32, torch.int64) \
-                or p.shape != codes.shape or not p.is_contiguous():
+        if p.dtype not in _PAYLOAD_DTYPES or p.shape != shape \
+                or not p.is_contiguous():
             raise ValueError("each payload must be a contiguous int32 or "
                              "int64 tensor shaped like codes")
-        if p.device != codes.device:
-            raise ValueError(f"a payload on {p.device}, codes on "
-                             f"{codes.device}")
+        if p.device != dev:
+            raise ValueError(f"a payload on {p.device}, codes on {dev}")
     if not isinstance(n_dev, int) or not 1 <= n_dev <= MAX_DEV:
         raise ValueError(f"n_dev must be an int in [1, {MAX_DEV}], got "
                          f"{n_dev!r}")
@@ -139,30 +150,89 @@ def partition_bytes(n: int, widths: Sequence[int], n_dev: int,
     return n * row + n_dev * cap * row + 1
 
 
+def bucket_layout(widths: Sequence[int], n_dev: int, cap: int
+                  ) -> Tuple[Tuple[int, ...], int, int]:
+    """(byte offset of each column's buckets, byte offset of the flag,
+    bytes in all) in the one allocation of a call. Each column's
+    ``(n_dev, cap)`` buckets start on an ``ALIGN``-byte boundary (an
+    int64 view's alignment, and the kernel's 16-byte -1 stores) and take
+    a whole number of ``ALIGN``-byte chunks; the flag is the byte after
+    them, and the total is a whole number of chunks (every dtype views
+    it)."""
+    offs, at = [], 0
+    for w in widths:
+        offs.append(at)
+        at += -(-n_dev * cap * w // ALIGN) * ALIGN
+    return tuple(offs), at, at + ALIGN
+
+
+def scratch_words(n: int, n_dev: int, tile: int) -> int:
+    """64-bit scratch words a call needs: the ticket counter and one
+    status word a (tile, partition)."""
+    return 1 + -(-n // tile) * n_dev
+
+
+def _buckets(cols: Tuple[torch.Tensor, ...], n_dev: int, cap: int):
+    """One allocation carved into each column's ``(n_dev, cap)`` buckets
+    (its dtype) and the 1-element bool flag -> (buckets, flag, the
+    buckets' addresses, the flag's address). Nothing is filled: the
+    kernel writes every byte of them."""
+    widths = [c.element_size() for c in cols]
+    offs, flag_at, size = bucket_layout(widths, n_dev, cap)
+    buf = torch.empty(size, dtype=torch.uint8, device=cols[0].device)
+    typed = {}
+    outs = []
+    for c, w, off in zip(cols, widths, offs):
+        v = typed.get(c.dtype)
+        if v is None:
+            v = typed[c.dtype] = buf.view(c.dtype)
+        outs.append(v.as_strided((n_dev, cap), (cap, 1), off // w))
+    flag = buf.as_strided((1,), (1,), flag_at).view(torch.bool)
+    base = buf.data_ptr()
+    return tuple(outs), flag, [base + o for o in offs], base + flag_at
+
+
+def _stream(dev: torch.device) -> int:
+    """The handle of the current CUDA stream on a tensor's device, read
+    as PyTorch's generated code reads it (no Stream object a call)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def _marshal(args, cols: Tuple[torch.Tensor, ...], dsts, flag_addr: int,
+             n_dev: int, cap: int, scratch: torch.Tensor,
+             epoch: int) -> None:
+    """Fill the argument block in place (the layout of ``ARG_WORDS`` in
+    ``csrc/hashpart.cu``); the caller holds ``_SCRATCH.lock``."""
+    head = [cols[0].shape[0], n_dev, cap, len(cols), flag_addr,
+            scratch.data_ptr(), scratch.numel(), epoch]
+    head += [c.data_ptr() for c in cols]
+    head += dsts
+    head += [c.element_size() for c in cols]
+    args[:len(head)] = head
+
+
 def _hash_partition_cuda(codes: torch.Tensor,
                          payloads: Tuple[torch.Tensor, ...], n_dev: int,
                          cap: int
                          ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
-    """Launch the memsets and the three kernels on the current stream."""
+    """Carve the outputs and launch the pass and the fill on the current
+    stream."""
     global launches
     k = _bound_kernel()
-    n = codes.shape[0]
-    dev = codes.device
     cols = (codes, *payloads)
-    outs = tuple(torch.empty((n_dev, cap), dtype=c.dtype, device=dev)
-                 for c in cols)
-    overflow = torch.empty(1, dtype=torch.bool, device=dev)
-    counts = torch.empty(max(n_dev * (-(-n // k["tile"])), 1),
-                         dtype=torch.int32, device=dev)
-    n_cols = len(cols)
-    srcs = (ctypes.c_void_p * n_cols)(*[c.data_ptr() for c in cols])
-    dsts = (ctypes.c_void_p * n_cols)(*[o.data_ptr() for o in outs])
-    widths = (ctypes.c_int * n_cols)(*[c.element_size() for c in cols])
+    outs, overflow, dsts, flag_addr = _buckets(cols, n_dev, cap)
+    dev = codes.device
     with device_scope(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = k["run"](codes.data_ptr(), n, n_dev, cap, n_cols, srcs, dsts,
-                      widths, overflow.data_ptr(), counts.data_ptr(),
-                      stream)
+        stream = _stream(dev)
+        with _SCRATCH.lock:
+            scratch, epoch = _SCRATCH.take(
+                dev, stream, scratch_words(codes.shape[0], n_dev,
+                                           k["tile"]))
+            _marshal(k["args"], cols, dsts, flag_addr, n_dev, cap, scratch,
+                     epoch)
+            rc = k["run"](k["args_ptr"], stream)
+            if rc != 0:
+                _SCRATCH.drop(dev, stream)    # its counter may be off
     if rc != 0:
         raise RuntimeError(f"hash partition kernel launch failed: CUDA "
                            f"error {rc}")
@@ -171,7 +241,7 @@ def _hash_partition_cuda(codes: torch.Tensor,
     return outs, overflow
 
 
-_KERNEL = None  # {"run", "tile"}
+_KERNEL = None  # {"run", "tile", "args", "args_ptr"}
 
 
 def _bound_kernel():
@@ -185,14 +255,17 @@ def _bound_kernel():
 
 
 def bind(lib: ctypes.CDLL) -> dict:
-    """The entry points of a loaded build of hashpart.cu."""
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.pinot_hashpart.argtypes = [vp, i64, i32, i64, i32, vp, vp, vp, vp,
-                                   vp, vp]
+    """The entry points of a loaded build of hashpart.cu, and the
+    argument block its calls fill in place."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.pinot_hashpart.argtypes = [vp, vp]
     lib.pinot_hashpart.restype = i32
-    lib.pinot_hashpart_tile.argtypes = []
-    lib.pinot_hashpart_tile.restype = i32
-    return {"run": lib.pinot_hashpart, "tile": lib.pinot_hashpart_tile()}
+    for name in ("tile", "arg_words"):
+        getattr(lib, f"pinot_hashpart_{name}").argtypes = []
+        getattr(lib, f"pinot_hashpart_{name}").restype = i32
+    args = (ctypes.c_int64 * lib.pinot_hashpart_arg_words())()
+    return {"run": lib.pinot_hashpart, "tile": lib.pinot_hashpart_tile(),
+            "args": args, "args_ptr": ctypes.addressof(args)}
 
 
 def tile_rows() -> int:

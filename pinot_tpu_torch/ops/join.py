@@ -108,6 +108,23 @@ def mesh_equi_join(mesh, lk: np.ndarray, rk: np.ndarray, max_dup: int
     return np.concatenate(match)[:n], np.concatenate(r_idx)[:n]
 
 
+def mesh_join_bytes(n_probe: int, n_build: int, key_bytes: int,
+                    max_dup: int, n_dev: int) -> int:
+    """The least bytes ``mesh_equi_join`` must move on its shards: the
+    probe keys read once, the build keys read once on each shard (they
+    are replicated), the (L, max_dup) match (1 B) and r_idx (4 B)
+    matrices written once."""
+    return (n_probe + n_dev * n_build) * key_bytes + n_probe * max_dup * 5
+
+
+def shuffle_join_bytes(n_left: int, n_right: int, n_pairs: int) -> int:
+    """The least bytes ``mesh_shuffle_join`` must move on its shards: each
+    side's int32 codes and int64 row ids read once, each matched pair's
+    two int64 indices written once (the buckets, the exchange and the
+    per-shard join are its own traffic, not the function's)."""
+    return (n_left + n_right) * 12 + n_pairs * 16
+
+
 def shuffle_cap(rows: int, n_dev: int, slack: float) -> int:
     """The pow2 bucket capacity for a shard of ``rows`` rows over
     ``n_dev`` partitions (``mesh_shuffle_join``'s rule)."""

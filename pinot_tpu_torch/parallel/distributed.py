@@ -286,6 +286,21 @@ class DistributedTable:
             return host
 
 
+def kernel_bytes(cols: Sequence[Sequence[torch.Tensor]],
+                 n_docs: Sequence[Sequence[int]],
+                 params: Sequence[Tuple[torch.Tensor, ...]],
+                 out: Dict[str, torch.Tensor]) -> int:
+    """The least bytes ``distributed_kernel`` must move: each shard's
+    live rows of each column read once (a stack's padding past a
+    segment's ``n_docs`` is not data), each shard's params read once, the
+    combined outputs written once."""
+    rows = [sum(d) for d in n_docs]
+    read = sum(r * c[d].element_size() for c in cols
+               for d, r in enumerate(rows))
+    read += sum(int(p.nbytes) for ps in params for p in ps)
+    return read + sum(int(v.nbytes) for v in out.values())
+
+
 def distributed_kernel(kernel_plan, bucket: int, mesh: Mesh,
                        cols: Sequence[Sequence[torch.Tensor]],
                        n_docs: Sequence[Sequence[int]],

@@ -190,7 +190,8 @@ def split_ms(fn, reps: int) -> dict:
         if t is None:
             t = getattr(e, "self_cuda_time_total", 0.0)
         if t:
-            name = e.key.split("(")[0].split("<")[0].replace("void ", "")
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].replace("void ", "")
             out[name] = out.get(name, 0.0) + float(t) / reps / 1e3
     return out
 

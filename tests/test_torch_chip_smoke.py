@@ -89,6 +89,44 @@ def test_a_partial_window_is_retried(monkeypatch):
                                  "memset_ms": 0.001})
 
 
+def test_kernel_split_ms_with_no_memset_expected(monkeypatch):
+    """memsets=0 (the hash partition: its pass and its fill, no memset):
+    a window without a memset is taken, with the memset at 0; a window
+    that shows one is not, and the next is tried."""
+    calls = [_Event("hp_pass", 4, 80.0), _Event("hp_fill", 4, 20.0)]
+    opened = _stub_profiler(monkeypatch, [calls])
+    got = chip_smoke.kernel_split_ms(lambda: None, chip_smoke.HP_KERNELS,
+                                     reps=4, memsets=0)
+    assert len(opened) == 1
+    assert got == pytest.approx({"hp_pass": 0.02, "hp_fill": 0.005,
+                                 "memset": 0.0})
+    opened = _stub_profiler(monkeypatch, [
+        calls + [_Event("Memset (Device)", 1, 4.0)], calls])
+    assert chip_smoke.kernel_split_ms(
+        lambda: None, chip_smoke.HP_KERNELS, reps=4, memsets=0) == got
+    assert len(opened) == 2
+
+
+def test_table_phase_waits_for_its_worker(tmp_path, monkeypatch):
+    """The 8-segment table built by a worker process started before the
+    kernels' build, then waited for; a second call finds it cached."""
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "N_ROWS", 1 << 12)
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda name, /, **f: printed.append((name, f)))
+    job = chip_smoke.start_table_build()
+    assert job is not None
+    out = chip_smoke.table_phase(job)
+    segs = sorted(os.listdir(out))
+    assert len(segs) == chip_smoke.TABLE_SEGMENTS and all(
+        os.path.exists(os.path.join(out, d, "metadata.json")) for d in segs)
+    assert printed[-1][1]["cached"] is False
+    assert chip_smoke.start_table_build() is None
+    assert chip_smoke.table_phase() == out
+    assert printed[-1][1]["cached"] is True
+
+
 def test_add_measured_keeps_unmeasured_parts_none():
     totals = {"ms": 0.0, "device_ms": 0.0}
     chip_smoke.add_measured(totals, {"ms": 1.5, "device_ms": 0.5})
@@ -1110,7 +1148,14 @@ def test_mesh_phase_on_cpu(tmp_path, monkeypatch):
     queries = [f for name, f in printed if name == "mesh_query"]
     assert len(queries) == 13 and all(q["ok"] for q in queries)
     assert got["hashpart_edges"]["overflow_cases"] == [
-        "one_partition_overflow"]
+        "one_partition_overflow", "tile_past_cap_for_one_partition"]
+    # K18 on each query's first call and both K16 mesh joins, alone
+    alone = [f for name, f in printed if name == "traced_at_mesh_path"]
+    assert {f["name"] for f in alone} == {
+        "k18_distributed_kernel", "k16_mesh_shuffle_join",
+        "k16_mesh_equi_join"}
+    assert all(f["bound_ms"] > 0 for f in alone)
+    assert len(out["alone"]["k18"]) == 13
     # one launch a query a shard on the 4-shard arm's compact queries
     labels = [f["query"] for name, f in printed
               if name == "kernel_at_mesh_path"]

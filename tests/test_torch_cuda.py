@@ -49,7 +49,11 @@ oracle's rows through K1. The hash-bucket partition kernel must equal its
 plain version bitwise at sizes on and around its tile, for 1 to 64
 partitions, with a partition that overflows its cap, one that fills it
 exactly, rows without a partition, 16 payloads and over 20 launches in a
-row; a table resident on 4 logical shards of the card must answer the SSB
+row; also with 64 partitions over 200 tiles, totals landing on cap at a
+tile's edge, a tile past cap for one partition only, inputs sliced off
+their allocation, calls back to back that re-grow and reuse a stream's
+scratch, two streams at once, a stream's epochs running out, and at the
+mesh path's widest shape once and 20 times; a table resident on 4 logical shards of the card must answer the SSB
 queries as on 1 shard and per segment, through K1 on every shard.
 """
 import json
@@ -2454,6 +2458,115 @@ def test_hash_partition_edges_on_card(cuda, case):
     for got in outs:
         _hp_same(got, want)
     assert bool(outs[0][1].any()) == (case == "overflow")
+
+
+def _hp_partition_codes(n_dev: int, count: int) -> np.ndarray:
+    """(n_dev, count) distinct codes, row p hashing to partition p."""
+    from pinot_tpu_torch.ops import hashpart as H
+
+    pool = np.arange(1 << 16, dtype=np.int32)
+    part = H.partition_of(torch.from_numpy(pool), n_dev).numpy()
+    return np.stack([pool[part == p][:count] for p in range(n_dev)])
+
+
+def _hp_case(cuda, n: int, n_dev: int, seed: int, n_pay: int = 2):
+    codes, pays, cap = _hp_inputs(n, n_dev, seed, n_pay)
+    return (torch.from_numpy(codes).to(cuda),
+            tuple(torch.from_numpy(x).to(cuda) for x in pays), n_dev, cap)
+
+
+def _hp_held(calls, outs) -> None:
+    """Each launched call's outputs against its plain version."""
+    from pinot_tpu_torch.ops import hashpart as H
+
+    torch.cuda.synchronize()
+    for (c, p, n_dev, cap), got in zip(calls, outs):
+        _hp_same(got, H.hash_partition_reference(c, p, n_dev, cap))
+
+
+@pytest.mark.parametrize("case", [
+    "dev64_many_tiles", "cap_exact_at_tile_edge", "tile_past_cap",
+    "sliced", "grow_shrink", "two_streams", "epoch_near_max", "widest",
+    "widest_repeats"])
+def test_hash_partition_single_pass_edges_on_card(cuda, case):
+    """The one-pass kernel: the widest look-back (64 partitions over 200
+    tiles), totals landing on cap at a tile's edge, a tile past cap for
+    one partition only, inputs sliced off their allocation, a stream's
+    scratch re-grown and reused by calls back to back, two streams at
+    once, a stream's epochs running out, the mesh path's widest shape
+    (2^20 rows, 4 partitions, cap 2^19, three int32 payloads) once and
+    20 times in a row; bitwise, one launch counted a call."""
+    from pinot_tpu_torch.ops import hashpart as H
+    from pinot_tpu_torch.ops.stream_scratch import EPOCH_MAX
+
+    tile = H.tile_rows()
+    rng = np.random.default_rng(1719)
+    calls = []
+    if case == "dev64_many_tiles":
+        calls = [_hp_case(cuda, 200 * tile + 3, 64, 5)]
+    elif case in ("cap_exact_at_tile_edge", "tile_past_cap"):
+        two = _hp_partition_codes(2, 64)
+        if case == "cap_exact_at_tile_edge":
+            codes = np.concatenate([rng.choice(two[0], tile),
+                                    rng.choice(two[1], tile)])
+        else:
+            mixed = rng.choice(two[0], 2 * tile)
+            mixed[rng.permutation(2 * tile)[:tile]] = rng.choice(two[1],
+                                                                 tile)
+            codes = np.concatenate([rng.choice(two[0], tile), mixed])
+        pays = (np.arange(len(codes), dtype=np.int64),
+                rng.integers(-9, 9, len(codes)).astype(np.int32))
+        calls = [(torch.from_numpy(codes.astype(np.int32)).to(cuda),
+                  tuple(torch.from_numpy(x).to(cuda) for x in pays), 2,
+                  tile)]
+    elif case == "sliced":
+        c, p, n_dev, cap = _hp_case(cuda, 3 * tile + 12, 8, 6, 4)
+        calls = [(c[1:], tuple(x[1:] for x in p), n_dev, cap)]
+        assert all(x.data_ptr() % 16 for x in calls[0][1])
+    elif case in ("grow_shrink", "two_streams", "epoch_near_max"):
+        calls = [_hp_case(cuda, n, d, n + d) for n, d in (
+            (tile, 4), (40 * tile + 1, 64), (300 * tile + 5, 3),
+            (7 * tile, 64), (1, 8), (0, 2), (90 * tile, 4))]
+    else:
+        n = 1 << 20
+        c = torch.from_numpy(rng.integers(-1, n, n).astype(np.int32))
+        p = tuple(torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(
+            np.int32)) for _ in range(3))
+        calls = [(c.to(cuda), tuple(x.to(cuda) for x in p), 4, n // 2)]
+        calls *= 20 if case == "widest_repeats" else 1
+    before = H.launches
+    if case == "two_streams":
+        main = torch.cuda.current_stream()
+        side = (torch.cuda.Stream(), torch.cuda.Stream())
+        for st in side:
+            st.wait_stream(main)
+        calls = calls * 2
+        outs = []
+        for i, call in enumerate(calls):
+            with torch.cuda.stream(side[i % 2]):
+                outs.append(H.hash_partition(*call))
+        for st in side:
+            main.wait_stream(st)
+    elif case == "epoch_near_max":
+        H.hash_partition(*calls[0])
+        before = H.launches
+        key = (cuda.index or 0, torch.cuda.current_stream().cuda_stream)
+        with H._SCRATCH.lock:
+            entry = H._SCRATCH._bufs[key]
+            entry[1] = EPOCH_MAX - 2
+            old = entry[0]
+        outs = [H.hash_partition(*call) for call in calls]
+        with H._SCRATCH.lock:
+            assert H._SCRATCH._bufs[key][0] is not old
+    else:
+        outs = [H.hash_partition(*call) for call in calls]
+    assert H.launches == before + len(calls)
+    _hp_held(calls, outs)
+    if case == "widest_repeats":
+        for got in outs[1:]:
+            _hp_same(got, outs[0])
+    if case in ("cap_exact_at_tile_edge", "tile_past_cap"):
+        assert bool(outs[0][1].any()) == (case == "tile_past_cap")
 
 
 def test_mesh_resident_table_on_card(cuda, tmp_path):
