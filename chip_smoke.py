@@ -167,7 +167,7 @@ Phases, each printed as it runs; any failure exits non-zero:
              path's inputs (kernel_at_geo_path); the index build's seconds
              and bytes; the device's idle share in the grouped query;
 13. vector - vector search (K15): the SIFT1M- and GloVe-100-shaped table
-             of tools/vec.py (PINOT_SMOKE_VEC_ROWS rows, default 2^20, in
+             of tools/vec.py (PINOT_SMOKE_VEC_ROWS rows, default 2^19, in
              2 segments; emb_l2 128-d l2 and emb_cos 100-d cosine, both
              with the IVF layer at the default 724 lists, seed 7) built
              under .torch_cache/ (the IVF host build timed apart), then
@@ -571,6 +571,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -671,13 +672,22 @@ def same_outputs(a, b) -> float:
     return 0.0
 
 
-def device_phase():
-    import torch
-
-    smi = subprocess.run(
+def _nvidia_smi() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _card_line(on_card: bool) -> str:
+    return _nvidia_smi() if on_card else "cpu"
+
+
+def device_phase():
+    import torch
+
+    smi = _nvidia_smi()
     phase("device", name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), nvidia_smi=smi,
           torch=torch.__version__, cuda=torch.version.cuda)
@@ -3951,7 +3961,7 @@ def mesh_phase(star_dirs, tables, tile: int, live_segments=(),
 # vector search (K15)
 # ---------------------------------------------------------------------------
 
-VEC_ROWS = int(os.environ.get("PINOT_SMOKE_VEC_ROWS", 1 << 20))
+VEC_ROWS = int(os.environ.get("PINOT_SMOKE_VEC_ROWS", 1 << 19))
 VEC_QUERIES = 16                 # query vectors per column: one fused batch
 VEC_KS = (10, 100)               # ann-benchmarks' k for SIFT1M / GloVe-100
 VEC_RECALL_BAR = 0.95            # bench_vector.py's RECALL_BAR (cosine)
@@ -8029,9 +8039,270 @@ def _dispatch_stages(tree: dict) -> list:
     return out
 
 
+GRPC_FRAME_BYTES = 3 << 20      # the mailbox relation's frames (limit 4 MiB)
+GRPC_MAILBOX_MIN_ROWS = 1 << 20  # ... on the card, at least this many rows
+
+
+def _grpc_call(target: str, sql: str, segments: list, first: list):
+    """(header, partials, ms, ms to the first streamed block) of one
+    grpc_plane.submit_stream; ``first`` is the clock of the first block's
+    decode (engine.datablock.decode_partial, wrapped by the caller). A
+    call that streamed partials with no block timed fails: the wrapper
+    no longer reaches the decoder."""
+    from pinot_tpu_torch.cluster.grpc_plane import submit_stream
+
+    first.clear()
+    t0 = time.perf_counter()
+    header, partials = submit_stream(target, sql, segments,
+                                     timeout=CLUSTER_WAIT_S)
+    ms = (time.perf_counter() - t0) * 1e3
+    if partials and not first:
+        raise AssertionError(f"cluster gRPC: {len(partials)} partials "
+                             "streamed but the first block was not timed")
+    return header, partials, ms, ((first[0] - t0) * 1e3 if first else None)
+
+
+def _median_or_none(values: list):
+    """The median of the values that are not None (a call that streamed
+    no block has no first block), or None."""
+    kept = [v for v in values if v is not None]
+    return statistics.median(kept) if kept else None
+
+
+def _grpc_bin_ms(url: str, sql: str, segments: list) -> float:
+    """ms of the same execution over the server's /query/bin (decoded)."""
+    from pinot_tpu_torch.cluster.http_util import http_raw
+    from pinot_tpu_torch.engine.datablock import decode_wire_frame
+
+    t0 = time.perf_counter()
+    raw = http_raw("POST", f"{url}/query/bin",
+                   {"sql": sql, "segments": segments},
+                   timeout=CLUSTER_WAIT_S)
+    decode_wire_frame(raw)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _grpc_mailbox(server, tables: dict, min_rows: int) -> dict:
+    """The star schema's orders leaf relation through mailbox_send to
+    ``server``'s MailboxService in frames under 4 MiB, drained and
+    compared with what was sent, and timed beside the same frames
+    delivered in process; one frame over 4 MiB answers
+    RESOURCE_EXHAUSTED and an unknown method UNIMPLEMENTED."""
+    import numpy as np
+
+    from pinot_tpu_torch.cluster import h2
+    from pinot_tpu_torch.cluster.grpc_plane import SERVICE, mailbox_send
+    from pinot_tpu_torch.multistage.dispatch import (deliver_mailbox_frame,
+                                                     encode_mailbox_frame)
+    from pinot_tpu_torch.multistage.exchange import MailboxService
+    from pinot_tpu_torch.multistage.relation import Relation
+
+    cols, _fields, _n = tables["orders"]
+    data = {f"o.{c}": np.ascontiguousarray(v) for c, v in cols.items()}
+    rows = len(next(iter(data.values())))
+    if rows < min_rows:
+        raise AssertionError(f"cluster gRPC mailbox: {rows} rows, fewer "
+                             f"than {min_rows}")
+    # the relation codec carries integers as int64 and zlib-compresses
+    # its blocks: count 8 bytes a value, the size before compression
+    step = GRPC_FRAME_BYTES // (8 * len(data))
+    qid, stage, worker = "grpc_mailbox", 1, 0
+    frames = [encode_mailbox_frame(qid, stage, worker, Relation(
+        {c: v[i:i + step] for c, v in data.items()}, {}, "o"))
+        for i in range(0, rows, step)]
+    frames.append(encode_mailbox_frame(qid, stage, worker, None))
+    sizes = [len(f) for f in frames]
+    if max(sizes) >= h2.MAX_MESSAGE:
+        raise AssertionError(f"cluster gRPC mailbox: a frame of "
+                             f"{max(sizes)} bytes")
+    target = f"127.0.0.1:{server.grpc_port}"
+    t0 = time.perf_counter()
+    delivered = mailbox_send(target, frames, timeout=CLUSTER_WAIT_S)
+    send_s = time.perf_counter() - t0
+    blocks = server.mailboxes.mailbox(qid, stage, worker).drain(
+        timeout=CLUSTER_WAIT_S)
+    server.mailboxes.release(qid)
+    if delivered != len(frames) or len(blocks) != len(frames) - 1:
+        raise AssertionError(f"cluster gRPC mailbox: {delivered} of "
+                             f"{len(frames)} delivered, {len(blocks)} "
+                             "blocks drained")
+    for c, want in data.items():
+        got = np.concatenate([np.asarray(b.data[c]) for b in blocks])
+        if got.dtype.kind != want.dtype.kind or \
+                not np.array_equal(got, want):
+            raise AssertionError(f"cluster gRPC mailbox: column {c} "
+                                 "differs from what was sent")
+    # the same frames delivered in process: what the transport adds
+    local = MailboxService()
+    t0 = time.perf_counter()
+    for f in frames:
+        deliver_mailbox_frame(local, f)
+    deliver_s = time.perf_counter() - t0
+    local.release(qid)
+    statuses = {}
+    noise = np.random.default_rng(20).integers(0, 1 << 62, 5 << 17)
+    big = encode_mailbox_frame("grpc_big", stage, worker, Relation(
+        {"o.noise": noise}, {}, "o"))          # 5 MiB, incompressible
+    if len(big) <= h2.MAX_MESSAGE:
+        raise AssertionError(f"cluster gRPC: the big frame is {len(big)} "
+                             "bytes")
+
+    def unknown():
+        with h2.Channel(target) as ch:
+            list(ch.unary_stream(f"/{SERVICE}/Nope")(b"", timeout=60.0))
+
+    calls = {"over_4_mib": lambda: mailbox_send(target, [big], timeout=60.0),
+             "unknown_method": unknown}
+    for case, call in calls.items():
+        try:
+            call()
+        except h2.RpcError as e:
+            statuses[case] = [e.code, e.details]
+        else:
+            raise AssertionError(f"cluster gRPC {case}: answered OK")
+    if statuses["over_4_mib"][0] != "RESOURCE_EXHAUSTED" or \
+            statuses["unknown_method"][0] != "UNIMPLEMENTED":
+        raise AssertionError(f"cluster gRPC statuses: {statuses}")
+    if server.mailboxes.mailbox_id("grpc_big", stage, worker) in \
+            server.mailboxes._boxes:
+        raise AssertionError("cluster gRPC: the refused frame was "
+                             "delivered")
+    return {"rows": rows, "frames": len(frames), "bytes": sum(sizes),
+            "largest_frame": max(sizes), "big_frame": len(big),
+            "windows": sum(sizes) / h2.GRPC_WINDOW, "send_s": send_s,
+            "in_process_deliver_s": deliver_s,
+            "mb_per_s": sum(sizes) / send_s / 1e6,
+            "rows_per_s": rows / send_s, "statuses": statuses}
+
+
+def cluster_grpc_step(servers, sqls, seg_names: dict, digests: dict,
+                      tables: dict, log: list, tile: int, on_card: bool,
+                      card: str) -> dict:
+    """The gRPC data plane of both server nodes (grpc_plane over h2):
+    (a) each has a grpc_port; (b) the 13 SSB queries through
+    submit_stream to both, each on the segments its HTTP runs answered,
+    one warm-up and ITERS timed runs, the partials of both reduced with
+    engine.reduce.reduce_partials equal the multi phase's digests over 8
+    segments; (c) per query and server the p50 over gRPC, the time to
+    the first streamed block, and the p50 of the same execution over
+    /query/bin; (d) every K1 launch of the gRPC calls held bitwise as it
+    launched and each query's inputs held with _k1_held
+    (kernel_at_grpc_path); (e) a sampled trace context returns a
+    SERVER_QUERY tree, an unsampled one none; (f) the orders leaf
+    relation through the Mailbox, a frame over 4 MiB and an unknown
+    method refused. ``log`` is the servers' execution log
+    (_record_executions). Returns the step's numbers and K1's
+    launches."""
+    from pinot_tpu_torch.engine import datablock
+    from pinot_tpu_torch.engine.reduce import reduce_partials
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.sql import parse_sql
+    from pinot_tpu_torch.tools import ssb
+    from pinot_tpu_torch.utils import phases as ph
+
+    t_step = time.perf_counter()
+    ports = {s.instance_id: s.grpc_port for s in servers}
+    if not all(ports.values()):
+        raise AssertionError(f"cluster gRPC: a server has no port {ports}")
+    first: list = []
+    real_decode = datablock.decode_partial
+
+    def timed_decode(data):
+        if not first:
+            first.append(time.perf_counter())
+        return real_decode(data)
+
+    datablock.decode_partial = timed_decode
+    held: list = []
+    launched = 0
+    log_by_key: dict = {}
+    per_query: dict = {}
+    try:
+        for qid, sql in sqls:
+            ctx = build_query_context(parse_sql(sql))
+            timed: dict = {}            # server -> (grpc, first, bin) ms
+            for run in range(ITERS + 1):
+                partials, queried = [], 0
+                for s in servers:
+                    segs = seg_names[qid][s.instance_id]
+                    before, mark = C.launches, len(log)
+                    with _held_as_launched(held, f"{qid}@{s.instance_id}"):
+                        header, got, ms, first_ms = _grpc_call(
+                            f"127.0.0.1:{s.grpc_port}", sql, segs, first)
+                    launched += C.launches - before
+                    for sid, _q, ran, plans in log[mark:]:
+                        if sid == s.instance_id and ran:
+                            log_by_key[(qid, sid)] = plans
+                    partials += got
+                    queried += int(header.get("segmentsQueried", 0))
+                    if run:
+                        t = timed.setdefault(s.instance_id, ([], [], []))
+                        t[0].append(ms)
+                        t[1].append(first_ms)
+                        t[2].append(_grpc_bin_ms(s.url, sql, segs))
+                if queried != 8:
+                    raise AssertionError(f"cluster gRPC {qid}: "
+                                         f"segmentsQueried {queried}")
+                digest = ssb._digest(reduce_partials(ctx, partials).rows)
+                if digest != digests[qid]:
+                    raise AssertionError(f"cluster gRPC {qid}: digest "
+                                         "differs from the multi phase's")
+            per_query[qid] = {
+                sid: {"grpc_p50_ms": statistics.median(t[0]),
+                      "first_block_p50_ms": _median_or_none(t[1]),
+                      "bin_p50_ms": statistics.median(t[2]),
+                      "segments": len(seg_names[qid][sid])}
+                for sid, t in timed.items()}
+            phase("cluster_grpc_query", qid=qid, ok=True, card=card,
+                  per_server=per_query[qid])
+    finally:
+        datablock.decode_partial = real_decode
+    if launched == 0:
+        raise AssertionError("cluster gRPC: the path never launched K1")
+    n_launch_held = _check_held_at_launch(held, launched, tile,
+                                          "kernel_at_grpc_path",
+                                          "cluster gRPC")
+    n_held = 0
+    for (qid, sid), plans in log_by_key.items():
+        for g in _k1_groups(plans):
+            n_held += _k1_held(g, f"{qid}@{sid}", "kernel_at_grpc_path",
+                               tile, on_card)
+    if n_held == 0:
+        raise AssertionError("cluster gRPC: no compact input held")
+
+    # (e) the trace context crosses the plane
+    from pinot_tpu_torch.cluster.grpc_plane import submit_stream
+    target = f"127.0.0.1:{servers[0].grpc_port}"
+    sql = dict(sqls)["q1.1"]
+    header, _p = submit_stream(target, sql, timeout=CLUSTER_WAIT_S,
+                               trace_ctx={"queryId": "grpc_q1",
+                                          "sampled": True,
+                                          "parentSpanId": "ab12cd34"})
+    tree = header.get("trace") or {}
+    if tree.get("name") != ph.SERVER_QUERY or \
+            tree["attrs"].get("query_id") != "grpc_q1" or \
+            tree["attrs"].get("parent_span_id") != "ab12cd34":
+        raise AssertionError(f"cluster gRPC trace: {str(tree)[:300]}")
+    header, _p = submit_stream(target, sql, timeout=CLUSTER_WAIT_S)
+    if "trace" in header:
+        raise AssertionError("cluster gRPC: an unsampled call returned a "
+                             "trace")
+    phase("cluster_grpc_trace", ok=True, root=tree["name"],
+          spans=sum(1 for _ in _span_walk(tree)), root_ms=tree.get("ms"))
+
+    # (f) the client-streamed mailbox
+    mailbox = _grpc_mailbox(servers[1], tables,
+                            GRPC_MAILBOX_MIN_ROWS if on_card else 1)
+    phase("cluster_grpc_mailbox", ok=True, card=card, **mailbox)
+    return {"launches": launched, "held_as_launched": n_launch_held,
+            "inputs_held": n_held, "ports": ports,
+            "seconds": time.perf_counter() - t_step}
+
+
 def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
                   digests: dict, multi_p50: dict, tile: int,
-                  live_segments=(), device: str = "cuda") -> int:
+                  live_segments=(), device: str = "cuda") -> dict:
     """The cluster's data plane: one Controller (state directory and a
     local deep store under .torch_cache/cluster/), two
     ServerNode(device=device) and one BrokerNode in this process over
@@ -8054,7 +8325,11 @@ def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
     schema's orders (one seventh of the order keys, the leaf on both
     servers) with customers, two join workers, equals a numpy join; (8)
     once the nodes stop, memory is back at the phase's baseline and no
-    mailbox is left. Returns K1's launches on the 13 queries' path."""
+    mailbox is left. Between (3) and (6) the gRPC data plane
+    (cluster_grpc_step) answers the 13 queries and a mailbox relation on
+    both servers; once they stop no gRPC thread or listener is left.
+    Returns K1's launches on the 13 queries' HTTP path and on their gRPC
+    path."""
     import gc as _gc
 
     import numpy as np
@@ -8117,7 +8392,7 @@ def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
               replication=CLUSTER_REPLICATION, segments=len(seg_dirs),
               hosted=hosted, seconds=time.perf_counter() - t0,
               controller=ctrl.url, broker=broker.url,
-              grpc=[s.grpc_server for s in servers])
+              grpc_ports=[s.grpc_port for s in servers])
         conn = HttpConnection(broker.url, timeout=600.0)
         every = list(live_segments)
 
@@ -8145,6 +8420,7 @@ def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
                                  "compaction")
         per_server: dict = {}
         plans_by_query: dict = {}
+        seg_names: dict = {}
         for qid, sql in sqls:
             res, times, launched, calls = runs[qid]
             if ssb._digest(res.rows) != digests[qid]:
@@ -8160,7 +8436,9 @@ def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
             for sid, n in split.items():
                 per_server.setdefault(sid, 0)
                 per_server[sid] += n
+            seg_names[qid] = {sid: [] for sid in hosted}
             for sid, _q, segs, plans in last:
+                seg_names[qid][sid] += [seg.name for seg in segs]
                 if segs:
                     plans_by_query[f"{qid}@{sid}"] = plans
             phase("cluster_query", qid=qid, ok=True,
@@ -8204,6 +8482,12 @@ def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
                                    tile, on_card)
         if n_held == 0:
             raise AssertionError("cluster: no compact input on the servers")
+
+        # the gRPC data plane of the same two servers
+        grpc = cluster_grpc_step(servers, sqls, seg_names, digests, tables,
+                                 log, tile, on_card, _card_line(on_card))
+        reconcile("cluster gRPC")
+        phase("cluster_grpc", ok=True, **grpc)
 
         # (6) one concurrent wave
         wave = [make(i) for _shape, make in ssb.CONCURRENT
@@ -8392,13 +8676,25 @@ def cluster_phase(table_dir: str, star_dirs: dict, tables: dict,
                              "the nodes stopped")
     if leak.live("mailbox"):
         raise AssertionError("cluster: a mailbox outlives the phase")
+    left_threads = [t.name for t in threading.enumerate()
+                    if t.name.startswith("h2-")]
+    if left_threads:
+        raise AssertionError(f"cluster: gRPC threads outlive the nodes: "
+                             f"{left_threads}")
+    for port in grpc["ports"].values():
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=5).close()
+        except OSError:
+            continue
+        raise AssertionError(f"cluster: gRPC port {port} still listens")
     shutil.rmtree(work, ignore_errors=True)
     phase("cluster_done", seconds=time.perf_counter() - t_phase,
           compact_launches=cluster_launches, k1_checked=n_held,
+          grpc_launches=grpc["launches"],
           partials_encoded=walked[0], partial_leaves_on_host=walked[1],
           segments_per_server=per_server, bytes_left=left,
-          tracked_equals_held=True)
-    return cluster_launches
+          tracked_equals_held=True, grpc_threads_left=0)
+    return {"launches": cluster_launches, "grpc_launches": grpc["launches"]}
 
 
 CONTROL_ROWS = int(os.environ.get("PINOT_SMOKE_CONTROL_ROWS", 1 << 18))
@@ -10503,9 +10799,8 @@ def main() -> int:
     vsearch = vector_phase([single, surface_seg, *segs])
     realtime_launches = realtime_phase(tile, [single, surface_seg, *segs])
     wire_launches = wire_phase(tile, [single, surface_seg, *segs])
-    cluster_launches = cluster_phase(table_dir, star_dirs, tables, digests,
-                                     multi_p50, tile,
-                                     [single, surface_seg, *segs])
+    cluster = cluster_phase(table_dir, star_dirs, tables, digests, multi_p50,
+                            tile, [single, surface_seg, *segs])
     control = control_phase(table_dir, digests, tile,
                             [single, surface_seg, *segs])
     loadgen_launches = loadgen_phase([single, surface_seg, *segs])
@@ -10524,7 +10819,8 @@ def main() -> int:
         + tier_launches + drift_launches + statement_launches
         + geo_launches + format_launches + rollup_launches
         + trace_launches + realtime_launches + overload_launches
-        + wire_launches + cluster_launches + control["launches"]
+        + wire_launches + cluster["launches"] + cluster["grpc_launches"]
+        + control["launches"]
         + loadgen_launches + fuzz_launches + remote_launches
         + compat["launches"] + mesh["k1_launches"],
         "max_abs_err": err,
@@ -10552,7 +10848,8 @@ def main() -> int:
         "realtime_launches": realtime_launches,
         "overload_launches": overload_launches,
         "wire_launches": wire_launches,
-        "cluster_launches": cluster_launches,
+        "cluster_launches": cluster["launches"],
+        "grpc_launches": cluster["grpc_launches"],
         "control_launches": control["launches"],
         "loadgen_launches": loadgen_launches,
         "fuzz_launches": fuzz_launches,
@@ -10580,7 +10877,8 @@ def main() -> int:
               "phase's (tenant waves, forced overflow reruns, tier.evict, "
               "the kills), the wire phase's (tables fed by Kafka, "
               "Pulsar, Kinesis and the wire stream), the cluster "
-              "phase's (the 13 queries over HTTP on two server nodes), "
+              "phase's (the 13 queries over HTTP on two server nodes, "
+              "then over gRPC on the same two: grpc_launches), "
               "the control phase's (replicas of a committed realtime "
               "table, the rebalanced table on two server nodes, the "
               "minion's offline segments), the loadgen phase's (query "

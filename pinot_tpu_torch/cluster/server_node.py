@@ -15,9 +15,11 @@ segments from one device: ``device`` (default ``"cuda"``) resolves
 through ``device.resolve_device`` and raises when CUDA is asked for and
 absent, so a node never serves from the CPU unless told to. Every
 segment it loads, from a local directory or a deep-store archive, lives
-on that device. The gRPC data plane of the reference comes in a later
-slice: this node starts the HTTP planes only and ``grpc_server`` stays
-``None``.
+on that device. Beside the HTTP planes the node serves the gRPC data
+plane (``grpc_plane.py``: streaming Submit and the client-streamed
+Mailbox over the port's own HTTP/2, ``h2.py``) on ``grpc_port``; a
+plane that cannot start fails the node's construction, and ``stop()``
+ends it with its listener, connections and threads.
 """
 from __future__ import annotations
 
@@ -72,9 +74,6 @@ class ServerNode:
         self.scheduler = make_scheduler(scheduler_config)
         from ..multistage.exchange import MailboxService
         self.mailboxes = MailboxService()  # multi-stage receiving side
-        # no gRPC data plane yet: the HTTP planes carry every request
-        self.grpc_server = None
-        self.grpc_port: Optional[int] = None
         # OOM protection: kill the most expensive query near the RSS limit
         # (PerQueryCPUMemAccountant WatcherTask analog); limit defaults to
         # 90% of system memory, override/disable via
@@ -103,8 +102,21 @@ class ServerNode:
             [str, List[ImmutableSegment], List[Any]], None]] = None
         self._assignment_version = -1
         self._stop = threading.Event()
-        self._httpd, self.port, _ = start_http(self._make_handler(), port)
-        self._register(retries=20)   # ~1min of startup tolerance
+        # gRPC data plane (streaming Submit + mailbox; grpc_plane.py)
+        from .grpc_plane import start_grpc
+        self.grpc_server, self.grpc_port = start_grpc(self)
+        self._httpd = None
+        try:
+            self._httpd, self.port, _ = start_http(self._make_handler(),
+                                                   port)
+            self._register(retries=20)   # ~1min of startup tolerance
+        except BaseException:
+            # a node that fails to start leaves no listener behind
+            self.grpc_server.stop()
+            if self._httpd is not None:
+                self._httpd.shutdown()
+                self._httpd.server_close()
+            raise
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -501,6 +513,7 @@ class ServerNode:
         self.scheduler.stop()
         if self.heap_watcher is not None:
             self.heap_watcher.stop()
+        self.grpc_server.stop(grace=None)
         self._httpd.shutdown()
         self._httpd.server_close()
 

@@ -21,7 +21,8 @@ meet at the same worker, so the concatenation IS the join result.
 Port of ``pinot_tpu/multistage/dispatch.py``. Leaf stages run through the
 server node's ``execute``, so they scan on the node's device; join stages
 run the port's ``multistage.join.hash_join``. The stage plans and mailbox
-headers are encoded by hand (below), byte-equal to the reference's.
+headers go through the port's copy of the reference's gencode
+(``protos/plan_pb2.py``), so their bytes are the reference's.
 """
 from __future__ import annotations
 
@@ -42,164 +43,75 @@ from .relation import Relation
 
 
 # ---------------------------------------------------------------------------
-# typed wire contract: stage plans and mailbox headers are the proto3
-# messages of the reference's ``protos/plan.proto`` (StagePlan,
-# MailboxHeader), so a client speaking plan.proto drives these planes.
-# The port has no generated code (``protos/`` is not ported and the card
-# machine has no protobuf runtime): the few messages are written and
-# read here by hand in proto3's wire format, byte-equal to the
-# reference's generated code (fields in number order, defaults omitted,
-# the oneof's message always written).
+# typed wire contract: stage plans and mailbox headers are proto
+# messages (protos/plan.proto, the StageNode / MailboxContent analog),
+# not JSON blobs. A non-Python client speaking plan.proto can drive
+# these planes.
 # ---------------------------------------------------------------------------
 
-def _pb_varint(n: int) -> bytes:
-    if n < 0:
-        n += 1 << 64   # int32 negatives are ten-byte varints
-    out = bytearray()
-    while True:
-        b = n & 0x7F
-        n >>= 7
-        if n:
-            out.append(b | 0x80)
-        else:
-            out.append(b)
-            return bytes(out)
-
-
-def _pb_len(field: int, data: bytes) -> bytes:
-    return _pb_varint(field << 3 | 2) + _pb_varint(len(data)) + data
-
-
-def _pb_str(field: int, v: Optional[str]) -> bytes:
-    return _pb_len(field, v.encode()) if v else b""
-
-
-def _pb_strs(field: int, vs) -> bytes:
-    return b"".join(_pb_len(field, v.encode()) for v in vs or [])
-
-
-def _pb_int(field: int, v: Optional[int]) -> bytes:
-    return _pb_varint(field << 3) + _pb_varint(int(v)) if v else b""
-
-
-def _pb_double(field: int, v: float) -> bytes:
-    return (_pb_varint(field << 3 | 1) + struct.pack("<d", v)
-            if v != 0.0 else b"")
-
-
-def _pb_fields(data: bytes) -> Dict[int, List[Any]]:
-    """field number -> values in wire order (varints as ints, fixed64 as
-    raw 8 bytes, length-delimited as bytes); unknown fields kept."""
-    out: Dict[int, List[Any]] = {}
-    i, n = 0, len(data)
-
-    def varint():
-        nonlocal i
-        shift = val = 0
-        while True:
-            b = data[i]
-            i += 1
-            val |= (b & 0x7F) << shift
-            if not b & 0x80:
-                return val
-            shift += 7
-
-    while i < n:
-        key = varint()
-        field, wt = key >> 3, key & 7
-        if wt == 0:
-            v: Any = varint()
-        elif wt == 1:
-            v = bytes(data[i:i + 8])
-            i += 8
-        elif wt == 2:
-            ln = varint()
-            v = bytes(data[i:i + ln])
-            i += ln
-        elif wt == 5:
-            v = bytes(data[i:i + 4])
-            i += 4
-        else:
-            raise ValueError(f"unsupported proto wire type {wt}")
-        out.setdefault(field, []).append(v)
-    return out
-
-
-def _pb_get_str(f: Dict[int, List[Any]], field: int) -> str:
-    return f[field][-1].decode() if field in f else ""
-
-
-def _pb_get_int(f: Dict[int, List[Any]], field: int) -> int:
-    if field not in f:
-        return 0
-    v = f[field][-1] & 0xFFFFFFFF
-    return v - (1 << 32) if v >= 1 << 31 else v
-
-
-_HASH, _BROADCAST = 0, 1
-
-
 def encode_stage_plan(spec: Dict[str, Any]) -> bytes:
-    out = _pb_str(1, spec["queryId"])
+    from ..protos import plan_pb2
+
+    p = plan_pb2.StagePlan(query_id=spec["queryId"])
     if spec["kind"] == "leaf":
+        leaf = p.leaf
+        leaf.sql = spec["sql"]
+        if spec.get("alias"):
+            leaf.alias = spec["alias"]
         exs = spec["exchange"]
-        ex = (_pb_int(1, _HASH if exs["type"] == "hash" else _BROADCAST)
-              + _pb_strs(2, exs.get("keys"))
-              + _pb_int(3, exs["stage"])
-              + b"".join(_pb_len(4, _pb_str(1, t["url"])
-                                 + _pb_int(2, t["worker"]))
-                         for t in exs["targets"]))
-        leaf = (_pb_str(1, spec["sql"]) + _pb_str(2, spec.get("alias"))
-                + _pb_len(3, ex))
-        return out + _pb_len(2, leaf)
-    join = (_pb_int(1, spec["worker"]) + _pb_int(2, spec["leftStage"])
-            + _pb_int(3, spec["rightStage"])
-            + _pb_strs(4, spec["leftKeys"]) + _pb_strs(5, spec["rightKeys"])
-            + _pb_str(6, spec.get("how", "inner"))
-            + _pb_int(7, spec["nLeftSenders"])
-            + _pb_int(8, spec["nRightSenders"])
-            + _pb_double(9, spec.get("timeoutSec", 60.0)))
-    return out + _pb_len(3, join)
+        ex = leaf.exchange
+        ex.type = (plan_pb2.ExchangeSpec.HASH if exs["type"] == "hash"
+                   else plan_pb2.ExchangeSpec.BROADCAST)
+        ex.keys.extend(exs.get("keys") or [])
+        ex.stage = exs["stage"]
+        for t in exs["targets"]:
+            mt = ex.targets.add()
+            mt.url = t["url"]
+            mt.worker = t["worker"]
+    else:
+        j = p.join
+        j.worker = spec["worker"]
+        j.left_stage = spec["leftStage"]
+        j.right_stage = spec["rightStage"]
+        j.left_keys.extend(spec["leftKeys"])
+        j.right_keys.extend(spec["rightKeys"])
+        j.how = spec.get("how", "inner")
+        j.n_left_senders = spec["nLeftSenders"]
+        j.n_right_senders = spec["nRightSenders"]
+        j.timeout_sec = spec.get("timeoutSec", 60.0)
+    return p.SerializeToString()
 
 
 def decode_stage_plan(data: bytes) -> Dict[str, Any]:
-    p = _pb_fields(data)
-    query_id = _pb_get_str(p, 1)
-    # a oneof keeps the last of its members on the wire
-    node = None
-    for field in (2, 3):
-        if field in p:
-            node = field
-    if node == 2:
-        leaf = _pb_fields(p[2][-1])
-        ex = _pb_fields(leaf[3][-1]) if 3 in leaf else {}
+    from ..protos import plan_pb2
+
+    p = plan_pb2.StagePlan.FromString(data)
+    node = p.WhichOneof("node")
+    if node == "leaf":
+        leaf = p.leaf
         return {
-            "kind": "leaf", "queryId": query_id,
-            "sql": _pb_get_str(leaf, 1),
-            "alias": _pb_get_str(leaf, 2) or None,
+            "kind": "leaf", "queryId": p.query_id, "sql": leaf.sql,
+            "alias": leaf.alias or None,
             "exchange": {
-                "type": ("hash" if _pb_get_int(ex, 1) == _HASH
-                         else "broadcast"),
-                "keys": [k.decode() for k in ex.get(2, [])],
-                "stage": _pb_get_int(ex, 3),
-                "targets": [{"url": _pb_get_str(t, 1),
-                             "worker": _pb_get_int(t, 2)}
-                            for t in map(_pb_fields, ex.get(4, []))],
+                "type": ("hash" if leaf.exchange.type
+                         == plan_pb2.ExchangeSpec.HASH else "broadcast"),
+                "keys": list(leaf.exchange.keys),
+                "stage": leaf.exchange.stage,
+                "targets": [{"url": t.url, "worker": t.worker}
+                            for t in leaf.exchange.targets],
             },
         }
-    if node != 3:
+    if node != "join":
         raise ValueError(f"StagePlan without a node: {data[:40]!r}")
-    j = _pb_fields(p[3][-1])
-    timeout = (struct.unpack("<d", j[9][-1])[0] if 9 in j else 0.0)
+    j = p.join
     return {
-        "kind": "join", "queryId": query_id, "worker": _pb_get_int(j, 1),
-        "leftStage": _pb_get_int(j, 2), "rightStage": _pb_get_int(j, 3),
-        "leftKeys": [k.decode() for k in j.get(4, [])],
-        "rightKeys": [k.decode() for k in j.get(5, [])],
-        "how": _pb_get_str(j, 6) or "inner",
-        "nLeftSenders": _pb_get_int(j, 7),
-        "nRightSenders": _pb_get_int(j, 8),
-        "timeoutSec": timeout or 60.0,
+        "kind": "join", "queryId": p.query_id, "worker": j.worker,
+        "leftStage": j.left_stage, "rightStage": j.right_stage,
+        "leftKeys": list(j.left_keys), "rightKeys": list(j.right_keys),
+        "how": j.how or "inner",
+        "nLeftSenders": j.n_left_senders,
+        "nRightSenders": j.n_right_senders,
+        "timeoutSec": j.timeout_sec or 60.0,
     }
 
 
@@ -209,8 +121,11 @@ def decode_stage_plan(data: bytes) -> Dict[str, Any]:
 
 def encode_mailbox_frame(query_id: str, stage: int, worker: int,
                          rel: Optional[Relation]) -> bytes:
-    hb = (_pb_str(1, query_id) + _pb_int(2, stage) + _pb_int(3, worker)
-          + _pb_int(4, rel is None))
+    from ..protos import plan_pb2
+
+    hb = plan_pb2.MailboxHeader(query_id=query_id, stage=stage,
+                                worker=worker,
+                                eos=rel is None).SerializeToString()
     buf = bytearray(struct.pack(">I", len(hb)) + hb)
     if rel is not None:
         buf += encode_relation(rel)
@@ -218,12 +133,13 @@ def encode_mailbox_frame(query_id: str, stage: int, worker: int,
 
 
 def deliver_mailbox_frame(service: MailboxService, data: bytes) -> None:
+    from ..protos import plan_pb2
+
     mv = memoryview(data)
     (hlen,) = struct.unpack(">I", mv[:4])
-    h = _pb_fields(bytes(mv[4:4 + hlen]))
-    box = service.mailbox(_pb_get_str(h, 1), _pb_get_int(h, 2),
-                          _pb_get_int(h, 3))
-    if _pb_get_int(h, 4):
+    header = plan_pb2.MailboxHeader.FromString(bytes(mv[4:4 + hlen]))
+    box = service.mailbox(header.query_id, header.stage, header.worker)
+    if header.eos:
         box.offer(EOS)
     else:
         box.offer(decode_relation(bytes(mv[4 + hlen:])))

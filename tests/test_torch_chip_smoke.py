@@ -523,7 +523,9 @@ def test_cluster_phase_on_cpu(tmp_path, monkeypatch):
     segments of 2^14 rows with the in-process digests, both servers
     answer part of the segments, K1 is held on every server's compact
     inputs, the wave, the deep store, the dispatch and the failover
-    hold, and memory and mailboxes come back."""
+    hold, the gRPC plane answers the same queries and a mailbox
+    relation, and memory, mailboxes and the planes' threads come
+    back."""
     from pinot_tpu_torch.ops.plan_cache import global_cube_cache
     from pinot_tpu_torch.segment import load_segment
     from pinot_tpu_torch.tools import ssb, star
@@ -553,8 +555,22 @@ def test_cluster_phase_on_cpu(tmp_path, monkeypatch):
     finally:
         global_cube_cache.clear()
         reset_port_memory(segs)
-    assert launches > 0
+    assert launches["launches"] > 0 and launches["grpc_launches"] > 0
     got = dict(printed)
+    grpc = [f for label, f in printed if label == "cluster_grpc_query"]
+    assert [f["qid"] for f in grpc] == [q for q, *_ in ssb.QUERIES]
+    assert all(set(f["per_server"]) == {"server_0", "server_1"}
+               for f in grpc)
+    assert all(v["first_block_p50_ms"] > 0 for f in grpc
+               for v in f["per_server"].values())
+    held = [f for label, f in printed if label == "kernel_at_grpc_path"]
+    assert held and all(f["equal"] for f in held)
+    assert got["cluster_grpc"]["held_as_launched"] == launches[
+        "grpc_launches"]
+    assert got["cluster_grpc_mailbox"]["statuses"]["over_4_mib"][0] == \
+        "RESOURCE_EXHAUSTED"
+    assert got["cluster_grpc_mailbox"]["rows"] == 1 << 13
+    assert got["cluster_done"]["grpc_threads_left"] == 0
     queries = [f for label, f in printed if label == "cluster_query"]
     assert [f["qid"] for f in queries] == [q for q, *_ in ssb.QUERIES]
     assert all(f["segments_queried"] == 8 for f in queries)

@@ -2169,6 +2169,73 @@ def test_cluster_fleet_on_card_matches_cpu(cuda, tmp_path):
     assert got["cuda"] == got["cpu"]
 
 
+def test_grpc_plane_on_card_matches_http_and_cpu(cuda, tmp_path):
+    """A server node on the card answers the 13 SSB queries through the
+    gRPC Submit (grpc_plane over the port's HTTP/2) with the rows of its
+    own /query/bin plane and of a CPU node's Submit, through K1; its
+    Mailbox delivers a relation equal to what was sent, and once stopped
+    it leaves no gRPC thread or listener."""
+    import socket
+    import threading
+
+    from pinot_tpu_torch.cluster.grpc_plane import (mailbox_send,
+                                                    submit_stream)
+    from pinot_tpu_torch.cluster.http_util import http_raw
+    from pinot_tpu_torch.engine.datablock import decode_wire_frame
+    from pinot_tpu_torch.engine.reduce import reduce_partials
+    from pinot_tpu_torch.multistage.dispatch import encode_mailbox_frame
+    from pinot_tpu_torch.multistage.relation import Relation
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.query.context import build_query_context
+    from pinot_tpu_torch.query.sql import parse_sql
+
+    table_dir = ssb.build_table_dir([1 << 16] * 4, str(tmp_path / "t"))
+    sqls = [ssb.spec_to_sql(p, v, g) for _q, p, v, g in ssb.QUERIES]
+    rows = {}
+    ports = []
+    for dev in ("cuda", "cpu"):
+        fleet = _cluster_fleet(tmp_path, dev, table_dir)
+        try:
+            s = fleet[1][0]
+            ports.append(s.grpc_port)
+            target = f"127.0.0.1:{s.grpc_port}"
+            before = C.launches
+            for sql in sqls:
+                ctx = build_query_context(parse_sql(sql))
+                header, partials = submit_stream(target, sql)
+                assert header["segmentsQueried"] == 4
+                got = sorted(map(tuple, reduce_partials(ctx, partials).rows),
+                             key=repr)
+                rows.setdefault(dev, []).append(got)
+                if dev == "cuda":
+                    _h, bin_partials = decode_wire_frame(http_raw(
+                        "POST", f"{s.url}/query/bin", {"sql": sql},
+                        timeout=60.0))
+                    assert got == sorted(map(tuple, reduce_partials(
+                        ctx, bin_partials).rows), key=repr), sql
+            if dev == "cuda":
+                assert C.launches > before
+            rng = np.random.default_rng(7)
+            sent = rng.integers(0, 1 << 40, 300_000)
+            frames = [encode_mailbox_frame("qm", 1, 0, Relation(
+                {"x": sent[i:i + 100_000]}, {}, "r"))
+                for i in range(0, len(sent), 100_000)]
+            frames.append(encode_mailbox_frame("qm", 1, 0, None))
+            assert mailbox_send(target, frames) == len(frames)
+            blocks = s.mailboxes.mailbox("qm", 1, 0).drain(timeout=30)
+            s.mailboxes.release("qm")
+            assert np.array_equal(np.concatenate(
+                [np.asarray(b.data["x"]) for b in blocks]), sent)
+        finally:
+            _stop_fleet(*fleet)
+    assert rows["cuda"] == rows["cpu"]
+    assert not [t.name for t in threading.enumerate()
+                if t.name.startswith("h2-")]
+    for port in ports:
+        with pytest.raises(OSError):
+            socket.create_connection(("127.0.0.1", port), timeout=5).close()
+
+
 def _control_commit(tmp_path, dev, rows, flush):
     """Two replicas on ``dev`` commit one segment of ``flush`` rows in
     each of two partitions through a controller; returns the replicas

@@ -1,8 +1,8 @@
 """Multi-stage stage dispatch of the port against the JAX package, on the CPU.
 
 The stage plans and mailbox frames of ``multistage/dispatch`` (proto3
-messages of the reference's ``protos/plan.proto``, written by hand in the
-port) are byte-equal to the reference's generated code and each package
+messages of the reference's ``protos/plan.proto``, through the port's
+copy of its gencode) are byte-equal to the reference's and each package
 reads the other's; ``distributed_join`` over two port server nodes
 (``ServerNode(device="cpu")``: leaf scans through the server's executor,
 join stages through the port's ``hash_join``) returns the reference's

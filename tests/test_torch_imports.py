@@ -240,6 +240,50 @@ def test_walk_covers_the_mesh_plane():
     assert "reference" not in cuda_path
 
 
+GRPC_PLANE = tuple(f"pinot_tpu_torch.{m}" for m in (
+    "cluster.h2", "cluster.grpc_plane", "protos", "protos.server_pb2",
+    "protos.plan_pb2"))
+
+
+def test_grpc_plane_runs_without_grpc_or_jax():
+    """The walk reaches the gRPC plane, its transport and protos; in a
+    fresh interpreter the plane serves a Submit and a Mailbox call and
+    neither ``grpc`` nor JAX nor the reference package is loaded."""
+    import pkgutil
+
+    import pinot_tpu_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(
+        pinot_tpu_torch.__path__, "pinot_tpu_torch.")}
+    assert set(GRPC_PLANE) <= walked
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "from types import SimpleNamespace\n"
+        "from pinot_tpu_torch.cluster import grpc_plane\n"
+        "from pinot_tpu_torch.multistage.exchange import MailboxService\n"
+        "from pinot_tpu_torch.multistage.dispatch import "
+        "encode_mailbox_frame\n"
+        "node = SimpleNamespace(mailboxes=MailboxService(), execute="
+        "lambda sql, segs, **k: {'partials_raw': [], 'segmentsQueried': 0})\n"
+        "server, port = grpc_plane.start_grpc(node)\n"
+        "t = f'127.0.0.1:{port}'\n"
+        "h, p = grpc_plane.submit_stream(t, 'SELECT COUNT(*) FROM x')\n"
+        "assert h == {'segmentsQueried': 0} and p == [], (h, p)\n"
+        "f = encode_mailbox_frame('q', 1, 0, None)\n"
+        "assert grpc_plane.mailbox_send(t, [f]) == 1\n"
+        "node.mailboxes.release('q')\n"
+        "server.stop()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('grpc', 'jax', 'jaxlib', 'pinot_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd="/")
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch,
                                                           tmp_path):
     from pinot_tpu_torch.broker import Broker

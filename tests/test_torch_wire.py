@@ -398,10 +398,12 @@ c = resolve_class("pinot_tpu.cluster.broker_node.BrokerNode")
 assert c.__module__ == "pinot_tpu_torch.cluster.broker_node"
 d = resolve_class("pinot_tpu.cluster.rebalancer.ClosedLoopRebalanceTask")
 assert d.__module__ == "pinot_tpu_torch.cluster.rebalancer"
+g = resolve_class("pinot_tpu.cluster.grpc_plane.start_grpc")
+assert g.__module__ == "pinot_tpu_torch.cluster.grpc_plane", g.__module__
 try:
-    resolve_class("pinot_tpu.cluster.grpc_plane.start_grpc")
+    resolve_class("pinot_tpu.utils.compileplane.CompileLog")
 except KeyError as e:
-    assert "pinot_tpu_torch.cluster.grpc_plane" in str(e), e
+    assert "pinot_tpu_torch.utils.compileplane" in str(e), e
 else:
     raise AssertionError("resolved a module the port lacks")
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
