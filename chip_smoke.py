@@ -2480,7 +2480,7 @@ def surface_phase(seg_list, label: str):
 # that the whole check fits its time limit)
 # the format phase's copies (PLAIN, BITPACK, COMPRESSED) of the SSB segment
 FORMAT_ROWS = int(os.environ.get("PINOT_SMOKE_FORMAT_ROWS",
-                                 min(N_ROWS, 1 << 23)))
+                                 min(N_ROWS, 1 << 22)))
 MS_ROWS = int(os.environ.get("PINOT_SMOKE_MS_ROWS", 1 << 21))
 MS_VARIANTS = 3                  # literal variants of each shape
 MS_STATE_CAP = 1 << 25           # PINOT_FUSED_MAX_STATE of the fused plane
@@ -4643,10 +4643,10 @@ def vector_phase(live_segments=(), device: str = "cuda") -> dict:
     return {"launches": launches, "rows": rows, "edge_err": edge_err}
 
 
-def _vec_kernel_entries(vsearch: dict) -> list:
+def _vec_kernel_entries(vsearch: dict, gates_launches: dict) -> list:
     """The kernels-line entries of K15: the headline at the fused batch
     (16 queries, k = 10) on the SIFT-shaped column, every measured shape
-    beside it."""
+    beside it, and the gates phase's launches (``gates_launches``)."""
     out = []
     for mode, name, line in (("flat", "vecsearch_flat", 284),
                              ("ivf", "vecsearch_ivf", 316)):
@@ -4661,6 +4661,7 @@ def _vec_kernel_entries(vsearch: dict) -> list:
             "source": "pinot_tpu_torch/ops/csrc/vecsearch.cu",
             "replaces": f"pinot_tpu/index/vector.py:{line}",
             "launches": vsearch["launches"][mode],
+            "gates_launches": gates_launches[mode],
             "max_abs_err": max([r["max_abs_err"] for r in rows]
                                + [vsearch["edge_err"]]),
             "ms": head["ms"],
@@ -5771,7 +5772,8 @@ def format_phase(builds: dict, tile: int, device: str = "cuda") -> int:
           rows=FORMAT_ROWS, compact_launches=launches,
           cuts=[f"{FORMAT_ROWS} rows (PINOT_SMOKE_FORMAT_ROWS); the "
                 "copies were of the 2^25-row SSB segment until the mesh "
-                "phase was added"])
+                "phase was added, of 2^23 rows until the gates phase "
+                "was"])
     return launches
 
 
@@ -10738,6 +10740,340 @@ def compat_phase(tile: int, live_segments=(), device: str = "cuda"
     return {"launches": launches, "held": n_held}
 
 
+GATES_ROWS = 1 << 22
+GATES_INGEST_SEEDS = "40"        # one of the ingest gate's three seeds
+# the gates phase's modes: (label, chaos_smoke's arguments); base and
+# --tier at GATES_ROWS (4 segments of 2^20 rows), the others at the JAX
+# tool's default rows
+GATES_MODES = (
+    ("base", ["--rows", str(GATES_ROWS)]),
+    ("tier", ["--tier", "--rows", str(GATES_ROWS)]),
+    ("overload", ["--overload"]),
+    ("autopsy", ["--autopsy"]),
+    ("rebalance", ["--rebalance"]),
+    ("vector", ["--vector"]),
+    ("fused", ["--fused"]),
+    ("rate", ["--rate"]),
+    ("ingest", ["--ingest", "--seeds", GATES_INGEST_SEEDS]),
+)
+
+
+@contextlib.contextmanager
+def _k15_recording(captured: list, label: str):
+    """While open, every K15 call's inputs (flat or IVF), cloned as it
+    launches, are appended to ``captured`` as (label, kind, args); a
+    hold's own calls (``_holding``) are not."""
+    import torch
+
+    from pinot_tpu_torch.ops import vecsearch as VS
+
+    real = {"flat": VS.flat_search, "ivf": VS.ivf_search}
+
+    def wrap(kind):
+        def capturing(*args):
+            if not getattr(_HOLDING, "on", 0):
+                captured.append((label, kind, tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args)))
+            return real[kind](*args)
+        return capturing
+
+    VS.flat_search, VS.ivf_search = wrap("flat"), wrap("ivf")
+    try:
+        yield
+    finally:
+        VS.flat_search, VS.ivf_search = real["flat"], real["ivf"]
+
+
+def _k15_scale(kind: str, args) -> float:
+    """_vec_scale's magnitude from a K15 call's own tensors: 1 for
+    cosine, else 4 max(|row|^2, |q|^2) over the finite row norms."""
+    import torch
+
+    metric = args[3] if kind == "flat" else args[7]
+    if metric == "cosine":
+        return 1.0
+    sq = args[2] if kind == "flat" else args[2].reshape(-1)
+    sq = sq[torch.isfinite(sq)]
+    q = float((args[0].double() ** 2).sum(1).max())
+    return 4.0 * max(float(sq.max()) if sq.numel() else 0.0, q, 1.0)
+
+
+def _hold_k15(captured: list) -> float:
+    """K15 held on each captured call's own inputs against its plain
+    version (_vec_compare); returns the max abs score error."""
+    from pinot_tpu_torch.ops import vecsearch as VS
+
+    err = 0.0
+    with _holding():
+        for _label, kind, args in captured:
+            if kind == "flat":
+                got = VS.flat_search(*args)
+                want = VS.flat_search_reference(*args)
+            else:
+                got = VS.ivf_search(*args)
+                want = VS.ivf_search_reference(*args)
+            err = max(err, _vec_compare(got, want, _k15_scale(kind, args)))
+    return err
+
+
+@contextlib.contextmanager
+def _query_clock(ms: list):
+    """While open, the wall ms of every query that returned through an
+    in-process Broker or a BrokerNode (the outermost call of a thread)
+    is appended to ``ms``."""
+    from pinot_tpu_torch.broker import Broker
+    from pinot_tpu_torch.cluster import BrokerNode
+
+    depth = threading.local()
+    real = {cls: cls.query for cls in (Broker, BrokerNode)}
+
+    def clocked(fn):
+        def query(self, sql):
+            depth.n = getattr(depth, "n", 0) + 1
+            t0 = time.perf_counter()
+            try:
+                out = fn(self, sql)
+                if depth.n == 1:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            finally:
+                depth.n -= 1
+        return query
+
+    for cls, fn in real.items():
+        cls.query = clocked(fn)
+    try:
+        yield
+    finally:
+        for cls, fn in real.items():
+            cls.query = fn
+
+
+@contextlib.contextmanager
+def _listener_recording(ports: list):
+    """While open, the port of every HTTP server (``http_util._Server``)
+    and every gRPC server (``h2.Server``) that binds in this process is
+    appended to ``ports``."""
+    from pinot_tpu_torch.cluster import h2, http_util
+
+    srv = http_util._Server
+    own = "server_bind" in vars(srv)
+    bind, add = srv.server_bind, h2.Server.add_insecure_port
+
+    def server_bind(self):
+        bind(self)
+        ports.append(self.server_address[1])
+
+    def add_insecure_port(self, address):
+        port = add(self, address)
+        ports.append(port)
+        return port
+
+    srv.server_bind, h2.Server.add_insecure_port = server_bind, \
+        add_insecure_port
+    try:
+        yield
+    finally:
+        h2.Server.add_insecure_port = add
+        if own:
+            srv.server_bind = bind
+        else:
+            del srv.server_bind
+
+
+SERVER_DRAIN_S = 30.0            # a stopped node's last handlers may finish
+
+
+def _server_threads(before) -> list:
+    """The names of the HTTP server, HTTP handler and gRPC (``h2-``)
+    threads alive now that were not in ``before``."""
+    return [t.name for t in threading.enumerate() if t not in before and (
+        t.name.startswith("h2-") or t.name.endswith(
+            ("(serve_forever)", "(process_request_thread)")))]
+
+
+def _nodes_gone(label: str, before, ports) -> None:
+    """Fails unless, within SERVER_DRAIN_S, every server thread started
+    since ``before`` has ended, and no port of ``ports`` accepts a
+    connection."""
+    deadline = time.monotonic() + SERVER_DRAIN_S
+    while _server_threads(before) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = _server_threads(before)
+    if left:
+        raise AssertionError(f"{label}: server threads outlive the nodes: "
+                             f"{left}")
+    for port in ports:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=5).close()
+        except OSError:
+            continue
+        raise AssertionError(f"{label}: port {port} still listens")
+
+
+def _run_gate(label: str, argv: list, k1: list, k15: list) -> dict:
+    """One chaos_smoke mode through its CLI entry point, in this
+    process: its stdout kept, every K1 and K15 launch captured with its
+    inputs, every returned query clocked. Fails unless it exits 0 with
+    ``ok``. Prints the verdict, seconds, faults fired and the queries'
+    p50/p99."""
+    import io
+
+    from pinot_tpu_torch.tools import chaos_smoke as CS
+
+    ms: list = []
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), _query_clock(ms), \
+            _fuzz_recording(k1, f"gates:{label}"), \
+            _k15_recording(k15, f"gates:{label}"):
+        rc = CS.main(argv)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    summary = json.loads(lines[-1]) if lines else {}
+    if rc != 0 or not summary.get("ok"):
+        raise AssertionError(f"gates {label}: exit {rc}: "
+                             f"{summary.get('failures', lines[-5:])}")
+    phase("gates_mode", mode=label, ok=True, exit=rc, seconds=seconds,
+          faults_fired=summary.get("faults_fired"), queries=len(ms),
+          p50_ms=_p(ms, 50) if ms else None,
+          p99_ms=_p(ms, 99) if ms else None)
+    return summary
+
+
+def gates_phase(tile: int, live_segments=(), device: str = "cuda"
+                ) -> dict:
+    """The operational gates (pinot_tpu_torch/tools: chaos_smoke's nine
+    modes, traffic_replay's cluster gate under --overload,
+    freshness_gate under --rate, span_diff) on ``device``, in this
+    process, through their CLI entry points: the base mode and --tier at
+    GATES_ROWS (2^22) rows in 4 segments, the
+    other modes at the JAX tool's default rows, --ingest on one seed
+    (GATES_MODES); then a span_diff capture checked against the port's
+    span baseline.
+    The freshness and span checks must exit 0, so their baselines must be
+    of ``device`` (the committed ones are the card's). The
+    earlier phases' segments leave the card first: --tier and
+    --rebalance reconcile the segment pool over their own tables. Every
+    K1 launch of the path is captured with its inputs as it launches
+    (_fuzz_recording) and held bitwise and timed afterwards
+    (kernel_at_gates_path); every K15 launch (--vector) is held to its
+    plain version. The phase fails on a mode that is not green, on a
+    path with no K1 launch or with one it did not hold, on a K15 launch
+    it did not hold, and when a fault plan is left armed, a rung pinned,
+    tracked != held, memory left on the card, a server thread of the
+    modes' nodes left running or one of their ports (HTTP and gRPC)
+    still listening. Returns {"launches",
+    "held", "k15" (flat and IVF launches), "k15_launches", "k15_held",
+    "seconds"}."""
+    import gc as _gc
+    import io
+
+    import torch
+
+    from pinot_tpu_torch.broker.workload import global_governor
+    from pinot_tpu_torch.engine import batch
+    from pinot_tpu_torch.ops import compact as C
+    from pinot_tpu_torch.ops import vecsearch as VS
+    from pinot_tpu_torch.ops.plan_cache import global_cube_cache
+    from pinot_tpu_torch.tools import span_diff as SD
+    from pinot_tpu_torch.utils import faults
+
+    on_card = device.startswith("cuda")
+    t_phase = time.perf_counter()
+    for s in live_segments:
+        s.evict_device()
+    batch.clear_stack_cache()
+    global_cube_cache.clear()
+    _gc.collect()
+    baseline = torch.cuda.memory_allocated() if on_card else 0
+    work = os.path.join(CACHE, "gates")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    common = ["--device", device]
+    k1: list = []
+    k15: list = []
+    seconds = {}
+    threads0 = set(threading.enumerate())
+    ports: list = []
+    C.launches = 0                       # the gates path starts here
+    VS.flat_launches = VS.ivf_launches = 0
+    for label, argv in GATES_MODES:
+        t0 = time.perf_counter()
+        with _listener_recording(ports):
+            summary = _run_gate(label, argv + common, k1, k15)
+        seconds[label] = time.perf_counter() - t0
+        if label == "overload":
+            phase("gates_replay", shed=summary["shed"],
+                  shed_by_tenant=summary["shed_by_tenant"],
+                  shed_by_rung=summary["shed_by_rung"],
+                  tiers=summary["tiers"],
+                  protected_p99_ms=summary["protected_p99_ms"],
+                  protected_bar_ms=summary["protected_bar_ms"],
+                  recovery=summary["recovery"],
+                  deterministic=summary["deterministic"])
+    # the span ratchet: a fresh capture checked against the baseline
+    trace = os.path.join(work, "span_trace.jsonl")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            _fuzz_recording(k1, "gates:span_capture"):
+        rc = SD.main(["capture", "--out", trace, "--device", device])
+    if rc != 0:
+        raise AssertionError(f"gates span capture: exit {rc}")
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = SD.main(["check", trace, "--device", device])
+    check = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0:
+        raise AssertionError(f"gates span check: exit {rc}: {check}")
+    seconds["span"] = time.perf_counter() - t0
+    phase("gates_span", exit=rc, calibration=check.get("calibration"),
+          checked_phases=check.get("checked_phases"),
+          regressions=len(check.get("regressions", [])),
+          env_mismatch=check.get("env_mismatch"),
+          seconds=seconds["span"])
+    launches = C.launches                # ... and ends here
+    k15_by = {"flat": VS.flat_launches, "ivf": VS.ivf_launches}
+    k15_launches = sum(k15_by.values())
+    n_held = _hold_captured(k1, tile, on_card, "kernel_at_gates_path",
+                            "as launched")
+    C.launches = launches
+    if launches == 0 or launches > n_held:
+        raise AssertionError(f"gates: {launches} K1 launches, {n_held} "
+                             "of them held")
+    k15_err = _hold_k15(k15)
+    if on_card and (k15_launches == 0 or k15_launches > len(k15)):
+        raise AssertionError(f"gates: {k15_launches} K15 launches, "
+                             f"{len(k15)} of them held")
+    k15_held = len(k15)
+    del k1, k15
+
+    # clean-up: nothing armed, nothing pinned, no node left running,
+    # tracked == held
+    if faults.active() or global_governor.snapshot()["pinned"]:
+        raise AssertionError("gates: a fault plan or a pinned rung "
+                             "outlived the phase")
+    _nodes_gone("gates", threads0, ports)
+    global_cube_cache.clear()
+    batch.clear_stack_cache()
+    _gc.collect()
+    _reconcile_or_fail(list(live_segments), "gates done")
+    left = (torch.cuda.memory_allocated() - baseline) if on_card else 0
+    if left > MEM_SLACK:
+        raise AssertionError(f"gates: {left} bytes left on the card")
+    shutil.rmtree(work, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    phase("gates_done", seconds=total, mode_seconds=seconds,
+          rows=GATES_ROWS, compact_launches=launches, k1_checked=n_held,
+          k15_launches=k15_launches, k15_held=k15_held,
+          k15_max_abs_err=k15_err, faults_armed=False,
+          governor_pinned=False, bytes_left=left,
+          tracked_equals_held=True, listeners_checked=len(ports),
+          listeners_left=0, server_threads_left=0)
+    return {"launches": launches, "held": n_held, "k15": k15_by,
+            "k15_launches": k15_launches, "k15_held": k15_held,
+            "seconds": total}
+
+
 def main() -> int:
     import torch
 
@@ -10809,6 +11145,7 @@ def main() -> int:
     remote_launches = remote_phase(tile, [single, surface_seg, *segs],
                                    avro=avro)
     compat = compat_phase(tile, [single, surface_seg, *segs])
+    gates = gates_phase(tile, [single, surface_seg, *segs])
     phase("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "compact",
@@ -10822,7 +11159,7 @@ def main() -> int:
         + wire_launches + cluster["launches"] + cluster["grpc_launches"]
         + control["launches"]
         + loadgen_launches + fuzz_launches + remote_launches
-        + compat["launches"] + mesh["k1_launches"],
+        + compat["launches"] + mesh["k1_launches"] + gates["launches"],
         "max_abs_err": err,
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -10856,6 +11193,7 @@ def main() -> int:
         "remote_launches": remote_launches,
         "compat_launches": compat["launches"],
         "mesh_launches": mesh["k1_launches"],
+        "gates_launches": gates["launches"],
         **{f"segmented_{k}": v for k, v in seg_totals.items()},
         "at": f"sum of one launch per compact-strategy SSB query "
               f"({n_compact}) at {N_ROWS} rows; library = "
@@ -10888,7 +11226,10 @@ def main() -> int:
               "the compat phase's (the yaml suite's cluster, the golden "
               "segment, and the SSB table on two server nodes rolled "
               "role by role) and the mesh phase's (the SSB table per "
-              "segment and resident on 1 and 4 logical shards)"}, {
+              "segment and resident on 1 and 4 logical shards) and the "
+              "gates phase's (chaos_smoke's nine modes, traffic_replay's "
+              "cluster gate, freshness_gate and span_diff captures, on "
+              "the card through the tools' entry points)"}, {
         "name": "hash_partition",
         "route": "cuda",
         "source": "pinot_tpu_torch/ops/csrc/hashpart.cu",
@@ -10994,7 +11335,7 @@ def main() -> int:
               "path's inputs and the edge cases (float64 sums and "
               "averages: relative 1e-12; int64, counts, min/max: bitwise, "
               "against the plain version on the CPU)"},
-        *_vec_kernel_entries(vsearch)]}))
+        *_vec_kernel_entries(vsearch, gates["k15"])]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

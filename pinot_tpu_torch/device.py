@@ -39,3 +39,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def tool_device(device: Union[str, torch.device, None]
+                ) -> Optional[torch.device]:
+    """A command-line tool's ``--device`` resolved, or None when it
+    cannot run there (CUDA asked for and absent), with the reason on
+    stderr; the tool then exits 2."""
+    import sys
+
+    try:
+        return resolve_device(device)
+    except (RuntimeError, ValueError) as e:
+        print(f"refusing to run: {e}", file=sys.stderr)
+        return None

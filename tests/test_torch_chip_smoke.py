@@ -22,6 +22,7 @@ captured.
 """
 import contextlib
 import os
+import re
 import sys
 import time
 
@@ -1177,3 +1178,203 @@ def test_mesh_phase_on_cpu(tmp_path, monkeypatch):
               if name == "kernel_at_mesh_path"]
     assert any(lb.startswith("mesh_4:") for lb in labels)
     assert any(lb.startswith("per_segment:") for lb in labels)
+
+
+def cpu_baselines(monkeypatch, tmp_path) -> None:
+    """The ratchets' default baselines become a span and a freshness
+    baseline of this environment (the CPU's header, as ``update`` writes
+    it) that hold no shape and no scenario: the env pin and the exit
+    codes run as on the card, while no wall-clock bar is judged on the
+    CPU (the committed baselines are the card's, where the bars are)."""
+    import json
+
+    from pinot_tpu_torch.tools import freshness_gate, span_diff
+
+    env = span_diff.capture_env("cpu")
+    span, fresh = tmp_path / "span_cpu.json", tmp_path / "fresh_cpu.json"
+    span.write_text(json.dumps({"v": 1, "env": env, "shapes": {}}))
+    fresh.write_text(json.dumps({"v": 1, "env": env, "scenarios": {}}))
+    monkeypatch.setattr(span_diff, "DEFAULT_BASELINE", str(span))
+    monkeypatch.setattr(freshness_gate, "DEFAULT_BASELINE", str(fresh))
+
+
+# the gates phase's modes at CPU sizes (the card runs GATES_MODES)
+_CPU_GATES = (
+    ("base", ["--rows", "4096", "--queries", "q3.2,q4.1"]),
+    ("tier", ["--tier", "--rows", "512", "--queries", "q2.1,q4.1"]),
+    ("overload", ["--overload", "--rows", "512", "--replay-queries",
+                  "24"]),
+    ("autopsy", ["--autopsy", "--rows", "512"]),
+    ("rebalance", ["--rebalance", "--rows", "512", "--queries", "q2.1"]),
+    ("vector", ["--vector", "--rows", "1024"]),
+    ("fused", ["--fused", "--rows", "1024"]),
+    ("rate", ["--rate", "--rows", "200", "--gate-iters", "1"]),
+    ("ingest", ["--ingest", "--seeds", "40"]),
+)
+
+
+def _gates(monkeypatch, tmp_path, modes):
+    from test_torch_tier import reset_port_memory
+
+    reset_port_memory()
+    monkeypatch.setattr(chip_smoke, "CACHE", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "GATES_MODES", modes)
+    printed = []
+    monkeypatch.setattr(chip_smoke, "phase",
+                        lambda name, /, **f: printed.append((name, f)))
+    cpu_baselines(monkeypatch, tmp_path)
+    return printed, dict(device="cpu")
+
+
+def test_gates_phase_on_cpu(tmp_path, monkeypatch):
+    """The gates phase end to end on the CPU at small rows: all nine
+    chaos_smoke modes green through the CLI entry point, the span
+    capture checked against a CPU baseline with exit 0, K1 held on every
+    compact input the path launched, K15's calls held, nothing armed or
+    pinned afterwards, tracked == held, and every node's threads ended
+    and ports closed."""
+    from pinot_tpu_torch.broker.workload import global_governor
+    from pinot_tpu_torch.utils import faults
+    from pinot_tpu_torch.utils.devmem import global_device_memory
+    from test_torch_tier import reset_port_memory
+
+    launched, held = _fingerprinted_compact(monkeypatch, "_hold_captured",
+                                            "_fuzz_recording")
+    printed, kw = _gates(monkeypatch, tmp_path, _CPU_GATES)
+    try:
+        out = chip_smoke.gates_phase(4096, **kw)
+        left = global_device_memory.snapshot()["total"]["bytes"]
+    finally:
+        reset_port_memory()
+    got = dict(printed)
+    modes = [f for name, f in printed if name == "gates_mode"]
+    assert [m["mode"] for m in modes] == [m for m, _a in _CPU_GATES]
+    assert all(m["ok"] and m["exit"] == 0 and m["seconds"] > 0
+               for m in modes)
+    assert all(m["faults_fired"] >= 1 for m in modes), modes
+    assert got["gates_span"]["exit"] == 0
+    assert got["gates_span"]["env_mismatch"] is None
+    assert got["gates_replay"]["shed_by_tenant"].get("ten_besteffort", 0) \
+        >= 1 and got["gates_replay"]["deterministic"] is True
+    assert "ten_protected" not in got["gates_replay"]["shed_by_tenant"]
+    assert out["launches"] > 0 and out["held"] == out["launches"]
+    assert launched and set(launched) <= set(held)
+    assert out["held"] == len(launched)
+    assert out["k15_held"] > 0 and out["k15_launches"] == 0   # CPU
+    done = got["gates_done"]
+    assert done["tracked_equals_held"] and done["bytes_left"] == 0
+    assert left == 0
+    # 3 HTTP nodes and 2 gRPC listeners a cluster at least, all closed
+    assert done["listeners_checked"] >= 5 and done["listeners_left"] == 0
+    assert done["server_threads_left"] == 0
+    assert sorted(done["mode_seconds"]) == sorted(
+        [m for m, _a in _CPU_GATES] + ["span"])
+    assert not faults.active() and not global_governor.snapshot()["pinned"]
+
+
+# one gate whose path launches K1 on the CPU
+_ONE_GATE = (("base", ["--rows", "4096", "--queries", "q3.2"]),)
+
+
+def test_gates_phase_fails_on_a_launch_it_did_not_hold(tmp_path,
+                                                       monkeypatch):
+    """One K1 launch past the capture, right after a gate, fails the
+    phase."""
+    from test_torch_tier import reset_port_memory
+
+    _counting_compact(monkeypatch)
+    _launch_aside(monkeypatch, "_run_gate")
+    _printed, kw = _gates(monkeypatch, tmp_path, _ONE_GATE)
+    try:
+        with pytest.raises(AssertionError, match="of them held") as e:
+            chip_smoke.gates_phase(4096, **kw)
+    finally:
+        reset_port_memory()
+    launched, held = map(int, re.findall(r"(\d+) K1 launches, (\d+)",
+                                         str(e.value))[0])
+    assert launched == held + 1 and held > 0
+
+
+def test_no_armed_plan_or_pinned_rung_survives_the_gates(tmp_path,
+                                                         monkeypatch):
+    """A gate that leaves a fault plan armed and a rung pinned (its
+    mode's own work done) is cleaned up by chaos_smoke on the way out:
+    the phase passes and neither survives it; and a phase whose tool did
+    not clean up fails."""
+    from pinot_tpu_torch.broker.workload import global_governor
+    from pinot_tpu_torch.tools import chaos_smoke as CS
+    from pinot_tpu_torch.utils import faults
+    from test_torch_tier import reset_port_memory
+
+    real_base = CS.main_base
+
+    def base_then_arm(args):
+        rc = real_base(args)
+        faults.install("seed=1; rpc.drop: match=nowhere, times=-1")
+        global_governor.pin_rungs({"gates_q": 3})
+        return rc
+
+    monkeypatch.setattr(CS, "main_base", base_then_arm)
+    _counting_compact(monkeypatch)
+    _printed, kw = _gates(monkeypatch, tmp_path, _ONE_GATE)
+    try:
+        chip_smoke.gates_phase(4096, **kw)
+        assert not faults.active()
+        assert not global_governor.snapshot()["pinned"]
+        # without chaos_smoke's clean-up the phase itself refuses
+        monkeypatch.setattr(CS, "restore_globals", lambda: None)
+        with pytest.raises(AssertionError, match="outlived the phase"):
+            chip_smoke.gates_phase(4096, **kw)
+    finally:
+        faults.clear()
+        global_governor.unpin()
+        reset_port_memory()
+
+
+@pytest.mark.parametrize("left", ["thread", "port"])
+def test_gates_phase_fails_on_a_node_left_running(tmp_path, monkeypatch,
+                                                  left):
+    """A gate that leaves an HTTP server of its own running (its thread
+    alive) or listening (its thread ended, its socket open) fails the
+    phase."""
+    from pinot_tpu_torch.cluster.http_util import JsonHandler, start_http
+    from pinot_tpu_torch.tools import chaos_smoke as CS
+    from test_torch_tier import reset_port_memory
+
+    real_base = CS.main_base
+    started = []
+
+    def base_then_serve(args):
+        rc = real_base(args)
+        srv, port, thread = start_http(JsonHandler)
+        started.append(srv)
+        if left == "port":
+            srv.shutdown()
+            thread.join(timeout=10)
+            assert not thread.is_alive()
+        return rc
+
+    monkeypatch.setattr(CS, "main_base", base_then_serve)
+    monkeypatch.setattr(chip_smoke, "SERVER_DRAIN_S", 0.5)
+    _counting_compact(monkeypatch)
+    _printed, kw = _gates(monkeypatch, tmp_path, _ONE_GATE)
+    want = "outlive the nodes" if left == "thread" else "still listens"
+    try:
+        with pytest.raises(AssertionError, match=want):
+            chip_smoke.gates_phase(4096, **kw)
+    finally:
+        for srv in started:
+            if left == "thread":
+                srv.shutdown()
+            srv.server_close()
+        reset_port_memory()
+
+
+def test_concurrent_waves_refuses_without_a_card(capsys):
+    """The waves A/B of the concurrent phase runs on the card only: here
+    it exits 2 before building anything."""
+    from pinot_tpu_torch.tools import concurrent_waves
+
+    assert not torch.cuda.is_available()
+    assert concurrent_waves.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err

@@ -406,3 +406,44 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
     r = _run_smoke(str(tmp_path))
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+GATES = ("chaos_smoke", "traffic_replay", "span_diff", "freshness_gate",
+         "slo_report", "check_ledger")
+
+
+def test_walk_covers_the_operational_gates():
+    """The import checks above reach the six operational gates and the
+    shape hash; in a fresh interpreter the gates load no JAX and nothing
+    of pinot_tpu, each has the root tool's ``main``, and each that runs
+    the engine refuses (exit 2) without a card unless given
+    ``--device cpu``."""
+    import pkgutil
+
+    import pinot_tpu_torch
+
+    walked = {m.name for m in pkgutil.walk_packages(
+        pinot_tpu_torch.__path__, "pinot_tpu_torch.")}
+    mods = [f"pinot_tpu_torch.tools.{t}" for t in GATES] \
+        + ["pinot_tpu_torch.utils.shapehash"]
+    assert set(mods) <= walked
+    code = (
+        "import contextlib, io, sys\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "from pinot_tpu_torch.tools import (chaos_smoke, traffic_replay,\n"
+        "    span_diff, freshness_gate, slo_report, check_ledger)\n"
+        "assert all(callable(m.main) for m in (chaos_smoke,\n"
+        "    traffic_replay, span_diff, freshness_gate, slo_report,\n"
+        "    check_ledger))\n"
+        "with contextlib.redirect_stderr(io.StringIO()):\n"
+        "    rcs = [chaos_smoke.main([]), traffic_replay.main(['gate']),\n"
+        "           span_diff.main(['check']),\n"
+        "           freshness_gate.main(['check'])]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'pinot_tpu') or m.startswith(('jax.', 'jaxlib.', 'pinot_tpu.'))]\n"
+        "print(rcs, sorted(bad))\n"
+        "sys.exit(0 if rcs == [2, 2, 2, 2] and not bad else 1)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd="/")
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -29,6 +29,7 @@ from pinot_tpu.utils.heat import SegmentHeat as JaxHeat  # noqa: E402
 from pinot_tpu_torch.broker import Broker, connect  # noqa: E402
 from pinot_tpu_torch.engine import batch  # noqa: E402
 from pinot_tpu_torch.index import vector  # noqa: E402
+from pinot_tpu_torch.ops.plan_cache import global_cube_cache  # noqa: E402
 from pinot_tpu_torch.engine.tier import (TIER_COLD, TIER_HOT,  # noqa: E402
                                          TIER_WARM, TierManager,
                                          global_tier, reconcile_devmem,
@@ -54,6 +55,7 @@ def reset_port_memory(segments=()) -> None:
     for r in vector.live_readers():             # the vector pool
         r.evict_device()
     batch.clear_stack_cache()
+    global_cube_cache.clear()           # its bytes are the tracker's too
     global_device_memory.clear()
     global_segment_heat.clear()
     global_tier.clear()
